@@ -1,0 +1,52 @@
+"""Carry weights and configurations across from the JAX package.
+
+The JAX engine keeps the dictionary as one (M, K) array, atom-sharded by
+columns; the port keeps contiguous (N, M, Kb) blocks, agent n owning
+columns [n*Kb, (n+1)*Kb) as in the JAX `blocks_from_full`.  These helpers
+take plain numpy arrays and keyword fields, so neither package imports the
+other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.dictionary import blocks_from_full, full_from_blocks
+from repro_torch.core.distributed import DistConfig
+from repro_torch.device import DeviceLike, resolve_device
+
+# JAX DistConfig fields that do not change what the flat modes compute on
+# one device (mesh axis names, the Pallas switches, and the settings of the
+# modes that are not ported; a mode that needs them is refused by DistConfig).
+_JAX_ONLY_FIELDS = frozenset({
+    "topology_schedule", "schedule_period", "failure_p", "failure_seed",
+    "failure_steps", "pod_topology", "pod_gossip_every", "levels",
+    "model_axis", "data_axes", "pod_axis", "use_kernel", "kernel_interpret",
+})
+
+
+def dictionary_from_numpy(W: np.ndarray, n_agents: int, device: DeviceLike = "cuda") -> torch.Tensor:
+    """(M, K) numpy dictionary -> the port's contiguous (N, M, Kb) blocks."""
+    W = np.asarray(W)
+    if W.ndim != 2:
+        raise ValueError(f"W must be (M, K), got shape {W.shape}")
+    return blocks_from_full(torch.from_numpy(W).to(resolve_device(device)), n_agents)
+
+
+def dictionary_to_numpy(blocks: torch.Tensor) -> np.ndarray:
+    """Inverse of dictionary_from_numpy: (N, M, Kb) blocks -> (M, K) numpy."""
+    return full_from_blocks(blocks).cpu().numpy()
+
+
+def dist_config_from_jax_fields(**fields) -> DistConfig:
+    """A port DistConfig from JAX DistConfig field names (for instance
+    `**dataclasses.asdict(jax_cfg)`).  Fields the port has are carried over;
+    the JAX-only ones listed above are dropped; any other name raises."""
+    ported = {f.name for f in dataclasses.fields(DistConfig)}
+    unknown = set(fields) - ported - _JAX_ONLY_FIELDS
+    if unknown:
+        raise TypeError(f"not DistConfig fields: {sorted(unknown)}")
+    return DistConfig(**{k: v for k, v in fields.items() if k in ported})

@@ -1,0 +1,1 @@
+"""runtime layer of the PyTorch port (see repro_torch)."""
