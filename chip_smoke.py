@@ -13,18 +13,29 @@ and fails (non-zero exit, no result line) if any of them fails:
 2. Kernel against plain: each kernel's wrapper is called on tensors on the
    card and held against its plain PyTorch version on the same inputs, at
    the test shapes and at the shape the main path gives it, then timed
-   there with CUDA events (kernel and plain in turns).  The whole coder is
-   also held against the plain reference engine on a small input.
-3. Main path: the port's serve_dict at the production dictionary
-   (M = 8192, K = 262144, N = 16 agents, fp32, gamma 0.05, delta 0.1) with
-   learning on, in `graph`
-   mode (ring_metropolis, the paper's diffusion) and in `exact_fista` mode
-   (the CLI default).  Each kernel's launch count is set to 0 just before a
-   run and read just after; every sample must be coded, every code finite
-   (and, in `exact_fista`, some nonzero), and one micro-batch re-solved on
-   the final snapshot with the kernel swapped for its plain version must
-   agree with the kernel path.
-4. Result: one JSON line listing every kernel (launches on the main path,
+   there with CUDA events (kernel and plain in turns; flash_attention also
+   beside F.scaled_dot_product_attention, the library yardstick the port
+   never calls).  Planted faults (flash_attention's plain arithmetic under
+   a wrong causal mask) must fail the same check.  The whole coder is also
+   held against the plain reference engine on a small input.
+3. Main paths, each driven with every kernel's launch count set to 0 just
+   before and read just after:
+   - dense-LM serving: the port's serve at gemma-2b's full width (random
+     weights), a batch of 4 prompts of 2048 tokens, 32 greedy tokens; one
+     flash_attention launch per layer of the prefill.  Tokens must lie in
+     the vocabulary, logits and cache be finite, and the prefill re-run
+     with the kernel swapped for its plain version must agree (last-position
+     logits and every layer's K/V cache), while one re-run with a planted
+     wrong attention must not;
+   - the dictionary service: serve_dict at the production dictionary
+     (M = 8192, K = 262144, N = 16 agents, fp32, gamma 0.05, delta 0.1)
+     with learning on, in `graph` mode (ring_metropolis, the paper's
+     diffusion) and in `exact_fista` mode (the CLI default); every
+     iteration is a dict_dual_step launch.  Every sample must be coded,
+     every code finite (and, in `exact_fista`, some nonzero), and one
+     micro-batch re-solved on the final snapshot with the kernel swapped
+     for its plain version must agree with the kernel path.
+4. Result: one JSON line listing every kernel (launches on its main path,
    error against plain, times and bound), the card line, and last the
    device line {"ok": true, "device": {...}}.
 """
@@ -51,9 +62,38 @@ M, ATOMS_PER_AGENT, N_AGENTS, MICRO_BATCH, ITERS, SAMPLES = 8192, 16384, 16, 16,
 # the dictionary step a no-op.
 GAMMA, DELTA = 0.05, 0.1
 
-# H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s fp32 outside the tensor cores.
+# H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s fp32 outside the tensor
+# cores, 989 TFLOP/s bf16 dense on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+
+# The LM main path: the port's serve at gemma-2b's full width (18 layers,
+# d 2048, 8 query heads over 1 KV head of 256, d_ff 16384, vocab 256000,
+# bf16 compute), random weights from seed 0, a batch of 4 prompts of 2048
+# tokens, then 32 greedy tokens.  Its attention, one K2 launch per layer:
+# (B, Hq, Hkv, S, T, D), bf16, causal.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma_2b", 4, 2048, 32
+FA_MAIN = (LM_BATCH, 8, 1, LM_PROMPT, LM_PROMPT, 256)
+
+# K2's bf16 output against its plain version, element by element.  Both
+# round one fp32 result to bf16, so one output ulp (2^-7 |ref|) is allowed;
+# they also round each probability to bf16 at different points (K2 the
+# unnormalised p, the plain version p / l), which moves an output by
+# sum_j (d_j - d'_j) p_j v_j / l with |d_j|, |d'_j| <= 2^-8: allowed as
+# BF16_ROW_ULPS x 2^-8 x the largest |ref| of the element's row.
+BF16_ROW_ULPS = 4.0
+
+# Prefill agreement, K2 path vs plain path: last-position logits and every
+# layer's K and V cache, each as the largest over rows (the last axis) of
+# max |diff| / max |plain| in the row.  The two paths differ only in each
+# layer's attention core, whose bf16 output may round the other way (unit
+# roundoff u = 2^-8) wherever the two fp32 sums differ; each of the L
+# layers can add about u of relative difference to the residual stream, so
+# the bound is L * u (0.070 at 18 layers).  The script also plants a wrong
+# attention (its causal limit one key late) and requires the gate to
+# reject it.
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
 
 # Solve agreement, kernel path vs plain path on one micro-batch: both run
 # the same 150 iterations with fp32 sums in different orders; the iteration
@@ -85,6 +125,46 @@ def check_close(what, got, ref, rtol, atol) -> float:
     return float(diff.max())
 
 
+def bf16_reading(got, ref) -> float:
+    """The largest elementwise |got - ref| beyond one output ulp (2^-7 |ref|),
+    in units of 2^-8 x the largest |ref| of its row (the last axis); inf if
+    any element is not finite."""
+    g, r = got.float(), ref.float()
+    excess = ((g - r).abs() - 2.0 ** -7 * r.abs()).clamp_min(0)
+    unit = 2.0 ** -8 * r.abs().amax(-1, keepdim=True)
+    reading = float((excess / unit.clamp_min(1e-30)).max())
+    return reading if math.isfinite(reading) else math.inf
+
+
+def check_bf16(what, got, ref) -> float:
+    """Fail unless bf16_reading(got, ref) <= BF16_ROW_ULPS; returns the reading."""
+    reading = bf16_reading(got, ref)
+    if not reading <= BF16_ROW_ULPS:
+        raise AssertionError(f"{what}: bf16 reading {reading:.3g} > {BF16_ROW_ULPS} "
+                             f"(max |err| {max_err(got, ref):.3e})")
+    return reading
+
+
+def masked_attention(torch, q, k, v, visible, round_p: bool = True):
+    """attention_ref's arithmetic under any (S, T) visibility mask (a row
+    that sees no key gives 0), optionally with p left in fp32 before P V:
+    the plain stand-in for a wrong kernel."""
+    group = q.shape[1] // k.shape[1]
+    kx, vx = (x.repeat_interleave(group, dim=1).float() for x in (k, v))
+    logits = torch.matmul(q.float(), kx.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    probs = torch.softmax(logits.masked_fill(~visible, float("-inf")), dim=-1).nan_to_num(0.0)
+    if round_p:
+        probs = probs.to(v.dtype).float()
+    return torch.matmul(probs, vx).to(q.dtype)
+
+
+def causal_visible(torch, s: int, t: int, device, shift: int = 0):
+    """(S, T) mask of key c visible to row r: c <= r + (T - S) + shift."""
+    r = torch.arange(s, device=device)[:, None]
+    c = torch.arange(t, device=device)[None, :]
+    return c <= r + (t - s) + shift
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Mean device time of fn over `reps` calls, after one warm call."""
     fn()
@@ -97,6 +177,15 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_launch_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.dict_dual_step import ops as dd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    dd_ops.dict_dual_step.launches = 0
+    fa_ops.flash_attention.launches = 0
 
 
 def phase_build():
@@ -205,6 +294,126 @@ def phase_kernels(torch):
     return rec
 
 
+def phase_flash_attention(torch):
+    """flash_attention against its plain version; returns its kernel record
+    (without `launches`, which the LM path fills in)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+
+    def qkv(b, hq, hkv, s, t, d, dtype=None):
+        dtype = dtype or torch.float32
+        return (torch.randn(b, hq, s, d, generator=gen).to(dev, dtype),
+                torch.randn(b, hkv, t, d, generator=gen).to(dev, dtype),
+                torch.randn(b, hkv, t, d, generator=gen).to(dev, dtype))
+
+    # fp32 at the JAX sweep's 2e-4: FA_SHAPES (tests/test_kernels.py), then
+    # MQA at D = 256, ragged S = T = 1000, T > S, and the other head dims.
+    shapes = [(1, 4, 4, 128, 128, 32), (2, 8, 2, 128, 128, 64), (1, 4, 1, 256, 256, 32),
+              (2, 4, 4, 100, 100, 32), (1, 2, 2, 64, 192, 32),
+              (2, 8, 1, 200, 200, 256), (1, 4, 2, 1000, 1000, 64),
+              (2, 8, 1, 100, 1000, 128), (1, 4, 1, 77, 77, 16)]
+    for shape in shapes:
+        q, k, v = qkv(*shape)
+        for causal in (True, False):
+            check_close(f"fp32 {shape} causal={causal}",
+                        ops.flash_attention(q, k, v, causal=causal),
+                        ref.attention_ref(q, k, v, causal=causal), 2e-4, 2e-4)
+    # bf16 to one output ulp plus BF16_ROW_ULPS x 2^-8 of the row's largest
+    # value, and the model's layout: (B, S, H, D) projections read through
+    # strides, at gemma's D = 256 with MQA.
+    for shape in [(1, 4, 4, 128, 128, 32), (2, 8, 1, 300, 300, 256)]:
+        q, k, v = qkv(*shape, dtype=torch.bfloat16)
+        check_bf16(f"bf16 {shape}", ops.flash_attention(q, k, v, causal=True),
+                   ref.attention_ref(q, k, v, causal=True))
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in qkv(2, 8, 1, 130, 130, 256))
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert out.stride() == q.stride(), (out.stride(), q.stride())
+    check_close("strided (B, S, H, D)", out, ref.attention_ref(q, k, v, causal=True), 2e-4, 2e-4)
+    torch.cuda.synchronize()
+    print(f"[kernels] flash_attention agrees with plain over {len(shapes)} fp32 shapes "
+          f"(causal and not, 2e-4), bf16 (reading <= {BF16_ROW_ULPS}) and the strided "
+          f"(B, S, H, D) layout")
+
+    # The main-path shape: one gemma-2b prefill layer.  Planted faults, made
+    # by the plain arithmetic under a wrong mask, must fail the same check.
+    b, hq, hkv, s, t, d = FA_MAIN
+    q, k, v = qkv(b, hq, hkv, s, t, d, dtype=torch.bfloat16)
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = ref.attention_ref(q, k, v, causal=True)
+    err = max_err(out, want)
+    reading = bf16_reading(out, want)
+    rows = torch.arange(s, device=dev)[:, None] >= s - 64
+    late = causal_visible(torch, s, t, dev, 1)
+    faults = {
+        "causal limit one key late": late,
+        "causal limit one key early": causal_visible(torch, s, t, dev, -1),
+        "causal limit one tile late": causal_visible(torch, s, t, dev, 64),
+        "last query tile one key late": torch.where(rows, late, causal_visible(torch, s, t, dev)),
+    }
+    fault_readings = {}
+    for name, visible in faults.items():
+        bad = masked_attention(torch, q, k, v, visible)
+        fault_readings[name] = {
+            "reading": bf16_reading(bad, want), "max_abs_err": max_err(bad, want),
+            "passes_5e-2": bool(((bad.float() - want.float()).abs()
+                                 <= 5e-2 + 5e-2 * want.float().abs()).all()),
+        }
+    print(f"[kernels] flash_attention bf16 main shape {FA_MAIN}: reading {reading:.3f} "
+          f"(tol {BF16_ROW_ULPS}), max|err| {err:.3e}; planted faults {fault_readings}")
+    if not reading <= BF16_ROW_ULPS:
+        raise AssertionError(f"flash_attention disagrees with plain at {FA_MAIN}")
+    for name, r in fault_readings.items():
+        if r["reading"] <= BF16_ROW_ULPS:
+            raise AssertionError(f"the bf16 check passes a planted fault: {name}")
+    del out, want, bad, faults
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return ref.attention_ref(q, k, v, causal=True)
+
+    def library():  # S = T, so SDPA's top-left causal mask is the same
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    sdpa_reading = check_bf16("SDPA yardstick", library(), plain())
+    reps = 10
+    k1, p1, l1, l2, p2, k2 = (time_ms(torch, fn, reps) for fn in
+                              (kernel, plain, library, library, plain, kernel))
+    pairs = b * hq * s * (s + 1) // 2  # visible (query, key) pairs, causal S = T
+    flops = 4 * pairs * d              # q k^T and p v
+    nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * t * d)  # q, out; k, v (bf16)
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    rec = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": (k1 + k2) / 2,
+        "plain_ms": (p1 + p2) / 2,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": (l1 + l2) / 2,  # F.scaled_dot_product_attention, causal, GQA
+        "shape": list(FA_MAIN),
+        "bf16_reading": reading,
+        "bf16_reading_sdpa": sdpa_reading,
+        "planted_faults": fault_readings,
+    }
+    print(f"[kernels] flash_attention at {FA_MAIN} bf16 causal: kernel_ms {k1:.3f} {k2:.3f}  "
+          f"plain_ms {p1:.3f} {p2:.3f}  sdpa_ms {l1:.3f} {l2:.3f}  bound_ms "
+          f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {flops:.3e} flops, {nbytes:.3e} bytes)  "
+          f"max|err| {err:.3e}, bf16 reading {reading:.3f} (SDPA's {sdpa_reading:.3f})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_small_coder(torch):
     """The coder (kernel path) against the plain reference engine, small input."""
     import numpy as np
@@ -249,7 +458,7 @@ def phase_main_path(torch, mode: str, card: str, must_code: bool):
             "--iters", str(ITERS), "--gamma", str(GAMMA), "--delta", str(DELTA),
             "--device", "cuda", "--json"]
     torch.cuda.reset_peak_memory_stats()
-    ops.dict_dual_step.launches = 0
+    reset_launch_counts()
     out = serve_dict.run(serve_dict.parse_args(argv))
     launches = ops.dict_dual_step.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -315,6 +524,139 @@ def phase_main_path(torch, mode: str, card: str, must_code: bool):
     return launches
 
 
+def device_profile(torch, fn, top: int = 6):
+    """One call of fn under torch.profiler: (host wall ms, device kernel ms
+    summed over the kernels' own rows, [(kernel, ms)] of the `top` largest).
+    The CPU operators' rows repeat their kernels' device time, so only the
+    rows of device activity are summed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return wall_ms, sum(ms for _, ms in rows), [(k[:60], round(ms, 3)) for k, ms in rows[:top]]
+
+
+def phase_lm(torch, card: str):
+    """The port's dense-LM serve at gemma-2b's full width; returns K2's
+    launch count over the run."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, model
+
+    argv = ["--arch", LM_ARCH, "--full-config", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--device", "cuda"]
+    # Warm-up at a short prompt (cuBLAS handles, the allocator's pools), not counted.
+    serve.run(serve.parse_args(argv[:5] + ["--prompt-len", "64", "--gen", "2",
+                                          "--device", "cuda"]))
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = serve.run(serve.parse_args(argv + ["--json"]))
+    launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, pay, tokens, last = out["cfg"], out["payload"], out["tokens"], out["last_logits"]
+
+    if launches < cfg.n_layers:
+        raise AssertionError(f"LM: {launches} flash_attention launches, expected >= "
+                             f"{cfg.n_layers} (one per layer of the prefill)")
+    if tuple(tokens.shape) != (LM_BATCH, LM_GEN):
+        raise AssertionError(f"LM: generated tokens of shape {tuple(tokens.shape)}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"LM: a token outside [0, {cfg.vocab})")
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError("LM: prefill logits not finite")
+    for name, t in out["cache"]["layers"].items():
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"LM: cache {name} not finite")
+
+    # Re-run the prefill with K2 swapped for its plain version, and with two
+    # planted wrong attentions: the causal limit one key late (which the
+    # gate must reject) and p left in fp32 before P V (a rounding-level
+    # change, read for the record).
+    def prefill_with(attn):
+        with mock.patch.object(attention.ops, "flash_attention", attn):
+            logits, cache = model.prefill(cfg, out["params"], {"tokens": out["prompts"]})
+        return logits[:, -1, :].clone(), cache["layers"]
+
+    def planted(shift: int, round_p: bool):
+        def attn(q, k, v, *, causal=True, scale=None):
+            visible = causal_visible(torch, q.shape[2], k.shape[2], q.device, shift)
+            return masked_attention(torch, q, k, v, visible, round_p)
+        return attn
+
+    def readings(got_last, got_cache):
+        """{logits, k, v: (per-row reading, global reading)} against plain."""
+        pairs = {"logits": (got_last, plain_last)}
+        pairs.update((name, (got_cache[name], plain_cache[name])) for name in ("k", "v"))
+        res = {}
+        for name, (g, w) in pairs.items():
+            d, w = (g.float() - w.float()).abs(), w.float().abs()
+            row = float((d.amax(-1) / w.amax(-1).clamp_min(1e-30)).max())
+            res[name] = (row if math.isfinite(row) else math.inf,
+                         float(d.max()) / float(w.max()))
+            del d, w
+        return res
+
+    plain_last, plain_cache = prefill_with(ref.attention_ref)
+    tol = cfg.n_layers * BF16_UNIT_ROUNDOFF
+    errs = readings(last, out["prefill_cache"]["layers"])
+    planted_errs = {}
+    for name, attn in (("causal limit one key late", planted(1, True)),
+                       ("p unrounded", planted(0, False))):
+        planted_errs[name] = readings(*prefill_with(attn))
+    argmax_agree = float((last.argmax(-1) == plain_last.argmax(-1)).float().mean())
+    print(f"[lm] prefill vs plain, (per-row, global) max|d|/max|plain| of logits, k, v "
+          f"(gate: per-row <= {tol:.4f} = {cfg.n_layers} layers x 2^-8): K2 {errs}; "
+          f"planted {planted_errs}; next-token argmax agreement {argmax_agree:.2f}")
+    if not max(row for row, _ in errs.values()) <= tol:
+        raise AssertionError("LM: the K2 prefill disagrees with the plain prefill")
+    if max(row for row, _ in planted_errs["causal limit one key late"].values()) <= tol:
+        raise AssertionError("LM: the prefill gate passes a planted wrong attention")
+
+    # Where the time goes: one prefill and one decode step under the
+    # profiler (the decode step rewrites the cache's last slot).
+    params, prompts, cache = out["params"], out["prompts"], out["cache"]
+    tok = tokens[:, -1:].to(prompts.device)
+    # The busy share is the profiled device time over the unprofiled run's
+    # time for the same work (the profiler slows the host).
+    prof = {}
+    for what, fn, run_ms in (
+        ("prefill", lambda: model.prefill(cfg, params, {"tokens": prompts}), pay["prefill_ms"]),
+        ("decode_step", lambda: model.decode_step(cfg, params, cache, tok, LM_PROMPT + LM_GEN - 1),
+         pay["decode_ms_per_token"]),
+    ):
+        wall, dev_ms, top = device_profile(torch, fn)
+        prof[what] = {"profiled_wall_ms": wall, "device_ms": dev_ms,
+                      "busy_share": dev_ms / run_ms, "top": top}
+        print(f"[lm] profile {what}: device kernels {dev_ms:.2f} ms, {run_ms:.2f} ms "
+              f"unprofiled (busy share {dev_ms / run_ms:.3f}), {wall:.2f} ms under the "
+              f"profiler; top {top}")
+
+    print(f"[lm] {card}: {cfg.name} batch {LM_BATCH} prompt {LM_PROMPT} gen {LM_GEN}: "
+          f"prefill {pay['prefill_ms']:.1f} ms ({pay['prefill_tokens_per_s']:.1f} tokens/s)  "
+          f"decode {pay['decode_ms_per_token']:.3f} ms/token "
+          f"({pay['decode_tokens_per_s']:.1f} tokens/s)  K2 launches {launches}  "
+          f"peak device memory {peak_gb:.2f} GB")
+    print("LM " + json.dumps({
+        **pay, "card": card, "launches": launches, "peak_mem_gb": peak_gb,
+        "prefill_rel_err": errs, "prefill_rel_tol": tol, "planted": planted_errs,
+        "argmax_agree": argmax_agree,
+        "first_row": tokens[0].tolist(), "profile": prof,
+    }))
+    del out, plain_cache, last, plain_last, params, prompts, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a "
@@ -335,7 +677,9 @@ def main() -> int:
 
     phase_build()
     rec = phase_kernels(torch)
+    fa_rec = phase_flash_attention(torch)
     phase_small_coder(torch)
+    fa_rec["launches"] = phase_lm(torch, card)
     # The diffusion's step is bounded by the worst block's curvature
     # (sigma_max(W_k)^2 / delta, about 58 here) while its consensus term
     # contracts by only mu / N per iteration, so after 150 iterations at this
@@ -348,7 +692,7 @@ def main() -> int:
     rec["launches_by_mode"] = launches
 
     print(f"[done] {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"kernels": [rec, fa_rec]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 The JAX engine keeps the dictionary as one (M, K) array, atom-sharded by
 columns; the port keeps contiguous (N, M, Kb) blocks, agent n owning
-columns [n*Kb, (n+1)*Kb) as in the JAX `blocks_from_full`.  These helpers
-take plain numpy arrays and keyword fields, so neither package imports the
-other.
+columns [n*Kb, (n+1)*Kb) as in the JAX `blocks_from_full`.  The LM params
+keep the JAX layouts and nesting.  These helpers take plain numpy arrays
+and keyword fields, so neither package imports the other.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.dictionary import blocks_from_full, full_from_blocks
 from repro_torch.core.distributed import DistConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import require_dense, tree_map
 
 # JAX DistConfig fields that do not change what the flat modes compute on
 # one device (mesh axis names, the Pallas switches, and the settings of the
@@ -50,3 +51,20 @@ def dist_config_from_jax_fields(**fields) -> DistConfig:
     if unknown:
         raise TypeError(f"not DistConfig fields: {sorted(unknown)}")
     return DistConfig(**{k: v for k, v in fields.items() if k in ported})
+
+
+def lm_params_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict:
+    """The port's LM params from the JAX value tree mapped to numpy
+    (`split_tree(M.init(cfg, key))[0]`, every leaf `np.asarray`).
+
+    Both sides hold each layer's tensors stacked on a leading layer axis and
+    use one layout: wq/wk/wv (L, D, H, Dh), wo (L, H, Dh, D), the MLP
+    matrices (L, fan_in, fan_out), and one embedding table (V, D) that the
+    tied unembedding reads transposed.  So every leaf crosses as it is, in
+    cfg.param_dtype, onto `device`; the nesting is kept, empty dicts (the
+    nonparametric norms) included.  Families other than dense raise."""
+    require_dense(cfg)
+    dev = resolve_device(device)
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, cfg.dtype), tree
+    )

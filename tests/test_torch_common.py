@@ -61,6 +61,15 @@ def assert_close(got, want, rtol=SOLVE_TOL, atol=SOLVE_TOL, what=""):
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=rtol, atol=atol, err_msg=what)
 
 
+def assert_bf16_close(got, want, row_ulps=4.0):
+    """bf16 output against its plain version: elementwise within one output
+    ulp (2^-7 |want|) plus row_ulps x 2^-8 x the largest |want| of the row
+    (the last axis), the rule chip_smoke.py holds the card's kernels to."""
+    g, w = as_np(got), as_np(want)
+    bound = 2.0 ** -7 * np.abs(w) + row_ulps * 2.0 ** -8 * np.abs(w).max(-1, keepdims=True)
+    assert (np.abs(g - w) <= bound).all(), float(np.nanmax(np.abs(g - w) - bound))
+
+
 def require_cuda():
     """Skip the calling test (from inside its body) when there is no card."""
     if not torch.cuda.is_available():
@@ -78,7 +87,10 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
 print(len(names), bad)
-assert len(names) >= 15, names
+assert len(names) >= 35, names
+for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
+           "repro_torch.kernels.flash_attention.ops", "repro_torch.launch.serve"):
+    assert lm in names, lm
 assert not bad, bad
 """
 
@@ -108,13 +120,26 @@ def test_resolve_device_is_the_card_unless_cpu_is_asked_for():
 
 
 def test_entry_points_default_to_the_card():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.core.conjugates import make_task
     from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
 
     res, reg = make_task("sparse_svd")
+    cfg = get_smoke_config("gemma_2b")
     if torch.cuda.is_available():
         assert DistributedSparseCoder(2, res, reg, DistConfig()).device.type == "cuda"
+        assert M.init(cfg)["embed"]["table"].is_cuda
+        assert M.init_cache(cfg, 1, 4)["layers"]["k"].is_cuda
     else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            DistributedSparseCoder(2, res, reg, DistConfig())
+        for entry in (lambda: DistributedSparseCoder(2, res, reg, DistConfig()),
+                      lambda: M.init(cfg),
+                      lambda: M.init_cache(cfg, 1, 4),
+                      lambda: lm_params_from_numpy(cfg, {}),
+                      lambda: serve.run(serve.parse_args([]))):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                entry()
     assert DistributedSparseCoder(2, res, reg, DistConfig(), device="cpu").device.type == "cpu"
+    assert M.init(cfg, device="cpu")["embed"]["table"].device.type == "cpu"
