@@ -16,8 +16,10 @@ and fails (non-zero exit, no result line) if any of them fails:
    there with CUDA events (kernel and plain in turns; flash_attention also
    beside F.scaled_dot_product_attention, the library yardstick the port
    never calls).  Planted faults (flash_attention's plain arithmetic under
-   a wrong causal mask) must fail the same check.  The whole coder is also
-   held against the plain reference engine on a small input.
+   a wrong causal mask; the sLSTM recurrence's plain arithmetic with R
+   transposed, x_proj a step late, the f and i gates swapped, or the
+   final state taken a step early) must fail the same checks.  The whole
+   coder is also held against the plain reference engine on a small input.
 3. Main paths, each driven with every kernel's launch count set to 0 just
    before and read just after:
    - dense-LM serving: the port's serve at gemma-2b's full width (random
@@ -27,6 +29,15 @@ and fails (non-zero exit, no result line) if any of them fails:
      with the kernel swapped for its plain version must agree (last-position
      logits and every layer's K/V cache), while one re-run with a planted
      wrong attention must not;
+   - xLSTM serving: the port's serve at xlstm-1.3b's full width (random
+     weights), the same traffic; one slstm_seq launch per sLSTM block of
+     the prefill (6) and none in decode.  Tokens in the vocabulary, logits
+     and every cache leaf finite, and in a re-run of the prefill every
+     sLSTM block's recurrence must agree with its plain version on the
+     inputs it got there, while a planted wrong recurrence must not (the
+     end-to-end difference from the plain prefill is recorded beside a
+     one-ulp noise control: the random-weight stack amplifies any
+     difference, so it cannot be gated);
    - the dictionary service: serve_dict at the production dictionary
      (M = 8192, K = 262144, N = 16 agents, fp32, gamma 0.05, delta 0.1)
      with learning on, in `graph` mode (ring_metropolis, the paper's
@@ -94,6 +105,30 @@ BF16_ROW_ULPS = 4.0
 # attention (its causal limit one key late) and requires the gate to
 # reject it.
 BF16_UNIT_ROUNDOFF = 2.0 ** -8
+
+# The xLSTM main path: the port's serve at xlstm-1.3b's full width (48
+# blocks, 42 mLSTM and 6 sLSTM; d 2048, 4 heads, mLSTM P 1024, sLSTM P 512,
+# vocab 50304, bf16 compute), random weights from seed 0, the gemma path's
+# traffic.  Its sLSTM recurrence, one K3 launch per sLSTM block:
+# (B, S, D, H), bf16 x_proj and R.
+XL_ARCH = "xlstm_1p3b"
+SL_MAIN = (LM_BATCH, LM_PROMPT, 2048, 4)
+# K3 at the shapes of tests/test_moe_a2a.py's sLSTM tests (B, S, D, H), and
+# the smoke config's P 32 at B 4: fp32 within their 1e-5.
+SL_TEST_SHAPES = [(2, 24, 32, 4), (1, 16, 64, 2), (3, 33, 16, 4), (2, 20, 32, 4), (4, 40, 64, 2)]
+SL_TEST_TOL = 1e-5
+# K3 at the main shape against its plain version.  Both widen the bf16
+# x_proj and R exactly and run the same fp32 cell, so they differ only in
+# the order of each step's 512-term sums of h * R (about sqrt(512) x 2^-24
+# of a gate pre-activation, some 1e-6), carried by a recurrence whose h
+# stays in [-1, 1] (c / n is a weighted mean of tanh values) and which the
+# forget gate (bias 3) damps.  The block hands h on in bf16, where a
+# difference below half an ulp at 1, 2^-9, flips at most one rounding.  So
+# the gate: max |dh| <= 2^-9 over all S x B x D, and each final state
+# (c, n, m) within 2^-9 of its row's largest |value| (row = one batch row,
+# the last axis), the state being what the decode cache carries on.  The
+# planted faults change h or the state by orders of magnitude more.
+SL_TOL = 2.0 ** -9
 
 # Solve agreement, kernel path vs plain path on one micro-batch: both run
 # the same 150 iterations with fp32 sums in different orders; the iteration
@@ -183,9 +218,11 @@ def reset_launch_counts():
     """Every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.dict_dual_step import ops as dd_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.slstm_step import ops as sl_ops
 
     dd_ops.dict_dual_step.launches = 0
     fa_ops.flash_attention.launches = 0
+    sl_ops.slstm_seq.launches = 0
 
 
 def phase_build():
@@ -410,6 +447,119 @@ def phase_flash_attention(torch):
           f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {flops:.3e} flops, {nbytes:.3e} bytes)  "
           f"max|err| {err:.3e}, bf16 reading {reading:.3f} (SDPA's {sdpa_reading:.3f})")
     del q, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
+def row_reading(got, want) -> float:
+    """max over rows (the last axis) of max |got - want| / max |want| in the
+    row; inf if anything is not finite."""
+    d, w = (got.float() - want.float()).abs(), want.float().abs()
+    r = float((d.amax(-1) / w.amax(-1).clamp_min(1e-30)).max())
+    return r if math.isfinite(r) else math.inf
+
+
+def slstm_readings(h, state, h_ref, state_ref) -> dict:
+    """K3's gate readings against plain: max |dh|, and per final-state
+    tensor (c, n, m) the row reading."""
+    dh = float((h - h_ref).abs().max())
+    res = {"h": dh if math.isfinite(dh) else math.inf}
+    res.update((name, row_reading(got, want)) for name, got, want in zip("cnm", state, state_ref))
+    return res
+
+
+def phase_slstm(torch):
+    """slstm_seq against its plain version; returns its kernel record
+    (without `launches`, which the xLSTM path fills in)."""
+    from repro_torch.kernels.slstm_step import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(b, s, d, h, dtype, r_scale, bias):
+        p = d // h
+        xp = torch.randn(4, s, b, d, generator=gen, device=dev).to(dtype)
+        R = (torch.randn(4, h, p, p, generator=gen, device=dev) * r_scale).to(dtype)
+        return xp, R, bias(d)
+
+    # The test shapes, fp32, R x 0.2 and b x 0.1 as tests/test_moe_a2a.py.
+    for shape in SL_TEST_SHAPES:
+        xp, R, b = inputs(*shape, torch.float32, 0.2,
+                          lambda d: torch.randn(4, d, generator=gen, device=dev) * 0.1)
+        h, state = ops.slstm_seq(xp, R, b)
+        h_ref, state_ref = ref.slstm_seq_ref(xp, R, b)
+        check_close(f"slstm h {shape}", h, h_ref, SL_TEST_TOL, SL_TEST_TOL)
+        for name, got, want in zip("cnm", state, state_ref):
+            check_close(f"slstm {name} {shape}", got, want, SL_TEST_TOL, SL_TEST_TOL)
+    torch.cuda.synchronize()
+    print(f"[kernels] slstm_seq agrees with plain at {len(SL_TEST_SHAPES)} fp32 test shapes "
+          f"(h and final c, n, m within {SL_TEST_TOL})")
+
+    # The main-path shape: one xlstm-1.3b sLSTM block's recurrence, inputs
+    # as the model makes them (x_proj of unit scale, R with 1/sqrt(P)
+    # columns, the f bias 3 and the others 0), in bf16.
+    b, s, d, h = SL_MAIN
+    p = d // h
+
+    def model_bias(d):
+        return torch.tensor([0.0, 3.0, 0.0, 0.0], device=dev)[:, None].expand(4, d).contiguous()
+
+    xp, R, bias = inputs(b, s, d, h, torch.bfloat16, p ** -0.5, model_bias)
+    hk, sk = ops.slstm_seq(xp, R, bias)
+    hp, sp = ref.slstm_seq_ref(xp, R, bias)
+    torch.cuda.synchronize()
+    readings = slstm_readings(hk, sk, hp, sp)
+    shifted = torch.cat([torch.zeros_like(xp[:, :1]), xp[:, :-1]], dim=1)
+    swap = [1, 0, 2, 3]
+    faults = {
+        "R transposed per head": ref.slstm_seq_ref(xp, R.transpose(-1, -2), bias),
+        "x_proj read one step late": ref.slstm_seq_ref(shifted, R, bias),
+        "f and i gates swapped": ref.slstm_seq_ref(xp[swap], R[swap], bias[swap]),
+        "final state from step S-2": (hp, ref.slstm_seq_ref(xp[:, :-1], R, bias)[1]),
+    }
+    fault_readings = {name: slstm_readings(fh, fs, hp, sp) for name, (fh, fs) in faults.items()}
+    del faults, shifted
+    print(f"[kernels] slstm_seq bf16 main shape (B, S, D, H) {SL_MAIN}: readings {readings} "
+          f"(gate: each <= {SL_TOL}); planted faults {fault_readings}")
+    if not max(readings.values()) <= SL_TOL:
+        raise AssertionError(f"slstm_seq disagrees with plain at {SL_MAIN}")
+    for name, r in fault_readings.items():
+        if max(r.values()) <= SL_TOL:
+            raise AssertionError(f"the slstm_seq gate passes a planted fault: {name}")
+
+    def kernel():
+        return ops.slstm_seq(xp, R, bias)
+
+    def plain():
+        return ref.slstm_seq_ref(xp, R, bias)
+
+    k1, p1, p2, k2 = (time_ms(torch, kernel, 5), time_ms(torch, plain, 1),
+                      time_ms(torch, plain, 1), time_ms(torch, kernel, 5))
+    flops = 2 * 4 * b * d * p * s  # h_{t-1} . R_g for 4 gates, every step
+    nbytes = (xp.numel() * xp.element_size() + R.numel() * R.element_size()
+              + 4 * bias.numel() + 4 * (s * b * d + 3 * b * d))  # x_proj, R, b; h, c, n, m
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    rec = {
+        "name": "slstm_seq",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/slstm_step/csrc/slstm_step.cu",
+        "replaces": "src/repro/kernels/slstm_step/kernel.py:78",
+        "launches": None,
+        "max_abs_err": readings["h"],
+        "ms": (k1 + k2) / 2,
+        "plain_ms": (p1 + p2) / 2,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        # No single PyTorch call computes this cell (torch.nn.LSTM is another cell).
+        "library_ms": None,
+        "shape": list(SL_MAIN),
+        "readings": readings,
+        "planted_faults": fault_readings,
+    }
+    print(f"[kernels] slstm_seq at (B, S, D, H) {SL_MAIN} bf16: kernel_ms {k1:.3f} {k2:.3f}  "
+          f"plain_ms {p1:.3f} {p2:.3f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}: "
+          f"{flops:.3e} flops, {nbytes:.3e} bytes)  max|dh| {readings['h']:.3e}")
+    del xp, R, bias, hk, sk, hp, sp
     torch.cuda.empty_cache()
     return rec
 
@@ -657,6 +807,157 @@ def phase_lm(torch, card: str):
     return launches
 
 
+def phase_xlstm(torch, card: str):
+    """The port's xLSTM serve at xlstm-1.3b's full width; returns K3's
+    launch count over the run."""
+    from repro_torch.kernels.slstm_step import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model, xlstm
+
+    argv = ["--arch", XL_ARCH, "--full-config", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--device", "cuda"]
+    # Warm-up at a short prompt (cuBLAS handles, the allocator's pools), not counted.
+    serve.run(serve.parse_args(argv[:5] + ["--prompt-len", "64", "--gen", "2",
+                                          "--device", "cuda"]))
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = serve.run(serve.parse_args(argv + ["--json"]))
+    launches = ops.slstm_seq.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, pay, tokens, last = out["cfg"], out["payload"], out["tokens"], out["last_logits"]
+    params, prompts = out["params"], out["prompts"]
+    n_slstm = cfg.n_layers // cfg.slstm_every
+
+    if tuple(tokens.shape) != (LM_BATCH, LM_GEN):
+        raise AssertionError(f"xLSTM: generated tokens of shape {tuple(tokens.shape)}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"xLSTM: a token outside [0, {cfg.vocab})")
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError("xLSTM: prefill logits not finite")
+    for kind, leaves in out["cache"].items():
+        for name, t in leaves.items():
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"xLSTM: cache {kind}/{name} not finite")
+
+    # The prefill again, each sLSTM block's recurrence held against plain on
+    # the inputs it got there (the model goes on with the recurrence under
+    # test): K3 (its launches alone: one per sLSTM block, so the serve's
+    # decode made none), then a planted wrong recurrence (R transposed per
+    # head), which the gate must reject.  The gate is K3's main-shape gate
+    # (SL_TOL on h and on each final-state row) per block.  An end-to-end
+    # gate cannot be used here: with random weights the 48-block stack
+    # amplifies any difference in an sLSTM output, and a relative change of
+    # 2^-23 (one fp32 ulp) in one block's h moves the last-position logits
+    # by tenths of their row's scale (the control below records it), so the
+    # K3 and plain prefills part by as much, while each block agrees.
+    class Checked(Exception):
+        """Ends a prefill once the blocks asked for are checked."""
+
+    def checked(under_test, blocks=None):
+        rows = []
+
+        def seq(x_proj, R, b):
+            if len(rows) == blocks:
+                raise Checked
+            h, state = under_test(x_proj, R, b)
+            rows.append(slstm_readings(h, state, *ref.slstm_seq_ref(x_proj, R, b)))
+            return h, state
+        return seq, rows
+
+    def prefill_with(seq):
+        with mock.patch.object(xlstm.ops, "slstm_seq", seq):
+            logits, cache = model.prefill(cfg, params, {"tokens": prompts})
+        return logits[:, -1, :].clone(), cache
+
+    def planted(x_proj, R, b):
+        return ref.slstm_seq_ref(x_proj, R.transpose(-1, -2), b)
+
+    reset_launch_counts()
+    seq, k_rows = checked(ops.slstm_seq)
+    k_last, k_cache = prefill_with(seq)
+    prefill_launches = ops.slstm_seq.launches
+    if launches != n_slstm or prefill_launches != n_slstm:
+        raise AssertionError(f"xLSTM: {launches} slstm_seq launches in the serve and "
+                             f"{prefill_launches} in a prefill, expected {n_slstm} in each "
+                             f"(one per sLSTM block of the prefill, none in decode)")
+    seq, planted_rows = checked(planted, blocks=1)  # its first block must fail the gate
+    try:
+        prefill_with(seq)
+    except Checked:
+        pass
+    k_worst = max(max(r.values()) for r in k_rows)
+    planted_worst = max(max(r.values()) for r in planted_rows)
+    print(f"[xlstm] prefill, each sLSTM block against plain on its own inputs (gate: each "
+          f"reading <= {SL_TOL}): K3 {k_rows}; planted R transposed {planted_rows}")
+    if len(k_rows) != n_slstm or not k_worst <= SL_TOL:
+        raise AssertionError("xLSTM: a K3 block of the prefill disagrees with plain")
+    if not planted_worst > SL_TOL:
+        raise AssertionError("xLSTM: the prefill gate passes a planted wrong recurrence")
+
+    # End to end, recorded: per-row readings of the K3 prefill against the
+    # plain prefill (last-position logits, every sLSTM state, the mLSTM states
+    # of the groups after the first), and of a control: the plain prefill
+    # with one fp32 ulp of noise on every sLSTM block's h.
+    def readings(got_last, got_cache, want_last, want_cache):
+        res = {"logits": row_reading(got_last, want_last)}
+        for name, t in got_cache["slstm"].items():
+            res[f"slstm/{name}"] = row_reading(t, want_cache["slstm"][name])
+        for name, t in got_cache["mlstm"].items():
+            res[f"mlstm/{name}"] = row_reading(t[1:], want_cache["mlstm"][name][1:])
+        return res
+
+    def ulp_noise(x_proj, R, b):
+        h, state = ref.slstm_seq_ref(x_proj, R, b)
+        noise = torch.randn(h.shape, generator=torch.Generator(h.device).manual_seed(3),
+                            device=h.device)
+        return h * (1 + 2.0 ** -23 * noise), state
+
+    plain_last, plain_cache = prefill_with(ref.slstm_seq_ref)
+    errs = readings(k_last, k_cache, plain_last, plain_cache)
+    del k_cache
+    control = readings(*prefill_with(ulp_noise), plain_last, plain_cache)
+    del plain_cache
+    argmax_agree = float((k_last.argmax(-1) == plain_last.argmax(-1)).float().mean())
+    print(f"[xlstm] end to end, per-row max|d|/max|plain| (recorded): K3 vs plain {errs}; "
+          f"control, plain with one fp32 ulp of noise on each sLSTM h, vs plain {control}; "
+          f"next-token argmax agreement K3 vs plain {argmax_agree:.2f}")
+
+    # Where the time goes: one prefill and one decode step under the
+    # profiler (the decode step advances the serving cache once more).
+    cache = out["cache"]
+    tok = tokens[:, -1:].to(prompts.device)
+    prof = {}
+    for what, fn, run_ms in (
+        ("prefill", lambda: model.prefill(cfg, params, {"tokens": prompts}), pay["prefill_ms"]),
+        ("decode_step", lambda: model.decode_step(cfg, params, cache, tok, LM_PROMPT + LM_GEN - 1),
+         pay["decode_ms_per_token"]),
+    ):
+        wall, dev_ms, top = device_profile(torch, fn)
+        prof[what] = {"profiled_wall_ms": wall, "device_ms": dev_ms,
+                      "busy_share": dev_ms / run_ms, "top": top}
+        print(f"[xlstm] profile {what}: device kernels {dev_ms:.2f} ms, {run_ms:.2f} ms "
+              f"unprofiled (busy share {dev_ms / run_ms:.3f}), {wall:.2f} ms under the "
+              f"profiler; top {top}")
+
+    print(f"[xlstm] {card}: {cfg.name} batch {LM_BATCH} prompt {LM_PROMPT} gen {LM_GEN}: "
+          f"prefill {pay['prefill_ms']:.1f} ms ({pay['prefill_tokens_per_s']:.1f} tokens/s)  "
+          f"decode {pay['decode_ms_per_token']:.3f} ms/token "
+          f"({pay['decode_tokens_per_s']:.1f} tokens/s)  K3 launches {launches}  "
+          f"peak device memory {peak_gb:.2f} GB")
+    print("XLSTM " + json.dumps({
+        **pay, "card": card, "launches": launches, "prefill_launches": prefill_launches,
+        "peak_mem_gb": peak_gb, "block_readings": k_rows, "block_tol": SL_TOL,
+        "planted_block_readings": planted_rows, "end_to_end_rel_err": errs,
+        "end_to_end_ulp_noise_control": control, "argmax_agree": argmax_agree,
+        "first_row": tokens[0].tolist(), "profile": prof,
+    }))
+    del out, cache, last, k_last, plain_last, params, prompts
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a "
@@ -675,24 +976,33 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
 
-    phase_build()
-    rec = phase_kernels(torch)
-    fa_rec = phase_flash_attention(torch)
-    phase_small_coder(torch)
-    fa_rec["launches"] = phase_lm(torch, card)
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        res = fn(*args, **kw)
+        print(f"[phase] {name}: {time.perf_counter() - t:.1f}s")
+        return res
+
+    timed("build", phase_build)
+    rec = timed("dict_dual_step", phase_kernels, torch)
+    fa_rec = timed("flash_attention", phase_flash_attention, torch)
+    sl_rec = timed("slstm_seq", phase_slstm, torch)
+    timed("small coder", phase_small_coder, torch)
+    fa_rec["launches"] = timed("gemma-2b serve", phase_lm, torch, card)
+    sl_rec["launches"] = timed("xlstm-1.3b serve", phase_xlstm, torch, card)
     # The diffusion's step is bounded by the worst block's curvature
     # (sigma_max(W_k)^2 / delta, about 58 here) while its consensus term
     # contracts by only mu / N per iteration, so after 150 iterations at this
     # width an agent's nu is still a small fraction of x (1 - (1 - mu/N)^150,
     # about 0.13) and no atom passes the threshold: graph codes may all be
     # zero.  exact_fista converges in 150 iterations and must code.
-    launches = {mode: phase_main_path(torch, mode, card, must_code=(mode == "exact_fista"))
+    launches = {mode: timed(f"serve_dict {mode}", phase_main_path, torch, mode, card,
+                            must_code=(mode == "exact_fista"))
                 for mode in ("graph", "exact_fista")}
     rec["launches"] = launches["graph"] + launches["exact_fista"]
     rec["launches_by_mode"] = launches
 
     print(f"[done] {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [rec, fa_rec]}))
+    print(json.dumps({"kernels": [rec, fa_rec, sl_rec]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

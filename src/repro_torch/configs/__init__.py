@@ -1,11 +1,11 @@
 """Architecture registry: --arch <id> resolves here.
 
-Port of src/repro/configs/__init__.py, with the same ids and aliases.  The
-dense family is ported: gemma_2b, olmo_1b, granite_8b and qwen3_32b, each
-with CONFIG (the full configuration) and SMOKE (a reduced same-family
-config for CPU tests), copied from the JAX package.  Asking for an
-architecture of a family not ported yet raises NotImplementedError naming
-the ROADMAP slice that ports it.
+Port of src/repro/configs/__init__.py, with the same ids and aliases.  Two
+families are ported: dense (gemma_2b, olmo_1b, granite_8b, qwen3_32b) and
+xlstm (xlstm_1p3b), each config with CONFIG (the full configuration) and
+SMOKE (a reduced same-family config for CPU tests), copied from the JAX
+package.  Asking for an architecture of a family not ported yet raises
+NotImplementedError naming the ROADMAP slice that ports it.
 """
 
 from __future__ import annotations
@@ -42,14 +42,14 @@ ALIASES: Dict[str, str] = {
     "hubert-xlarge": "hubert_xlarge",
 }
 
-PORTED = ("qwen3_32b", "olmo_1b", "granite_8b", "gemma_2b")
+PORTED = ("qwen3_32b", "olmo_1b", "granite_8b", "gemma_2b", "xlstm_1p3b")
+PORTED_FAMILIES = ("dense", "xlstm")
 
 # The ROADMAP section 1 slice that ports each remaining family, and the
 # family of each architecture not ported yet.
 FAMILY_SLICES: Dict[str, str] = {
     "moe": "the MoE slice",
     "hybrid": "the hybrid (Mamba2) slice",
-    "xlstm": "the xLSTM slice (K3, sLSTM)",
     "vlm": "the VLM slice",
     "audio": "the audio-encoder slice",
 }
@@ -58,7 +58,6 @@ NOT_PORTED: Dict[str, str] = {
     "phi3_vision_4p2b": "vlm",
     "kimi_k2_1t_a32b": "moe",
     "granite_moe_1b_a400m": "moe",
-    "xlstm_1p3b": "xlstm",
     "hubert_xlarge": "audio",
 }
 
@@ -67,7 +66,8 @@ def not_ported(what: str, family: str) -> NotImplementedError:
     """The error for a family the port does not run yet."""
     return NotImplementedError(
         f"{what} ({family} family) is not ported yet (ROADMAP section 1, "
-        f"{FAMILY_SLICES[family]}); the port runs the dense family: {', '.join(PORTED)}"
+        f"{FAMILY_SLICES[family]}); the port runs the {' and '.join(PORTED_FAMILIES)} "
+        f"families: {', '.join(PORTED)}"
     )
 
 

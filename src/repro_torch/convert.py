@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.dictionary import blocks_from_full, full_from_blocks
 from repro_torch.core.distributed import DistConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import require_dense, tree_map
+from repro_torch.models.model import require_ported, tree_map
 
 # JAX DistConfig fields that do not change what the flat modes compute on
 # one device (mesh axis names, the Pallas switches, and the settings of the
@@ -57,13 +57,15 @@ def lm_params_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict:
     """The port's LM params from the JAX value tree mapped to numpy
     (`split_tree(M.init(cfg, key))[0]`, every leaf `np.asarray`).
 
-    Both sides hold each layer's tensors stacked on a leading layer axis and
-    use one layout: wq/wk/wv (L, D, H, Dh), wo (L, H, Dh, D), the MLP
-    matrices (L, fan_in, fan_out), and one embedding table (V, D) that the
+    Both sides hold each stack's tensors on a leading layer axis and use one
+    layout.  Dense: wq/wk/wv (L, D, H, Dh), wo (L, H, Dh, D), the MLP
+    matrices (L, fan_in, fan_out).  xlstm: "mlstm" and "slstm" stacks, the
+    projections (fan_in, fan_out), the block-diagonal q/k/v and the sLSTM's
+    r_* (L, H, P, P) indexed (in, out).  One embedding table (V, D) that the
     tied unembedding reads transposed.  So every leaf crosses as it is, in
     cfg.param_dtype, onto `device`; the nesting is kept, empty dicts (the
-    nonparametric norms) included.  Families other than dense raise."""
-    require_dense(cfg)
+    nonparametric norms) included.  Families not ported raise."""
+    require_ported(cfg)
     dev = resolve_device(device)
     return tree_map(
         lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, cfg.dtype), tree

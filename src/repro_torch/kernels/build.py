@@ -27,6 +27,7 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 SOURCES: Dict[str, pathlib.Path] = {
     "dict_dual_step": KERNELS_DIR / "dict_dual_step" / "csrc" / "dict_dual_step.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "slstm_step": KERNELS_DIR / "slstm_step" / "csrc" / "slstm_step.cu",
 }
 
 NVCC_FLAGS = (

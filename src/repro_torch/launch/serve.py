@@ -1,12 +1,17 @@
 """Serving launcher: batched prefill + greedy decode loop with a KV cache,
 on one card.
 
-Port of src/repro/launch/serve.py for the dense LM family.  Prefills the
-prompt batch once (every layer's attention through the flash-attention
-kernel), copies the prompt's KV into a cache of prompt + gen positions,
-then steps the decode function greedily.  At gemma-2b's full width:
+Port of src/repro/launch/serve.py for the dense and xlstm LM families.
+Prefills the prompt batch once, then steps the decode function greedily.
+Dense: every layer's attention runs through the flash-attention kernel
+(K2), and the prompt's KV is copied into a cache of prompt + gen
+positions.  xlstm: every sLSTM block's recurrence is one launch of the
+sLSTM kernel (K3), and the prefill's state caches are carried over as
+they are.  At full width:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \\
+      --full-config --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1p3b \\
       --full-config --batch 4 --prompt-len 2048 --gen 32
 
 Weights are random, made from --seed on the device.  `--device cpu` runs
@@ -59,7 +64,8 @@ def run(args: argparse.Namespace) -> Dict:
     CPU, "prefill_ms", "decode_ms_per_token", "payload": the BENCH dict,
     and for checks: "cfg", "params" (as `cast_params` leaves them), "prompts",
     "last_logits" (B, V) fp32 of the prefill's last position,
-    "prefill_cache" and "cache"}."""
+    "prefill_cache" and "cache" (for xlstm one tree: the state caches are
+    carried over and the decode loop advances them in place)}."""
     if args.mesh != "1x1":
         raise SystemExit(f"--mesh {args.mesh!r}: sharded serving is not ported yet "
                          f"(ROADMAP section 1, the sharded-serving slice); one card "
@@ -83,13 +89,13 @@ def run(args: argparse.Namespace) -> Dict:
     )
 
     # Prefill: run the prompt through the model, then copy the per-layer KV
-    # into a max_len cache.
+    # into a max_len cache (the xlstm state caches need no copy).
     _sync(device)
     t0 = time.perf_counter()
     logits, pre_cache = M.prefill(cfg, params, {"tokens": prompts})
     last_logits = logits[:, -1, :].clone()
     del logits  # (B, S, V) fp32: 8.4 GB at gemma-2b, B 4, S 2048
-    cache = M.init_cache(cfg, args.batch, max_len, device=device)
+    cache = None if cfg.family == "xlstm" else M.init_cache(cfg, args.batch, max_len, device=device)
     cache = _merge_prefill_cache(cfg, cache, pre_cache)
     tok = torch.argmax(last_logits, dim=-1)[:, None]
     _sync(device)
@@ -131,9 +137,12 @@ def run(args: argparse.Namespace) -> Dict:
     }
 
 
-def _merge_prefill_cache(cfg, cache: dict, pre_cache: dict) -> dict:
+def _merge_prefill_cache(cfg, cache: Optional[dict], pre_cache: dict) -> dict:
     """Copy the prefill cache (length = prompt) into the max_len cache, in
-    place."""
+    place.  The xlstm caches are pure state: the prefill's is carried over
+    as it is (and `cache` is not read)."""
+    if cfg.family == "xlstm":
+        return pre_cache
     if cfg.family != "dense":
         raise KeyError(cfg.family)
     for name, full in cache["layers"].items():

@@ -1,1 +1,1 @@
-"""The LM zoo of the port: layers, attention (with the flash-attention kernel), blocks and model assembly for the dense family."""
+"""The LM zoo of the port: layers, attention (with the flash-attention kernel), blocks, the xLSTM blocks (with the sLSTM kernel) and model assembly for the dense and xlstm families."""

@@ -89,7 +89,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert len(names) >= 35, names
 for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
-           "repro_torch.kernels.flash_attention.ops", "repro_torch.launch.serve"):
+           "repro_torch.kernels.flash_attention.ops", "repro_torch.launch.serve",
+           "repro_torch.configs.xlstm_1p3b", "repro_torch.models.xlstm",
+           "repro_torch.kernels.slstm_step.ops", "repro_torch.kernels.slstm_step.ref"):
     assert lm in names, lm
 assert not bad, bad
 """

@@ -65,7 +65,7 @@ def test_smoke_configs_match_the_jax_ones():
     assert full.resolved_head_dim == 256 and full.n_kv_heads == 1
 
 
-@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_1p3b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "granite_moe_1b_a400m", "kimi-k2-1t-a32b"])
 def test_families_not_ported_raise(arch):
     from repro_torch.configs import get_config, get_smoke_config
 
