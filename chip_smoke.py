@@ -9,17 +9,25 @@ and fails (non-zero exit, no result line) if any of them fails:
 1. Card and build: prints the card's name and power limit, builds every
    CUDA kernel from the sources in this checkout (one nvcc per source, all
    started together) and prints nvcc's -Xptxas -v register, shared-memory
-   and spill lines.
+   and spill lines; fails unless flash_attention's wgmma_tma kernels show
+   HGMMA (tensor-core) instructions in the built library's SASS
+   (cuobjdump), spill no register, and are not serialized by ptxas.
 2. Kernel against plain: each kernel's wrapper is called on tensors on the
    card and held against its plain PyTorch version on the same inputs, at
    the test shapes and at the shape the main path gives it, then timed
    there with CUDA events (kernel and plain in turns; flash_attention also
    beside F.scaled_dot_product_attention, the library yardstick the port
-   never calls).  Planted faults (flash_attention's plain arithmetic under
-   a wrong causal mask; the sLSTM recurrence's plain arithmetic with R
-   transposed, x_proj a step late, the f and i gates swapped, or the
-   final state taken a step early) must fail the same checks.  The whole
-   coder is also held against the plain reference engine on a small input.
+   never calls).  The records name each kernel's variant (flash_attention's
+   main shape must go to wgmma_tma) and its CTAs per launch
+   (dict_dual_step's two passes at least 128 each; a repeated launch must
+   give the same bits).  Planted faults (dict_dual_step's plain arithmetic
+   with the threshold on S without the last M chunk, G without the last
+   32-atom tile, or agent 0's G rows from agent 1; flash_attention's
+   plain arithmetic under a wrong causal mask; the sLSTM recurrence's
+   plain arithmetic with R transposed, x_proj a step late, the f and i
+   gates swapped, or the final state taken a step early) must fail the
+   same checks.  The whole coder is also held against the plain reference
+   engine on a small input.
 3. Main paths, each driven with every kernel's launch count set to 0 just
    before and read just after:
    - dense-LM serving: the port's serve at gemma-2b's full width (random
@@ -225,7 +233,44 @@ def reset_launch_counts():
     sl_ops.slstm_seq.launches = 0
 
 
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: {"registers": n, "spill_bytes": stores + loads}}
+    from nvcc's -Xptxas -v output."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            report[fn] = {"registers": None, "spill_bytes": 0}
+        elif fn and "spill stores" in line:
+            words = line.replace(",", "").split()
+            report[fn]["spill_bytes"] = sum(int(words[i - 2]) for i, w in enumerate(words)
+                                            if w == "spill")
+        elif fn and line.strip().startswith("ptxas info") and "Used" in line:
+            report[fn]["registers"] = int(line.split("Used")[1].split()[0])
+    return report
+
+
+def sass_counts(lib_path, opcode: str) -> dict:
+    """{mangled kernel name: instructions of `opcode`} in the library's SASS."""
+    from repro_torch.kernels import build
+
+    cuobjdump = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
+    """Builds every kernel; returns the evidence that K2's bf16 kernel runs on
+    the tensor cores: its ptxas registers and spills and its HGMMA count in
+    the SASS of the built library, per instantiation."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -235,6 +280,22 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "cached" in line:
                 print(f"[build] {name}: {line.strip()}")
+    ptxas = ptxas_report(logs["flash_attention"])
+    hgmma = sass_counts(build.library_path("flash_attention"), "HGMMA")
+    wgmma = {fn: {"hgmma": n, **ptxas.get(fn, {})} for fn, n in hgmma.items()
+             if "flash_attention_wgmma" in fn}
+    print(f"[build] flash_attention wgmma_tma kernels (HGMMA in SASS, ptxas): {wgmma}")
+    if len(wgmma) != 3 or min(r["hgmma"] for r in wgmma.values()) == 0:
+        raise AssertionError("the wgmma_tma kernels (D = 64, 128, 256) lack HGMMA in their SASS")
+    if logs["flash_attention"] != "cached":
+        if any(r.get("spill_bytes") for r in wgmma.values()):
+            raise AssertionError("a wgmma_tma kernel spills registers")
+        # ptxas's C7514/C7515 notes: it made every wgmma wait for the one before.
+        serialized = [line for line in logs["flash_attention"].splitlines()
+                      if "wgmma.mma_async instructions are serialized" in line]
+        if serialized:
+            raise AssertionError(f"ptxas serialized the wgmma_tma kernels: {serialized}")
+    return wgmma
 
 
 def phase_kernels(torch):
@@ -287,15 +348,49 @@ def phase_kernels(torch):
     W /= torch.linalg.vector_norm(W, dim=1, keepdim=True)
     nu = torch.randn(n, b, m, device=dev)
     y, g = ops.dict_dual_step(W, nu, gamma=GAMMA, delta=DELTA)
+    y2, g2 = ops.dict_dual_step(W, nu, gamma=GAMMA, delta=DELTA)
+    repeat_equal = bool(torch.equal(y, y2) and torch.equal(g, g2))
+    del y2, g2
     yr, gr = ref.dict_dual_step_ref(W, nu, gamma=GAMMA, delta=DELTA)
     s_inf = float(torch.matmul(nu, W).abs().max())
-    y_err, g_err = max_err(y, yr), max_err(g, gr)
     y_tol = 1e-4 * s_inf / DELTA  # the threshold's slope is 1/delta
-    g_rel = g_err / float(gr.abs().max())
+
+    def readings(yk, gk):
+        """(max |dY|, max |dG| / max |G|) against plain: the main-shape gate
+        is y <= y_tol and g <= 1e-4."""
+        return max_err(yk, yr), max_err(gk, gr) / float(gr.abs().max())
+
+    y_err, g_rel = readings(y, g)
+    g_err = max_err(g, gr)
+    # Planted faults, the typical bugs of a split design, made by the plain
+    # arithmetic: the threshold applied to a partial S (the last 16-row M
+    # chunk, one pass-1 stage, left out); one 32-atom tile's contribution to
+    # G dropped (one pass-2 stage); agent 0's G rows (its one batch tile)
+    # written from agent 1's.
+    s_part = torch.matmul(nu[:, :, :-16], W[:, :-16, :])
+    y_part = ref.threshold(s_part, GAMMA, False) / DELTA
+    del s_part
+    y32 = yr.float()
+    g_drop = torch.matmul(y32[:, :, :-32], W[:, :, :-32].transpose(-1, -2))
+    faults = {
+        "threshold on S without the last M chunk": (
+            y_part, torch.matmul(y_part, W.transpose(-1, -2))),
+        "G without the last 32-atom tile": (yr, g_drop),
+        "agent 0's G rows from agent 1": (yr, torch.cat([gr[1:2], gr[1:]])),
+    }
+    fault_readings = {name: readings(*f) for name, f in faults.items()}
+    del faults, y_part, g_drop, y32
     print(f"[kernels] main shape {(n, m, kb, b)}: max|dY| {y_err:.3e} (tol {y_tol:.3e} "
-          f"= 1e-4 |S|_inf / delta), max|dG|/max|G| {g_rel:.3e} (tol 1e-4)")
+          f"= 1e-4 |S|_inf / delta), max|dG|/max|G| {g_rel:.3e} (tol 1e-4); repeated "
+          f"launch bit-identical {repeat_equal}; planted faults (max|dY|, max|dG|/max|G|) "
+          f"{fault_readings}")
     if not (y_err <= y_tol and g_rel <= 1e-4):
         raise AssertionError("dict_dual_step disagrees with plain at the main-path shape")
+    if not repeat_equal:
+        raise AssertionError("dict_dual_step: a repeated launch gave other bits")
+    for name, (fy, fg) in fault_readings.items():
+        if fy <= y_tol and fg <= 1e-4:
+            raise AssertionError(f"the dict_dual_step gate passes a planted fault: {name}")
     del yr, gr, y, g
 
     def kernel():
@@ -322,10 +417,17 @@ def phase_kernels(torch):
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,  # no single PyTorch call computes S -> T -> G
+        "variant": ops.VARIANT,
+        "grid": list(ops.ctas(n, m, kb, b)),  # CTAs of pass 1 and pass 2
         "shape": [n, m, kb, b],
+        "repeat_bit_identical": repeat_equal,
+        "planted_faults": fault_readings,
     }
-    print(f"[kernels] dict_dual_step at {(n, m, kb, b)}: kernel_ms {k1:.3f} {k2:.3f}  "
-          f"plain_ms {p1:.3f} {p2:.3f}  bound_ms {rec['bound_ms']:.3f} ({rec['bound_by']})")
+    print(f"[kernels] dict_dual_step ({rec['variant']}, CTAs per pass {rec['grid']}) at "
+          f"{(n, m, kb, b)}: kernel_ms {k1:.3f} {k2:.3f}  plain_ms {p1:.3f} {p2:.3f}  "
+          f"bound_ms {rec['bound_ms']:.3f} ({rec['bound_by']})")
+    if min(rec["grid"]) < 128:
+        raise AssertionError(f"dict_dual_step launches {rec['grid']} CTAs per pass, < 128")
     del W, nu
     torch.cuda.empty_cache()
     return rec
@@ -375,9 +477,29 @@ def phase_flash_attention(torch):
           f"(causal and not, 2e-4), bf16 (reading <= {BF16_ROW_ULPS}) and the strided "
           f"(B, S, H, D) layout")
 
+    # bf16 on the tensor-core kernel at each of its head dims: ragged S = T,
+    # T > S, non-causal with ragged T, a seq stride of 4 (mod 8) elements
+    # (copied: TMA needs 16-byte strides).
+    for shape, causal in [((2, 4, 2, 1000, 1000, 64), True), ((1, 8, 1, 300, 1000, 128), True),
+                          ((2, 4, 1, 1000, 1000, 256), True), ((2, 4, 2, 200, 333, 128), False),
+                          ((1, 8, 1, 640, 640, 256), False)]:
+        q, k, v = qkv(*shape, dtype=torch.bfloat16)
+        check_bf16(f"bf16 {shape} causal={causal}", ops.flash_attention(q, k, v, causal=causal),
+                   ref.attention_ref(q, k, v, causal=causal))
+    q, k, v = (torch.nn.functional.pad(x, (0, 4))[..., :256]
+               for x in qkv(1, 8, 1, 200, 200, 256, dtype=torch.bfloat16))
+    check_bf16("bf16 seq stride 260", ops.flash_attention(q, k, v, causal=True),
+               ref.attention_ref(q, k, v, causal=True))
+    torch.cuda.synchronize()
+    print("[kernels] flash_attention's wgmma_tma kernel agrees with plain at D = 64, 128, 256 "
+          "(ragged, T > S, non-causal, a copied 4-mod-8 stride)")
+
     # The main-path shape: one gemma-2b prefill layer.  Planted faults, made
     # by the plain arithmetic under a wrong mask, must fail the same check.
     b, hq, hkv, s, t, d = FA_MAIN
+    kind = ops.library_variant(torch.bfloat16, d)
+    if not kind == ops.variant(torch.bfloat16, d) == "wgmma_tma":
+        raise AssertionError(f"FA_MAIN goes to {kind} (wrapper: {ops.variant(torch.bfloat16, d)})")
     q, k, v = qkv(b, hq, hkv, s, t, d, dtype=torch.bfloat16)
     out = ops.flash_attention(q, k, v, causal=True)
     want = ref.attention_ref(q, k, v, causal=True)
@@ -437,12 +559,15 @@ def phase_flash_attention(torch):
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": (l1 + l2) / 2,  # F.scaled_dot_product_attention, causal, GQA
+        "variant": kind,
+        "grid": ops.ctas(b, hq, s, torch.bfloat16, d),
         "shape": list(FA_MAIN),
         "bf16_reading": reading,
         "bf16_reading_sdpa": sdpa_reading,
         "planted_faults": fault_readings,
     }
-    print(f"[kernels] flash_attention at {FA_MAIN} bf16 causal: kernel_ms {k1:.3f} {k2:.3f}  "
+    print(f"[kernels] flash_attention ({kind}, {rec['grid']} CTAs) at {FA_MAIN} bf16 causal: "
+          f"kernel_ms {k1:.3f} {k2:.3f}  "
           f"plain_ms {p1:.3f} {p2:.3f}  sdpa_ms {l1:.3f} {l2:.3f}  bound_ms "
           f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {flops:.3e} flops, {nbytes:.3e} bytes)  "
           f"max|err| {err:.3e}, bf16 reading {reading:.3f} (SDPA's {sdpa_reading:.3f})")
@@ -982,9 +1107,10 @@ def main() -> int:
         print(f"[phase] {name}: {time.perf_counter() - t:.1f}s")
         return res
 
-    timed("build", phase_build)
+    wgmma_build = timed("build", phase_build)
     rec = timed("dict_dual_step", phase_kernels, torch)
     fa_rec = timed("flash_attention", phase_flash_attention, torch)
+    fa_rec["wgmma_build"] = wgmma_build  # HGMMA in the SASS, ptxas registers and spills
     sl_rec = timed("slstm_seq", phase_slstm, torch)
     timed("small coder", phase_small_coder, torch)
     fa_rec["launches"] = timed("gemma-2b serve", phase_lm, torch, card)

@@ -1,12 +1,14 @@
 """Build the port's hand-written CUDA kernels and load them with ctypes.
 
 Each kernel's source is one `csrc/<name>.cu` file with a plain C interface
-(no PyTorch headers), compiled by `nvcc` for Hopper (`sm_90a`) into a shared
-library under `build/kernels/` at the repository root.  The library name
-carries a hash of the source and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  A kernel is built at its first use
-(`load`); `build` compiles several sources at once, one `nvcc` each, all
-started together.  A failed build raises with the compiler's output.
+(no PyTorch headers), which may include headers beside it in `csrc/`,
+compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
+`build/kernels/` at the repository root.  The library name carries a hash
+of every file under the kernel's `csrc/` and of the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.  A
+kernel is built at its first use (`load`); `build` compiles several
+sources at once, one `nvcc` each, all started together.  A failed build
+raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -58,11 +60,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where kernel `name` is built: named by a hash of source and flags."""
-    digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where kernel `name` is built: named by a hash of the flags and of every
+    file (name and bytes) under the directory of its source, headers too."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    csrc = SOURCES[name].parent
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(csrc)).encode() + b"\0" + path.read_bytes() + b"\0")
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -4,7 +4,9 @@ Port of src/repro/kernels/dict_dual_step/ops.py.  `dict_dual_step` checks
 its inputs, then runs the hand-written CUDA kernel
 (`csrc/dict_dual_step.cu`) on CUDA tensors and the plain PyTorch version
 (`ref.dict_dual_step_ref`) on CPU tensors.  On a CUDA tensor it launches the
-kernel or raises; it never falls back.  Each launch adds one to
+kernel or raises; it never falls back.  Each call on the card runs the
+kernel's two passes (S and Y, then G; design "two_pass", see the source)
+as two launches on the current stream and adds one to
 `dict_dual_step.launches`.
 """
 
@@ -19,6 +21,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dict_dual_step.ref import dict_dual_step_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+VARIANT = "two_pass"  # the kernel's one design, for every dtype and shape
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 ]
@@ -31,7 +34,16 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.dict_dual_step_error_string.argtypes = [ctypes.c_int]
     lib.dict_dual_step_error_string.restype = ctypes.c_char_p
+    lib.dict_dual_step_ctas.argtypes = [ctypes.c_int] * 5
+    lib.dict_dual_step_ctas.restype = ctypes.c_longlong
     return lib
+
+
+def ctas(n: int, m: int, kb: int, b: int) -> Tuple[int, int]:
+    """CTAs per launch of the kernel's two passes at this shape, as the
+    built library computes them (builds it if needed)."""
+    lib = _library()
+    return tuple(int(lib.dict_dual_step_ctas(n, m, kb, b, p)) for p in (1, 2))
 
 
 def _launch(W, nu, *, gamma, delta, nonneg):
@@ -39,15 +51,16 @@ def _launch(W, nu, *, gamma, delta, nonneg):
     b = nu.shape[1]
     y = torch.empty((n, b, kb), dtype=W.dtype, device=W.device)
     g = torch.empty((n, b, m), dtype=W.dtype, device=W.device)
-    gacc = g if W.dtype == torch.float32 else torch.empty(
-        (n, b, m), dtype=torch.float32, device=W.device
+    # Y in fp32 between the passes: y itself for fp32.
+    scratch = y if W.dtype == torch.float32 else torch.empty(
+        (n, b, kb), dtype=torch.float32, device=W.device
     )
     lib = _library()
     fn = lib.dict_dual_step_f32 if W.dtype == torch.float32 else lib.dict_dual_step_bf16
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            W.data_ptr(), nu.data_ptr(), y.data_ptr(), g.data_ptr(), gacc.data_ptr(),
+            W.data_ptr(), nu.data_ptr(), y.data_ptr(), g.data_ptr(), scratch.data_ptr(),
             n, m, kb, b, nu.stride(0) if n > 1 else 0,
             float(gamma), float(delta), int(bool(nonneg)), stream,
         )

@@ -9,6 +9,12 @@ kernel or raises; it never falls back.  Each launch adds one to
 TPU wrapper's padding copies and its equal-padding rule have no
 counterpart here.
 
+The source holds two kernels, and the choice between them is fixed by
+dtype and head dim (`variant`, the same rule as the source's
+`variant_of`): "wgmma_tma" (tensor cores, TMA-fed tiles) for bfloat16 at
+D = 64, 128 or 256, "scalar_fp32" (CUDA-core fp32 FMAs) for float32 at
+every D and for bfloat16 at D = 16 or 32.
+
 `flash_decode` is the single-token decode attention, plain PyTorch as the
 JAX version is plain jnp.
 """
@@ -25,6 +31,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+WGMMA_HEAD_DIMS = (64, 128, 256)    # the bf16 head dims of the wgmma_tma kernel
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 ]
@@ -37,17 +44,40 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_variant.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_variant.restype = ctypes.c_char_p
+    lib.flash_attention_ctas.argtypes = [ctypes.c_int] * 5
+    lib.flash_attention_ctas.restype = ctypes.c_longlong
     return lib
 
 
-def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
-    """x itself when the kernel can read it in place (D contiguous, every
-    stride a multiple of 4 elements, base 16-byte aligned), else a copy."""
-    ok = (
-        x.stride(-1) == 1
-        and all(st % 4 == 0 for st in x.stride()[:-1])
-        and x.data_ptr() % 16 == 0
-    )
+def variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel a launch of this dtype and head dim runs: "wgmma_tma" for
+    bfloat16 at D in WGMMA_HEAD_DIMS, else "scalar_fp32"."""
+    return "wgmma_tma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "scalar_fp32"
+
+
+def library_variant(dtype: torch.dtype, d: int) -> str:
+    """The built library's own answer to `variant` (builds it if needed)."""
+    return _library().flash_attention_variant(int(dtype == torch.bfloat16), d).decode()
+
+
+def ctas(b: int, hq: int, s: int, dtype: torch.dtype, d: int) -> int:
+    """CTAs of one launch at this shape, as the built library computes them."""
+    return int(_library().flash_attention_ctas(b, hq, s, int(dtype == torch.bfloat16), d))
+
+
+def _kernel_layout(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """x itself when the kernel can read it in place, else a copy.  In place
+    means D contiguous, the base 16-byte aligned, and every stride a multiple
+    of 4 elements; for wgmma_tma, whose TMA tensor maps need 16-byte
+    strides, a multiple of 8 (bf16) elements, where a dimension of size 1
+    is never stepped and its stride is not read."""
+    if kind == "wgmma_tma":
+        ok = all(st % 8 == 0 for n, st in zip(x.shape[:-1], x.stride()[:-1]) if n > 1)
+    else:
+        ok = all(st % 4 == 0 for st in x.stride()[:-1])
+    ok = ok and x.stride(-1) == 1 and x.data_ptr() % 16 == 0
     return x if ok else x.contiguous()
 
 
@@ -58,7 +88,8 @@ def _launch(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
         raise ValueError(f"flash_attention's kernel takes head_dim in {HEAD_DIMS}, got {d}")
     if b * hq > 65535:
         raise ValueError(f"B * Hq = {b * hq} exceeds the kernel's grid (65535)")
-    q, k, v = (_kernel_layout(x) for x in (q, k, v))
+    kind = variant(q.dtype, d)
+    q, k, v = (_kernel_layout(x, kind) for x in (q, k, v))
     out = torch.empty_like(q)  # q's strides: a (B, S, H, D) view stays one
     strides = (ctypes.c_longlong * 12)(
         *(st for x in (q, k, v, out) for st in x.stride()[:3])

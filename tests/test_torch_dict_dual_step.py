@@ -152,8 +152,21 @@ def _kernel_against_plain(W, nu, y_atol):
         assert_close(gs, gr, rtol=DD_G_RTOL, atol=DD_G_ATOL)
 
 
+# The two-pass kernel's tile edges: atom tiles of 256 (pass 1) and 32-atom
+# stages (pass 2) cut by Kb = 127, 129 and the unaligned 33 (132-byte W
+# rows: no 16-byte access), row tiles of 256 and 16-row stages cut by
+# M = 63, 65, batch tiles of 16 cut by B = 1, 17 (and 256: 16 full tiles).
+EDGE_SHAPES = [
+    (63, 127, 1),
+    (65, 129, 17),
+    (65, 33, 256),
+    (63, 33, 17),
+    (300, 129, 16),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,b", DD_SHAPES)
+@pytest.mark.parametrize("m,k,b", DD_SHAPES + EDGE_SHAPES)
 def test_cuda_kernel_matches_plain(m, k, b):
     require_cuda()
     rng = np.random.default_rng(m + k + b)
@@ -195,3 +208,30 @@ def test_cuda_kernel_bf16_and_vector():
     assert_close(g, gr[0], rtol=BF16_TOL, atol=5 * BF16_TOL)
     y, g = ops.dict_dual_step(W.float(), nu[0].float(), gamma=0.1, delta=0.1)
     assert tuple(y.shape) == (96,) and tuple(g.shape) == (64,)
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,b", [(8192, 2048, 16), (65, 33, 17)])
+def test_cuda_kernel_repeats_bit_for_bit(m, k, b):
+    """Every output has one owner that sums in one fixed order: two launches
+    on the same inputs give the same bits."""
+    require_cuda()
+    ops = _ops()
+    rng = np.random.default_rng(m + k)
+    dev = torch.device("cuda")
+    W = to_torch(rand(rng, 2, m, k)).to(dev)
+    nu = to_torch(rand(rng, 2, b, m)).to(dev)
+    y1, g1 = ops.dict_dual_step(W, nu, gamma=0.05, delta=0.1)
+    y2, g2 = ops.dict_dual_step(W, nu, gamma=0.05, delta=0.1)
+    assert torch.equal(y1, y2) and torch.equal(g1, g2)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_fills_the_card_at_the_main_shape():
+    """At W (16, 8192, 16384), B = 16 each pass launches at least 128 CTAs
+    (the card has 132 SMs)."""
+    require_cuda()
+    ops = _ops()
+    assert ops.VARIANT == "two_pass"
+    assert min(ops.ctas(16, 8192, 16384, 16)) >= 128

@@ -166,3 +166,106 @@ def test_kernel_bf16_and_strided_on_the_card(d):
     assert_bf16_close(got, attention_ref(qt, kt, vt, causal=True))
     with pytest.raises(ValueError, match="head_dim"):
         _ops().flash_attention(*(torch.zeros(1, 2, 8, 48, device="cuda") for _ in range(3)))
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma_tma"), (torch.bfloat16, 128, "wgmma_tma"),
+    (torch.bfloat16, 256, "wgmma_tma"), (torch.bfloat16, 16, "scalar_fp32"),
+    (torch.bfloat16, 32, "scalar_fp32"), (torch.float32, 16, "scalar_fp32"),
+    (torch.float32, 64, "scalar_fp32"), (torch.float32, 256, "scalar_fp32"),
+])
+def test_variant_rule(dtype, d, want):
+    """The fixed choice of kernel by dtype and head dim: bf16 at D = 64, 128,
+    256 on the tensor cores, everything else (fp32 at every D) on the
+    scalar fp32 kernel."""
+    assert _ops().variant(dtype, d) == want
+
+
+def test_kernel_layout_rule():
+    """In place when the kernel can read the strides, else a copy: multiples
+    of 4 elements for scalar_fp32, of 8 (16 bytes, TMA's rule) for
+    wgmma_tma, which never reads the stride of a dimension of size 1."""
+    layout = _ops()._kernel_layout
+    bsh = torch.zeros(2, 100, 8, 64, dtype=torch.bfloat16).transpose(1, 2)  # (B, S, H, D) view
+    assert layout(bsh, "wgmma_tma") is bsh and layout(bsh, "scalar_fp32") is bsh
+    four = torch.zeros(2, 4, 100, 68, dtype=torch.bfloat16)[..., :64]  # seq stride 68 = 4 mod 8
+    assert layout(four, "scalar_fp32") is four
+    copied = layout(four, "wgmma_tma")
+    assert copied is not four and copied.is_contiguous() and torch.equal(copied, four)
+    ones = torch.zeros(100 * 64, dtype=torch.bfloat16).as_strided((1, 1, 100, 64), (3, 5, 64, 1))
+    assert layout(ones, "wgmma_tma") is ones
+    odd = torch.zeros(2, 4, 100, 66, dtype=torch.bfloat16)[..., :64]  # seq stride 66: neither
+    for kind in ("wgmma_tma", "scalar_fp32"):
+        assert layout(odd, kind).is_contiguous()
+    gapped = torch.zeros(2, 4, 100, 128, dtype=torch.bfloat16)[..., ::2]  # D not contiguous
+    assert layout(gapped, "wgmma_tma").stride(-1) == 1
+
+
+WGMMA_CASES = [
+    # (S, T, causal): ragged S = T, T > S, non-causal (ragged T too)
+    (1000, 1000, True),
+    (300, 1000, True),
+    (1000, 1000, False),
+    (200, 333, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s,t,causal", WGMMA_CASES)
+def test_wgmma_kernel_bf16_on_the_card(d, s, t, causal):
+    require_cuda()
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    ops = _ops()
+    assert ops.variant(torch.bfloat16, d) == ops.library_variant(torch.bfloat16, d) == "wgmma_tma"
+    q, k, v = (to_torch(x).cuda().bfloat16() for x in _qkv((2, 4, 2, s, t, d), s + t + d))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16
+    assert_bf16_close(got, attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 256])
+def test_wgmma_kernel_strides_on_the_card(d):
+    """The model's (B, S, H, D) layout read in place, and a seq stride of
+    4 (mod 8) bf16 elements, which TMA cannot take, copied first."""
+    require_cuda()
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    ops = _ops()
+    q, k, v = _qkv((2, 8, 1, 130, 130, d), d + 1)
+    qt, kt, vt = (to_torch(x.transpose(0, 2, 1, 3)).cuda().bfloat16().transpose(1, 2)
+                  for x in (q, k, v))
+    assert ops._kernel_layout(qt, "wgmma_tma") is qt
+    got = ops.flash_attention(qt, kt, vt, causal=True)
+    assert got.stride() == qt.stride()
+    assert_bf16_close(got, attention_ref(qt, kt, vt, causal=True))
+
+    def padded(x):  # rows of D + 4 elements
+        out = torch.zeros(*x.shape[:-1], d + 4, dtype=torch.bfloat16, device="cuda")
+        out[..., :d] = to_torch(x).cuda().bfloat16()
+        return out[..., :d]
+
+    qp, kp, vp = (padded(x) for x in (q, k, v))
+    assert qp.stride(2) % 8 == 4 and ops._kernel_layout(qp, "wgmma_tma") is not qp
+    assert_bf16_close(ops.flash_attention(qp, kp, vp, causal=True),
+                      attention_ref(qp, kp, vp, causal=True))
+
+
+@pytest.mark.gpu
+def test_wrapper_reports_wgmma_at_the_main_shape():
+    """gemma-2b's prefill attention (chip_smoke.FA_MAIN: B 4, Hq 8, Hkv 1,
+    S = T = 2048, D 256, bf16, causal) goes to the tensor-core kernel."""
+    require_cuda()
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    ops = _ops()
+    b, hq, hkv, s, t, d = 4, 8, 1, 2048, 2048, 256
+    assert ops.variant(torch.bfloat16, d) == ops.library_variant(torch.bfloat16, d) == "wgmma_tma"
+    q, k, v = (to_torch(x).cuda().bfloat16() for x in _qkv((b, hq, hkv, s, t, d), 0))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert_bf16_close(got, attention_ref(q, k, v, causal=True))
