@@ -5,6 +5,14 @@ inputs, then runs the hand-written CUDA kernel (`csrc/slstm_step.cu`) on
 CUDA tensors and the plain PyTorch version (`ref.slstm_seq_ref`) on CPU
 tensors.  On a CUDA tensor it launches the kernel or raises; it never
 falls back.  Each launch adds one to `slstm_seq.launches`.
+
+The kernel runs one thread-block cluster per (head, group of `BT` batch
+rows), with the head's R on chip; its plan (cluster size, clusters, CTAs)
+follows from (B, P) and the dtype by the source's `make_plan`, mirrored by
+`plan` / `variant` here and read from the built library by
+`library_plan`.  A head dim without a plan (see `plan`) raises before a
+launch.
+
 `slstm_block_kernel` adapts the model's per-gate parameters (w_*, r_*,
 b_*) to the stacked tensors the recurrence takes, as the JAX wrapper does.
 """
@@ -12,7 +20,7 @@ b_*) to the stacked tensors the recurrence takes, as the JAX wrapper does.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -20,9 +28,21 @@ from repro_torch.kernels import build
 from repro_torch.kernels.slstm_step.ref import GATES, slstm_seq_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# One barrier counter per head, each on its own 128-byte line.
-_BARRIER_STRIDE = 32
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+VARIANT = "cluster"
+# The source's constants: batch rows per cluster, threads per CTA, the
+# largest cluster, the values of R one CTA holds.
+BT, MAX_THREADS, MAX_CLUSTER, BUDGET = 4, 256, 16, 65536
+_PLAN_KEYS = ("cs", "bt", "clusters", "ctas", "threads", "ks", "nj", "smem",
+              "max_active_clusters")
+# (B, S, D, H) on the edges of the plan, where the card tests and
+# chip_smoke.py hold the kernel against its plain version: P 512, 256, 128
+# (clusters of 16, 4, 1 CTAs), B 1 .. 9 (a ragged last group of BT rows),
+# S 1 and 2 and longer, and P 384 (16 CTAs of 24 columns: the P = 512
+# kernel at a plan with less shared memory) between P = 512 shapes.
+EDGE_SHAPES = ((1, 1, 2048, 4), (2, 7, 1536, 4), (3, 2, 2048, 4), (5, 33, 2048, 4),
+               (9, 2, 1024, 4), (9, 17, 1024, 8), (1, 2, 256, 2), (5, 40, 512, 2))
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -34,25 +54,94 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.slstm_seq_error_string.argtypes = [ctypes.c_int]
     lib.slstm_seq_error_string.restype = ctypes.c_char_p
+    lib.slstm_seq_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.slstm_seq_plan.restype = ctypes.c_int
     return lib
+
+
+def plan(dtype: torch.dtype, b: int, p: int, n_heads: int = 1) -> Dict[str, int]:
+    """The launch plan at batch b, head dim p and n_heads heads, by the
+    source's `make_plan`: cluster size cs (the smallest power of two that
+    leaves each CTA at most BUDGET values of the head's R), BT batch rows
+    per cluster, clusters = n_heads * ceil(b / BT), ctas = clusters * cs,
+    threads per CTA (P / cs columns, ks lanes each), nj 4-input groups per
+    lane, and the dynamic shared memory in bytes (fp32 keeps the lower
+    halves of R there).  Raises ValueError for a p without a plan: p must be
+    a multiple of 4 and of 4 cs, and need nj <= 16 (every power of two from
+    4 to 512 has a plan)."""
+    if b < 1 or n_heads < 1 or p < 4 or p % 4:
+        raise ValueError(f"slstm_seq's kernel takes a head dim P that is a multiple of 4, "
+                         f"got P={p} (B={b}, H={n_heads})")
+    cs = 1
+    while 4 * p * (p // cs) > BUDGET:
+        cs *= 2
+    if cs > MAX_CLUSTER or p % (4 * cs):
+        raise ValueError(f"slstm_seq's kernel has no plan for P={p}: its R needs a cluster "
+                         f"of {cs} CTAs of P / {cs} columns, a multiple of 4, and at most "
+                         f"{MAX_CLUSTER}")
+    cols = p // cs
+    lim = min(8, MAX_THREADS // cols, p // 4)
+    ks = 1
+    while ks * 2 <= lim:
+        ks *= 2
+    need = -(-p // (4 * ks))
+    nj = 1
+    while nj < need:
+        nj *= 2
+    if nj > 16:
+        raise ValueError(f"slstm_seq's kernel has no plan for P={p}: a lane would hold "
+                         f"{4 * nj} inputs of R, more than 64")
+    threads = -(-cols * ks // 32) * 32
+    if p > 2 * threads:  # a lane sends at most two 16-byte pieces of h_t a step
+        raise ValueError(f"slstm_seq's kernel has no plan for P={p}: {threads} threads "
+                         f"cannot send its h_t in two pieces each")
+    clusters = n_heads * -(-b // BT)
+    # Two mbarriers, fp32's lower halves of R, the h double buffer (rows
+    # padded to 4 ks nj), the double-buffered stage of h_t's columns.
+    smem = (16 + (threads * nj * 32 if dtype == torch.float32 else 0)
+            + 4 * 2 * BT * (4 * ks * nj + cols))
+    return {"cs": cs, "bt": BT, "clusters": clusters, "ctas": clusters * cs,
+            "threads": threads, "ks": ks, "nj": nj, "smem": smem}
+
+
+def variant(dtype: torch.dtype, b: int, p: int, n_heads: int = 1) -> Tuple[str, Dict[str, int]]:
+    """The kernel a launch runs ("cluster", at every dtype and shape) and
+    its plan (`plan`)."""
+    return VARIANT, plan(dtype, b, p, n_heads)
+
+
+def library_plan(dtype: torch.dtype, b: int, p: int, n_heads: int = 1) -> Dict[str, int]:
+    """The built library's own plan at this shape (builds it if needed), with
+    `max_active_clusters`: how many of its clusters fit on the card at once
+    (cudaOccupancyMaxActiveClusters; 0 means a launch would fail)."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    lib = _library()
+    err = lib.slstm_seq_plan(b, n_heads, p, int(dtype == torch.bfloat16), ctypes.addressof(out))
+    if err:
+        msg = lib.slstm_seq_error_string(err).decode()
+        raise RuntimeError(f"slstm_seq_plan failed: {msg} ({err})")
+    return dict(zip(_PLAN_KEYS, (int(v) for v in out)))
 
 
 def _launch(x_proj: torch.Tensor, R: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, State]:
     _, s, batch, d = x_proj.shape
     n_heads, p = R.shape[1], R.shape[2]
+    plan(x_proj.dtype, batch, p, n_heads)  # raises for a head dim without a plan
+    if x_proj.numel() > 0xFFFFFFFF:
+        raise ValueError(f"slstm_seq's kernel indexes x_proj in 32 bits, got "
+                         f"{tuple(x_proj.shape)}")
     x_proj, R = x_proj.contiguous(), R.contiguous()
     bias = b.float().contiguous()
     dev = x_proj.device
     h = torch.empty(s, batch, d, device=dev)
     c, n, m = (torch.empty(batch, d, device=dev) for _ in range(3))
-    barrier = torch.zeros(n_heads * _BARRIER_STRIDE, dtype=torch.int32, device=dev)
     lib = _library()
     fn = lib.slstm_seq_f32 if x_proj.dtype == torch.float32 else lib.slstm_seq_bf16
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             x_proj.data_ptr(), R.data_ptr(), bias.data_ptr(), h.data_ptr(), c.data_ptr(),
-            n.data_ptr(), m.data_ptr(), barrier.data_ptr(), s, batch, n_heads, p, stream,
+            n.data_ptr(), m.data_ptr(), s, batch, n_heads, p, stream,
         )
     if err:
         msg = lib.slstm_seq_error_string(err).decode()

@@ -5,14 +5,17 @@ Pallas kernel in interpret mode and the JAX oracle, at the shapes of
 tests/test_moe_a2a.py's two sLSTM tests and their 1e-5; the final
 (c, n, m), which the JAX kernel does not return, against the final state of
 `xlstm.slstm_block(return_cache=True)`; `slstm_block_kernel` against
-`xlstm.slstm_block`; the stable logsig; the wrapper's input checks; and,
-on the card only, the CUDA kernel against the plain version.
+`xlstm.slstm_block`; the stable logsig; the wrapper's input checks; the
+kernel's cluster plan (`ops.variant`) as its source states it; and, on the
+card only, the CUDA kernel against the plain version, on the plan's edges
+too, and the bits of a repeated launch.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.slstm_step.ops import EDGE_SHAPES
 from test_torch_common import assert_close, rand, require_cuda, to_jax, to_torch
 
 TOL = 1e-5  # tests/test_moe_a2a.py's sLSTM tolerance
@@ -20,6 +23,21 @@ TOL = 1e-5  # tests/test_moe_a2a.py's sLSTM tolerance
 # the oracle test's x_proj (4, 20, 2, 32) with R (4, 4, 8, 8).
 BLOCK_SHAPES = [(2, 24, 32, 4), (1, 16, 64, 2), (3, 33, 16, 4)]
 SEQ_SHAPES = BLOCK_SHAPES + [(2, 20, 32, 4)]
+# The card test's shapes; the plan's edges are ops.EDGE_SHAPES.
+CARD_SHAPES = SEQ_SHAPES + [(5, 40, 96, 3), (4, 64, 2048, 4), (9, 17, 1024, 8)]
+MAIN = (4, 2048, 2048, 4)  # chip_smoke.SL_MAIN: one xlstm-1.3b sLSTM block
+# (cs, bt, clusters, ctas) by the source's make_plan: cs the smallest power
+# of two with 4 P (P / cs) <= 65536, 4 batch rows a cluster, H ceil(B / 4)
+# clusters.
+PLANS = {
+    MAIN: (16, 4, 4, 64), (2, 24, 32, 4): (1, 4, 4, 4), (1, 16, 64, 2): (1, 4, 2, 2),
+    (3, 33, 16, 4): (1, 4, 4, 4), (2, 20, 32, 4): (1, 4, 4, 4), (5, 40, 96, 3): (1, 4, 6, 6),
+    (4, 64, 2048, 4): (16, 4, 4, 64), (9, 17, 1024, 8): (1, 4, 24, 24),
+    (1, 1, 2048, 4): (16, 4, 4, 64), (2, 7, 1536, 4): (16, 4, 4, 64),
+    (3, 2, 2048, 4): (16, 4, 4, 64),
+    (5, 33, 2048, 4): (16, 4, 8, 128), (9, 2, 1024, 4): (4, 4, 12, 48),
+    (1, 2, 256, 2): (1, 4, 2, 2), (5, 40, 512, 2): (4, 4, 4, 16),
+}
 
 
 def _ops():
@@ -140,6 +158,35 @@ def test_input_checks():
                                torch.zeros(1, 3, 16), n_heads=4)
 
 
+@pytest.mark.parametrize("shape", sorted(PLANS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_variant_plan_follows_the_source_rule(shape, dtype):
+    b, _, d, h = shape
+    kind, plan = _ops().variant(dtype, b, d // h, h)
+    assert kind == "cluster"
+    assert (plan["cs"], plan["bt"], plan["clusters"], plan["ctas"]) == PLANS[shape]
+
+
+def test_variant_plan_at_the_main_shape():
+    """256 threads of 8 lanes per column (32 columns a CTA), 16 groups of 4
+    inputs a lane; shared memory: two mbarriers (16 bytes), the h double
+    buffer and the double-buffered stage, and in fp32 the lower halves of R
+    (128 KB)."""
+    ops = _ops()
+    b, _, d, h = MAIN
+    for dtype, smem in ((torch.bfloat16, 16 + 4 * (2 * 4 * 512 + 2 * 4 * 32)),
+                        (torch.float32, 16 + 256 * 16 * 32 + 4 * (2 * 4 * 512 + 2 * 4 * 32))):
+        plan = ops.plan(dtype, b, d // h, h)
+        assert (plan["threads"], plan["ks"], plan["nj"], plan["smem"]) == (256, 8, 16, smem)
+    assert ops.variant(torch.bfloat16, 1, 512) == ("cluster", ops.plan(torch.bfloat16, 1, 512, 1))
+
+
+@pytest.mark.parametrize("p", [6, 132, 260, 1024])
+def test_plan_refuses_head_dims_without_one(p):
+    with pytest.raises(ValueError, match="P="):
+        _ops().plan(torch.bfloat16, 4, p, 2)
+
+
 def test_bf16_inputs_widen_like_fp32():
     """On the CPU, bf16 x_proj and R give what their fp32 widening gives:
     the recurrence widens its inputs and runs in fp32."""
@@ -163,8 +210,7 @@ def test_kernel_matches_plain_on_the_card():
 
     ops = _ops()
     dev = torch.device("cuda")
-    shapes = SEQ_SHAPES + [(5, 40, 96, 3), (4, 64, 2048, 4), (9, 17, 1024, 8)]
-    for (b, s, d, h) in shapes:
+    for (b, s, d, h) in CARD_SHAPES:
         xp, R, bias = (to_torch(a).to(dev) for a in _seq_inputs(b, s, d, h, seed=b + s + d))
         before = ops.slstm_seq.launches
         hs, state = ops.slstm_seq(xp, R, bias)
@@ -179,3 +225,41 @@ def test_kernel_matches_plain_on_the_card():
     hs, _ = ops.slstm_seq(xp.bfloat16(), R.bfloat16(), bias)
     want, _ = slstm_seq_ref(xp.bfloat16(), R.bfloat16(), bias)
     assert_close(hs, want, rtol=TOL, atol=TOL, what="bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_on_the_plan_edges(dtype):
+    """Clusters of 16, 4 and 1 CTAs, ragged batch groups, S = 1 and 2, the
+    launch's plan as ops.variant states it."""
+    require_cuda()
+    from repro_torch.kernels.slstm_step.ref import slstm_seq_ref
+
+    ops = _ops()
+    for (b, s, d, h) in EDGE_SHAPES:
+        got = ops.library_plan(dtype, b, d // h, h)
+        assert got["max_active_clusters"] >= 1
+        assert {k: got[k] for k in ops.plan(dtype, b, d // h, h)} == ops.plan(dtype, b, d // h, h)
+        xp, R, bias = (to_torch(a).cuda() for a in _seq_inputs(b, s, d, h, seed=b * s + d))
+        xp, R = xp.to(dtype), R.to(dtype)
+        hs, state = ops.slstm_seq(xp, R, bias)
+        want, want_state = slstm_seq_ref(xp, R, bias)
+        torch.cuda.synchronize()
+        assert_close(hs, want, rtol=TOL, atol=TOL, what=f"h {(b, s, d, h)} {dtype}")
+        for name, got_t, ref_t in zip("cnm", state, want_state):
+            assert_close(got_t, ref_t, rtol=TOL, atol=TOL, what=f"{name} {(b, s, d, h)} {dtype}")
+
+
+@pytest.mark.gpu
+def test_repeated_launch_is_bit_identical():
+    """The sums run in a fixed order (each lane's inputs, then a fixed
+    shuffle tree), so a second launch on the same inputs gives the same bits."""
+    require_cuda()
+    ops = _ops()
+    for (b, s, d, h) in [(4, 64, 2048, 4), (9, 17, 1024, 8)]:
+        xp, R, bias = (to_torch(a).cuda() for a in _seq_inputs(b, s, d, h, seed=11))
+        first = ops.slstm_seq(xp.bfloat16(), R.bfloat16(), bias)
+        second = ops.slstm_seq(xp.bfloat16(), R.bfloat16(), bias)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0])
+        assert all(torch.equal(u, v) for u, v in zip(first[1], second[1]))
