@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port (src/repro_torch, never jax) on the card in four phases,
+Drives the port (src/repro_torch, never jax) on the card in five phases,
 and fails (non-zero exit, no result line) if any of them fails:
 
 1. Card and build: prints the card's name and power limit, builds every
@@ -59,7 +59,24 @@ and fails (non-zero exit, no result line) if any of them fails:
      every code finite (and, in `exact_fista`, some nonzero), and one
      micro-batch re-solved on the final snapshot with the kernel swapped
      for its plain version must agree with the kernel path.
-4. Result: one JSON line listing every kernel (launches on its main path,
+4. The learner and the paper's applications, plain PyTorch on the card
+   (no kernel of the port is on their path, and the script fails if one
+   launches):
+   - core/learner.DictionaryLearner at the production dictionary (M 8192,
+     K 262144, N 16, sparse_svd, gamma 0.05, delta 0.1, 150 iterations,
+     mu_w 0.1, batches of 16 from sparse_stream): engine fista, one warm
+     fit_batch, 4 timed, then code(); every metric and code finite, some
+     code nonzero, the step changing W, every column norm <= 1 + 1e-6.
+     Engine diffusion (erdos p 0.5, the safe mu), 2 steps, recorded only.
+     Seconds per fit_batch, samples/s, dual iterations/s, objectives and
+     peak device memory are printed.  Then one fit_batch per engine on the
+     card and on the CPU from one numpy state at M 512, K 16384, N 16: W
+     and the four metrics within 1e-4 relative, while a planted fault (each
+     agent's codes taken from the next agent) must fail the W check;
+   - the experiment twins table3_auc (n_steps 2) and fig5_denoise
+     (n_patches 1200) on the card: every AUC in [0, 1], every PSNR finite
+     and each denoised PSNR above the noisy one.
+5. Result: one JSON line listing every kernel (launches on its main path,
    error against plain, times and bound), the card line, and last the
    device line {"ok": true, "device": {...}}.
 """
@@ -151,6 +168,27 @@ SL_TOL = 2.0 ** -9
 # is non-expansive, so the difference stays near iters x fp32 rounding of
 # the 8192-term products.  Stated bound: 1e-3 of the largest magnitude.
 SOLVE_RTOL = 1e-3
+
+# The learner (core/learner.DictionaryLearner, the paper's Alg. 1) at the
+# production dictionary above, with serve_dict's --mu-w default: one warm
+# fit_batch of MICRO_BATCH samples, LEARN_STEPS timed ones, then code() on a
+# batch.  The fista engine is gated; the diffusion engine (erdos p 0.5, the
+# safe mu) runs LEARN_DIFFUSION_STEPS steps and is recorded only: at this
+# width 150 iterations leave nu far from converged (see main()), so its codes
+# and its dictionary step may be 0.  The samples come from sparse_stream
+# with a planted dictionary of LEARN_K_TRUE atoms (its width does not change
+# the samples' statistics, and drawing 262144 planted atoms costs the host
+# some 40 s).
+LEARN_MU_W, LEARN_STEPS, LEARN_DIFFUSION_STEPS, LEARN_K_TRUE = 0.1, 4, 2, 4096
+# Card against CPU: one fit_batch per engine from one numpy state at the
+# production Kb/M = 2 (M 512, K 16384, N 16).  Both run the same fp32
+# arithmetic with sums in another order (cuBLAS against the CPU's BLAS):
+# W within 1e-4 of its largest |value|, each metric within 1e-4 relative
+# (sparsity also within one coefficient, 1 / (B K), as one code may sit at
+# the threshold).  A planted fault (the card's y rolled by one agent, so
+# each agent steps with its neighbour's codes) must fail the W check under
+# fista, whose codes are nonzero; under diffusion and exact it is recorded.
+LEARN_PARITY_M, LEARN_PARITY_K, LEARN_PARITY_RTOL = 512, 16384, 1e-4
 
 
 def card_line() -> str:
@@ -1218,6 +1256,166 @@ def phase_xlstm(torch, card: str):
     return launches
 
 
+def learner_step(torch, learner, state, x):
+    """One fit_batch, synchronized: (new state, metrics as floats, seconds)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, metrics = learner.fit_batch(state, x)
+    torch.cuda.synchronize()
+    return state, {k: float(v) for k, v in metrics._asdict().items()}, time.perf_counter() - t
+
+
+def max_abs_step(torch, before, after) -> float:
+    """max |after - before| over (N, M, Kb) blocks, one agent at a time."""
+    return max(float((a - b).abs().max()) for a, b in zip(after, before))
+
+
+def phase_learner(torch, card: str):
+    """The learner at the production dictionary (fista gated, diffusion
+    recorded), then card against CPU at the production Kb/M."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.convert import learner_state_from_numpy
+    from repro_torch.core.learner import DictionaryLearner, LearnerConfig
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.synthetic import sparse_stream
+
+    X = sparse_stream(MICRO_BATCH * (LEARN_STEPS + 2), m=M, k_true=LEARN_K_TRUE, seed=1)
+    batches = [X[i * MICRO_BATCH:(i + 1) * MICRO_BATCH] for i in range(LEARN_STEPS + 2)]
+    base = LearnerConfig(m=M, k=ATOMS_PER_AGENT * N_AGENTS, n_agents=N_AGENTS,
+                         task="sparse_svd", gamma=GAMMA, delta=DELTA, mu=-1.0,
+                         inference_iters=ITERS, mu_w=LEARN_MU_W, seed=0)
+    out = {}
+    for engine, steps in (("fista", LEARN_STEPS), ("diffusion", LEARN_DIFFUSION_STEPS)):
+        learner = DictionaryLearner(dataclasses.replace(base, engine=engine))
+        state = learner.init_state()
+        warm = engine == "fista"
+        if warm:
+            state, _, _ = learner_step(torch, learner, state, batches[0])
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(steps):
+            before = state.W_blocks
+            state, metrics, dt = learner_step(torch, learner, state, batches[1 + i])
+            secs.append(dt)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dW = max_abs_step(torch, before, state.W_blocks)
+        del before
+        col_max = float(torch.linalg.vector_norm(state.W_blocks, dim=1).max())
+        y = learner.code(state, batches[-1])
+        code_share = float((y != 0).float().mean())
+        # Where a step's time goes: one more fit_batch under torch.profiler.
+        wall_ms, dev_ms, top = device_profile(torch, lambda: learner.fit_batch(state, batches[-1]))
+        finite = all(math.isfinite(v) for v in metrics.values()) and bool(torch.isfinite(y).all())
+        timed = secs if warm else secs[1:]  # diffusion's first step is its warm-up
+        s_step = sum(timed) / len(timed)
+        rec = {"engine": engine, "card": card, "M": M, "K": base.k, "agents": N_AGENTS,
+               "batch": MICRO_BATCH, "iters": ITERS, "steps_timed": len(timed),
+               "s_per_fit_batch": s_step, "step_s": secs,
+               "samples_per_s": MICRO_BATCH / s_step, "dual_iters_per_s": ITERS / s_step,
+               "metrics": metrics, "code_nonzero_share": code_share,
+               "max_abs_dW": dW, "max_col_norm": col_max, "peak_mem_gb": peak_gb,
+               "profile": {"wall_ms": wall_ms, "device_ms": dev_ms, "busy": dev_ms / wall_ms,
+                           "top": top}}
+        print(f"[learner:{engine}] {card}: {s_step:.4f} s per fit_batch "
+              f"({MICRO_BATCH / s_step:.2f} samples/s, {ITERS / s_step:.1f} dual iterations/s)  "
+              f"primal {metrics['primal_obj']:.6f} dual {metrics['dual_obj']:.6f} "
+              f"residual {metrics['residual_norm']:.6f} sparsity {metrics['sparsity']:.3e}  "
+              f"code() nonzero {code_share:.3e}  max|dW| {dW:.3e}  max col norm {col_max:.7f}  "
+              f"peak device memory {peak_gb:.2f} GB")
+        print(f"[learner:{engine}] profiled step: {dev_ms:.1f} ms of kernels over "
+              f"{wall_ms:.1f} ms (busy {dev_ms / wall_ms:.3f}); top {top}")
+        print("LEARNER " + json.dumps(rec))
+        if engine == "fista":
+            if not finite:
+                raise AssertionError(f"learner fista: a metric or code is not finite {metrics}")
+            if not (metrics["sparsity"] > 0 and code_share > 0):
+                raise AssertionError("learner fista: every code is zero")
+            if not dW > 0:
+                raise AssertionError("learner fista: the dictionary step changed nothing")
+            if not col_max <= 1.0 + 1e-6:
+                raise AssertionError(f"learner fista: a column norm is {col_max}")
+        out[engine] = rec
+        del learner, state, y
+        torch.cuda.empty_cache()
+
+    # Card against CPU at the production Kb/M.
+    m, k = LEARN_PARITY_M, LEARN_PARITY_K
+    rng = np.random.default_rng(0)
+    W = rng.standard_normal((m, k)).astype(np.float32)
+    W /= np.linalg.norm(W, axis=0)
+    A = make_topology("erdos", N_AGENTS, p=0.5, seed=0)
+    x = sparse_stream(MICRO_BATCH, m=m, k_true=1024, seed=2)
+    small = dataclasses.replace(base, m=m, k=k)
+
+    def parity_readings(got, want):
+        (Wg, mg), (Ww, mw) = got, want
+        r = {"W": max_err(Wg.cpu(), Ww) / float(Ww.abs().max())}
+        for name, v in mw.items():
+            floor = 1.0 / (MICRO_BATCH * k) if name == "sparsity" else 0.0
+            r[name] = max(abs(mg[name] - v) - floor, 0.0) / max(abs(v), 1e-30)
+        return r
+
+    def one_step(engine, device, fault=False):
+        learner = DictionaryLearner(dataclasses.replace(small, engine=engine), device=device)
+        state = learner_state_from_numpy(W, A, np.ones(N_AGENTS), 0, N_AGENTS, device=device)
+        if fault:
+            infer = learner._infer
+
+            def rolled(*args):
+                nu, y = infer(*args)
+                return nu, torch.roll(y, 1, dims=0)
+
+            learner._infer = rolled
+        state, metrics = learner.fit_batch(state, x)
+        return state.W_blocks, {k_: float(v) for k_, v in metrics._asdict().items()}
+
+    for engine in ("fista", "exact", "diffusion"):
+        want = one_step(engine, "cpu")
+        r = parity_readings(one_step(engine, "cuda"), want)
+        planted = parity_readings(one_step(engine, "cuda", fault=True), want)
+        print(f"[learner:parity] {engine} card vs CPU at M {m}, K {k}, N {N_AGENTS}: "
+              + "  ".join(f"{n_} {v:.2e}" for n_, v in r.items())
+              + f" (tol {LEARN_PARITY_RTOL}); planted y from the next agent: W {planted['W']:.2e}"
+              + f"  sparsity (CPU) {want[1]['sparsity']:.3e}")
+        if max(r.values()) > LEARN_PARITY_RTOL:
+            raise AssertionError(f"learner {engine}: card and CPU disagree {r}")
+        if engine == "fista" and not planted["W"] > LEARN_PARITY_RTOL:
+            raise AssertionError(f"learner {engine}: the planted fault passed the W check")
+        out[f"parity_{engine}"] = {"readings": r, "planted_W": planted["W"]}
+    return out
+
+
+def phase_experiments(torch, card: str):
+    """The table3_auc and fig5_denoise twins on the card at cut sizes."""
+    from repro_torch.experiments import fig5_denoise, table3_auc
+
+    cuts = {"table3_auc": {"n_steps": 2}, "fig5_denoise": {"n_patches": 1200}}
+    out = {}
+    for name, run in (("table3_auc", table3_auc.run), ("fig5_denoise", fig5_denoise.run)):
+        t = time.perf_counter()
+        result = run(device="cuda", **cuts[name])
+        wall = time.perf_counter() - t
+        out[name] = {"cut": cuts[name], "wall_s": wall, "result": result}
+        print(f"[experiments:{name}] {card}: wall {wall:.1f} s at {cuts[name]} "
+              f"(other arguments the JAX script's defaults): {result}")
+    aucs = [a for v in out["table3_auc"]["result"].values() for a in v.values()]
+    if not aucs or not all(0.0 <= a <= 1.0 for a in aucs):
+        raise AssertionError(f"table3_auc: an AUC outside [0, 1] or none: {aucs}")
+    psnrs = out["fig5_denoise"]["result"]
+    if not all(math.isfinite(v) for v in psnrs.values()):
+        raise AssertionError(f"fig5_denoise: a PSNR is not finite: {psnrs}")
+    noisy = psnrs["noisy_psnr_db"]
+    low = {k: v for k, v in psnrs.items() if k != "noisy_psnr_db" and not v > noisy}
+    if low:
+        raise AssertionError(f"fig5_denoise: not above the noisy PSNR {noisy}: {low}")
+    print("EXPERIMENTS " + json.dumps({"card": card, **{k: v for k, v in out.items()}},
+                                      default=str))
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a "
@@ -1261,6 +1459,19 @@ def main() -> int:
                 for mode in ("graph", "exact_fista")}
     rec["launches"] = launches["graph"] + launches["exact_fista"]
     rec["launches_by_mode"] = launches
+    # The learner and the experiments are plain PyTorch (no kernel of the
+    # port is on their path, as in the JAX package): none may launch one.
+    reset_launch_counts()
+    timed("learner", phase_learner, torch, card)
+    timed("experiments", phase_experiments, torch, card)
+    from repro_torch.kernels.dict_dual_step import ops as dd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.slstm_step import ops as sl_ops
+
+    stray = dd_ops.dict_dual_step.launches + fa_ops.flash_attention.launches \
+        + sl_ops.slstm_seq.launches
+    if stray:
+        raise AssertionError(f"the learner or experiments launched {stray} kernels")
 
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [rec, fa_rec, sl_rec]}))

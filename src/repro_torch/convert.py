@@ -14,8 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import MairalState
 from repro_torch.core.dictionary import blocks_from_full, full_from_blocks
 from repro_torch.core.distributed import DistConfig
+from repro_torch.core.learner import LearnerState
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import require_ported, tree_map
 
@@ -40,6 +42,28 @@ def dictionary_from_numpy(W: np.ndarray, n_agents: int, device: DeviceLike = "cu
 def dictionary_to_numpy(blocks: torch.Tensor) -> np.ndarray:
     """Inverse of dictionary_from_numpy: (N, M, Kb) blocks -> (M, K) numpy."""
     return full_from_blocks(blocks).cpu().numpy()
+
+
+def learner_state_from_numpy(W: np.ndarray, A: np.ndarray, informed: np.ndarray, step: int,
+                             n_agents: int, device: DeviceLike = "cuda") -> LearnerState:
+    """A DictionaryLearner state from numpy: the (M, K) dictionary W (JAX
+    `learner.dictionary(state)`), the (N, N) combiner A, the (N,) informed
+    mask and the step count."""
+    dev = resolve_device(device)
+    return LearnerState(
+        W_blocks=dictionary_from_numpy(W, n_agents, dev), step=int(step),
+        A=torch.as_tensor(np.asarray(A, np.float32), device=dev),
+        informed=torch.as_tensor(np.asarray(informed, np.float32), device=dev),
+    )
+
+
+def mairal_state_from_numpy(W: np.ndarray, A: np.ndarray, B: np.ndarray, t: int,
+                            device: DeviceLike = "cuda") -> MairalState:
+    """A MairalLearner state from numpy: W (M, K) and the statistics
+    A (K, K) and B (M, K), and the step count t."""
+    dev = resolve_device(device)
+    return MairalState(*(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                         for a in (W, A, B)), t=int(t))
 
 
 def dist_config_from_jax_fields(**fields) -> DistConfig:

@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.conjugates import soft_threshold
 from repro_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -38,6 +39,16 @@ def make_projection(nonneg: bool) -> Callable[[Tensor], Tensor]:
     return project_nonneg_unit_cols if nonneg else project_unit_cols
 
 
+def make_prox(h_w: Optional[str], mu_w: float, beta: float = 0.0) -> Callable[[Tensor], Tensor]:
+    """prox of mu_w * h_W: identity for h_W = 0, entrywise soft threshold for
+    the bi-clustering penalty beta*||W||_1 (Eq. 42-43)."""
+    if h_w in (None, "none", "zero"):
+        return lambda W: W
+    if h_w == "l1":
+        return lambda W: soft_threshold(W, mu_w * beta)
+    raise KeyError(f"unknown h_W {h_w!r}")
+
+
 def dict_update(
     W_k: Tensor,  # (M, Kb) or (N, M, Kb)
     nu: Tensor,  # (B, M) or (N, B, M): this agent's optimal dual
@@ -47,12 +58,20 @@ def dict_update(
     nonneg: bool = False,
     prox: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Tensor:
-    """One proximal-projected SGD step on the local atom block (Eq. 51)."""
-    grad = nu.transpose(-1, -2) @ y_k / nu.shape[-2]  # (.., M, Kb)
-    W_new = W_k + mu_w * grad
+    """One proximal-projected SGD step on the local atom block (Eq. 51).
+
+    W_k + mu_w * (nu^T y_k / B), then the prox, then the projection, with
+    the reference's arithmetic; the steps after the product run in place on
+    its fresh result, so the update holds one W-sized temporary (at the
+    production dictionary a W is 8.6 GB)."""
+    W_new = nu.transpose(-1, -2) @ y_k  # (.., M, Kb)
+    W_new.div_(nu.shape[-2]).mul_(mu_w).add_(W_k)
     if prox is not None:
         W_new = prox(W_new)
-    return make_projection(nonneg)(W_new)
+    if nonneg:
+        W_new.clamp_(min=0.0)
+    norms = torch.linalg.vector_norm(W_new, dim=-2, keepdim=True)
+    return W_new.div_(norms.clamp_(min=1.0))
 
 
 def init_dictionary(

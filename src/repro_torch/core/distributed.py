@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.core import topology as topo
 from repro_torch.core.conjugates import Regularizer, Residual
-from repro_torch.core.dictionary import blocks_from_full
+from repro_torch.core.dictionary import blocks_from_full, dict_update
 from repro_torch.core.inference import power_sigma2
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dict_dual_step import ops
@@ -315,12 +315,7 @@ class DistributedSparseCoder:
         nonneg task, then each column divided by max(||column||, 1)."""
         W, x = self._check(W, x)
         nu, y = self._solve_body(W, x)
-        W_new = torch.bmm(nu.transpose(1, 2), y)  # (N, M, Kb), fresh buffer
-        W_new.mul_(mu_w).div_(x.shape[0]).add_(W)
-        if self.reg.nonneg:
-            W_new.clamp_(min=0.0)
-        norms = torch.linalg.vector_norm(W_new, dim=1, keepdim=True)
-        return W_new.div_(norms.clamp_(min=1.0))
+        return dict_update(W, nu, y, mu_w, nonneg=self.reg.nonneg)
 
     @torch.no_grad()
     def adaptive_mu(self, W: Tensor) -> Tensor:

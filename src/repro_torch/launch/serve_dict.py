@@ -85,7 +85,7 @@ def run(args: argparse.Namespace) -> Dict:
                          "slice 6d, growth and drain); run with --grow-at 0 --drain-at 0")
     if args.replicas != 1 or args.router:
         raise SystemExit("fleet mode (--replicas, --router) is not ported yet "
-                         "(ROADMAP slice 8, the serving plane)")
+                         "(ROADMAP section 1, the serving plane)")
     dims = [int(v) for v in args.mesh.split("x")]
     if len(dims) != 2:
         raise SystemExit(f"--mesh must be '1xN' for the flat modes, got {args.mesh!r}")

@@ -22,8 +22,8 @@ port's `DistributedSparseCoder` (N agents on one device):
     builds the kernels).
 
 Elastic growth, drain, `install_snapshot`, `load` and `kill` are not ported
-yet (ROADMAP slices 6d and 8).  The flat modes are static, so there is no
-schedule clock: `active_schedule` stays 0.
+yet (ROADMAP section 1: 6d and the checkpoint manager).  The flat modes are
+static, so there is no schedule clock: `active_schedule` stays 0.
 """
 
 from __future__ import annotations

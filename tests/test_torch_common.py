@@ -8,6 +8,7 @@ device="cpu".  A test that needs the card is marked `gpu` and skips inside
 its body when there is none.
 """
 
+import functools
 import os
 import pathlib
 import subprocess
@@ -70,6 +71,16 @@ def assert_bf16_close(got, want, row_ulps=4.0):
     assert (np.abs(g - w) <= bound).all(), float(np.nanmax(np.abs(g - w) - bound))
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Run the test with one intra-op thread: at these widths a launch is
+    cheaper than waking a pool, and the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def require_cuda():
     """Skip the calling test (from inside its body) when there is no card."""
     if not torch.cuda.is_available():
@@ -91,7 +102,12 @@ assert len(names) >= 35, names
 for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
            "repro_torch.kernels.flash_attention.ops", "repro_torch.launch.serve",
            "repro_torch.configs.xlstm_1p3b", "repro_torch.models.xlstm",
-           "repro_torch.kernels.slstm_step.ops", "repro_torch.kernels.slstm_step.ref"):
+           "repro_torch.kernels.slstm_step.ops", "repro_torch.kernels.slstm_step.ref",
+           "repro_torch.core.learner", "repro_torch.core.baselines",
+           "repro_torch.core.detection", "repro_torch.core.denoise",
+           "repro_torch.experiments.common", "repro_torch.experiments.fig4_convergence",
+           "repro_torch.experiments.fig5_denoise", "repro_torch.experiments.table3_auc",
+           "repro_torch.experiments.table4_auc_huber"):
     assert lm in names, lm
 assert not bad, bad
 """
@@ -123,25 +139,46 @@ def test_resolve_device_is_the_card_unless_cpu_is_asked_for():
 
 def test_entry_points_default_to_the_card():
     from repro_torch.configs import get_smoke_config
-    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.convert import learner_state_from_numpy, lm_params_from_numpy
+    from repro_torch.core.baselines import MairalConfig, MairalLearner
     from repro_torch.core.conjugates import make_task
+    from repro_torch.core.denoise import denoise_image
     from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+    from repro_torch.core.learner import DictionaryLearner, LearnerConfig
+    from repro_torch.experiments import (
+        common, fig4_convergence, fig5_denoise, table3_auc, table4_auc_huber,
+    )
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
     res, reg = make_task("sparse_svd")
     cfg = get_smoke_config("gemma_2b")
+    lcfg = LearnerConfig(m=4, k=4, n_agents=2, engine="fista", inference_iters=2)
+    mcfg = MairalConfig(m=4, k=4)
+    img = np.zeros((4, 4), np.float32)
     if torch.cuda.is_available():
         assert DistributedSparseCoder(2, res, reg, DistConfig()).device.type == "cuda"
         assert M.init(cfg)["embed"]["table"].is_cuda
         assert M.init_cache(cfg, 1, 4)["layers"]["k"].is_cuda
+        assert DictionaryLearner(lcfg).init_state().W_blocks.is_cuda
+        assert MairalLearner(mcfg, reg).init_state().W.is_cuda
     else:
-        for entry in (lambda: DistributedSparseCoder(2, res, reg, DistConfig()),
+        twins = (fig4_convergence, fig5_denoise, table3_auc, table4_auc_huber)
+        for entry in [lambda: DistributedSparseCoder(2, res, reg, DistConfig()),
                       lambda: M.init(cfg),
                       lambda: M.init_cache(cfg, 1, 4),
                       lambda: lm_params_from_numpy(cfg, {}),
-                      lambda: serve.run(serve.parse_args([]))):
+                      lambda: serve.run(serve.parse_args([])),
+                      lambda: DictionaryLearner(lcfg),
+                      lambda: MairalLearner(mcfg, reg),
+                      lambda: denoise_image(DictionaryLearner(lcfg), None, img, patch=2),
+                      lambda: learner_state_from_numpy(img, np.eye(2), np.ones(2), 0, 2)] + \
+                [functools.partial(common.main, twin.run, []) for twin in twins]:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 entry()
     assert DistributedSparseCoder(2, res, reg, DistConfig(), device="cpu").device.type == "cpu"
     assert M.init(cfg, device="cpu")["embed"]["table"].device.type == "cpu"
+    learner = DictionaryLearner(lcfg, device="cpu")
+    assert learner.init_state().W_blocks.device.type == "cpu"
+    assert MairalLearner(mcfg, reg, device="cpu").init_state().W.device.type == "cpu"
+    assert denoise_image(learner, learner.init_state(), img, patch=2).device.type == "cpu"
