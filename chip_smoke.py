@@ -31,8 +31,22 @@ and fails (non-zero exit, no result line) if any of them fails:
    plain arithmetic with R transposed, x_proj a step late, the f and i
    gates swapped, the final state taken a step early, one CTA's columns
    of h read a step stale or as 0, or the last batch group's final state
-   taken from the first group) must fail the same checks.  The whole coder is also held against the plain reference
-   engine on a small input.
+   taken from the first group) must fail the same checks.
+   The whole coder (kernel path) on small inputs, every gossip mode:
+   graph and exact against the plain reference engines, graph_tv (also
+   with link failures from t0 = 3) against diffusion_infer under the
+   schedule's A_t, push on the directed star against push_sum_infer, hier
+   and an fp32 chain with a stride-2 level against diffusion_infer under
+   the chain's A_t, ring_async and graph_async against one-step-stale
+   diffusion and their plain twins (all 1e-4), every q8 mode against its
+   plain twin (Q8_RTOL of max |nu|).  Planted faults (graph_tv stuck on
+   A_0, push without the division by its weight, the stride-2 level firing
+   every iteration, graph_async combining fresh messages) must fail them.
+   Then every mode of the engine once at the production dictionary (M
+   8192, K 262144, N 16, one micro-batch of 16, GOSSIP_CASES): exactly
+   iters + 1 K1 launches per solve, nu and y finite, the solve timed (mean
+   of 3 after a warm one) and re-solved with K1's plain version within
+   SOLVE_RTOL (Q8_RTOL on the int8 wire); one GOSSIP line each.
 3. Main paths, each driven with every kernel's launch count set to 0 just
    before and read just after:
    - dense-LM serving: the port's serve at gemma-2b's full width (random
@@ -54,9 +68,12 @@ and fails (non-zero exit, no result line) if any of them fails:
    - the dictionary service: serve_dict at the production dictionary
      (M = 8192, K = 262144, N = 16 agents, fp32, gamma 0.05, delta 0.1)
      with learning on, in `graph` mode (ring_metropolis, the paper's
-     diffusion) and in `exact_fista` mode (the CLI default); every
-     iteration is a dict_dual_step launch.  Every sample must be coded,
-     every code finite (and, in `exact_fista`, some nonzero), and one
+     diffusion), in `exact_fista` mode (the CLI default), and on the two
+     schedule-driven paths: `graph_tv_q8` with link failures (--fail-p
+     0.25) and the three-level `chain` (mesh 2x2x1x4); every iteration is
+     a dict_dual_step launch.  Every sample must be coded, every code
+     finite (and, in `exact_fista`, some nonzero), the service's schedule
+     clock advanced by iters per execution (0 for a static mode), and one
      micro-batch re-solved on the final snapshot with the kernel swapped
      for its plain version must agree with the kernel path.
 4. The learner and the paper's applications, plain PyTorch on the card
@@ -83,6 +100,7 @@ and fails (non-zero exit, no result line) if any of them fails:
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
@@ -168,6 +186,37 @@ SL_TOL = 2.0 ** -9
 # is non-expansive, so the difference stays near iters x fp32 rounding of
 # the 8192-term products.  Stated bound: 1e-3 of the largest magnitude.
 SOLVE_RTOL = 1e-3
+# The same on the int8 wire: one int8 level flipped by the other path's
+# rounding moves a message by its row's max / 127, which the iteration
+# carries on: 1e-2 of the largest |nu| (the JAX suite's q8 tolerance).
+Q8_RTOL = 1e-2
+
+# The gossip modes at the production dictionary above (serve_dict's flags as
+# DistConfig fields), one micro-batch, each with its agents per level,
+# innermost first: a hier mesh 2x1x8 is (8, 2), a chain mesh 2x2x1x4 is
+# (4, 2, 2).  The chain is parse_level_specs' own example.
+GOSSIP_CASES = [
+    ("exact", dict(mode="exact"), N_AGENTS),
+    ("exact_fista", dict(mode="exact_fista"), N_AGENTS),
+    ("ring", dict(mode="ring"), N_AGENTS),
+    ("ring_q8", dict(mode="ring_q8"), N_AGENTS),
+    ("ring_async", dict(mode="ring_async"), N_AGENTS),
+    ("graph", dict(mode="graph"), N_AGENTS),
+    ("graph_q8", dict(mode="graph_q8"), N_AGENTS),
+    ("graph_async", dict(mode="graph_async"), N_AGENTS),
+    ("graph_async torus", dict(mode="graph_async", topology="torus"), N_AGENTS),
+    ("graph_tv", dict(mode="graph_tv"), N_AGENTS),
+    ("graph_tv_q8", dict(mode="graph_tv_q8"), N_AGENTS),
+    ("graph_tv_q8 fail", dict(mode="graph_tv_q8", failure_p=0.25, failure_steps=6), N_AGENTS),
+    ("push", dict(mode="push", topology="distar"), N_AGENTS),
+    ("push_q8", dict(mode="push_q8", topology="distar"), N_AGENTS),
+    ("hier", dict(mode="hier", pod_topology="ring_metropolis", pod_gossip_every=2), (8, 2)),
+    ("hier_q8", dict(mode="hier_q8", pod_topology="ring_metropolis", pod_gossip_every=2),
+     (8, 2)),
+    ("chain", dict(mode="chain", levels="torus,ring_metropolis:2:q8,ring:4:q8:stale"),
+     (4, 2, 2)),
+]
+GOSSIP_TIMED = 3  # timed solves per mode, after a warm one
 
 # The learner (core/learner.DictionaryLearner, the paper's Alg. 1) at the
 # production dictionary above, with serve_dict's --mu-w default: one warm
@@ -266,6 +315,32 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_dict_dual_step(W, nu, *, gamma, delta, nonneg=False):
+    """K1's plain version behind ops.dict_dual_step's signature: patched in
+    for `ops.dict_dual_step` to run a coder's plain twin."""
+    from repro_torch.kernels.dict_dual_step import ref
+
+    nu3 = nu.expand(W.shape[0], *nu.shape) if nu.dim() == 2 else nu
+    return ref.dict_dual_step_ref(W, nu3, gamma=gamma, delta=delta, nonneg=nonneg)
+
+
+def plain_twin():
+    """Context in which every coder runs K1's plain version."""
+    from repro_torch.core import distributed
+
+    return mock.patch.object(distributed.ops, "dict_dual_step", plain_dict_dual_step)
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref| (0 when both are 0)."""
+    return max_err(got, ref) / max(float(ref.abs().max()), 1e-30) if max_err(got, ref) else 0.0
+
+
+def is_q8(coder) -> bool:
+    """Whether any level of the coder's gossip ships int8 messages."""
+    return any(lv["wire"] == "q8" for lv in coder.combiner_info()["levels"])
 
 
 def reset_launch_counts():
@@ -862,53 +937,251 @@ def phase_slstm(torch, build_report):
     return rec
 
 
+def stale_diffusion(torch, res, reg, Wb, x, A, mu, iters):
+    """One-step-stale diffusion, the plain reference of the async modes:
+    nu_k <- project(a_kk psi_k + sum_{l != k} a_lk psi_l of the previous
+    iteration), no neighbor at the first."""
+    from repro_torch.core.inference import agent_grad
+
+    n = Wb.shape[0]
+    A = torch.as_tensor(A, dtype=torch.float32, device=Wb.device)
+    diag = torch.diagonal(A).reshape(n, 1, 1)
+    off_t = (A - torch.diag(torch.diagonal(A))).T
+    nu = torch.zeros((n,) + tuple(x.shape), device=Wb.device)
+    prev = torch.zeros_like(nu)
+    theta = torch.ones(n, 1, 1, device=Wb.device)
+    for _ in range(iters):
+        psi = nu - mu * agent_grad(res, reg, Wb, nu, x, theta, n, float(n))
+        nu = res.project_dual(diag * psi + torch.tensordot(off_t, prev, dims=1))
+        prev = psi
+    return nu, reg.ystar(nu @ Wb)
+
+
 def phase_small_coder(torch):
-    """The coder (kernel path) against the plain reference engine, small input."""
+    """The coder (kernel path) against the plain reference engines and its
+    plain twin on small inputs, every gossip mode; planted faults of the
+    time-varying, push, async and chain logic must be rejected."""
+    import dataclasses
+
     import numpy as np
 
+    from repro_torch.core import distributed
     from repro_torch.core.conjugates import make_task
     from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
-    from repro_torch.core.inference import DiffusionConfig, diffusion_infer, exact_infer
+    from repro_torch.core.inference import (
+        DiffusionConfig, diffusion_infer, exact_infer, push_sum_infer,
+    )
+    from repro_torch.core.topology import make_topology, ring_weights
 
     res, reg = make_task("sparse_svd", gamma=0.05, delta=0.1)
     rng = np.random.default_rng(0)
     W = rng.standard_normal((16, 32)).astype(np.float32)
     W /= np.linalg.norm(W, axis=0)
     x = rng.standard_normal((4, 16)).astype(np.float32)
-    graph = DistributedSparseCoder(4, res, reg, DistConfig(mode="graph", iters=300))
+    W16 = rng.standard_normal((16, 64)).astype(np.float32)  # 16 agents of 4 atoms
+    W16 /= np.linalg.norm(W16, axis=0)
+    iters, dcfg = 300, DiffusionConfig(iters=300)
+    graph = DistributedSparseCoder(4, res, reg, DistConfig(mode="graph", iters=iters))
     Wb, xt = graph.shard(W, x)
+    dev = Wb.device
     mu = graph.adaptive_mu(Wb)[0]
-    A = torch.as_tensor(graph.combiner(), dtype=torch.float32, device=Wb.device)
-    nu_ref, y_ref, _ = diffusion_infer(res, reg, Wb, xt, A, torch.ones(4, device=Wb.device),
-                                       DiffusionConfig(iters=300), mu=mu)
+    A = torch.as_tensor(graph.combiner(), dtype=torch.float32, device=dev)
+    nu_ref, y_ref, _ = diffusion_infer(res, reg, Wb, xt, A, torch.ones(4, device=dev),
+                                       dcfg, mu=mu)
     nu, y = graph.solve_per_agent(Wb, xt)
     errs = [max_err(nu, nu_ref), max_err(y, y_ref)]
-    exact = DistributedSparseCoder(4, res, reg, DistConfig(mode="exact", iters=300))
-    nu_ex = exact_infer(res, reg, torch.as_tensor(W, device=Wb.device), xt,
-                        mu=exact.adaptive_mu(Wb)[0], iters=300)
+    exact = DistributedSparseCoder(4, res, reg, DistConfig(mode="exact", iters=iters))
+    nu_ex = exact_infer(res, reg, torch.as_tensor(W, device=dev), xt,
+                        mu=exact.adaptive_mu(Wb)[0], iters=iters)
     errs.append(max_err(exact.solve(Wb, xt)[0], nu_ex))
     print(f"[kernels] coder vs reference engine (graph nu, y; exact nu): "
           f"max|err| {[f'{e:.2e}' for e in errs]} (tol 1e-4)")
     if max(errs) > 1e-4:
         raise AssertionError("the coder disagrees with the reference engine")
 
+    def coder(agents, **cfg):
+        return DistributedSparseCoder(agents, res, reg, DistConfig(iters=iters, **cfg))
 
-def phase_main_path(torch, mode: str, card: str, must_code: bool):
-    """The port's serve_dict at the slice's size; returns the kernel's
-    launch count over the run.  `must_code`: fail if every code is zero."""
-    from repro_torch.core import distributed
-    from repro_torch.kernels.dict_dual_step import ops, ref
+    def blocks(c):
+        return c.shard(W if c.n_agents == 4 else W16, x)[0]
+
+    ones = {4: torch.ones(4, device=dev), 16: torch.ones(16, device=dev)}
+    readings, faults = {}, {}
+
+    def held(name, c, ref, t0=0, tol=1e-4, into=readings):
+        """The kernel path's (nu, y) against ref: max |err| over both."""
+        nu_k, y_k = c.solve_per_agent(blocks(c), xt, t0)
+        into[name] = (max(max_err(nu_k, ref[0]), max_err(y_k, ref[1])), tol)
+
+    # graph_tv against diffusion_infer under the schedule's A_t, also with
+    # link failures from t0 = 3; the fault: stuck on A_0.
+    tv = coder(4, mode="graph_tv")
+    tv_ref = diffusion_infer(res, reg, Wb, xt, tv.topology_schedule.as_callable(dev),
+                             ones[4], dcfg, mu=mu)
+    held("graph_tv vs diffusion_infer(A_t)", tv, tv_ref)
+    tvf = coder(4, mode="graph_tv", topology_schedule="fixed:erdos", failure_p=0.25,
+                failure_steps=6)
+    a_t = tvf.topology_schedule.as_callable(dev)
+    held("graph_tv fixed:erdos fail 0.25 t0 3 vs diffusion_infer(A_t+3)", tvf,
+         diffusion_infer(res, reg, Wb, xt, lambda t: a_t(t + 3), ones[4], dcfg, mu=mu), t0=3)
+    stuck = coder(4, mode="graph_tv")
+    stuck._gscheds, stuck._gweights = stuck._gscheds[:1], stuck._gweights[:1]
+    held("graph_tv stuck on A_0", stuck, tv_ref, into=faults)
+
+    # push on the directed star against push_sum_infer; the fault: no
+    # division by the weight.
+    push = coder(4, mode="push", topology="distar")
+    push_ref = push_sum_infer(res, reg, Wb, xt, torch.as_tensor(
+        make_topology("distar", 4), dtype=torch.float32, device=dev), ones[4], dcfg, mu=mu)
+    held("push distar vs push_sum_infer", push, push_ref)
+    real_push = distributed.comm.push_graph_combine
+    with mock.patch.object(distributed.comm, "push_graph_combine",
+                           lambda *a: (real_push(*a)[0], torch.ones_like(a[1]))):
+        held("push without the division by the weight", push, push_ref, into=faults)
+
+    # hier and an fp32 chain with a stride-2 level against diffusion_infer
+    # under the chain's A_t; the fault: the stride-2 level firing every
+    # iteration.
+    hier = coder((2, 2), mode="hier", pod_topology="ring_metropolis", pod_gossip_every=2)
+    held("hier vs diffusion_infer(chain A_t)", hier, diffusion_infer(
+        res, reg, Wb, xt, hier.chain.as_callable(dev), ones[4], dcfg, mu=mu))
+    chain = coder((4, 2, 2), mode="chain", levels="ring_metropolis,ring_metropolis:2,ring")
+    W16b = blocks(chain)
+    chain_ref = diffusion_infer(res, reg, W16b, xt, chain.chain.as_callable(dev), ones[16],
+                                dcfg, mu=chain.adaptive_mu(W16b)[0])
+    held("chain (stride 2 on level 1) vs diffusion_infer(chain A_t)", chain, chain_ref)
+    every = coder((4, 2, 2), mode="chain", levels="ring_metropolis,ring_metropolis:2,ring")
+    every._csched = dataclasses.replace(every._csched, levels=tuple(
+        dataclasses.replace(lvl, gossip_every=1) for lvl in every._csched.levels))
+    held("the stride-2 chain level firing every iteration", every, chain_ref, into=faults)
+
+    # the async modes against one-step-stale diffusion and their plain twin;
+    # the fault: graph_async combining fresh messages (graph's arithmetic).
+    for mode, A_k in (("ring_async", ring_weights(4)),
+                      ("graph_async", make_topology("ring_metropolis", 4))):
+        c = coder(4, mode=mode)
+        held(f"{mode} vs stale diffusion", c,
+             stale_diffusion(torch, res, reg, Wb, xt, A_k, mu, iters))
+        with plain_twin():
+            twin = c.solve_per_agent(Wb, xt)
+        held(f"{mode} vs its plain twin", c, twin)
+    held("graph_async with a fresh combine", graph, stale_diffusion(
+        torch, res, reg, Wb, xt, make_topology("ring_metropolis", 4), mu, iters), into=faults)
+
+    # every q8 mode against its plain twin, on nu at Q8_RTOL of max |nu|.
+    for agents, cfg in ((4, dict(mode="ring_q8")), (4, dict(mode="graph_q8")),
+                        (4, dict(mode="graph_tv_q8", failure_p=0.25)),
+                        (4, dict(mode="push_q8", topology="distar")),
+                        ((2, 2), dict(mode="hier_q8", pod_topology="ring_metropolis")),
+                        ((4, 2, 2), dict(mode="chain",
+                                         levels="torus,ring_metropolis:2:q8,ring:4:q8:stale"))):
+        c = coder(agents, **cfg)
+        nu_k, _ = c.solve_per_agent(blocks(c), xt, 1)
+        with plain_twin():
+            nu_p, _ = c.solve_per_agent(blocks(c), xt, 1)
+        readings[f"{cfg['mode']} {agents} vs its plain twin (nu / max|nu|)"] = (
+            rel_err(nu_k, nu_p), Q8_RTOL)
+    torch.cuda.synchronize()
+    for name, (r, tol) in readings.items():
+        print(f"[small coder] {name}: {r:.3e} (tol {tol})")
+    for name, (r, tol) in faults.items():
+        print(f"[small coder] planted fault, {name}: {r:.3e} (must exceed {tol})")
+    bad = [n for n, (r, tol) in readings.items() if not r <= tol]
+    if bad:
+        raise AssertionError(f"the gossip modes disagree with their references: {bad}")
+    passed = [n for n, (r, tol) in faults.items() if r <= tol]
+    if passed:
+        raise AssertionError(f"the small-coder gates pass planted faults: {passed}")
+
+
+def phase_gossip_modes(torch, card: str):
+    """Every gossip mode once at the production dictionary (GOSSIP_CASES):
+    iters + 1 K1 launches per solve, nu and y finite, the solve timed, and a
+    re-solve with K1's plain version within SOLVE_RTOL (Q8_RTOL on the int8
+    wire) on nu (and y, fp32 modes).  Returns {"gossip <label>": launches}."""
+    import numpy as np
+
+    from repro_torch.core.conjugates import make_task
+    from repro_torch.core.dictionary import blocks_from_full, init_dictionary
+    from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+    from repro_torch.data.synthetic import sparse_stream
+    from repro_torch.kernels.dict_dual_step import ops
+
+    res, reg = make_task("sparse_svd", gamma=GAMMA, delta=DELTA)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    W = blocks_from_full(init_dictionary(gen, M, ATOMS_PER_AGENT * N_AGENTS, device="cuda"),
+                         N_AGENTS)
+    x = torch.as_tensor(sparse_stream(MICRO_BATCH, m=M, k_true=LEARN_K_TRUE, seed=1),
+                        device="cuda")
+    launches = {}
+    for label, cfg, agents in GOSSIP_CASES:
+        coder = DistributedSparseCoder(agents, res, reg, DistConfig(iters=ITERS, **cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        secs = []
+        for _ in range(1 + GOSSIP_TIMED):
+            t = time.perf_counter()
+            nu, y = coder.solve_per_agent(W, x)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            if ops.dict_dual_step.launches != len(secs) * (ITERS + 1):
+                raise AssertionError(f"gossip {label}: {ops.dict_dual_step.launches} K1 "
+                                     f"launches after {len(secs)} solves, expected "
+                                     f"{ITERS + 1} per solve")
+        launches[f"gossip {label}"] = ops.dict_dual_step.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not (bool(torch.isfinite(nu).all()) and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"gossip {label}: nu or y is not finite")
+        with plain_twin():
+            nu_p, y_p = coder.solve_per_agent(W, x)
+        q8 = is_q8(coder)
+        tol = Q8_RTOL if q8 else SOLVE_RTOL
+        nu_err, y_err = rel_err(nu, nu_p), rel_err(y, y_p)
+        info = coder.combiner_info()
+        wire = dict(coder.wire_bytes_per_iter(MICRO_BATCH, M))
+        row = {
+            "label": label, "mode": cfg["mode"], "card": card, "config": cfg,
+            "agents": list(agents) if isinstance(agents, tuple) else [agents],
+            "ms_per_solve": 1e3 * sum(secs[1:]) / GOSSIP_TIMED,
+            "solve_ms": [1e3 * v for v in secs], "k1_calls": launches[f"gossip {label}"],
+            "solves": len(secs), "wire_bytes_per_iter": wire,
+            "wire_bytes_per_iter_total": sum(wire.values()),
+            "mixing_rate": info["mixing_rate"], "schedule_period": info["schedule_period"],
+            "nonzero_code_share": float((y != 0).float().mean()),
+            "peak_mem_gb": peak_gb, "plain_resolve_rel_err": {"nu": nu_err, "y": y_err},
+            "tol": tol, "M": M, "K": ATOMS_PER_AGENT * N_AGENTS, "B": MICRO_BATCH,
+            "iters": ITERS,
+        }
+        print("GOSSIP " + json.dumps(row))
+        if not nu_err <= tol or (not q8 and not y_err <= tol):
+            raise AssertionError(f"gossip {label}: kernel path vs plain nu {nu_err:.3e}, "
+                                 f"y {y_err:.3e} (tol {tol})")
+        del coder, nu, y, nu_p, y_p
+    del W
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_main_path(torch, mode: str, card: str, must_code: bool, stream, extra=()):
+    """The port's serve_dict at the slice's size (serve_dict flags `extra`
+    after the defaults); returns the kernel's launch count over the run.
+    `must_code`: fail if every code is zero.  `stream` stands in for
+    serve_dict's `sparse_stream` (the memoized one of main())."""
+    from repro_torch.kernels.dict_dual_step import ops
     from repro_torch.launch import serve_dict
 
     argv = ["--mode", mode, "--topology", "ring_metropolis", "--m", str(M),
             "--atoms-per-agent", str(ATOMS_PER_AGENT), "--mesh", f"1x{N_AGENTS}",
             "--samples", str(SAMPLES), "--micro-batch", str(MICRO_BATCH),
             "--iters", str(ITERS), "--gamma", str(GAMMA), "--delta", str(DELTA),
-            "--device", "cuda", "--json"]
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    out = serve_dict.run(serve_dict.parse_args(argv))
-    launches = ops.dict_dual_step.launches
+            "--device", "cuda", "--json", *extra]
+    args = serve_dict.parse_args(argv)
+    with mock.patch.object(serve_dict, "sparse_stream", stream):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        out = serve_dict.run(args)
+        launches = ops.dict_dual_step.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pay, results, svc = out["payload"], out["results"], out["service"]
     stats = svc.stats()
@@ -930,26 +1203,33 @@ def phase_main_path(torch, mode: str, card: str, must_code: bool):
         raise AssertionError(f"{mode}: every code is zero (the threshold never fires)")
     # Solves: the warmup solve and fit, one per coded micro-batch, one per fit.
     solves = 2 + math.ceil(SAMPLES / MICRO_BATCH) + stats["fit_steps"]
-    if launches < (ITERS + 1) * solves:
-        raise AssertionError(f"{mode}: {launches} kernel launches, expected at "
-                             f">= {ITERS + 1} per solve x {solves} solves")
-
-    # Re-solve the last micro-batch on the final snapshot, kernel vs plain.
+    if launches < (ITERS + 1) * solves or launches % (ITERS + 1):
+        raise AssertionError(f"{mode}: {launches} kernel launches, expected "
+                             f"{ITERS + 1} per solve x >= {solves} solves")
+    # The schedule clock: every execution but the warmup's two claimed ITERS
+    # iterations of a time-varying coder's sequence; a static one claims none.
     coder, snap = svc._coder, svc.snapshot()
+    executions = launches // (ITERS + 1) - 2
+    want_t = ITERS * executions if coder.is_time_varying else 0
+    print(f"[main:{mode}] schedule clock {svc._sched_t} after {executions} executions "
+          f"(period {coder.schedule_period}, expected {want_t}); active_schedule "
+          f"{stats['active_schedule']}")
+    if svc._sched_t != want_t or stats["active_schedule"] != want_t % coder.schedule_period:
+        raise AssertionError(f"{mode}: the schedule clock reads {svc._sched_t}, "
+                             f"expected {want_t}")
+
+    # Re-solve the last micro-batch on the final snapshot, kernel vs plain;
+    # on the int8 wire nu at Q8_RTOL (y recorded: the codes may be 0).
     xb = out["X"][-MICRO_BATCH:]
     nu_k, y_k = coder.solve(snap, xb)
-
-    def plain_step(W, nu, *, gamma, delta, nonneg=False):
-        nu3 = nu.expand(W.shape[0], *nu.shape) if nu.dim() == 2 else nu
-        return ref.dict_dual_step_ref(W, nu3, gamma=gamma, delta=delta, nonneg=nonneg)
-
-    with mock.patch.object(distributed.ops, "dict_dual_step", plain_step):
+    with plain_twin():
         nu_p, y_p = coder.solve(snap, xb)
-    nu_err = max_err(nu_k, nu_p) / float(nu_p.abs().max())
-    y_err = max_err(y_k, y_p) / max(float(y_p.abs().max()), 1e-30)
+    nu_err, y_err = rel_err(nu_k, nu_p), rel_err(y_k, y_p)
+    q8 = is_q8(coder)
+    tol = Q8_RTOL if q8 else SOLVE_RTOL
     print(f"[main:{mode}] re-solve kernel vs plain: max|dnu|/max|nu| {nu_err:.2e}  "
-          f"max|dy|/max|y| {y_err:.2e} (tol {SOLVE_RTOL})")
-    if not (nu_err <= SOLVE_RTOL and y_err <= SOLVE_RTOL):
+          f"max|dy|/max|y| {y_err:.2e} (tol {tol})")
+    if not nu_err <= tol or (not q8 and not y_err <= tol):
         raise AssertionError(f"{mode}: kernel path disagrees with plain path")
 
     lat = pay["latency_ms"]
@@ -965,7 +1245,9 @@ def phase_main_path(torch, mode: str, card: str, must_code: bool):
         "latency_ms": lat, "wall_s": pay["wall_s"], "fit_steps": stats["fit_steps"],
         "launches": launches, "solves": solves, "peak_mem_gb": peak_gb,
         "nonzero_code_share": nonzero, "gamma": GAMMA, "delta": DELTA,
-        "resolve_rel_err": {"nu": nu_err, "y": y_err},
+        "resolve_rel_err": {"nu": nu_err, "y": y_err}, "flags": list(extra),
+        "schedule_period": coder.schedule_period, "sched_t": svc._sched_t,
+        "topology": stats["topology"], "mixing_rate": stats["mixing_rate"],
     }))
     del out, results, svc, coder, snap
     torch.cuda.empty_cache()
@@ -1446,6 +1728,7 @@ def main() -> int:
     fa_rec["wgmma_build"] = wgmma_build  # HGMMA in the SASS, ptxas registers and spills
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     timed("small coder", phase_small_coder, torch)
+    gossip = timed("gossip modes", phase_gossip_modes, torch, card)
     fa_rec["launches"] = timed("gemma-2b serve", phase_lm, torch, card)
     sl_rec["launches"] = timed("xlstm-1.3b serve", phase_xlstm, torch, card)
     # The diffusion's step is bounded by the worst block's curvature
@@ -1454,10 +1737,22 @@ def main() -> int:
     # width an agent's nu is still a small fraction of x (1 - (1 - mu/N)^150,
     # about 0.13) and no atom passes the threshold: graph codes may all be
     # zero.  exact_fista converges in 150 iterations and must code.
+    # The two schedule-driven paths run the service too: graph_tv_q8 with
+    # link failures and the three-level chain of the gossip phase.
+    # Every run codes the same planted stream (the same M, K and seed), whose
+    # 262144 planted atoms take the host some 40 s to draw: draw it once.
+    from repro_torch.data.synthetic import sparse_stream
+
+    stream = functools.lru_cache(maxsize=1)(sparse_stream)
+    serve_runs = {"graph": (), "exact_fista": (),
+                  "graph_tv_q8": ("--fail-p", "0.25"),
+                  "chain": ("--mesh", "2x2x1x4", "--levels",
+                            "torus,ring_metropolis:2:q8,ring:4:q8:stale")}
     launches = {mode: timed(f"serve_dict {mode}", phase_main_path, torch, mode, card,
-                            must_code=(mode == "exact_fista"))
-                for mode in ("graph", "exact_fista")}
-    rec["launches"] = launches["graph"] + launches["exact_fista"]
+                            must_code=(mode == "exact_fista"), stream=stream, extra=flags)
+                for mode, flags in serve_runs.items()}
+    launches.update(gossip)
+    rec["launches"] = sum(launches.values())
     rec["launches_by_mode"] = launches
     # The learner and the experiments are plain PyTorch (no kernel of the
     # port is on their path, as in the JAX package): none may launch one.

@@ -18,15 +18,13 @@ from repro_torch.core.baselines import MairalState
 from repro_torch.core.dictionary import blocks_from_full, full_from_blocks
 from repro_torch.core.distributed import DistConfig
 from repro_torch.core.learner import LearnerState
+from repro_torch.core.topology import LevelSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import require_ported, tree_map
 
-# JAX DistConfig fields that do not change what the flat modes compute on
-# one device (mesh axis names, the Pallas switches, and the settings of the
-# modes that are not ported; a mode that needs them is refused by DistConfig).
+# JAX DistConfig fields that do not change what the coder computes on one
+# device: the mesh axis names and the Pallas switches.
 _JAX_ONLY_FIELDS = frozenset({
-    "topology_schedule", "schedule_period", "failure_p", "failure_seed",
-    "failure_steps", "pod_topology", "pod_gossip_every", "levels",
     "model_axis", "data_axes", "pod_axis", "use_kernel", "kernel_interpret",
 })
 
@@ -66,15 +64,27 @@ def mairal_state_from_numpy(W: np.ndarray, A: np.ndarray, B: np.ndarray, t: int,
                          for a in (W, A, B)), t=int(t))
 
 
+def _level_spec(level) -> LevelSpec:
+    """A port LevelSpec from a JAX one, or from its field dict (what
+    `dataclasses.asdict` of a JAX DistConfig holds)."""
+    if not isinstance(level, dict):
+        level = {f.name: getattr(level, f.name) for f in dataclasses.fields(LevelSpec)}
+    return LevelSpec(**level)
+
+
 def dist_config_from_jax_fields(**fields) -> DistConfig:
     """A port DistConfig from JAX DistConfig field names (for instance
-    `**dataclasses.asdict(jax_cfg)`).  Fields the port has are carried over;
-    the JAX-only ones listed above are dropped; any other name raises."""
+    `**dataclasses.asdict(jax_cfg)`).  Fields the port has are carried over
+    (`levels` given as LevelSpecs or their dicts); the JAX-only ones listed
+    above are dropped; any other name raises."""
     ported = {f.name for f in dataclasses.fields(DistConfig)}
     unknown = set(fields) - ported - _JAX_ONLY_FIELDS
     if unknown:
         raise TypeError(f"not DistConfig fields: {sorted(unknown)}")
-    return DistConfig(**{k: v for k, v in fields.items() if k in ported})
+    kept = {k: v for k, v in fields.items() if k in ported}
+    if not isinstance(kept.get("levels", ""), str):
+        kept["levels"] = tuple(_level_spec(lv) for lv in kept["levels"])
+    return DistConfig(**kept)
 
 
 def lm_params_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict:

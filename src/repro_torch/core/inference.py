@@ -7,14 +7,14 @@ engines solve the dual problem (paper Eq. 28)
     min_nu  f*(nu) - nu^T x + sum_k h_k*(W_k^T nu),   s.t. nu in V_f
 
 1. `diffusion_infer`: N agents, each holding an atom block W_k, run
-   adapt-then-combine diffusion (Eq. 31/35/36) under a static doubly
-   stochastic combiner A.  Agents are the leading axis of every tensor.
+   adapt-then-combine diffusion (Eq. 31/35/36) under a doubly stochastic
+   combiner A, static or a callable A_t of the iteration.  Agents are the
+   leading axis of every tensor.  `push_sum_infer` is its ratio-consensus
+   form over a row-stochastic (possibly directed) A.
 2. `exact_infer`: centralized projected gradient descent on the dual.
 3. `fista_infer`: Nesterov-accelerated dual descent.
 
-This module is plain PyTorch: it does not go through the fused kernel.  The
-time-varying combiner (callable A_t) and `push_sum_infer` are not ported
-yet (ROADMAP, slice 6b).
+This module is plain PyTorch: it does not go through the fused kernel.
 
 Shapes: x is (..., M); W is (M, K); W_blocks is (N, M, Kb).
 """
@@ -22,7 +22,7 @@ Shapes: x is (..., M); W is (M, K); W_blocks is (N, M, Kb).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -75,7 +75,7 @@ def diffusion_infer(
     reg: Regularizer,
     W_blocks: Tensor,  # (N, M, Kb)
     x: Tensor,  # (..., M)
-    A: Tensor,  # (N, N) doubly stochastic, A[l, k] = a_{lk}
+    A: Union[Tensor, Callable[[int], Tensor]],  # (N, N), A[l, k] = a_{lk}; or t -> (N, N)
     informed: Tensor,  # (N,) 0/1 mask of N_I
     cfg: DiffusionConfig = DiffusionConfig(),
     nu0: Optional[Tensor] = None,  # (N, ..., M)
@@ -85,7 +85,10 @@ def diffusion_infer(
     """Run ATC diffusion; returns (nu_agents (N,...,M), y_agents (N,...,Kb), traj).
 
     Every agent k carries its own nu_k; the combine mixes the intermediate
-    psi_l over the neighborhood, nu_k = sum_l a_{lk} psi_l.  With
+    psi_l over the neighborhood, nu_k = sum_l a_{lk} psi_l.  `A` is one
+    doubly-stochastic (N, N) matrix or a callable ``A_t(t) -> (N, N)``
+    giving the combiner of iteration t = 0, 1, ... (the time-varying
+    regime; `core.topology.TopologySchedule.as_callable()` builds one).  With
     `record_every > 0` the nu trajectory is also returned every that many
     iterations; when `record_every` does not divide `cfg.iters` the
     remaining iterations still run, unrecorded, so nu always reflects the
@@ -101,9 +104,10 @@ def diffusion_infer(
     nu = torch.zeros((n_agents,) + tuple(x.shape), dtype=dtype, device=x.device) \
         if nu0 is None else nu0
     theta = informed.to(dtype).reshape(n_agents, 1, 1)
-    At = A.T.to(dtype)
+    A_fn = A if callable(A) else (lambda t, _A=A: _A)
 
-    def step(nu: Tensor) -> Tensor:
+    def step(nu: Tensor, t: int) -> Tensor:
+        At = A_fn(t).T.to(dtype)
         g = agent_grad(res, reg, W_blocks, nu, x, theta, n_agents, n_informed)
         if cfg.mode == "penalty" and res.bounded_dual:
             zeta = nu - mu * g
@@ -115,19 +119,20 @@ def diffusion_infer(
         return nu_next
 
     traj = None
+    t = 0
     if record_every and record_every > 0:
         n_outer = cfg.iters // record_every
         frames = []
         for _ in range(n_outer):
             for _ in range(record_every):
-                nu = step(nu)
+                nu, t = step(nu, t), t + 1
             frames.append(nu)
         traj = torch.stack(frames) if frames else nu.new_zeros((0,) + tuple(nu.shape))
         for _ in range(cfg.iters - n_outer * record_every):
-            nu = step(nu)
+            nu, t = step(nu, t), t + 1
     else:
-        for _ in range(cfg.iters):
-            nu = step(nu)
+        for t in range(cfg.iters):
+            nu = step(nu, t)
 
     y = reg.ystar(nu @ W_blocks)
     n = (n_agents,)
@@ -135,6 +140,55 @@ def diffusion_infer(
         traj = traj.reshape(traj.shape[:1] + n + batch_shape + traj.shape[-1:])
     return nu.reshape(n + batch_shape + nu.shape[-1:]), \
         y.reshape(n + batch_shape + y.shape[-1:]), traj
+
+
+def push_sum_infer(
+    res: Residual,
+    reg: Regularizer,
+    W_blocks: Tensor,  # (N, M, Kb)
+    x: Tensor,  # (..., M)
+    A: Union[Tensor, Callable[[int], Tensor]],  # (N, N) row stochastic; or t -> (N, N)
+    informed: Tensor,  # (N,) 0/1 mask of N_I
+    cfg: DiffusionConfig = DiffusionConfig(),
+    nu0: Optional[Tensor] = None,  # (N, ..., M)
+    mu=None,  # overrides cfg.mu
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Push-sum (ratio-consensus) ATC diffusion over a row-stochastic A.
+
+    Each agent carries (nu_k, w_k), w_k(0) = 1; per iteration
+    psi_k = nu_k - mu grad J_k(nu_k), v_k = sum_l a_{lk} w_l psi_l,
+    w_k <- sum_l a_{lk} w_l, nu_k <- project(v_k / w_k).  On a doubly
+    stochastic A, w stays 1 and this is `diffusion_infer`.  Returns
+    (nu_agents, y_agents, w_agents (N,))."""
+    if cfg.mode == "penalty":
+        raise ValueError(
+            "push_sum_infer supports the projection combine only (the penalty "
+            "form's extra gradient does not commute with the push-sum ratio)"
+        )
+    A_fn = A if callable(A) else (lambda t, _A=A: _A)
+    n_agents = W_blocks.shape[0]
+    batch_shape = tuple(x.shape[:-1])
+    x = x.reshape(-1, x.shape[-1])
+    dtype = x.dtype
+    n_informed = torch.clamp(informed.sum(), min=1.0).to(dtype)
+    mu = torch.as_tensor(cfg.mu if mu is None else mu, dtype=dtype, device=x.device)
+    nu = torch.zeros((n_agents,) + tuple(x.shape), dtype=dtype, device=x.device) \
+        if nu0 is None else nu0.reshape(n_agents, -1, x.shape[-1])
+    w = torch.ones((n_agents, 1, 1), dtype=dtype, device=x.device)
+    theta = informed.to(dtype).reshape(n_agents, 1, 1)
+    for t in range(cfg.iters):
+        g = agent_grad(res, reg, W_blocks, nu, x, theta, n_agents, n_informed)
+        psi = nu - mu * g
+        At = A_fn(t).T.to(dtype)
+        v = torch.tensordot(At, w * psi, dims=1)
+        w = torch.tensordot(At, w.reshape(n_agents), dims=1).reshape(n_agents, 1, 1)
+        nu = v / w
+        if res.bounded_dual:
+            nu = res.project_dual(nu)
+    y = reg.ystar(nu @ W_blocks)
+    n = (n_agents,)
+    return nu.reshape(n + batch_shape + nu.shape[-1:]), \
+        y.reshape(n + batch_shape + y.shape[-1:]), w.reshape(n_agents)
 
 
 def power_sigma2(W: Tensor, iters: int = 20) -> Tensor:

@@ -3,13 +3,22 @@
 Port of the single-service path of src/repro/launch/serve_dict.py: streams
 synthetic samples through the continuously-learning dictionary service
 (repro_torch.runtime.service) with micro-batched coding against a
-double-buffered snapshot and online `fit_batch` on the live copy.  `--mesh
-1xN` means N agents on the one device; the dictionary has
-`--atoms-per-agent * N` atoms.  At the repository's production dictionary
-(M = 8192, K = 262144, 16 agents, the paper's diffusion):
+double-buffered snapshot and online `fit_batch` on the live copy.  One
+device holds every agent, so the data extent D of `--mesh` must be 1:
+'1xN' is N agents of a flat mode, '2x1x8' the 2 pods of 8 agents of a
+hier mode, and a chain takes one leading dim per outer level, outermost
+first ('2x2x1x4' for three levels).  The dictionary has
+`--atoms-per-agent` atoms per agent.  At the repository's production
+dictionary (M = 8192, K = 262144, 16 agents, the paper's diffusion):
 
   PYTHONPATH=src python -m repro_torch.launch.serve_dict \\
       --mode graph --m 8192 --atoms-per-agent 16384 --mesh 1x16 --samples 64
+
+A three-level chain (q8 pod ring every 2nd iteration, a stale q8 ring
+every 4th):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_dict \\
+      --mode chain --mesh 2x2x1x4 --levels torus,ring_metropolis:2:q8,ring:4:q8:stale
 
 `--device cpu` runs on the CPU (the default is the card, and no card is an
 error).  The grow/drain drills and fleet mode (`--replicas`, `--router`) are
@@ -24,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -32,8 +42,8 @@ import torch
 
 from repro_torch.core.conjugates import make_task
 from repro_torch.core.dictionary import blocks_from_full, init_dictionary
-from repro_torch.core.distributed import MODES, DistConfig, DistributedSparseCoder
-from repro_torch.core.topology import GRAPH_KINDS
+from repro_torch.core.distributed import HIER_MODES, MODES, DistConfig, DistributedSparseCoder
+from repro_torch.core.topology import DIRECTED_KINDS, GRAPH_KINDS
 from repro_torch.data.synthetic import sparse_stream
 from repro_torch.device import resolve_device
 from repro_torch.runtime.service import DictionaryService, ServiceConfig
@@ -45,15 +55,41 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--gamma", type=float, default=0.25)
     ap.add_argument("--delta", type=float, default=0.05)
     ap.add_argument("--mode", type=str, default="exact_fista", choices=list(MODES))
-    ap.add_argument("--topology", type=str, default="ring_metropolis", choices=list(GRAPH_KINDS),
-                    help="graph-mode combiner kind (core/topology.make_topology)")
+    ap.add_argument("--topology", type=str, default="ring_metropolis",
+                    choices=list(GRAPH_KINDS + DIRECTED_KINDS),
+                    help="graph-mode combiner kind (core/topology.make_topology); the "
+                         "intra-pod kind for the hier modes; the directed kinds "
+                         "(dicycle, distar) are for the push modes")
+    ap.add_argument("--pod-topology", type=str, default="", choices=[""] + list(GRAPH_KINDS),
+                    help="hier modes: inter-pod combiner kind (required for hier/hier_q8)")
+    ap.add_argument("--pod-gossip-every", type=int, default=1,
+                    help="hier modes: fire the inter-pod hop every k-th iteration")
+    ap.add_argument("--levels", type=str, default="",
+                    help="chain mode: comma-separated level specs "
+                         "'kind[:stride][:wire][:stale]', innermost (model) level first "
+                         "(core/topology.parse_level_specs)")
     ap.add_argument("--topology-p", type=float, default=0.5, help="erdos edge probability")
-    ap.add_argument("--topology-seed", type=int, default=0, help="erdos graph seed")
+    ap.add_argument("--topology-seed", type=int, default=0,
+                    help="erdos graph / time-varying sequence seed")
+    ap.add_argument("--topology-schedule", type=str,
+                    default="alternating:ring_metropolis,torus",
+                    help="graph_tv modes: core/topology.make_topology_schedule spec "
+                         "('fixed:<kind>' | 'alternating:<k1>,<k2>,...' | 'erdos_resampled')")
+    ap.add_argument("--schedule-period", type=int, default=2,
+                    help="period of the erdos_resampled schedule")
+    ap.add_argument("--fail-p", type=float, default=0.0,
+                    help="graph_tv modes: per-step per-edge link-failure probability "
+                         "(core/topology.link_failure_schedule)")
+    ap.add_argument("--fail-seed", type=int, default=0, help="seed of the failure draws")
+    ap.add_argument("--fail-steps", type=int, default=0,
+                    help="distinct failure realizations before the trace repeats "
+                         "(0 = the base schedule's period)")
     ap.add_argument("--iters", type=int, default=150, help="dual iterations per solve")
     ap.add_argument("--m", type=int, default=32, help="data dimension")
     ap.add_argument("--atoms-per-agent", type=int, default=8)
     ap.add_argument("--mesh", type=str, default="1x2",
-                    help="'1xN': N agents on the one device")
+                    help="'DxM' (flat modes), 'PxDxM' (hier modes) or one leading dim "
+                         "per outer chain level, outermost first; D must be 1")
     ap.add_argument("--samples", type=int, default=600)
     ap.add_argument("--micro-batch", type=int, default=16)
     ap.add_argument("--max-wait-ms", type=float, default=20.0)
@@ -87,20 +123,40 @@ def run(args: argparse.Namespace) -> Dict:
         raise SystemExit("fleet mode (--replicas, --router) is not ported yet "
                          "(ROADMAP section 1, the serving plane)")
     dims = [int(v) for v in args.mesh.split("x")]
-    if len(dims) != 2:
-        raise SystemExit(f"--mesh must be '1xN' for the flat modes, got {args.mesh!r}")
-    d, n_agents = dims
+    # Agent levels the mesh carries: the --levels spec's for chain, 2 for
+    # the hier modes, 1 for the flat ones (as the JAX CLI).
+    if args.mode == "chain":
+        if not args.levels:
+            raise SystemExit("--mode chain needs a --levels spec "
+                             "(e.g. 'ring_metropolis,ring_metropolis:2:q8,full:4:q8')")
+        n_agent_levels = len([v for v in args.levels.split(",") if v.strip()])
+    else:
+        n_agent_levels = 2 if args.mode in HIER_MODES else 1
+    if len(dims) != n_agent_levels + 1:
+        want = ("'DxM'" if n_agent_levels == 1 else "'PxDxM'" if n_agent_levels == 2
+                else f"{n_agent_levels + 1} dims (one per outer level, outermost first, "
+                     f"then data x model)")
+        raise SystemExit(f"--mode {args.mode} needs a --mesh of {want}, got {args.mesh!r}")
+    *outer_dims, d, m_axis = dims
     if d != 1:
         raise SystemExit(f"--mesh {args.mesh!r}: one device holds every agent, so the "
-                         f"data extent D must be 1 (use '1x{n_agents}')")
+                         f"data extent D must be 1")
+    level_sizes = (m_axis, *reversed(outer_dims))  # innermost first
+    n_agents = math.prod(level_sizes)
     device = resolve_device(args.device)
     try:
         dist_cfg = DistConfig(
             mode=args.mode, iters=args.iters, topology=args.topology,
             topology_p=args.topology_p, topology_seed=args.topology_seed,
+            topology_schedule=args.topology_schedule,
+            schedule_period=args.schedule_period,
+            failure_p=args.fail_p, failure_seed=args.fail_seed,
+            failure_steps=args.fail_steps,
+            pod_topology=args.pod_topology, pod_gossip_every=args.pod_gossip_every,
+            levels=args.levels,
         )
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"serve_dict: {e}")
 
     res, reg = make_task(args.task, gamma=args.gamma, delta=args.delta)
     k0 = args.atoms_per_agent * n_agents
@@ -116,12 +172,19 @@ def run(args: argparse.Namespace) -> Dict:
     )
     X = sparse_stream(args.samples, m=args.m, k_true=k0, nonneg=reg.nonneg,
                       seed=args.seed + 1)
-    coder = DistributedSparseCoder(n_agents, res, reg, dist_cfg, device=device)
+    coder = DistributedSparseCoder(
+        level_sizes if dist_cfg.chain_levels() else n_agents, res, reg, dist_cfg, device=device
+    )
     comb = coder.combiner_info()
     print(f"serve_dict: task={args.task} mode={args.mode} mesh={args.mesh} "
           f"device={device} M={args.m} K={k0} micro_batch={args.micro_batch} "
           f"samples={args.samples} topology={comb['topology']} "
-          f"mixing_rate={comb['mixing_rate']:.3f}")
+          f"mixing_rate={comb['mixing_rate']:.3f} "
+          f"schedule_period={comb['schedule_period']} "
+          f"pod_gossip_every={comb['pod_gossip_every']}")
+    for lv in comb["levels"]:
+        print(f"  level axis={lv['axis']} kind={lv['kind']} n={lv['n']} "
+              f"stride={lv['gossip_every']} wire={lv['wire']} stale={lv['stale']}")
 
     svc = DictionaryService(coder, W0, svc_cfg)
     del W0  # the service holds the only reference: no second copy

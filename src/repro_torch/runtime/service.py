@@ -18,12 +18,17 @@ port's `DistributedSparseCoder` (N agents on one device):
     the JAX service);
   * one execution at a time: solves and fit steps take `_exec_lock`, so a
     coding batch waits at most one fit step;
+  * a schedule clock for time-varying coders (the graph_tv modes, and the
+    hierarchical modes whose strides give a period above 1): each solve or
+    fit claims the next cfg.iters iterations of the combiner sequence under
+    `_exec_lock`, so the stream runs one continuous network instead of
+    restarting at A_0 every micro-batch; a fit that raised gives its
+    window back;
   * a warmup solve and fit on a zero batch before serving (which also
     builds the kernels).
 
 Elastic growth, drain, `install_snapshot`, `load` and `kill` are not ported
-yet (ROADMAP section 1: 6d and the checkpoint manager).  The flat modes are
-static, so there is no schedule clock: `active_schedule` stays 0.
+yet (ROADMAP section 1: 6d and the checkpoint manager).
 """
 
 from __future__ import annotations
@@ -169,6 +174,9 @@ class DictionaryService:
         self._threads: List[threading.Thread] = []
         self._t_start: Optional[float] = None
         self._comb_info: Dict = coder.combiner_info()
+        # The schedule clock: the combiner-sequence offset of the next
+        # execution (an unbounded int; static coders leave it at 0).
+        self._sched_t = 0
         self.submitted = 0
         self.coded = 0
         self.fit_steps = 0
@@ -191,11 +199,34 @@ class DictionaryService:
             [xb, np.zeros((self._pad - b, xb.shape[1]), xb.dtype)], axis=0
         )
 
+    def _advance_schedule(self) -> int:
+        """Claim the next cfg.iters iterations of a time-varying coder's
+        combiner sequence; returns the offset t0 this execution starts
+        from, reduced mod the coder's schedule period (0 for a static
+        coder).  Call it holding `_exec_lock`, so claim order is execution
+        order."""
+        coder = self._coder
+        if not coder.is_time_varying:
+            return 0
+        with self._lock:
+            t0 = self._sched_t
+            self._sched_t += coder.cfg.iters
+        return t0 % coder.schedule_period
+
+    def _rollback_schedule(self) -> None:
+        """Give back a claimed window that never ran (a fit that raised);
+        the caller still holds `_exec_lock`, so no later claim built on it."""
+        if not self._coder.is_time_varying:
+            return
+        with self._lock:
+            self._sched_t -= self._coder.cfg.iters
+
     def _solve_padded(self, snap: torch.Tensor, xb: np.ndarray):
         """Code a real batch of b rows against `snap`; host numpy results."""
         b = xb.shape[0]
         with self._exec_lock:
-            nu, y = self._coder.solve(snap, self._pad_rows(xb))
+            t0 = self._advance_schedule()
+            nu, y = self._coder.solve(snap, self._pad_rows(xb), t0)
             nu, y = nu[:b].cpu().numpy(), y[:b].cpu().numpy()
         return nu, y
 
@@ -310,7 +341,8 @@ class DictionaryService:
                 "mixing_rate": self._comb_info["mixing_rate"],
                 "schedule": self._comb_info.get("schedule"),
                 "schedule_period": self._comb_info.get("schedule_period", 1),
-                "active_schedule": 0,
+                # the combiner the next execution starts from
+                "active_schedule": self._sched_t % self._comb_info.get("schedule_period", 1),
                 "pod_topology": self._comb_info.get("pod_topology"),
                 "pod_gossip_every": self._comb_info.get("pod_gossip_every", 1),
                 "levels": self._comb_info.get("levels"),
@@ -401,8 +433,13 @@ class DictionaryService:
             mu_w_eff = self.cfg.mu_w * (xb.shape[0] / b)
             try:
                 with self._exec_lock:
-                    live2 = self._coder.fit_batch(live, xb, mu_w_eff)
-                    _wait(live2)
+                    t0 = self._advance_schedule()
+                    try:
+                        live2 = self._coder.fit_batch(live, xb, mu_w_eff, t0)
+                        _wait(live2)
+                    except Exception:
+                        self._rollback_schedule()  # the window never ran
+                        raise
             except Exception as e:
                 # A failed fit step must not take down serving, nor be
                 # invisible: count it and keep the first error for stats().

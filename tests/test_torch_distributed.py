@@ -232,13 +232,12 @@ def test_convert_round_trips_and_configs():
 
 
 def test_config_rejects_unported_and_bad_settings():
-    from repro_torch.core.distributed import MODE_REGISTRY, PORTED_MODES, DistConfig
+    from repro.core.distributed import MODE_REGISTRY as JAX_REGISTRY
+    from repro_torch.core.distributed import MODE_REGISTRY, MODES, PORTED_MODES, DistConfig
 
-    assert PORTED_MODES == ("exact", "exact_fista", "ring", "graph")
+    assert PORTED_MODES == MODES == tuple(JAX_REGISTRY)
     for mode, caps in MODE_REGISTRY.items():
-        if caps.pending:
-            with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-                DistConfig(mode=mode)
+        assert dataclasses.asdict(caps) == dataclasses.asdict(JAX_REGISTRY[mode]), mode
     with pytest.raises(KeyError):
         DistConfig(mode="nope")
     with pytest.raises(ValueError):

@@ -26,11 +26,17 @@ def _jax_bench_keys():
     return [k.value for k in payload.keys]
 
 
-@pytest.mark.parametrize("mode", ["graph", "exact_fista"])
-def test_cli_bench_keys_match_jax_single_service(mode, capsys):
+@pytest.mark.parametrize("argv", [
+    pytest.param(["--mode", "graph"], id="graph"),
+    pytest.param(["--mode", "exact_fista"], id="exact_fista"),
+    pytest.param(["--mode", "graph_tv_q8", "--fail-p", "0.25"], id="graph_tv_q8"),
+    pytest.param(["--mode", "chain", "--mesh", "2x1x2", "--levels",
+                  "ring_metropolis,ring:2:q8:stale"], id="chain"),
+])
+def test_cli_bench_keys_match_jax_single_service(argv, capsys):
     from repro_torch.launch import serve_dict
 
-    payload = serve_dict.main(TINY + ["--mode", mode])
+    payload = serve_dict.main(TINY + argv)
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("BENCH ")]
     assert len(lines) == 1
     bench = json.loads(lines[0][len("BENCH "):])
@@ -49,7 +55,7 @@ def test_cli_bench_keys_match_jax_single_service(mode, capsys):
     ["--router"],
     ["--mesh", "2x4"],
     ["--mesh", "1x2x4"],
-    ["--mode", "graph_tv"],
+    ["--mode", "hier", "--mesh", "1x1x4"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):
     from repro_torch.launch import serve_dict
