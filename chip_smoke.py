@@ -42,6 +42,20 @@ and fails (non-zero exit, no result line) if any of them fails:
    plain twin (Q8_RTOL of max |nu|).  Planted faults (graph_tv stuck on
    A_0, push without the division by its weight, the stride-2 level firing
    every iteration, graph_async combining fresh messages) must fail them.
+   Elastic growth and drain on small inputs with nonzero codes: the grown
+   and the drained coders of exact_fista, graph on erdos, graph_tv_q8
+   with link failures and a three-level chain (each fp32 twin too) against
+   their plain twins and the single-host references (FISTA at the coder's
+   mu, diffusion_infer under the new combiners; 1e-4, Q8_RTOL on the int8
+   wire), old and survivor blocks bit for bit, fresh blocks unit-norm, the
+   grown erdos graph keeping every old edge, a graph_tv_q8 service on the
+   card whose clock runs on across a grow and a drain, and a two-replica
+   router that re-routes a killed replica's queued work.  Planted faults
+   (a grow that draws the whole erdos graph afresh, a drain that
+   renormalises the survivors, a drain that resets the clock, a router
+   without re-route) must fail them.  K1 against plain at the agent counts
+   growth gives the production dictionary, N 18 and N 20, with the main
+   shape's gate.
    Then every mode of the engine once at the production dictionary (M
    8192, K 262144, N 16, one micro-batch of 16, GOSSIP_CASES): exactly
    iters + 1 K1 launches per solve, nu and y finite, the solve timed (mean
@@ -75,7 +89,20 @@ and fails (non-zero exit, no result line) if any of them fails:
      finite (and, in `exact_fista`, some nonzero), the service's schedule
      clock advanced by iters per execution (0 for a static mode), and one
      micro-batch re-solved on the final snapshot with the kernel swapped
-     for its plain version must agree with the kernel path.
+     for its plain version must agree with the kernel path;
+   - the elastic drills (DRILLS): serve_dict at the same size growing at
+     sample 16 and draining at sample 40, exact_fista and graph on erdos
+     to N 18 and back, graph_tv_q8 with link failures, the chain +1 on its
+     model level (N 20) and back: every sample coded and finite, the y
+     dims in era order, both events, the clock at iters per execution
+     across both swaps, and (exact_fista) a batch re-solved at N 18 with
+     K1 against plain, nonzero codes required; the swaps' latency
+     (request to resolved Future) printed;
+   - the serving plane: serve_dict --replicas 2 --publish-at 32 (graph):
+     every sample coded, none failed, the rolling publish reaching both
+     replicas, K1 against plain on r0's final snapshot; and the kill drill:
+     two graph replicas behind the Router, r1 killed at sample 32 with
+     work queued: failed 0, at least one request re-routed.
 4. The learner and the paper's applications, plain PyTorch on the card
    (no kernel of the port is on their path, and the script fails if one
    launches):
@@ -100,7 +127,9 @@ and fails (non-zero exit, no result line) if any of them fails:
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import itertools
 import json
 import math
 import pathlib
@@ -217,6 +246,28 @@ GOSSIP_CASES = [
      (4, 2, 2)),
 ]
 GOSSIP_TIMED = 3  # timed solves per mode, after a warm one
+
+# The elastic drills at the production dictionary: serve_dict with a grow at
+# sample DRILL_GROW_AT and a drain at DRILL_DRAIN_AT (mode, flags, agents a
+# grow adds, ranks a drain takes): exact_fista (the CLI default) and graph on
+# erdos to N 18 and back, graph_tv_q8 with link failures, the chain of the
+# gossip phase +1 on its model level (N 20) and back.  Then a fleet of two
+# graph replicas with a rolling publish at FLEET_PUBLISH_AT, and the kill
+# drill: r1 killed at KILL_AT with work in flight.
+DRILL_GROW_AT, DRILL_DRAIN_AT = 16, 40
+DRILLS = [
+    ("exact_fista", (), 2, "0,17", True),
+    ("graph", ("--topology", "erdos"), 2, "0,17", False),
+    ("graph_tv_q8", ("--topology", "ring_metropolis", "--fail-p", "0.25"), 2, "0,17", False),
+    ("chain", ("--mesh", "2x2x1x4", "--levels", "torus,ring_metropolis:2:q8,ring:4:q8:stale"),
+     1, "0", False),
+]
+FLEET_PUBLISH_AT, KILL_AT = 32, 32
+# The kill drill's router seed: its first tie-break (both replicas idle at
+# the first admission batch of 32) picks r1 (numpy's default_rng(0).integers(2)
+# is 1), so r1 is solving half of it, the other half queued, when the stream
+# reaches KILL_AT (a solve takes about a second there).
+KILL_SEED = 0
 
 # The learner (core/learner.DictionaryLearner, the paper's Alg. 1) at the
 # production dictionary above, with serve_dict's --mu-w default: one warm
@@ -1254,6 +1305,528 @@ def phase_main_path(torch, mode: str, card: str, must_code: bool, stream, extra=
     return launches
 
 
+def fista_at_mu(torch, res, reg, W_full, x, mu, iters):
+    """exact_fista's arithmetic on the full (M, K) dictionary with plain
+    matmuls, at the coder's mu: the single-host reference of the elastic
+    phase (core/inference.fista_infer takes its own step)."""
+    from repro_torch.core.inference import full_dual_grad
+
+    c_f = res.grad_fstar(torch.ones((1,), device=x.device))[0]
+    L = 1.0 / mu
+    beta = (torch.sqrt(L) - torch.sqrt(c_f)) / (torch.sqrt(L) + torch.sqrt(c_f))
+    nu = prev = torch.zeros_like(x)
+    for _ in range(iters):
+        z = nu + beta * (nu - prev)
+        z = res.project_dual(z - mu * full_dual_grad(res, reg, W_full, z, x))
+        nu, prev = z, nu
+    return nu
+
+
+def is_subsequence(seq, of) -> bool:
+    """Whether seq is `of` with some entries left out, in order."""
+    it = iter(of)
+    return all(any(a == b for b in it) for a in seq)
+
+
+def eras(results):
+    """The y dims of a stream in order, one entry per era."""
+    return [k for k, _ in itertools.groupby(int(y.shape[0]) for _, y in results)]
+
+
+def clocked(coder_class):
+    """Patches of the coder class's solve and fit_batch that record every
+    claimed offset (the t0 the service passes) with the coder's period;
+    returns (the list, the patch contexts)."""
+    claims = []
+    patches = []
+    for name, pos in (("solve", 0), ("fit_batch", 1)):
+        real = getattr(coder_class, name)
+
+        def wrapped(self, W, x, *rest, _real=real, _pos=pos):
+            if len(rest) > _pos:
+                claims.append((int(rest[_pos]), self.schedule_period))
+            return _real(self, W, x, *rest)
+
+        patches.append(mock.patch.object(coder_class, name, wrapped))
+    return claims, patches
+
+
+def clock_reading(claims, iters, sched_t):
+    """Claims off the continuous clock (each t0 must be the running clock
+    mod the then-current period), plus |final clock - iters x claims|."""
+    clock, off = 0, 0
+    for t0, period in claims:
+        off += int(t0 != clock % period)
+        clock += iters
+    return off + abs(sched_t - iters * len(claims))
+
+
+def phase_elastic_small(torch):
+    """Grown and drained coders (kernel path) on small inputs with nonzero
+    codes against their plain twins and the single-host references; the
+    survivor and old blocks bit for bit; the clock across a drain and the
+    router's re-route on the card.  Four planted faults must be rejected."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.conjugates import make_task
+    from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+    from repro_torch.core.inference import DiffusionConfig, diffusion_infer
+    from repro_torch.runtime.service import DictionaryService, ServiceConfig
+    from repro_torch.runtime.serving import ReplicaSet, Router, RouterConfig, device_pools
+
+    res, reg = make_task("sparse_svd", gamma=0.05, delta=0.1)
+    rng = np.random.default_rng(3)
+    m, kb, iters = 16, 4, 300
+
+    def w_full(n):
+        """Unit columns shrunk to norms in [0.6, 1), as learning leaves
+        them, so a renormalisation shows."""
+        W = rng.standard_normal((m, kb * n)).astype(np.float32)
+        return W / np.linalg.norm(W, axis=0) * rng.uniform(0.6, 1.0, (1, kb * n)).astype(
+            np.float32)
+
+    x = torch.as_tensor(rng.standard_normal((4, m)).astype(np.float32), device="cuda")
+    dcfg = DiffusionConfig(iters=iters)
+    readings, faults = {}, {}
+
+    def coder(agents, **cfg):
+        return DistributedSparseCoder(agents, res, reg, DistConfig(iters=iters, **cfg))
+
+    def ref_of(c, W, t0=0):
+        """The single-host reference of coder c on blocks W: FISTA at its mu
+        for exact_fista, else diffusion_infer under its combiner(s)."""
+        mu = c.adaptive_mu(W)[0]
+        if c.cfg.mode == "exact_fista":
+            nu = fista_at_mu(torch, res, reg, W.permute(1, 0, 2).reshape(m, -1), x, mu, iters)
+            return nu.expand(c.n_agents, *nu.shape), reg.ystar(torch.matmul(nu, W))
+        seq = torch.as_tensor(np.stack(c.combiner_sequence()), dtype=torch.float32,
+                              device="cuda")
+        A = (lambda t: seq[(t + t0) % len(seq)]) if len(seq) > 1 else seq[0]
+        nu, y, _ = diffusion_infer(res, reg, W, x, A, torch.ones(c.n_agents, device="cuda"),
+                                   dcfg, mu=mu)
+        return nu, y
+
+    def held(name, c, W, ref=None, t0=0, tol=1e-4, into=readings):
+        """Kernel path against ref (default: the plain twin, at Q8_RTOL of
+        max |nu| on the int8 wire); codes must be nonzero."""
+        nu, y = c.solve_per_agent(W, x, t0)
+        if ref is None:
+            with plain_twin():
+                nu_p, _ = c.solve_per_agent(W, x, t0)
+            into[name] = (rel_err(nu, nu_p), Q8_RTOL if is_q8(c) else SOLVE_RTOL)
+        else:
+            into[name] = (max(max_err(nu, ref[0]), max_err(y, ref[1])), tol)
+        if into is readings and not bool((y != 0).any()):
+            raise AssertionError(f"elastic {name}: every code is zero")
+
+    def blocks_gate(label, c, W, g, W2, s, W3, drain):
+        n_old, n_new = c.level_sizes[0], g.level_sizes[0]
+        outer = c.n_agents // n_old
+        old = max_err(W2.view(outer, n_new, m, kb)[:, :n_old], W.view(outer, n_old, m, kb))
+        fresh = W2.view(outer, n_new, m, kb)[:, n_old:]
+        norm = float((torch.linalg.vector_norm(fresh, dim=2) - 1).abs().max())
+        keep = [r for r in range(n_new) if r not in drain]
+        surv = max_err(W3.view(outer, len(keep), m, kb), W2.view(outer, n_new, m, kb)[:, keep])
+        readings[f"{label}: old blocks after the grow (bit for bit)"] = (old, 0.0)
+        readings[f"{label}: fresh blocks, max |norm - 1|"] = (norm, 1e-6)
+        readings[f"{label}: survivor blocks after the drain (bit for bit)"] = (surv, 0.0)
+        return keep
+
+    gen = torch.Generator().manual_seed(4)
+    cases = [
+        ("exact_fista", 4, dict(mode="exact_fista"), 2, [0, 5], None),
+        ("graph erdos", 4, dict(mode="graph", topology="erdos", topology_seed=1), 2, [0, 5],
+         None),
+        ("graph_tv_q8 fail 0.25", 4, dict(mode="graph_tv_q8", failure_p=0.25, failure_steps=6),
+         2, [1, 2], dict(mode="graph_tv", failure_p=0.25, failure_steps=6)),
+        ("chain", (2, 2, 2),
+         dict(mode="chain", levels="torus,ring_metropolis:2:q8,ring:4:q8:stale"), 1, [1],
+         dict(mode="chain", levels="erdos,ring_metropolis:2,ring")),
+    ]
+    grown_erdos = None
+    for label, agents, cfg, extra, drain, fp32 in cases:
+        for variant, vcfg in (("", cfg), (" fp32 twin", fp32)):
+            if vcfg is None:
+                continue
+            c = coder(agents, **vcfg)
+            W = c.snapshot(w_full(c.n_agents))
+            g, W2 = c.grown(W, extra, gen)
+            s, W3 = g.shrunk(W2, drain)
+            name = label + variant
+            if not variant:
+                blocks_gate(name, c, W, g, W2, s, W3, drain)
+            for stage, cc, WW in (("grown", g, W2), ("drained", s, W3)):
+                tag = f"{name} {stage} N {cc.n_agents}"
+                if variant or not is_q8(cc):  # fp32: the single-host reference
+                    held(f"{tag} vs the single-host reference", cc, WW, ref_of(cc, WW, 3), t0=3)
+                held(f"{tag} vs its plain twin", cc, WW, t0=3)
+            if label == "graph erdos":
+                grown_erdos = (c, g, W2)
+                kept = int((g._adj[:4, :4] != c._adj).sum())
+                readings[f"{name}: old edges rewired by the grow"] = (float(kept), 0.0)
+            if label == "graph_tv_q8 fail 0.25" and not variant:
+                drain_svc = (agents, vcfg, W)
+
+    # Planted fault 1: a grow that draws the whole erdos graph afresh.
+    c, g, W2 = grown_erdos
+    bad = coder(g.n_agents, mode="graph", topology="erdos", topology_seed=1)
+    faults["grow resampling the whole erdos adjacency: old edges rewired"] = (
+        float((bad._adj[:4, :4] != c._adj).sum()), 0.0)
+    held("grow resampling the whole erdos adjacency: solve vs the grown reference", bad, W2,
+         ref_of(g, W2), into=faults)
+    # Planted fault 2: a drain that renormalises the survivor blocks.
+    s, W3 = g.shrunk(W2, [0, 5])
+    W3_bad = W3 / torch.linalg.vector_norm(W3, dim=1, keepdim=True)
+    faults["drain renormalising the survivors: survivor blocks (bit for bit)"] = (
+        max_err(W3_bad, W3), 0.0)
+
+    # The clock across a drain, a service on the card; planted fault 3: a
+    # drain that resets it.
+    agents, vcfg, W = drain_svc
+    X = rng.standard_normal((48, m)).astype(np.float32)
+
+    def drill(reset):
+        c = DistributedSparseCoder(agents, res, reg, DistConfig(iters=20, **vcfg))
+        claims, patches = clocked(DistributedSparseCoder)
+        svc = DictionaryService(c, W, ServiceConfig(micro_batch=8, mu_w=0.1))
+        if reset:
+            real = svc._maybe_swap
+
+            def resetting(q, build):
+                drained = q is svc._drain_q and not q.empty()
+                real(q, build)
+                if drained:
+                    with svc._lock:
+                        svc._sched_t = 0
+
+            svc._maybe_swap = resetting
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            with svc:
+                [f.result(timeout=120) for f in svc.submit_many(X[:16])]
+                svc.grow(2, torch.Generator().manual_seed(5)).result(timeout=120)
+                [f.result(timeout=120) for f in svc.submit_many(X[16:32])]
+                svc.drain([1, 2]).result(timeout=120)
+                [f.result(timeout=120) for f in svc.submit_many(X[32:])]
+        if svc.stats()["coded"] != 48 or svc.stats()["fit_failures"]:
+            raise AssertionError(f"elastic service drill: {svc.stats()}")
+        return float(clock_reading(claims, 20, svc._sched_t)), len(claims)
+
+    r, n_claims = drill(False)
+    readings[f"graph_tv_q8 service: clock across grow and drain ({n_claims} executions)"] = (
+        r, 0.0)
+    faults["drain resetting the schedule clock: the clock reading"] = (drill(True)[0], 0.0)
+
+    # The router's re-route after a kill, two replicas on the card; planted
+    # fault 4: a router that does not re-route (no retries).
+    def kill_drill(retries):
+        cfg = DistConfig(iters=20, mode="graph")
+        pools = device_pools(2)
+        W0 = w_full(4)
+        services = [DictionaryService(DistributedSparseCoder(4, res, reg, cfg), W0,
+                                      ServiceConfig(micro_batch=8, learn=False), stream=p.stream)
+                    for p in pools]
+        fleet = ReplicaSet(services)
+        victim = fleet["r1"].service
+        victim.start()  # r0 not yet up: the router places everything on r1
+        router = Router(fleet, RouterConfig(micro_batch=8, max_wait_s=0.005,
+                                            max_retries=retries)).start()
+        victim._exec_lock.acquire()  # r1's first batch in flight, the rest queued
+        futs = router.submit_many(X[:32])
+        for _ in range(1000):
+            if victim.load()["queue_depth"] >= 8:
+                break
+            time.sleep(0.01)
+        fleet["r0"].service.start()
+        killer = threading.Thread(target=fleet.kill, args=("r1",))
+        killer.start()
+        for _ in range(1000):
+            if victim.load()["queue_depth"] == 0:
+                break
+            time.sleep(0.01)
+        victim._exec_lock.release()
+        killer.join(120)
+        ok = [f for f in futs if f.exception(timeout=120) is None]
+        st = router.stats()
+        router.stop()
+        fleet.stop()
+        return st["failed"], st["rerouted"], len(ok)
+
+    failed, rerouted, ok = kill_drill(2)
+    readings[f"kill drill (small): failed {failed}, rerouted {rerouted}, resolved {ok}/32"] = (
+        float(failed + (rerouted < 1) + (32 - ok)), 0.0)
+    failed_b, rerouted_b, _ = kill_drill(0)
+    faults[f"router without re-route: failed {failed_b}, rerouted {rerouted_b}"] = (
+        float(failed_b + (rerouted_b < 1)), 0.0)
+
+    torch.cuda.synchronize()
+    for name, (r, tol) in readings.items():
+        print(f"[elastic small] {name}: {r:.3e} (tol {tol})")
+    for name, (r, tol) in faults.items():
+        print(f"[elastic small] planted fault, {name}: {r:.3e} (must exceed {tol})")
+    bad = [n for n, (r, tol) in readings.items() if not r <= tol]
+    if bad:
+        raise AssertionError(f"the elastic gates fail: {bad}")
+    passed = [n for n, (r, tol) in faults.items() if r <= tol]
+    if passed:
+        raise AssertionError(f"the elastic gates pass planted faults: {passed}")
+
+
+def phase_k1_grown_shapes(torch):
+    """K1 against its plain version at the agent counts growth gives the
+    production dictionary, N 18 (+2) and N 20 (the chain's +1 per group),
+    random W and nu (nonzero codes), the main shape's gate."""
+    from repro_torch.kernels.dict_dual_step import ops, ref
+
+    out = {}
+    for n in (18, 20):
+        W = torch.randn(n, M, ATOMS_PER_AGENT, device="cuda")
+        W /= torch.linalg.vector_norm(W, dim=1, keepdim=True)
+        nu = torch.randn(n, MICRO_BATCH, M, device="cuda")
+        y, g = ops.dict_dual_step(W, nu, gamma=GAMMA, delta=DELTA)
+        yr, gr = ref.dict_dual_step_ref(W, nu, gamma=GAMMA, delta=DELTA)
+        y_tol = 1e-4 * float(torch.matmul(nu, W).abs().max()) / DELTA
+        y_err, g_rel = max_err(y, yr), max_err(g, gr) / float(gr.abs().max())
+        nonzero = float((yr != 0).float().mean())
+        grid = list(ops.ctas(n, M, ATOMS_PER_AGENT, MICRO_BATCH))
+        print(f"[k1 grown] N {n} {(n, M, ATOMS_PER_AGENT, MICRO_BATCH)} (CTAs per pass {grid}): "
+              f"max|dY| {y_err:.3e} (tol {y_tol:.3e}), max|dG|/max|G| {g_rel:.3e} (tol 1e-4), "
+              f"nonzero codes {nonzero:.3e}")
+        if not (y_err <= y_tol and g_rel <= 1e-4 and nonzero > 0):
+            raise AssertionError(f"dict_dual_step disagrees with plain at N {n}")
+        out[n] = {"max_dY": y_err, "max_dG_rel": g_rel, "grid": grid, "nonzero": nonzero}
+        del W, nu, y, g, yr, gr
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_drill(torch, mode: str, card: str, stream, extra, grow: int, drain: str,
+                resolve_grown: bool):
+    """serve_dict at the production dictionary with a grow at sample
+    DRILL_GROW_AT and a drain at DRILL_DRAIN_AT: every sample coded and
+    finite, the eras in order, the grow and drain events, K1's launches in
+    whole solves, the schedule clock at iters per execution across both
+    swaps; `resolve_grown`: one batch re-solved on the grown snapshot with
+    K1 against plain (nonzero codes required).  Returns K1's launches."""
+    import numpy as np
+
+    from repro_torch.kernels.dict_dual_step import ops
+    from repro_torch.launch import serve_dict
+
+    argv = ["--mode", mode, "--m", str(M), "--atoms-per-agent", str(ATOMS_PER_AGENT),
+            "--mesh", f"1x{N_AGENTS}", "--samples", str(SAMPLES), "--micro-batch",
+            str(MICRO_BATCH), "--iters", str(ITERS), "--gamma", str(GAMMA), "--delta",
+            str(DELTA), "--device", "cuda", "--json", "--grow-at", str(DRILL_GROW_AT),
+            "--grow-model", str(grow), "--drain-at", str(DRILL_DRAIN_AT), "--drain", drain,
+            *extra]
+    args = serve_dict.parse_args(argv)
+    with mock.patch.object(serve_dict, "sparse_stream", stream):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        out = serve_dict.run(args)
+        launches = ops.dict_dual_step.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pay, results, svc = out["payload"], out["results"], out["service"]
+    stats = svc.stats()
+    label = " ".join([mode] + list(extra))
+    k0 = ATOMS_PER_AGENT * N_AGENTS
+    (g_ev,), (d_ev,) = stats["grow_events"], stats["drain_events"]
+    want_eras = [k0, g_ev["k_new"], d_ev["k_new"]]
+    seen = eras(results)
+    if stats["coded"] != SAMPLES or len(results) != SAMPLES or stats["fit_failures"]:
+        raise AssertionError(f"drill {label}: coded {stats['coded']}, fit failures "
+                             f"{stats['fit_failures']} {stats['fit_first_error']}")
+    if not all(np.isfinite(nu).all() and np.isfinite(y).all() for nu, y in results):
+        raise AssertionError(f"drill {label}: a code is not finite")
+    if seen[0] != k0 or len(seen) < 2 or not is_subsequence(seen, want_eras):
+        raise AssertionError(f"drill {label}: y dims {seen}, eras {want_eras}")
+    if launches % (ITERS + 1):
+        raise AssertionError(f"drill {label}: {launches} K1 launches, not whole solves")
+    # Six warmup executions claim nothing: a solve and a fit at start and
+    # after each swap.
+    executions = launches // (ITERS + 1) - 6
+    coder = svc._coder
+    want_t = ITERS * executions if coder.is_time_varying else 0
+    if svc._sched_t != want_t or d_ev["sched_t"] > svc._sched_t:
+        raise AssertionError(f"drill {label}: the schedule clock reads {svc._sched_t}, "
+                             f"expected {want_t} (drain at {d_ev['sched_t']})")
+    row = {"mode": mode, "flags": list(extra), "card": card, "M": M, "agents": N_AGENTS,
+           "grow": grow, "drain": drain, "grow_at": DRILL_GROW_AT, "drain_at": DRILL_DRAIN_AT,
+           "samples": SAMPLES, "samples_per_s": pay["samples_per_s"],
+           "latency_ms": pay["latency_ms"], "wall_s": pay["wall_s"], "swap_s": out["swap_s"],
+           "y_dims_eras": seen, "model_sizes": [g_ev["model_old"], g_ev["model_new"],
+                                                d_ev["model_new"]],
+           "k1_calls": launches, "executions": executions, "fit_steps": stats["fit_steps"],
+           "peak_mem_gb": peak_gb, "sched_t": svc._sched_t,
+           "drain_sched_t": d_ev["sched_t"], "schedule_period": coder.schedule_period}
+    if resolve_grown:
+        # The final coder grown again as the drill grew it (+grow, fresh atoms
+        # from the CLI's seed): its first batch re-solved with K1 and plain.
+        g_coder, W2 = coder.grown(svc.snapshot(), grow, torch.Generator().manual_seed(2))
+        xb = out["X"][-MICRO_BATCH:]
+        nu_k, y_k = g_coder.solve(W2, xb)
+        with plain_twin():
+            nu_p, y_p = g_coder.solve(W2, xb)
+        nu_err, y_err = rel_err(nu_k, nu_p), rel_err(y_k, y_p)
+        nonzero = float((y_p != 0).float().mean())
+        tol = Q8_RTOL if is_q8(g_coder) else SOLVE_RTOL
+        row["grown_resolve"] = {"agents": g_coder.n_agents, "nu": nu_err, "y": y_err,
+                                "nonzero": nonzero, "tol": tol}
+        print(f"[drill:{label}] re-solve at N {g_coder.n_agents} kernel vs plain: nu {nu_err:.2e} "
+              f"y {y_err:.2e} (tol {tol}), nonzero codes {nonzero:.3e}")
+        if not (nu_err <= tol and y_err <= tol and nonzero > 0):
+            raise AssertionError(f"drill {label}: the grown coder's kernel path disagrees with "
+                                 f"plain or codes nothing")
+        del g_coder, W2
+    lat = pay["latency_ms"]
+    print(f"[drill:{label}] {card}: {pay['samples_per_s']:.4f} samples/s  p50 {lat['p50']:.1f} "
+          f"ms  p99 {lat['p99']:.1f} ms  swaps (request to resolved) grow "
+          f"{out['swap_s']['grow']:.2f} s drain {out['swap_s']['drain']:.2f} s  y dims {seen}  "
+          f"K1 calls {launches}  peak device memory {peak_gb:.2f} GB  clock {svc._sched_t}")
+    print("DRILL " + json.dumps(row))
+    del out, results, svc, coder
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fleet(torch, card: str, stream):
+    """serve_dict --replicas 2 --publish-at FLEET_PUBLISH_AT (graph) at the
+    production dictionary: every sample coded, none failed, one rolling
+    publish reaching both replicas; a batch re-solved on r0's final
+    snapshot with K1 against plain.  Returns K1's launches."""
+    import numpy as np
+
+    from repro_torch.kernels.dict_dual_step import ops
+    from repro_torch.launch import serve_dict
+
+    argv = ["--mode", "graph", "--m", str(M), "--atoms-per-agent", str(ATOMS_PER_AGENT),
+            "--mesh", f"1x{N_AGENTS}", "--samples", str(SAMPLES), "--micro-batch",
+            str(MICRO_BATCH), "--iters", str(ITERS), "--gamma", str(GAMMA), "--delta",
+            str(DELTA), "--device", "cuda", "--json", "--replicas", "2", "--publish-at",
+            str(FLEET_PUBLISH_AT)]
+    with mock.patch.object(serve_dict, "sparse_stream", stream):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        out = serve_dict.run(serve_dict.parse_args(argv))
+        launches = ops.dict_dual_step.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pay, results, fleet = out["payload"], out["results"], out["fleet"]
+    if len(results) != SAMPLES or pay["failed"] or sum(pay["routed"].values()) != SAMPLES:
+        raise AssertionError(f"fleet: {pay}")
+    if pay["publishes"] != 1 or pay["publish_versions"] != {"r0": 1, "r1": 1}:
+        raise AssertionError(f"fleet: publish {pay['publish_versions']}")
+    if not all(np.isfinite(nu).all() and np.isfinite(y).all() for nu, y in results):
+        raise AssertionError("fleet: a code is not finite")
+    if launches % (ITERS + 1) or launches < (ITERS + 1) * (2 + SAMPLES // MICRO_BATCH):
+        raise AssertionError(f"fleet: {launches} K1 launches")
+    svc = fleet["r0"].service
+    xb = out["X"][-MICRO_BATCH:]
+    nu_k, y_k = svc._coder.solve(svc.snapshot(), xb)
+    with plain_twin():
+        nu_p, y_p = svc._coder.solve(svc.snapshot(), xb)
+    nu_err, y_err = rel_err(nu_k, nu_p), rel_err(y_k, y_p)
+    if not (nu_err <= SOLVE_RTOL and y_err <= SOLVE_RTOL):
+        raise AssertionError(f"fleet: kernel vs plain nu {nu_err}, y {y_err}")
+    lat = pay["latency_ms"]
+    row = {"mode": "graph", "card": card, "replicas": 2, "publish_at": FLEET_PUBLISH_AT,
+           "samples": SAMPLES, "agg_samples_per_s": pay["agg_samples_per_s"],
+           "latency_ms": lat, "wall_s": pay["wall_s"], "routed": pay["routed"],
+           "rerouted": pay["rerouted"], "failed": pay["failed"],
+           "publish_versions": pay["publish_versions"], "per_replica": pay["per_replica"],
+           "k1_calls": launches, "peak_mem_gb": peak_gb, "publish_s": out["publish_s"],
+           "y_dims": sorted({int(y.shape[0]) for _, y in results}),
+           "resolve_rel_err": {"nu": nu_err, "y": y_err}}
+    print(f"[fleet] {card}: {pay['agg_samples_per_s']:.4f} samples/s over 2 replicas  p50 "
+          f"{lat['p50']:.1f} ms  p99 {lat['p99']:.1f} ms  wall {pay['wall_s']:.1f} s  routed "
+          f"{pay['routed']}  publish {pay['publish_versions']} (waited "
+          f"{out['publish_s']['draw_wait']:.1f} s for the host's draw, installed in "
+          f"{out['publish_s']['install']:.1f} s)  K1 calls {launches}  peak device memory "
+          f"{peak_gb:.2f} GB")
+    print("FLEET " + json.dumps(row))
+    del out, results, fleet, svc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kill_drill(torch, card: str, stream):
+    """Two graph replicas at the production dictionary behind the Router,
+    r1 killed at sample KILL_AT while it has work in flight: every request
+    resolved (failed 0), at least one re-routed.  Returns K1's launches."""
+    import numpy as np
+
+    from repro_torch.core.conjugates import make_task
+    from repro_torch.core.dictionary import blocks_from_full, init_dictionary
+    from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+    from repro_torch.kernels.dict_dual_step import ops
+    from repro_torch.runtime.service import DictionaryService, ServiceConfig
+    from repro_torch.runtime.serving import (
+        ReplicaSet, Router, RouterConfig, device_pools, replica_bytes,
+    )
+
+    if int(np.random.default_rng(KILL_SEED).integers(2)) != 1:
+        raise AssertionError("KILL_SEED's first tie-break does not pick r1")
+    res, reg = make_task("sparse_svd", gamma=GAMMA, delta=DELTA)
+    k = ATOMS_PER_AGENT * N_AGENTS
+    X = stream(SAMPLES, m=M, k_true=k, nonneg=False, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    pools = device_pools(2, replica_bytes(N_AGENTS, M, ATOMS_PER_AGENT, learn=False))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    W0 = blocks_from_full(init_dictionary(gen, M, k, device="cuda"), N_AGENTS)
+    cfg = DistConfig(mode="graph", iters=ITERS)
+    services = [DictionaryService(DistributedSparseCoder(N_AGENTS, res, reg, cfg), W0,
+                                  ServiceConfig(micro_batch=MICRO_BATCH, learn=False),
+                                  stream=p.stream) for p in pools]
+    del W0
+    in_flight = queued = None
+    t0 = time.perf_counter()
+    with ReplicaSet(services) as fleet:
+        # The router admits two service micro-batches at a time, so the
+        # replica it picks has one batch solving and one queued.
+        router_cfg = RouterConfig(micro_batch=2 * MICRO_BATCH, seed=KILL_SEED)
+        with Router(fleet, router_cfg) as router:
+            futs = []
+            for i in range(SAMPLES):
+                if i == KILL_AT:
+                    victim = fleet["r1"].service
+                    for _ in range(3000):  # r1 must hold queued work
+                        queued = victim.load()["queue_depth"]
+                        in_flight = router.stats()["routed"]["r1"] - victim.load()["coded"]
+                        if queued > 0:
+                            break
+                        time.sleep(0.01)
+                    fleet.kill("r1")
+                futs.append(router.submit(X[i]))
+            results = [f.result(timeout=3600) for f in futs]
+            st = router.stats()
+    wall = time.perf_counter() - t0
+    launches = ops.dict_dual_step.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ok = len(results) == SAMPLES and all(np.isfinite(nu).all() for nu, _ in results)
+    row = {"card": card, "replicas": 2, "kill_at": KILL_AT, "in_flight_at_kill": in_flight,
+           "queued_at_kill": queued,
+           "failed": st["failed"], "rerouted": st["rerouted"], "routed": st["routed"],
+           "latency_ms": st["latency_ms"], "wall_s": wall, "samples_per_s": SAMPLES / wall,
+           "k1_calls": launches, "peak_mem_gb": peak_gb}
+    print(f"[kill drill] {card}: r1 killed at sample {KILL_AT} with {in_flight} request(s) "
+          f"placed and not coded ({queued} queued): failed {st['failed']}, rerouted "
+          f"{st['rerouted']}, routed {st['routed']}  {SAMPLES / wall:.4f} samples/s  p50 "
+          f"{st['latency_ms']['p50']:.1f} ms  p99 {st['latency_ms']['p99']:.1f} ms  K1 calls "
+          f"{launches}  peak device memory {peak_gb:.2f} GB")
+    print("KILL " + json.dumps(row))
+    if not (ok and st["failed"] == 0 and st["rerouted"] >= 1 and in_flight and in_flight > 0):
+        raise AssertionError(f"kill drill: {row}")
+    del services, fleet, router
+    torch.cuda.empty_cache()
+    return launches
+
+
 def device_profile(torch, fn, top: int = 6):
     """One call of fn under torch.profiler: (host wall ms, device kernel ms
     summed over the kernels' own rows, [(kernel, ms)] of the `top` largest).
@@ -1728,6 +2301,8 @@ def main() -> int:
     fa_rec["wgmma_build"] = wgmma_build  # HGMMA in the SASS, ptxas registers and spills
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     timed("small coder", phase_small_coder, torch)
+    timed("elastic small", phase_elastic_small, torch)
+    rec["grown_shapes"] = timed("dict_dual_step at N 18, 20", phase_k1_grown_shapes, torch)
     gossip = timed("gossip modes", phase_gossip_modes, torch, card)
     fa_rec["launches"] = timed("gemma-2b serve", phase_lm, torch, card)
     sl_rec["launches"] = timed("xlstm-1.3b serve", phase_xlstm, torch, card)
@@ -1751,6 +2326,12 @@ def main() -> int:
     launches = {mode: timed(f"serve_dict {mode}", phase_main_path, torch, mode, card,
                             must_code=(mode == "exact_fista"), stream=stream, extra=flags)
                 for mode, flags in serve_runs.items()}
+    # The elastic drills, the fleet and the kill drill at the same size.
+    for mode, flags, grow, drain, resolve in DRILLS:
+        launches[f"drill {mode}"] = timed(f"drill {mode}", phase_drill, torch, mode, card,
+                                          stream, flags, grow, drain, resolve)
+    launches["fleet"] = timed("fleet", phase_fleet, torch, card, stream)
+    launches["kill drill"] = timed("kill drill", phase_kill_drill, torch, card, stream)
     launches.update(gossip)
     rec["launches"] = sum(launches.values())
     rec["launches_by_mode"] = launches

@@ -50,6 +50,12 @@ In the hierarchical modes the agent axis is the flat outermost-major rank
 of the level grid, viewed as (n_{L-1}, ..., n_0): the order of the JAX
 engine's (outer, ..., pod, model) devices, so `blocks_from_full(W, N)`
 gives each agent the columns its JAX device owns.
+
+Elastic growth and agent drain (paper Sec. IV-C) act on the model level:
+`grown` appends fresh unit-norm blocks (in every outer group of a
+hierarchical coder) and `shrunk` keeps the survivors' blocks bit for bit,
+both on the device; the new coder re-derives its combiners from the old
+one's (`grown_from` / `shrunk_from`), erdos neighbourhoods kept.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ import torch
 
 from repro_torch.core import topology as topo
 from repro_torch.core.conjugates import Regularizer, Residual
-from repro_torch.core.dictionary import blocks_from_full, dict_update
+from repro_torch.core.dictionary import dict_update, init_dictionary
 from repro_torch.core.inference import power_sigma2
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dict_dual_step import ops
@@ -310,7 +316,19 @@ class DistributedSparseCoder:
         reg: Regularizer,
         cfg: DistConfig,
         device: DeviceLike = "cuda",
+        grown_from: Optional["DistributedSparseCoder"] = None,
+        shrunk_from: Optional[Tuple["DistributedSparseCoder", Tuple[int, ...]]] = None,
     ):
+        """`grown_from` and `shrunk_from` are the hooks of `grown` and
+        `shrunk`: an erdos combiner (the static kind, every erdos step of a
+        schedule, the erdos model level of a chain) then grows from the old
+        coder's adjacency (`erdos_renyi_grow`, existing edges kept) or is
+        restricted to the survivors (`shrink_adjacency`) instead of being
+        drawn afresh; structured kinds re-derive at the new size, and a
+        chain carries its outer levels verbatim."""
+        if grown_from is not None and shrunk_from is not None:
+            raise ValueError("grown_from and shrunk_from are mutually exclusive "
+                             "construction hooks")
         caps = MODE_REGISTRY[cfg.mode]
         level_specs = cfg.chain_levels()
         sizes = (int(agents),) if isinstance(agents, (int, np.integer)) else tuple(
@@ -325,6 +343,7 @@ class DistributedSparseCoder:
         if min(sizes) < 1:
             raise ValueError(f"agent counts must be >= 1, got {sizes}")
         self.n_agents = math.prod(sizes)
+        self.level_sizes = sizes  # agents per level, innermost first
         self.res = res
         self.reg = reg
         self.cfg = cfg
@@ -332,6 +351,7 @@ class DistributedSparseCoder:
         self._caps = caps
         n = self.n_agents
         self._A: Optional[np.ndarray] = None
+        self._adj: Optional[np.ndarray] = None  # static erdos adjacency
         self._gsched: Optional[comm.GraphSchedule] = None
         self._tsched: Optional[topo.TopologySchedule] = None
         self._gscheds: Optional[Tuple[comm.GraphSchedule, ...]] = None
@@ -343,9 +363,23 @@ class DistributedSparseCoder:
         self._cweights: Tuple[comm.Weights, ...] = ()
         f32 = torch.float32
         if caps.family in ("graph", "push"):
-            self._A = topo.make_topology(
-                cfg.topology, n, p=cfg.topology_p, seed=cfg.topology_seed, beta=cfg.beta
-            )
+            if cfg.topology == "erdos":
+                if grown_from is not None and grown_from._adj is not None:
+                    # stream (seed, step 0, n): the one TopologySchedule.grown
+                    # uses for its step 0, so "fixed:erdos" grows alike
+                    self._adj = topo.erdos_renyi_grow(
+                        grown_from._adj, n, p=cfg.topology_p,
+                        seed=topo.derive_seed(cfg.topology_seed, 0, n))
+                elif shrunk_from is not None and shrunk_from[0]._adj is not None:
+                    self._adj = topo.shrink_adjacency(shrunk_from[0]._adj, shrunk_from[1])
+                else:
+                    self._adj = topo.erdos_renyi_adjacency(
+                        n, p=cfg.topology_p, seed=cfg.topology_seed)
+                self._A = topo.metropolis_weights(self._adj)
+            else:
+                self._A = topo.make_topology(
+                    cfg.topology, n, p=cfg.topology_p, seed=cfg.topology_seed, beta=cfg.beta
+                )
             if caps.family == "push":
                 self._gsched = comm.graph_schedule(self._A, row_stochastic=True)
             elif cfg.topology == "torus":
@@ -354,27 +388,40 @@ class DistributedSparseCoder:
                 self._gsched = comm.graph_schedule(self._A)
             self._gweights = (comm.schedule_weights(self._gsched, f32, self.device),)
         elif caps.family == "tv":
-            spec = cfg.topology_schedule or "fixed"
-            if spec == "fixed":
-                spec = f"fixed:{cfg.topology}"
-            self._tsched = topo.make_topology_schedule(
-                spec, n, p=cfg.topology_p, seed=cfg.topology_seed,
-                beta=cfg.beta, period=cfg.schedule_period,
-            )
-            if cfg.failure_p > 0:
-                self._tsched = topo.link_failure_schedule(
-                    self._tsched, cfg.failure_p, failure_seed=cfg.failure_seed,
-                    steps=cfg.failure_steps or None,
+            if grown_from is not None and grown_from._tsched is not None:
+                # a LinkFailureSchedule re-applies its dropout over the grown base
+                self._tsched = grown_from._tsched.grown(n)
+            elif shrunk_from is not None and shrunk_from[0]._tsched is not None:
+                self._tsched = shrunk_from[0]._tsched.shrunk(shrunk_from[1])
+            else:
+                spec = cfg.topology_schedule or "fixed"
+                if spec == "fixed":
+                    spec = f"fixed:{cfg.topology}"
+                self._tsched = topo.make_topology_schedule(
+                    spec, n, p=cfg.topology_p, seed=cfg.topology_seed,
+                    beta=cfg.beta, period=cfg.schedule_period,
                 )
+                if cfg.failure_p > 0:
+                    self._tsched = topo.link_failure_schedule(
+                        self._tsched, cfg.failure_p, failure_seed=cfg.failure_seed,
+                        steps=cfg.failure_steps or None,
+                    )
             self._gscheds = comm.graph_schedule_sequence(
                 self._tsched.combiners, self._tsched.kinds
             )
             self._gweights = tuple(comm.schedule_weights(s, f32, self.device)
                                    for s in self._gscheds)
         elif caps.hierarchical:
-            self._chain = topo.make_kronecker_chain(
-                level_specs, sizes, p=cfg.topology_p, seed=cfg.topology_seed, beta=cfg.beta,
-            )
+            # growth and drain touch the model level only: outer levels verbatim
+            if grown_from is not None and grown_from._chain is not None:
+                self._chain = grown_from._chain.grown(sizes[0])
+            elif shrunk_from is not None and shrunk_from[0]._chain is not None:
+                self._chain = shrunk_from[0]._chain.shrunk(shrunk_from[1])
+            else:
+                self._chain = topo.make_kronecker_chain(
+                    level_specs, sizes, p=cfg.topology_p, seed=cfg.topology_seed,
+                    beta=cfg.beta,
+                )
             self._csched = comm.chain_schedule(
                 self._chain, tuple(cfg.level_axis(i) for i in range(len(sizes)))
             )
@@ -616,12 +663,21 @@ class DistributedSparseCoder:
 
     def snapshot(self, W) -> Tensor:
         """The (N, M, Kb) blocks of W on this coder's device: W is either
-        (M, K) (split with blocks_from_full) or already (N, M, Kb).  Does not
-        copy blocks that are already contiguous there; `fit_batch` never
-        writes its input, so readers may share the buffer."""
+        (M, K) (split as blocks_from_full does, into one allocation on the
+        device, block by block, wherever W lives) or already (N, M, Kb).
+        Does not copy blocks that are already contiguous there; `fit_batch`
+        never writes its input, so readers may share the buffer."""
         W = torch.as_tensor(W)
         if W.dim() == 2:
-            W = blocks_from_full(W.to(self.device), self.n_agents)
+            m, k = W.shape
+            n = self.n_agents
+            if k % n:
+                raise ValueError(f"K={k} not divisible by N={n}")
+            kb = k // n
+            blocks = torch.empty((n, m, kb), dtype=W.dtype, device=self.device)
+            for i in range(n):
+                blocks[i].copy_(W[:, i * kb:(i + 1) * kb])
+            return blocks
         if W.dim() != 3 or W.shape[0] != self.n_agents:
             raise ValueError(f"cannot place W {tuple(W.shape)} on {self.n_agents} agents")
         return W.to(self.device).contiguous()
@@ -630,6 +686,73 @@ class DistributedSparseCoder:
         """(blocks (N, M, Kb), x (B, M)) on this coder's device."""
         W = self.snapshot(W)
         return W, torch.as_tensor(x, dtype=W.dtype, device=self.device)
+
+    # -- elastic growth and agent drain --------------------------------------
+
+    def _resized(self, n_model: int, **hook) -> "DistributedSparseCoder":
+        """A coder like this one with n_model agents on the model level."""
+        sizes = (n_model,) + self.level_sizes[1:]
+        return DistributedSparseCoder(sizes if self._caps.hierarchical else n_model,
+                                      self.res, self.reg, self.cfg, self.device, **hook)
+
+    @torch.no_grad()
+    def grown(self, W: Tensor, extra_model: int,
+              generator: torch.Generator) -> Tuple["DistributedSparseCoder", Tensor]:
+        """Elastic growth (paper Sec. IV-C: new atoms and agents arrive
+        mid-stream): (new coder with `extra_model` more agents on the model
+        level, its (N', M, Kb) blocks).  Every old agent keeps its block bit
+        for bit; each fresh block is unit-norm (nonneg when the task asks)
+        from `init_dictionary(generator, M, Kb * extra_model)`, one draw per
+        outer group in group order.  The hierarchical modes view the agent
+        axis as (outer, n_model, M, Kb), outermost-major as the JAX engine's
+        devices, and append each group's fresh agents after its own, so
+        every outer group grows and no old agent changes rank within its
+        group.  The combiners grow as `__init__`'s `grown_from` says.  W2
+        is one allocation on this coder's device, filled there."""
+        if extra_model <= 0:
+            raise ValueError(f"extra_model must be positive, got {extra_model}")
+        W = self._check_blocks(W)
+        n_old = self.level_sizes[0]
+        n_new = n_old + int(extra_model)
+        outer = self.n_agents // n_old
+        new_coder = self._resized(n_new, grown_from=self)
+        _, m, kb = W.shape
+        W2 = torch.empty((outer, n_new, m, kb), dtype=W.dtype, device=self.device)
+        W2[:, :n_old].copy_(W.view(outer, n_old, m, kb))
+        for i in range(outer):
+            fresh = init_dictionary(generator, m, kb * int(extra_model), nonneg=self.reg.nonneg,
+                                    dtype=W.dtype, device=generator.device)
+            W2[i, n_old:].copy_(fresh.view(m, int(extra_model), kb).permute(1, 0, 2))
+            del fresh
+        return new_coder, W2.view(outer * n_new, m, kb)
+
+    @torch.no_grad()
+    def shrunk(self, W: Tensor,
+               departing_ranks: Sequence[int]) -> Tuple["DistributedSparseCoder", Tensor]:
+        """Agent drain, the inverse of `grown`: the model ranks
+        `departing_ranks` leave (in every outer group for the hierarchical
+        modes) and the survivors keep their blocks bit for bit (no
+        re-initialisation, no renormalisation): one `index_select` on this
+        coder's device.  The combiners shrink as `__init__`'s `shrunk_from`
+        says."""
+        W = self._check_blocks(W)
+        n_old = self.level_sizes[0]
+        departing = sorted(set(int(r) for r in departing_ranks))
+        if not departing:
+            raise ValueError("departing_ranks is empty: nothing to drain")
+        if departing[0] < 0 or departing[-1] >= n_old:
+            raise ValueError(f"departing_ranks {departing} out of range for a model level "
+                             f"of {n_old} agents")
+        survivors = tuple(r for r in range(n_old) if r not in set(departing))
+        if not survivors:
+            raise ValueError(f"cannot drain all {n_old} model ranks: at least one survivor "
+                             f"is required")
+        new_coder = self._resized(len(survivors), shrunk_from=(self, survivors))
+        outer = self.n_agents // n_old
+        _, m, kb = W.shape
+        sel = torch.tensor(survivors, dtype=torch.long, device=self.device)
+        W2 = W.view(outer, n_old, m, kb).index_select(1, sel)
+        return new_coder, W2.view(outer * len(survivors), m, kb)
 
     # -- the combiner, its schedules and its byte accounting ---------------
 

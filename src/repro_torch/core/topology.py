@@ -12,12 +12,18 @@ modes use (the port imports nothing of the JAX package):
   failures over a schedule (`link_failure_schedule`);
 * hierarchical combiners: `LevelSpec` / `parse_level_specs`, the N-level
   `KroneckerChain` A_{L-1} (x) ... (x) A_0 with per-level strides, and its
-  two-level surface `HierarchicalTopology`.
+  two-level surface `HierarchicalTopology`;
+* elastic growth and agent drain: `erdos_renyi_grow` enlarges a graph
+  without rewiring the edges between existing agents, `shrink_adjacency`
+  restricts one to the survivors (a ring over them unioned in when the
+  induced subgraph disconnects), and the `grown` / `shrunk` methods of the
+  schedules and chains re-derive every combiner at the new size (a chain
+  and a hierarchy on their innermost model level only; link failures
+  re-applied over the grown or shrunk base).
 
 Every random draw makes the same numpy RNG calls as the JAX package, so
-both sides build the same graphs and sequences from the same seeds.
-Elastic growth and drain (`grown` / `shrunk`) are not ported yet (ROADMAP
-section 1, 6d).
+both sides build the same graphs and sequences from the same seeds, grown
+and shrunk ones too.
 """
 
 from __future__ import annotations
@@ -93,6 +99,55 @@ def is_connected(adj: np.ndarray) -> bool:
                 seen.add(int(j))
                 frontier.append(int(j))
     return len(seen) == n
+
+
+def erdos_renyi_grow(adj_old: np.ndarray, n_new: int, p: float = 0.5,
+                     seed: int = 0) -> np.ndarray:
+    """Grow a connected Erdos-Renyi graph to n_new agents without rewiring
+    the existing ones: the top-left block is exactly `adj_old`, and only
+    edges with an endpoint among the new agents are drawn (resampled until
+    the grown graph is connected)."""
+    adj_old = np.asarray(adj_old, dtype=bool)
+    n_old = adj_old.shape[0]
+    if n_new < n_old:
+        raise ValueError(f"cannot grow from {n_old} agents down to {n_new}")
+    if n_new == n_old:
+        return adj_old.copy()
+    rng = np.random.default_rng(seed)
+    for _ in range(1000):
+        a = np.zeros((n_new, n_new), dtype=bool)
+        a[:n_old, :n_old] = adj_old
+        cand = np.triu(rng.random((n_new, n_new)) < p, 1)
+        cand[:n_old, :n_old] = False  # never touch existing-agent edges
+        a |= cand | cand.T
+        if is_connected(a):
+            return a
+    raise RuntimeError(f"could not grow a connected G({n_new},{p}) graph from {n_old} agents")
+
+
+def _check_survivors(survivors: Sequence[int], n: int, what: str) -> Tuple[int, ...]:
+    """Sorted survivor ranks, validated against n agents."""
+    survivors = tuple(sorted(int(r) for r in survivors))
+    if not survivors:
+        raise ValueError(f"cannot shrink {what} to zero survivors")
+    if len(set(survivors)) != len(survivors):
+        raise ValueError(f"duplicate survivor ranks in {survivors}")
+    if survivors[0] < 0 or survivors[-1] >= n:
+        raise ValueError(f"survivor ranks {survivors} out of range for {what} of {n} agents")
+    return survivors
+
+
+def shrink_adjacency(adj: np.ndarray, survivors: Sequence[int]) -> np.ndarray:
+    """The survivor-induced subgraph of `adj` (every edge between two
+    survivors kept); if it is disconnected, the ring over the survivors is
+    unioned in, a deterministic repair that adds at most two edges each."""
+    adj = np.asarray(adj, dtype=bool)
+    survivors = _check_survivors(survivors, adj.shape[0], "an adjacency")
+    sub = adj[np.ix_(survivors, survivors)].copy()
+    if not is_connected(sub):
+        sub |= ring_adjacency(len(survivors))
+    np.fill_diagonal(sub, False)
+    return sub
 
 
 def metropolis_weights(adj: np.ndarray) -> np.ndarray:
@@ -334,6 +389,46 @@ class TopologySchedule:
         """Per-step contraction sigma_2(window product)^(1/period)."""
         return windowed_mixing_rate(self.combiners)
 
+    def _resized(self, n_new: int, erdos_adj: Callable, what: str) -> "TopologySchedule":
+        """The schedule at n_new agents: each erdos step from
+        `erdos_adj(i, adjacency)`, each structured kind re-derived at n_new;
+        an explicit combiner has no generator and is refused."""
+        kinds, combiners, adjs = [], [], []
+        for i, kind in enumerate(self.kinds):
+            if kind == "erdos" and self.adjacencies[i] is not None:
+                adj = erdos_adj(i, self.adjacencies[i])
+                combiners.append(metropolis_weights(adj))
+                adjs.append(adj)
+            elif kind in GRAPH_KINDS and kind != "erdos":
+                combiners.append(make_topology(kind, n_new, p=self.p, seed=self.seed,
+                                               beta=self.beta))
+                adjs.append(_adjacency_for(kind, n_new))
+            else:
+                raise ValueError(
+                    f"cannot {what} schedule step {i} of kind {kind!r}: it wraps an "
+                    f"explicit combiner matrix with no generator; build the schedule via "
+                    f"make_topology_schedule('fixed:<kind>', ...) so it can be re-derived"
+                )
+            kinds.append(kind)
+        return TopologySchedule(spec=self.spec, n=n_new, kinds=tuple(kinds),
+                                combiners=tuple(combiners), adjacencies=tuple(adjs),
+                                p=self.p, seed=self.seed, beta=self.beta)
+
+    def grown(self, n_new: int) -> "TopologySchedule":
+        """The schedule for n_new agents (elastic growth): erdos steps grow
+        by `erdos_renyi_grow` from stream (seed, step, n_new), so existing
+        agents keep their neighbourhoods; structured kinds re-derive."""
+        return self._resized(n_new, lambda i, adj: erdos_renyi_grow(
+            adj, n_new, p=self.p, seed=derive_seed(self.seed, i, n_new)), "grow")
+
+    def shrunk(self, survivors: Sequence[int]) -> "TopologySchedule":
+        """The schedule for a surviving agent subset (drain): erdos steps
+        restrict to the survivors (`shrink_adjacency`); structured kinds
+        re-derive at the smaller size."""
+        survivors = _check_survivors(survivors, self.n, "a schedule")
+        return self._resized(len(survivors),
+                             lambda i, adj: shrink_adjacency(adj, survivors), "shrink")
+
 
 def _adjacency_for(kind: str, n: int) -> Optional[np.ndarray]:
     """Adjacency of a structured kind (None for the dense "full")."""
@@ -500,6 +595,41 @@ class KroneckerChain:
         stride-gated sequence (staleness is not modelled)."""
         return _stacked_callable(self.sequence(), device)
 
+    def _with_model_level(self, n0: int, A0: np.ndarray, adj0) -> "KroneckerChain":
+        return KroneckerChain(specs=self.specs, ns=(n0,) + self.ns[1:],
+                              combiners=(A0,) + self.combiners[1:],
+                              adjacencies=(adj0,) + self.adjacencies[1:],
+                              p=self.p, seed=self.seed, beta=self.beta)
+
+    def _model_level_at(self, n0: int, erdos_adj: Callable) -> "KroneckerChain":
+        """The chain with level 0 re-derived at n0 agents (an erdos level
+        from `erdos_adj(adjacency)`) and every outer level carried verbatim."""
+        spec0 = self.specs[0]
+        if spec0.kind == "erdos" and self.adjacencies[0] is not None:
+            adj0 = erdos_adj(self.adjacencies[0])
+            return self._with_model_level(n0, metropolis_weights(adj0), adj0)
+        A0 = make_topology(spec0.kind, n0, p=self.p, seed=self.seed, beta=self.beta)
+        return self._with_model_level(n0, A0, _adjacency_for(spec0.kind, n0))
+
+    def grown(self, n_model_new: int) -> "KroneckerChain":
+        """The chain for a larger innermost (model) level; outer levels are
+        physical and carried verbatim.  An erdos model level grows by
+        `erdos_renyi_grow` from stream (seed, 0, n_new), the flat static
+        erdos coder's stream."""
+        if n_model_new < self.ns[0]:
+            raise ValueError(f"cannot grow model level from {self.ns[0]} agents down to "
+                             f"{n_model_new}")
+        return self._model_level_at(n_model_new, lambda adj: erdos_renyi_grow(
+            adj, n_model_new, p=self.p, seed=derive_seed(self.seed, 0, n_model_new)))
+
+    def shrunk(self, survivors: Sequence[int]) -> "KroneckerChain":
+        """The chain for a surviving subset of the model level (drain);
+        outer levels carried verbatim, an erdos model level restricted by
+        `shrink_adjacency`."""
+        survivors = _check_survivors(survivors, self.ns[0], "the model level")
+        return self._model_level_at(len(survivors),
+                                    lambda adj: shrink_adjacency(adj, survivors))
+
 
 def make_kronecker_chain(
     specs: Sequence[LevelSpec],
@@ -617,6 +747,13 @@ class HierarchicalTopology:
 
     def as_callable(self, device=None) -> Callable:
         return self.chain().as_callable(device)
+
+    def grown(self, n_model_new: int) -> "HierarchicalTopology":
+        """The hierarchy for a larger intra-pod agent count (A_pod carried
+        verbatim), by `KroneckerChain.grown`."""
+        g = self.chain().grown(n_model_new)
+        return dataclasses.replace(self, n_model=n_model_new, A_model=g.combiners[0],
+                                   model_adjacency=g.adjacencies[0])
 
 
 def make_hierarchical_topology(
@@ -741,6 +878,23 @@ class LinkFailureSchedule(TopologySchedule):
     fail_p: float = 0.0
     failure_seed: int = 0
     base: Optional[TopologySchedule] = None
+
+    def _rederived(self, resize: Callable, what: str) -> "LinkFailureSchedule":
+        """The same failure streams over `resize(base)`."""
+        if self.base is None:
+            raise ValueError(f"cannot {what} a LinkFailureSchedule with no stored base "
+                             f"schedule; build it via link_failure_schedule(base, ...)")
+        return link_failure_schedule(resize(self.base), self.fail_p,
+                                     failure_seed=self.failure_seed, steps=self.period)
+
+    def grown(self, n_new: int) -> "LinkFailureSchedule":
+        """Grow the base schedule, then re-apply the same failure streams."""
+        return self._rederived(lambda base: base.grown(n_new), "grow")
+
+    def shrunk(self, survivors: Sequence[int]) -> "LinkFailureSchedule":
+        """Shrink the base schedule to the survivors, then re-apply the same
+        failure streams."""
+        return self._rederived(lambda base: base.shrunk(survivors), "shrink")
 
 
 def link_failure_schedule(

@@ -1,32 +1,41 @@
 """Online streaming dictionary service launcher, on one card.
 
-Port of the single-service path of src/repro/launch/serve_dict.py: streams
-synthetic samples through the continuously-learning dictionary service
-(repro_torch.runtime.service) with micro-batched coding against a
-double-buffered snapshot and online `fit_batch` on the live copy.  One
-device holds every agent, so the data extent D of `--mesh` must be 1:
-'1xN' is N agents of a flat mode, '2x1x8' the 2 pods of 8 agents of a
-hier mode, and a chain takes one leading dim per outer level, outermost
-first ('2x2x1x4' for three levels).  The dictionary has
+Port of src/repro/launch/serve_dict.py: streams synthetic samples through
+the continuously-learning dictionary service (repro_torch.runtime.service)
+with micro-batched coding against a double-buffered snapshot, online
+`fit_batch` on the live copy, one optional mid-stream elastic growth of the
+model level (`--grow-at`, `--grow-model`) and one optional mid-stream agent
+drain (`--drain-at`, `--drain`: the ranks leave, survivors keep their
+atoms).  One device holds every agent, so the data extent D of `--mesh`
+must be 1: '1xN' is N agents of a flat mode, '2x1x8' the 2 pods of 8
+agents of a hier mode, and a chain takes one leading dim per outer level,
+outermost first ('2x2x1x4' for three levels).  The dictionary has
 `--atoms-per-agent` atoms per agent.  At the repository's production
 dictionary (M = 8192, K = 262144, 16 agents, the paper's diffusion):
 
   PYTHONPATH=src python -m repro_torch.launch.serve_dict \\
-      --mode graph --m 8192 --atoms-per-agent 16384 --mesh 1x16 --samples 64
+      --mode graph --m 8192 --atoms-per-agent 16384 --mesh 1x16 --samples 64 \\
+      --grow-at 0
 
 A three-level chain (q8 pod ring every 2nd iteration, a stale q8 ring
-every 4th):
+every 4th) that grows by one model rank per group at sample 32 and drains
+rank 0 at sample 48:
 
   PYTHONPATH=src python -m repro_torch.launch.serve_dict \\
-      --mode chain --mesh 2x2x1x4 --levels torus,ring_metropolis:2:q8,ring:4:q8:stale
+      --mode chain --mesh 2x2x1x4 --levels torus,ring_metropolis:2:q8,ring:4:q8:stale \\
+      --samples 64 --grow-at 32 --grow-model 1 --drain-at 48 --drain 0
+
+`--replicas N` (or `--router`) switches to the serving plane
+(repro_torch.runtime.serving): N services on the one card, each on its own
+CUDA stream, behind the freshness-aware Router; `--publish-at` fans one
+perturbed dictionary out to them, one replica at a time, mid-stream.
+Replicas serve a published snapshot, so fleet mode implies --no-learn and
+disables the grow/drain drills, as in the JAX CLI.
 
 `--device cpu` runs on the CPU (the default is the card, and no card is an
-error).  The grow/drain drills and fleet mode (`--replicas`, `--router`) are
-not ported yet and are refused with the ROADMAP slice that ports them.
-
-Prints throughput (samples/s), per-sample latency percentiles and learner
-progress; `--json` adds one `BENCH` line with the JAX CLI's single-service
-keys.
+error).  Prints throughput (samples/s), per-sample latency percentiles,
+learner progress and the grow and drain events; `--json` adds one `BENCH`
+line with the JAX CLI's keys (single service or fleet).
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import argparse
 import json
 import math
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -47,6 +57,9 @@ from repro_torch.core.topology import DIRECTED_KINDS, GRAPH_KINDS
 from repro_torch.data.synthetic import sparse_stream
 from repro_torch.device import resolve_device
 from repro_torch.runtime.service import DictionaryService, ServiceConfig
+from repro_torch.runtime.serving import (
+    ReplicaSet, Router, RouterConfig, device_pools, replica_bytes,
+)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -94,16 +107,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--micro-batch", type=int, default=16)
     ap.add_argument("--max-wait-ms", type=float, default=20.0)
     ap.add_argument("--mu-w", type=float, default=0.1)
-    ap.add_argument("--grow-at", type=int, default=0,
-                    help="elastic growth point (not ported yet: only 0 = never)")
+    ap.add_argument("--grow-at", type=int, default=300,
+                    help="sample index of the elastic growth event (0 = never)")
+    ap.add_argument("--grow-model", type=int, default=2,
+                    help="extra model-axis agents added at --grow-at")
     ap.add_argument("--drain-at", type=int, default=0,
-                    help="agent-drain point (not ported yet: only 0 = never)")
-    ap.add_argument("--replicas", type=int, default=1,
-                    help="multi-replica serving plane (not ported yet: only 1)")
-    ap.add_argument("--router", action="store_true",
-                    help="front the service with the router (not ported yet)")
+                    help="sample index of the agent-drain event (0 = never)")
+    ap.add_argument("--drain", type=str, default="",
+                    help="comma-separated model ranks decommissioned at "
+                         "--drain-at (survivors keep their atom shards)")
     ap.add_argument("--rate", type=float, default=0.0,
                     help="submit rate in samples/s (0 = as fast as possible)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replica count for the multi-replica serving plane "
+                         "(each replica a service on its own CUDA stream of the "
+                         "one card; >1 implies --router)")
+    ap.add_argument("--router", action="store_true",
+                    help="front the fleet with the freshness-aware Router "
+                         "even for --replicas 1 (measures the router's own "
+                         "overhead against the single-service baseline)")
+    ap.add_argument("--publish-at", type=int, default=0,
+                    help="fleet mode: sample index of one rolling snapshot "
+                         "publish (a perturbed dictionary fans out to the "
+                         "replicas one at a time; 0 = never)")
     ap.add_argument("--no-learn", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
@@ -112,16 +138,46 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+_PERTURB_CHUNK = 1 << 26  # values per draw of `perturbed`
+
+
+def perturbed(W0: np.ndarray, seed: int, nonneg: bool) -> np.ndarray:
+    """The JAX CLI's rolling-publish dictionary: W0 + 0.01 N(0, 1) from
+    numpy's `default_rng(seed)` (float64 draws cast to float32), clipped at
+    0 for a nonneg task, each column projected onto the unit ball.  Drawn
+    a few rows at a time (the same values as one draw) to bound host
+    memory at the production width."""
+    rng = np.random.default_rng(seed)
+    W1 = np.empty_like(W0)
+    rows = max(1, _PERTURB_CHUNK // W0.shape[1])
+    for r in range(0, W0.shape[0], rows):
+        part = W0[r:r + rows]
+        W1[r:r + rows] = part + 0.01 * rng.standard_normal(part.shape).astype(np.float32)
+    if nonneg:
+        np.maximum(W1, 0.0, out=W1)
+    W1 /= np.maximum(1.0, np.linalg.norm(W1, axis=0, keepdims=True))
+    return W1
+
+
+def host_full(W_blocks: torch.Tensor) -> np.ndarray:
+    """Host (M, N * Kb) copy of (N, M, Kb) blocks, one block at a time (no
+    full-size temporary on the device)."""
+    n, m, kb = W_blocks.shape
+    out = np.empty((m, n * kb), np.float32)
+    for i in range(n):
+        out[:, i * kb:(i + 1) * kb] = W_blocks[i].cpu().numpy()
+    return out
+
+
 def run(args: argparse.Namespace) -> Dict:
-    """Serve args.samples samples; returns {"payload": the BENCH dict,
-    "results": [(nu, y), ...], "X": the stream, "service": the stopped
-    service (its final snapshot and coder stay readable)}."""
-    if args.grow_at or args.drain_at:
-        raise SystemExit("the grow/drain drills are not ported yet (ROADMAP "
-                         "slice 6d, growth and drain); run with --grow-at 0 --drain-at 0")
-    if args.replicas != 1 or args.router:
-        raise SystemExit("fleet mode (--replicas, --router) is not ported yet "
-                         "(ROADMAP section 1, the serving plane)")
+    """Serve args.samples samples.  Returns {"payload": the BENCH dict,
+    "results": [(nu, y), ...], "X": the stream, and "service" (the stopped
+    service; its final snapshot and coder stay readable) with "swap_s"
+    ({"grow": s, "drain": s}, None where no swap ran), or in fleet mode
+    "fleet" (the stopped ReplicaSet) with "router" (its final stats) and
+    "publish_s" ({"draw_wait": s, "install": s}: the wait at --publish-at
+    for the host's draw of the new dictionary, then the rolling install;
+    None without a publish)}."""
     dims = [int(v) for v in args.mesh.split("x")]
     # Agent levels the mesh carries: the --levels spec's for chain, 2 for
     # the hier modes, 1 for the flat ones (as the JAX CLI).
@@ -141,6 +197,34 @@ def run(args: argparse.Namespace) -> Dict:
     if d != 1:
         raise SystemExit(f"--mesh {args.mesh!r}: one device holds every agent, so the "
                          f"data extent D must be 1")
+    if args.grow_at >= args.samples:
+        args.grow_at = 0  # growth point past the stream: never fires
+    drain_ranks = [int(v) for v in args.drain.split(",") if v.strip()]
+    if args.drain_at >= args.samples:
+        args.drain_at = 0  # drain point past the stream: never fires
+    if bool(args.drain_at) != bool(drain_ranks):
+        raise SystemExit("--drain-at and --drain must be given together")
+    if args.drain_at and args.grow_at and args.drain_at <= args.grow_at:
+        raise SystemExit("--drain-at must come after --grow-at (the drain "
+                         "ranks refer to the then-current model axis)")
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
+    fleet_mode = args.replicas > 1 or args.router
+    if fleet_mode:
+        # Replicas serve a published snapshot (new dictionaries arrive by
+        # the rolling publish, not per-replica learning), and the grow/drain
+        # drills are single-service lifecycle drills.
+        if args.grow_at or args.drain_at:
+            print("fleet mode: disabling the grow/drain drills "
+                  "(single-service lifecycle drills; see tests/test_torch_serving.py "
+                  "for the fleet lifecycle)")
+            args.grow_at, args.drain_at, drain_ranks = 0, 0, []
+        if not args.no_learn:
+            print("fleet mode: replicas serve the published snapshot "
+                  "(learning off; snapshots arrive via publish fan-out)")
+            args.no_learn = True
+        if args.publish_at >= args.samples:
+            args.publish_at = 0  # publish point past the stream: never fires
     level_sizes = (m_axis, *reversed(outer_dims))  # innermost first
     n_agents = math.prod(level_sizes)
     device = resolve_device(args.device)
@@ -160,26 +244,31 @@ def run(args: argparse.Namespace) -> Dict:
 
     res, reg = make_task(args.task, gamma=args.gamma, delta=args.delta)
     k0 = args.atoms_per_agent * n_agents
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    W0 = blocks_from_full(
-        init_dictionary(gen, args.m, k0, nonneg=reg.nonneg, device=device), n_agents
-    )
     svc_cfg = ServiceConfig(
         micro_batch=args.micro_batch,
         max_wait_s=args.max_wait_ms / 1e3,
         learn=not args.no_learn,
         mu_w=args.mu_w,
     )
+    agents = level_sizes if dist_cfg.chain_levels() else n_agents
+    pools = None
+    if fleet_mode:  # before W0 exists, so the check sees the card's free memory
+        pools = device_pools(args.replicas, replica_bytes(
+            n_agents, args.m, args.atoms_per_agent, learn=False), device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    W0 = blocks_from_full(
+        init_dictionary(gen, args.m, k0, nonneg=reg.nonneg, device=device), n_agents
+    )
     X = sparse_stream(args.samples, m=args.m, k_true=k0, nonneg=reg.nonneg,
                       seed=args.seed + 1)
-    coder = DistributedSparseCoder(
-        level_sizes if dist_cfg.chain_levels() else n_agents, res, reg, dist_cfg, device=device
-    )
+    if fleet_mode:
+        return _run_fleet(args, res, reg, dist_cfg, svc_cfg, agents, device, pools, W0, X)
+    coder = DistributedSparseCoder(agents, res, reg, dist_cfg, device=device)
     comb = coder.combiner_info()
     print(f"serve_dict: task={args.task} mode={args.mode} mesh={args.mesh} "
           f"device={device} M={args.m} K={k0} micro_batch={args.micro_batch} "
-          f"samples={args.samples} topology={comb['topology']} "
-          f"mixing_rate={comb['mixing_rate']:.3f} "
+          f"samples={args.samples} grow_at={args.grow_at or 'never'} "
+          f"topology={comb['topology']} mixing_rate={comb['mixing_rate']:.3f} "
           f"schedule_period={comb['schedule_period']} "
           f"pod_gossip_every={comb['pod_gossip_every']}")
     for lv in comb["levels"]:
@@ -188,15 +277,43 @@ def run(args: argparse.Namespace) -> Dict:
 
     svc = DictionaryService(coder, W0, svc_cfg)
     del W0  # the service holds the only reference: no second copy
+    futures: List[Future] = []
+    grow_fut = drain_fut = None
+    # seconds from each swap's request to its resolved Future
+    swap_s: Dict[str, Optional[float]] = {"grow": None, "drain": None}
+
+    def timed(name: str, fut: Future) -> Future:
+        t = time.perf_counter()
+        fut.add_done_callback(lambda f: swap_s.__setitem__(name, time.perf_counter() - t))
+        return fut
+
     t0 = time.perf_counter()
     with svc:
-        futures = []
         for i in range(args.samples):
+            if args.grow_at and i == args.grow_at:
+                # let the pre-growth stream drain so the event lands truly
+                # mid-stream (coding goes on against the old snapshot until
+                # the new coder and snapshot are published)
+                futures[-1].result(timeout=3600)
+                grow_fut = timed("grow", svc.grow(args.grow_model,
+                                                  torch.Generator().manual_seed(args.seed + 2)))
+            if args.drain_at and i == args.drain_at:
+                # the same for the decommission: a learner-thread swap
+                futures[-1].result(timeout=3600)
+                drain_fut = timed("drain", svc.drain(drain_ranks))
+            if grow_fut is not None and i == args.samples - args.micro_batch:
+                # overlap growth with the stream, but make sure the final
+                # micro-batch is coded by the grown network
+                grow_fut.result(timeout=3600)
             futures.append(svc.submit(X[i]))
             if args.rate > 0:
                 time.sleep(1.0 / args.rate)
         results: List = [f.result(timeout=3600) for f in futures]
-    stats = svc.stats()
+        if grow_fut is not None:
+            print(f"growth applied: {grow_fut.result(timeout=3600)}")
+        if drain_fut is not None:
+            print(f"drain applied: {drain_fut.result(timeout=3600)}")
+        stats = svc.stats()
     wall_s = time.perf_counter() - t0
 
     # For the l2-residual tasks nu* IS the fit residual (paper Eq. 53).
@@ -213,7 +330,8 @@ def run(args: argparse.Namespace) -> Dict:
           f"p95 {lat.get('p95', float('nan')):.1f}  "
           f"p99 {lat.get('p99', float('nan')):.1f}")
     print(f"fit_steps {stats['fit_steps']}  published {stats['published']}  "
-          f"y dims seen {k_dims}")
+          f"grow_events {len(stats['grow_events'])}  "
+          f"drain_events {len(stats['drain_events'])}  y dims seen {k_dims}")
     print(f"mean ||nu||: first batch {pre:.4f} -> last batch {post:.4f}")
 
     payload = {
@@ -242,7 +360,108 @@ def run(args: argparse.Namespace) -> Dict:
     }
     if args.json:
         print("BENCH " + json.dumps(payload))
-    return {"payload": payload, "results": results, "X": X, "service": svc}
+    return {"payload": payload, "results": results, "X": X, "service": svc, "swap_s": swap_s}
+
+
+def _run_fleet(args, res, reg, dist_cfg, svc_cfg, agents, device, pools, W0, X) -> Dict:
+    """Fleet mode: args.replicas services on the card, each on its own
+    stream (`pools`), behind the Router, with one optional rolling publish.
+    The replicas share W0 (never written: no learning in fleet mode)."""
+    coders = [DistributedSparseCoder(agents, res, reg, dist_cfg, device=device)
+              for _ in pools]
+    comb = coders[0].combiner_info()
+    n, m, kb = W0.shape
+    print(f"serve_dict[fleet]: task={args.task} mode={args.mode} "
+          f"replicas={args.replicas} mesh={args.mesh}/replica device={device} "
+          f"M={m} K={n * kb} micro_batch={args.micro_batch} "
+          f"samples={args.samples} publish_at={args.publish_at or 'never'} "
+          f"topology={comb['topology']} mixing_rate={comb['mixing_rate']:.3f}")
+
+    services = [DictionaryService(c, W0, svc_cfg, stream=p.stream)
+                for c, p in zip(coders, pools)]
+    # The publish's dictionary depends only on W0 and the seed: drawn on a
+    # host thread while the first samples are coded (at the production
+    # width the draw takes the host tens of seconds).
+    drawer = ThreadPoolExecutor(1)
+    W1 = drawer.submit(perturbed, host_full(W0), args.seed + 3, reg.nonneg) \
+        if args.publish_at else None
+    drawer.shutdown(wait=False)
+    del W0
+    router_cfg = RouterConfig(
+        micro_batch=args.micro_batch,
+        max_wait_s=args.max_wait_ms / 1e3,
+        seed=args.seed,
+    )
+    futures = []
+    published: Dict[str, int] = {}
+    publish_s = None
+    t0 = time.perf_counter()
+    with ReplicaSet(services) as fleet:
+        with Router(fleet, router_cfg) as router:
+            for i in range(args.samples):
+                if args.publish_at and i == args.publish_at:
+                    # rolling publish truly mid-stream: let the pre-publish
+                    # tail land, then fan a perturbed dictionary out replica
+                    # by replica while the stream keeps flowing
+                    futures[-1].result(timeout=3600)
+                    t_pub = time.perf_counter()
+                    W1 = W1.result()
+                    t_drawn = time.perf_counter()
+                    published = fleet.publish(W1)
+                    W1 = None
+                    publish_s = {"draw_wait": t_drawn - t_pub,
+                                 "install": time.perf_counter() - t_drawn}
+                futures.append(router.submit(X[i]))
+                if args.rate > 0:
+                    time.sleep(1.0 / args.rate)
+            results = [f.result(timeout=3600) for f in futures]
+            rstats = router.stats()
+        fstats = fleet.stats()
+    wall_s = time.perf_counter() - t0
+
+    if len(results) != args.samples:
+        raise RuntimeError(f"dropped samples: {len(results)} of {args.samples}")
+    lat = rstats.get("latency_ms", {})
+    agg = args.samples / wall_s
+    per_rep = {
+        name: {
+            "coded": st["coded"],
+            "snapshot_version": st["snapshot_version"],
+            "serving_version": st["serving_version"],
+            "samples_per_s": st["samples_per_s"],
+        }
+        for name, st in fstats["replicas"].items()
+    }
+    print(f"coded {args.samples} samples in {wall_s:.2f}s "
+          f"({agg:.1f} samples/s aggregate over {args.replicas} replica(s))")
+    print(f"latency ms: p50 {lat.get('p50', float('nan')):.1f}  "
+          f"p95 {lat.get('p95', float('nan')):.1f}  "
+          f"p99 {lat.get('p99', float('nan')):.1f}")
+    print(f"routed {rstats['routed']}  rerouted {rstats['rerouted']}  "
+          f"failed {rstats['failed']}  publishes {fstats['publishes']} "
+          f"{published}")
+
+    payload = {
+        "samples": args.samples,
+        "replicas": args.replicas,
+        "topology": comb["topology"],
+        "mixing_rate": comb["mixing_rate"],
+        "wall_s": wall_s,
+        "agg_samples_per_s": agg,
+        "samples_per_s": agg,
+        "p99_ms": lat.get("p99"),
+        "latency_ms": lat,
+        "routed": rstats["routed"],
+        "rerouted": rstats["rerouted"],
+        "failed": rstats["failed"],
+        "publishes": fstats["publishes"],
+        "publish_versions": published,
+        "per_replica": per_rep,
+    }
+    if args.json:
+        print("BENCH " + json.dumps(payload))
+    return {"payload": payload, "results": results, "X": X, "fleet": fleet,
+            "router": rstats, "publish_s": publish_s}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:

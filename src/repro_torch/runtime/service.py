@@ -1,7 +1,7 @@
 """Online streaming dictionary service: the serving path of the engine.
 
-Port of the single-service path of src/repro/runtime/service.py, over the
-port's `DistributedSparseCoder` (N agents on one device):
+Port of src/repro/runtime/service.py over the port's
+`DistributedSparseCoder` (N agents on one device):
 
   * micro-batching: requests are queued and flushed as micro-batches of
     `micro_batch` rows (zero-padded to that size; zero rows code to nu = 0
@@ -24,22 +24,41 @@ port's `DistributedSparseCoder` (N agents on one device):
     `_exec_lock`, so the stream runs one continuous network instead of
     restarting at A_0 every micro-batch; a fit that raised gives its
     window back;
-  * a warmup solve and fit on a zero batch before serving (which also
-    builds the kernels).
-
-Elastic growth, drain, `install_snapshot`, `load` and `kill` are not ported
-yet (ROADMAP section 1: 6d and the checkpoint manager).
+  * elastic growth and agent drain: `grow(extra_model, generator)` and
+    `drain(departing_ranks)` queue a swap that the learner thread applies at
+    its next step boundary (`DistributedSparseCoder.grown` / `.shrunk`:
+    old or surviving blocks bit for bit, combiners re-derived with erdos
+    neighbourhoods kept).  The new coder's warmup runs under `_exec_lock`
+    off the serving path, then (coder, live, snapshot) swap in one `_lock`
+    acquisition; a drain keeps the schedule clock, reduced modulo the new
+    coder's period at the next claim.  The batcher reads (coder, snapshot,
+    version) together and codes with that coder, and the learner publishes
+    a fit only if no swap replaced the coder it fitted with, so a batch
+    never pairs one era's snapshot with another era's coder;
+  * the serving plane's hooks (repro_torch.runtime.serving):
+    `install_snapshot` (an external publish, refused at the wrong shape or
+    when a swap changed the coder meanwhile), `load` (queue depth and
+    versions for the router) and `kill` (fail everything pending, the
+    router's re-route signal);
+  * one CUDA stream per service (`stream`; by default the constructing
+    thread's current stream, the serving plane gives each replica a stream
+    of its own): the batcher, the learner, the warmups and
+    `install_snapshot` all run on it (a thread starts on the default
+    stream, so each enters the service's), and waiting for a result waits
+    for that stream only, so replicas sharing the card do not wait for
+    each other's work.  On the CPU there is no stream.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -140,11 +159,22 @@ class _LearnReservoir:
         with self._cond:
             return len(self._buf)
 
+    def clear(self) -> int:
+        """Discard everything buffered (the kill path); returns the count."""
+        with self._cond:
+            n = len(self._buf)
+            self._buf.clear()
+            self.discarded += n
+            return n
 
-def _wait(t: torch.Tensor) -> None:
-    """Wait for the device work that produces `t` (errors surface here)."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+
+def _sweep(q: "queue.Queue", future_of, err: BaseException) -> None:
+    """Fail the Future of every item still in `q`."""
+    while True:
+        try:
+            _resolve(future_of(q.get_nowait()), exc=err)
+        except queue.Empty:
+            return
 
 
 class DictionaryService:
@@ -154,22 +184,42 @@ class DictionaryService:
         coder = DistributedSparseCoder(n_agents, res, reg, dist_cfg)
         with DictionaryService(coder, W0, ServiceConfig()) as svc:
             futs = [svc.submit(x_i) for x_i in stream]
+            svc.grow(2, torch.Generator().manual_seed(2))   # optional
+            svc.drain([1, 3])                               # optional
             results = [f.result() for f in futs]     # (nu_i, y_i) each
+
+    `stream`: the CUDA stream this service runs on (the serving plane gives
+    each replica its own); None takes the constructing thread's current
+    stream on the card (every stream that runs a matmul keeps a cuBLAS
+    workspace for the life of the process, so a lone service makes none),
+    and none on the CPU.
     """
 
-    def __init__(self, coder: DistributedSparseCoder, W0, cfg: ServiceConfig = ServiceConfig()):
+    def __init__(self, coder: DistributedSparseCoder, W0, cfg: ServiceConfig = ServiceConfig(),
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.cfg = cfg
-        self._lock = threading.Lock()  # guards the counters and (live, snapshot)
+        self._lock = threading.Lock()  # guards the counters and (coder, live, snapshot)
         self._exec_lock = threading.Lock()  # one engine execution at a time
-        # Makes the running-check + enqueue in submit() atomic w.r.t. stop().
+        # Makes the running-check + enqueue in submit()/grow()/drain() atomic
+        # w.r.t. stop() and kill().
         self._submit_lock = threading.Lock()
+        if coder.device.type == "cuda":
+            current = torch.cuda.current_stream(coder.device)
+            self._stream = current if stream is None else stream
+            # the caller's work (W0 among it) comes first
+            self._stream.wait_stream(current)
+        else:
+            self._stream = None
         self._coder = coder
-        self._live = coder.snapshot(W0)
+        with self._on_stream():
+            self._live = coder.snapshot(W0)
         self._snap = self._live
         self._m = int(self._live.shape[1])
         self._pad = cfg.micro_batch  # one device: the data extent is 1
         self._queue: "queue.Queue[_Item]" = queue.Queue(maxsize=cfg.queue_capacity)
         self._learn_q = _LearnReservoir(cfg.learn_queue_cap, cfg.learn_seed)
+        self._grow_q: "queue.Queue[Tuple[int, torch.Generator, Future]]" = queue.Queue()
+        self._drain_q: "queue.Queue[Tuple[Tuple[int, ...], Future]]" = queue.Queue()
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._t_start: Optional[float] = None
@@ -184,11 +234,28 @@ class DictionaryService:
         self.learn_dropped = 0
         self.fit_first_error: Optional[str] = None
         self.published = 0
+        self.grow_events: List[Dict] = []
+        self.drain_events: List[Dict] = []
         self._latencies = collections.deque(maxlen=cfg.latency_window)
+        # The published snapshot's version (bumped by every publish: learner,
+        # install_snapshot, grow/drain swap) and the version the last
+        # completed solve coded against.
         self._snap_version = 0
         self._serving_version = 0
 
     # -- helpers ----------------------------------------------------------
+
+    def _on_stream(self):
+        """Context that runs the calling thread's device work on this
+        service's stream (a no-op on the CPU)."""
+        return torch.cuda.stream(self._stream) if self._stream is not None \
+            else contextlib.nullcontext()
+
+    def _wait(self) -> None:
+        """Wait for this service's device work (errors surface here); other
+        streams on the card are not waited for."""
+        if self._stream is not None:
+            self._stream.synchronize()
 
     def _pad_rows(self, xb: np.ndarray) -> np.ndarray:
         """Zero-pad a batch to the fixed micro-batch size."""
@@ -199,13 +266,12 @@ class DictionaryService:
             [xb, np.zeros((self._pad - b, xb.shape[1]), xb.dtype)], axis=0
         )
 
-    def _advance_schedule(self) -> int:
+    def _advance_schedule(self, coder: DistributedSparseCoder) -> int:
         """Claim the next cfg.iters iterations of a time-varying coder's
         combiner sequence; returns the offset t0 this execution starts
         from, reduced mod the coder's schedule period (0 for a static
         coder).  Call it holding `_exec_lock`, so claim order is execution
         order."""
-        coder = self._coder
         if not coder.is_time_varying:
             return 0
         with self._lock:
@@ -213,33 +279,37 @@ class DictionaryService:
             self._sched_t += coder.cfg.iters
         return t0 % coder.schedule_period
 
-    def _rollback_schedule(self) -> None:
+    def _rollback_schedule(self, coder: DistributedSparseCoder) -> None:
         """Give back a claimed window that never ran (a fit that raised);
         the caller still holds `_exec_lock`, so no later claim built on it."""
-        if not self._coder.is_time_varying:
+        if not coder.is_time_varying:
             return
         with self._lock:
-            self._sched_t -= self._coder.cfg.iters
+            self._sched_t -= coder.cfg.iters
 
-    def _solve_padded(self, snap: torch.Tensor, xb: np.ndarray):
-        """Code a real batch of b rows against `snap`; host numpy results."""
+    def _solve_padded(self, coder: DistributedSparseCoder, snap: torch.Tensor, xb: np.ndarray):
+        """Code a real batch of b rows against `snap` with `coder`, the pair
+        read together; host numpy results."""
         b = xb.shape[0]
         with self._exec_lock:
-            t0 = self._advance_schedule()
-            nu, y = self._coder.solve(snap, self._pad_rows(xb), t0)
+            t0 = self._advance_schedule(coder)
+            nu, y = coder.solve(snap, self._pad_rows(xb), t0)
             nu, y = nu[:b].cpu().numpy(), y[:b].cpu().numpy()
         return nu, y
 
     # -- lifecycle --------------------------------------------------------
 
-    def _warmup(self) -> None:
+    def _warmup(self, coder: DistributedSparseCoder, W: torch.Tensor) -> None:
         """One solve (and one fit with mu_w = 0) on a zero micro-batch, so
         the kernels are built and the allocator warm before the first
-        request.  Runs before the worker threads exist."""
+        request (or before a swap publishes a new coder).  Takes no lock
+        itself: start() runs it before the workers exist, the swaps under
+        `_exec_lock`."""
         z = np.zeros((self._pad, self._m), np.float32)
-        _wait(self._coder.solve(self._snap, z)[1])
+        coder.solve(W, z)
         if self.cfg.learn:
-            _wait(self._coder.fit_batch(self._snap, z, 0.0))
+            coder.fit_batch(W, z, 0.0)
+        self._wait()
 
     def start(self) -> "DictionaryService":
         if self._threads:
@@ -250,7 +320,8 @@ class DictionaryService:
                 "DictionaryService (counters and queues are single-run)"
             )
         if self.cfg.warmup:
-            self._warmup()
+            with self._on_stream():
+                self._warmup(self._coder, self._snap)
         self._t_start = time.perf_counter()
         self._threads = [
             threading.Thread(target=self._batcher_loop, name="dict-batcher", daemon=True),
@@ -260,21 +331,42 @@ class DictionaryService:
             t.start()
         return self
 
+    def _fail_pending(self, err: BaseException) -> None:
+        """Fail every queued request, grow and drain (hold `_submit_lock`)."""
+        _sweep(self._queue, lambda it: it.future, err)
+        _sweep(self._grow_q, lambda g: g[2], err)
+        _sweep(self._drain_q, lambda d: d[1], err)
+
     def stop(self) -> None:
         """Code every queued sample, let the learner consume what it was
-        given, then join the workers; a request that raced the shutdown is
-        failed, never left hanging."""
+        given, then join the workers; a request, grow or drain that raced
+        the shutdown is failed, never left hanging."""
         self._stop.set()
         for t in self._threads:
             t.join()
-        err = RuntimeError("service stopped before this request was processed")
         with self._submit_lock:
             self._threads = []
-            while True:
-                try:
-                    _resolve(self._queue.get_nowait().future, exc=err)
-                except queue.Empty:
-                    break
+            self._fail_pending(RuntimeError("service stopped before this request was processed"))
+
+    def kill(self) -> None:
+        """Hard stop for fault drills: fail everything still queued instead
+        of coding it (stop() codes the backlog first; a crashed replica must
+        not).  The failed Futures are the signal the serving plane's Router
+        re-routes on.  Idempotent; stop() after kill() is a no-op sweep."""
+        err = RuntimeError("replica killed")
+        with self._submit_lock:
+            self._stop.set()
+            _sweep(self._queue, lambda it: it.future, err)
+        # the batcher first (it may still offer one last learn batch), then
+        # purge the reservoir so the learner's exit check sees it empty
+        for t in self._threads[:1]:
+            t.join()
+        self._learn_q.clear()
+        for t in self._threads[1:]:
+            t.join()
+        with self._submit_lock:
+            self._threads = []
+            self._fail_pending(err)
 
     def __enter__(self) -> "DictionaryService":
         return self.start()
@@ -284,25 +376,50 @@ class DictionaryService:
 
     # -- client API -------------------------------------------------------
 
+    def _enqueue(self, q: "queue.Queue", item, what: str) -> None:
+        with self._submit_lock:
+            if self._stop.is_set() or not self._threads:
+                raise RuntimeError(
+                    f"service is not running ({what} before start() or after stop() "
+                    f"would wait for a worker that never comes)"
+                )
+            q.put(item)
+
     def submit(self, x: np.ndarray) -> Future:
         """Enqueue one sample (M,); the Future resolves to (nu (M,), y (K,))."""
         x = np.asarray(x, np.float32)
         if x.shape != (self._m,):
             raise ValueError(f"expected sample shape ({self._m},), got {x.shape}")
         item = _Item(x)
-        with self._submit_lock:
-            if self._stop.is_set() or not self._threads:
-                raise RuntimeError(
-                    "service is not running (submit() before start() or after "
-                    "stop() would enqueue a sample no worker will ever code)"
-                )
-            self._queue.put(item)
+        self._enqueue(self._queue, item, "submit()")
         with self._lock:
             self.submitted += 1
         return item.future
 
     def submit_many(self, X: np.ndarray) -> List[Future]:
         return [self.submit(x) for x in X]
+
+    def grow(self, extra_model: int, generator: torch.Generator) -> Future:
+        """Request elastic growth by `extra_model` model-level agents, fresh
+        atoms from `generator` (`DistributedSparseCoder.grown`).  Applied by
+        the learner at its next step boundary; the Future resolves to the
+        grow event (an info dict) once the new coder and snapshot are live."""
+        fut: Future = Future()
+        self._enqueue(self._grow_q, (int(extra_model), generator, fut), "grow()")
+        return fut
+
+    def drain(self, departing_ranks: Sequence[int]) -> Future:
+        """Request that the model ranks `departing_ranks` leave (the inverse
+        of grow()).  Applied by the learner at its next step boundary; the
+        Future resolves to the drain event once the shrunk coder and
+        snapshot are live.  Survivors keep their blocks bit for bit, and the
+        schedule clock carries over."""
+        departing = tuple(sorted(set(int(r) for r in departing_ranks)))
+        if not departing:
+            raise ValueError("departing_ranks is empty: nothing to drain")
+        fut: Future = Future()
+        self._enqueue(self._drain_q, (departing, fut), "drain()")
+        return fut
 
     def snapshot(self) -> torch.Tensor:
         """The currently published (N, M, Kb) snapshot (never written)."""
@@ -313,14 +430,70 @@ class DictionaryService:
         """Host (M, K) copy of the currently published snapshot."""
         return full_from_blocks(self.snapshot()).cpu().numpy()
 
+    @property
+    def sample_dim(self) -> int:
+        """Row dimension M a submitted sample must have."""
+        return self._m
+
     def running(self) -> bool:
         """True while the workers are up and shutdown hasn't begun."""
         return bool(self._threads) and not self._stop.is_set()
 
+    def install_snapshot(self, W) -> int:
+        """Publish an external dictionary (the fan-out of
+        serving.ReplicaSet.publish): `W` (M, K), host or device, is placed
+        as this coder's blocks on the service's stream and swapped in as
+        both the live copy and the published snapshot.  Returns the new
+        snapshot version.  Batches in flight finish on the old snapshot;
+        the next one codes against `W`.  Refused when W's shape is not the
+        live dictionary's, or when a grow or drain changed the coder while
+        W was being placed."""
+        with self._submit_lock:
+            if self._stop.is_set() or not self._threads:
+                raise RuntimeError("service is not running; cannot install a snapshot")
+        with self._lock:
+            coder, live = self._coder, self._live
+        want = (self._m, int(live.shape[0]) * int(live.shape[2]))
+        if tuple(W.shape) != want:
+            raise ValueError(
+                f"snapshot shape {tuple(W.shape)} does not match the live dictionary "
+                f"{want} (grow/drain the replica first, then publish)"
+            )
+        # Placed outside _lock, on this service's stream (the publisher's
+        # thread would otherwise use its own) after the publisher's work that
+        # made a device W, and finished before the swap.
+        if self._stream is not None:
+            self._stream.wait_stream(torch.cuda.current_stream(self._stream.device))
+        with self._on_stream():
+            W_dev = coder.snapshot(torch.as_tensor(W, dtype=torch.float32))
+            self._wait()
+        with self._lock:
+            if self._coder is not coder:
+                raise RuntimeError(
+                    "coder changed (grow/drain) during install_snapshot; retry "
+                    "against the new geometry"
+                )
+            self._live = W_dev
+            self._snap = W_dev
+            self.published += 1
+            self._snap_version += 1
+            return self._snap_version
+
+    def load(self) -> Dict:
+        """The router's routing signal, in one consistent read: queue depth
+        and the snapshot and serving versions."""
+        with self._lock:
+            return {
+                "queue_depth": self._queue.qsize(),
+                "snapshot_version": self._snap_version,
+                "serving_version": self._serving_version,
+                "coded": self.coded,
+            }
+
     def stats(self) -> Dict:
         """One consistent snapshot of the counters, with the JAX service's
-        keys: throughput, latency percentiles, learner progress and the
-        gossip identity."""
+        keys: throughput, latency percentiles, learner progress, the grow
+        and drain events and the gossip identity."""
         elapsed = (time.perf_counter() - self._t_start) if self._t_start else 0.0
         with self._lock:
             lat = np.asarray(self._latencies, np.float64)
@@ -335,8 +508,8 @@ class DictionaryService:
                 "published": self.published,
                 "snapshot_version": self._snap_version,
                 "serving_version": self._serving_version,
-                "grow_events": [],
-                "drain_events": [],
+                "grow_events": [dict(ev) for ev in self.grow_events],
+                "drain_events": [dict(ev) for ev in self.drain_events],
                 "topology": self._comb_info["topology"],
                 "mixing_rate": self._comb_info["mixing_rate"],
                 "schedule": self._comb_info.get("schedule"),
@@ -380,6 +553,10 @@ class DictionaryService:
         return items
 
     def _batcher_loop(self) -> None:
+        with self._on_stream():
+            self._batch_forever()
+
+    def _batch_forever(self) -> None:
         while True:
             items = self._collect()
             if not items:
@@ -387,10 +564,10 @@ class DictionaryService:
                     return
                 continue
             xb = np.stack([it.x for it in items])
-            with self._lock:
-                snap, ver = self._snap, self._snap_version
+            with self._lock:  # one era: the coder with its own snapshot
+                coder, snap, ver = self._coder, self._snap, self._snap_version
             try:
-                nu, y = self._solve_padded(snap, xb)
+                nu, y = self._solve_padded(coder, snap, xb)
             except Exception as e:  # resolve futures so clients never hang
                 for it in items:
                     _resolve(it.future, exc=e)
@@ -410,7 +587,13 @@ class DictionaryService:
                 _resolve(it.future, (nu[i], y[i]))
 
     def _learner_loop(self) -> None:
+        with self._on_stream():
+            self._learn_forever()
+
+    def _learn_forever(self) -> None:
         while True:
+            self._maybe_grow()
+            self._maybe_drain()
             try:
                 xb = self._learn_q.take(timeout=0.02)
             except queue.Empty:
@@ -425,7 +608,7 @@ class DictionaryService:
                     return
                 continue
             with self._lock:
-                live = self._live
+                coder, live = self._coder, self._live
             b = xb.shape[0]
             xb = self._pad_rows(xb)
             # Zero pad rows code to nu = 0 and add nothing to the gradient
@@ -433,12 +616,12 @@ class DictionaryService:
             mu_w_eff = self.cfg.mu_w * (xb.shape[0] / b)
             try:
                 with self._exec_lock:
-                    t0 = self._advance_schedule()
+                    t0 = self._advance_schedule(coder)
                     try:
-                        live2 = self._coder.fit_batch(live, xb, mu_w_eff, t0)
-                        _wait(live2)
+                        live2 = coder.fit_batch(live, xb, mu_w_eff, t0)
+                        self._wait()
                     except Exception:
-                        self._rollback_schedule()  # the window never ran
+                        self._rollback_schedule(coder)  # the window never ran
                         raise
             except Exception as e:
                 # A failed fit step must not take down serving, nor be
@@ -450,8 +633,68 @@ class DictionaryService:
                 continue
             with self._lock:
                 self.fit_steps += 1
-                self._live = live2
-                if self.fit_steps % self.cfg.publish_every == 0:
-                    self._snap = live2
-                    self.published += 1
-                    self._snap_version += 1
+                # publish only if no swap replaced the coder underneath us
+                if self._coder is coder:
+                    self._live = live2
+                    if self.fit_steps % self.cfg.publish_every == 0:
+                        self._snap = live2
+                        self.published += 1
+                        self._snap_version += 1
+
+    def _maybe_grow(self) -> None:
+        self._maybe_swap(self._grow_q, lambda c, W, req: c.grown(W, req[0], req[1]))
+
+    def _maybe_drain(self) -> None:
+        self._maybe_swap(self._drain_q, lambda c, W, req: c.shrunk(W, req[0]))
+
+    def _maybe_swap(self, q: "queue.Queue", build) -> None:
+        """Apply one queued grow (q = _grow_q) or drain (_drain_q): build
+        the new (coder, W2) from the live pair, warm the new coder under
+        `_exec_lock` (readers keep coding on the old pair meanwhile), swap
+        coder, live copy and snapshot in one `_lock` acquisition and resolve
+        the request's Future with the event.  The schedule clock is not
+        reset: the next claim reduces it mod the new coder's period."""
+        try:
+            req = q.get_nowait()
+        except queue.Empty:
+            return
+        fut = req[-1]
+        drain = q is self._drain_q
+        try:
+            with self._lock:
+                coder, live = self._coder, self._live
+            new_coder, W2 = build(coder, live, req)
+            if self.cfg.warmup:
+                with self._exec_lock:
+                    self._warmup(new_coder, W2)
+            new_info = new_coder.combiner_info()
+            with self._lock:
+                self._coder, self._live, self._snap = new_coder, W2, W2
+                self._comb_info = new_info
+                self.published += 1
+                self._snap_version += 1
+                info = {"at_coded": self.coded}
+                if drain:
+                    info["departed"] = list(req[0])
+                info.update({
+                    "k_old": coder.n_agents * int(live.shape[2]),
+                    "k_new": new_coder.n_agents * int(W2.shape[2]),
+                    "model_old": coder.level_sizes[0],
+                    "model_new": new_coder.level_sizes[0],
+                })
+                if drain:
+                    info["sched_t"] = self._sched_t
+                info.update({
+                    "topology": new_info["topology"],
+                    "mixing_rate": new_info["mixing_rate"],
+                    "schedule": new_info.get("schedule"),
+                    "schedule_period": new_info.get("schedule_period", 1),
+                    "pod_topology": new_info.get("pod_topology"),
+                    "pod_gossip_every": new_info.get("pod_gossip_every", 1),
+                    "levels": new_info.get("levels"),
+                })
+                (self.drain_events if drain else self.grow_events).append(info)
+            del coder, live
+            _resolve(fut, info)
+        except Exception as e:
+            _resolve(fut, exc=e)

@@ -107,7 +107,9 @@ for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
            "repro_torch.core.detection", "repro_torch.core.denoise",
            "repro_torch.experiments.common", "repro_torch.experiments.fig4_convergence",
            "repro_torch.experiments.fig5_denoise", "repro_torch.experiments.table3_auc",
-           "repro_torch.experiments.table4_auc_huber"):
+           "repro_torch.experiments.table4_auc_huber", "repro_torch.runtime.serving",
+           "repro_torch.runtime.service", "repro_torch.launch.serve_dict",
+           "repro_torch.experiments.streaming_quickstart"):
     assert lm in names, lm
 assert not bad, bad
 """

@@ -53,3 +53,18 @@ def test_twin_runs_on_cpu_and_writes_under_build(name):
     else:
         assert set(result) == {"diffusion_fc", "diffusion_dist"}
         assert all(0.0 <= v <= 1.0 for s in result.values() for v in s.values())
+
+
+def test_streaming_quickstart_runs_on_cpu_at_the_jax_sizes():
+    """The twin of examples/streaming_quickstart.py through its command line
+    on the CPU: 256 samples of M 32 on 2 agents of 8 atoms, grown to 4 at
+    sample 128; every sample coded, y dims 16 then 32."""
+    from repro_torch.experiments import common, streaming_quickstart
+
+    result = common.main(streaming_quickstart.run, ["--device", "cpu"])
+    assert result["coded"] == 256 and result["fit_steps"] >= 1
+    assert result["y_dims"] == [16, 32]
+    g = result["growth"]
+    assert (g["model_old"], g["model_new"], g["k_old"], g["k_new"]) == (2, 4, 16, 32)
+    assert np.isfinite(result["residual_last32"])
+    assert json.loads((common.OUT / "streaming_quickstart.json").read_text())["coded"] == 256
