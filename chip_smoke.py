@@ -32,6 +32,13 @@ and fails (non-zero exit, no result line) if any of them fails:
    gates swapped, the final state taken a step early, one CTA's columns
    of h read a step stale or as 0, or the last batch group's final state
    taken from the first group) must fail the same checks.
+   K2's gradient (ops.FlashAttention: K2 forward, attention_backward in
+   plain PyTorch) against autograd through attention_ref at four fp32
+   shapes (GRAD_FP32_TOL) and at olmo-1b's training shape FA_TRAIN in bf16
+   (GRAD_BF16_TOL), with three planted faults rejected (the wrapper
+   without the Function, a backward without the causal mask, one without
+   the D term); the backward timed beside K2 + Function, the plain twin
+   and F.scaled_dot_product_attention (forward and backward).
    The whole coder (kernel path) on small inputs, every gossip mode:
    graph and exact against the plain reference engines, graph_tv (also
    with link failures from t0 = 3) against diffusion_infer under the
@@ -70,6 +77,17 @@ and fails (non-zero exit, no result line) if any of them fails:
      with the kernel swapped for its plain version must agree (last-position
      logits and every layer's K/V cache), while one re-run with a planted
      wrong attention must not;
+   - dense-LM training: the port's launch/train at olmo-1b's full width
+     (random weights, AdamW, batches of 4 x 2048 tokens, TRAIN_STEPS steps
+     through TrainRunner with a checkpoint, a fault injected, restored and
+     replayed, and the rescale reload; 2 K2 launches a layer a step,
+     forward and remat recompute).  The first step's loss and every
+     gradient leaf against its plain-attention twin (L x 2^-8), the first
+     replayed loss exactly the first pass's (the rest REPLAY_RTOL), one
+     step profiled by kernel category; step ms, tokens/s, the model-flops
+     share of the bf16 peak, peak memory and checkpoint seconds printed
+     (TRAIN line).  Then three steps of the olmo smoke config, fp32, on the
+     card against the CPU (SGD params at 1e-4, AdamW losses at 1e-5);
    - xLSTM serving: the port's serve at xlstm-1.3b's full width (random
      weights), the same traffic; one slstm_seq launch per sLSTM block of
      the prefill (6) and none in decode.  Tokens in the vocabulary, logits
@@ -105,7 +123,7 @@ and fails (non-zero exit, no result line) if any of them fails:
      work queued: failed 0, at least one request re-routed.
 4. The learner and the paper's applications, plain PyTorch on the card
    (no kernel of the port is on their path, and the script fails if one
-   launches):
+   launches), then the twins of examples/, each with its exact launches:
    - core/learner.DictionaryLearner at the production dictionary (M 8192,
      K 262144, N 16, sparse_svd, gamma 0.05, delta 0.1, 150 iterations,
      mu_w 0.1, batches of 16 from sparse_stream): engine fista, one warm
@@ -120,6 +138,11 @@ and fails (non-zero exit, no result line) if any of them fails:
    - the experiment twins table3_auc (n_steps 2) and fig5_denoise
      (n_patches 1200) on the card: every AUC in [0, 1], every PSNR finite
      and each denoised PSNR above the noisy one.
+   - the twins of examples/ at the JAX scripts' sizes: quickstart,
+     denoise_image and novel_docs launch no kernel; graph_gossip and
+     multi_pod run the port's coder, exactly iters + 1 K1 calls a solve;
+     train_lm (LM_100M, fp32) exactly 2 K2 launches a layer a step and its
+     loss falling by more than 1.0.  Every result finite (TWINS line).
 5. Result: one JSON line listing every kernel (launches on its main path,
    error against plain, times and bound), the card line, and last the
    device line {"ok": true, "device": {...}}.
@@ -133,6 +156,7 @@ import itertools
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -289,6 +313,46 @@ LEARN_MU_W, LEARN_STEPS, LEARN_DIFFUSION_STEPS, LEARN_K_TRUE = 0.1, 4, 2, 4096
 # each agent steps with its neighbour's codes) must fail the W check under
 # fista, whose codes are nonzero; under diffusion and exact it is recorded.
 LEARN_PARITY_M, LEARN_PARITY_K, LEARN_PARITY_RTOL = 512, 16384, 1e-4
+
+# The LM-training main path: the port's launch/train at olmo-1b's full width
+# (16 layers, d 2048, 16 heads of 128, d_ff 8192, vocab 50304, bf16 compute;
+# 1.177e9 fp32 params and AdamW's two fp32 moments, 14.1 GB of state; remat
+# on), random weights from seed 0, batches of TRAIN_BATCH x TRAIN_SEQ tokens
+# from the Markov stream, TRAIN_STEPS steps through TrainRunner with a
+# checkpoint every TRAIN_CKPT_EVERY, a fault injected at TRAIN_FAULT_AT
+# (restore TRAIN_CKPT_EVERY, replay), then the rescale reload.  K2 runs
+# forward in each layer and again in its recompute: 2 x 16 launches a step
+# at FA_TRAIN (B, Hq, Hkv, S, T, D), bf16, causal.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "olmo_1b", 4, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 12, 6, 8
+FA_TRAIN = (TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128)
+# K2's gradient (its Function: K2 forward, attention_backward) against
+# autograd through attention_ref, per gradient max |d| / max |plain|: fp32
+# at GRAD_FP32_TOL (both fp32, sums in other orders); bf16 at GRAD_BF16_TOL:
+# the plain path rounds its probabilities and their cotangent to bf16 and
+# each output and gradient to bf16 (2^-9 relative each), some 2^-8 in all
+# (measured 3.5e-3 to 7.2e-3 against JAX's bf16 vjp on the CPU,
+# tests/test_torch_attention_grad.py); 2^-5 leaves 4x that, and the three
+# planted faults (no Function, no causal mask, no D term) move a gradient
+# by order 1.
+GRAD_FP32_TOL, GRAD_BF16_TOL = 1e-4, 2.0 ** -5
+# The first replayed step is gated exactly (the same checkpoint bytes
+# through the same forward); the later ones, which follow a replayed
+# update, within REPLAY_RTOL relative (a quarter of one bf16 ulp, 2^-8).
+# The one operation of the step that PyTorch lists as nondeterministic on
+# CUDA is the backward of torch.gather in the cross-entropy (a scatter_add_
+# with atomics), whose writes never collide (one gold logit per row); the
+# embedding's backward (index_put_ with accumulate) sorts its indices on
+# CUDA.  Every replayed loss matched bit for bit on the card (PERF.md).
+REPLAY_RTOL = 1e-3
+# AdamW's updates, card against CPU, on the scale of lr: all but
+# ADAMW_SHARE of the elements within 1e-3 lr, and none past ADAMW_FLIP lr.
+# m_hat / sqrt(v_hat) maps a gradient of any size to about +-1, so where an
+# element's gradients are small against its leaf's largest (sqrt(v) a few
+# % of the leaf's) a rounding-level gradient difference moves its update by
+# a few % of lr (0.060 lr on the card's first run, 0.024 lr against JAX on
+# the CPU); a flipped or wrong update moves it by order lr.
+ADAMW_SHARE, ADAMW_FLIP = 1e-3, 0.5
 
 
 def card_line() -> str:
@@ -763,6 +827,126 @@ def phase_flash_attention(torch):
           f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {flops:.3e} flops, {nbytes:.3e} bytes)  "
           f"max|err| {err:.3e}, bf16 reading {reading:.3f} (SDPA's {sdpa_reading:.3f})")
     del q, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
+def autograd_grads(torch, attn, q, k, v, dout, causal=True):
+    """(dq, dk, dv) of attn(q, k, v) by autograd; zeros for an input the
+    output does not depend on in the graph (a wrapper outside autograd)."""
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = attn(qq, kk, vv, causal=causal)
+    if not out.requires_grad:
+        return tuple(torch.zeros_like(x) for x in (q, k, v))
+    return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def grad_readings(got, want) -> dict:
+    """{dq, dk, dv: max |got - want| / max |want|}."""
+    return {name: rel_err(g, w) for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def phase_flash_attention_grad(torch):
+    """K2's gradient (ops.FlashAttention: K2 forward, attention_backward)
+    against autograd through attention_ref, with planted faults; returns the
+    backward's readings and times for K2's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import backward, ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(2)
+
+    def inputs(b, hq, hkv, s, t, d, dtype):
+        return tuple(torch.randn(*shape, generator=gen).to(dev, dtype)
+                     for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d), (b, hq, s, d)))
+
+    shapes = [((2, 4, 2, 100, 100, 64), True), ((1, 4, 1, 77, 130, 32), True),
+              ((2, 2, 2, 90, 60, 64), False), ((1, 8, 2, 300, 300, 128), True)]
+    small = {}
+    for shape, causal in shapes:
+        q, k, v, do = inputs(*shape, torch.float32)
+        r = grad_readings(autograd_grads(torch, ops.flash_attention, q, k, v, do, causal),
+                          autograd_grads(torch, ref.attention_ref, q, k, v, do, causal))
+        small[str((shape, causal))] = r
+        if not max(r.values()) <= GRAD_FP32_TOL:
+            raise AssertionError(f"K2 gradient fp32 {shape} causal={causal}: {r}")
+    print(f"[kernels] flash_attention gradient (Function) agrees with autograd through "
+          f"plain at {len(shapes)} fp32 shapes (<= {GRAD_FP32_TOL}): {small}")
+
+    b, hq, hkv, s, t, d = FA_TRAIN
+    scale = d ** -0.5
+    q, k, v, do = inputs(b, hq, hkv, s, t, d, torch.bfloat16)
+    got = autograd_grads(torch, ops.flash_attention, q, k, v, do)
+    want = autograd_grads(torch, ref.attention_ref, q, k, v, do)
+    readings = grad_readings(got, want)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    del got
+
+    def no_function(qq, kk, vv, *, causal=True):
+        return ops._forward(qq, kk, vv, causal, scale)  # today's fault: outside autograd
+
+    def no_mask(qq, kk, vv, oo, dd, *, causal, scale):
+        return backward.attention_backward(qq, kk, vv, oo, dd, causal=False, scale=scale)
+
+    def no_delta(qq, kk, vv, oo, dd, *, causal, scale):  # D = rowsum(dO * 0) = 0
+        return backward.attention_backward(qq, kk, vv, torch.zeros_like(oo), dd,
+                                           causal=causal, scale=scale)
+
+    planted = {"wrapper without the Function":
+               grad_readings(autograd_grads(torch, no_function, q, k, v, do), want)}
+    for name, bwd in (("backward without the causal mask", no_mask),
+                      ("backward without the D term", no_delta)):
+        with mock.patch.object(ops, "attention_backward", bwd):
+            planted[name] = grad_readings(autograd_grads(torch, ops.flash_attention, q, k, v, do),
+                                          want)
+    del want
+    print(f"[kernels] flash_attention gradient bf16 at {FA_TRAIN}: {readings} (gate "
+          f"{GRAD_BF16_TOL}), max|err| {err:.3e}; planted {planted}")
+    if not max(readings.values()) <= GRAD_BF16_TOL:
+        raise AssertionError(f"K2 gradient disagrees with plain at {FA_TRAIN}: {readings}")
+    for name, r in planted.items():
+        if max(r.values()) <= GRAD_BF16_TOL:
+            raise AssertionError(f"the K2 gradient check passes a planted fault: {name}")
+
+    out = ops.flash_attention(q, k, v, causal=True)
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def bwd_only():
+        return backward.attention_backward(q, k, v, out, do, causal=True, scale=scale)
+
+    def fwd_bwd(attn):
+        def fn():
+            o = attn(qr, kr, vr)
+            return torch.autograd.grad(o, (qr, kr, vr), do)
+        return fn
+
+    kernel = fwd_bwd(lambda a, b_, c: ops.flash_attention(a, b_, c, causal=True))
+    plain = fwd_bwd(lambda a, b_, c: ref.attention_ref(a, b_, c, causal=True))
+    library = fwd_bwd(lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True))
+    reps = 5
+    b1 = time_ms(torch, bwd_only, reps)
+    k1, p1, l1, l2, p2, k2 = (time_ms(torch, fn, reps) for fn in
+                              (kernel, plain, library, library, plain, kernel))
+    b2 = time_ms(torch, bwd_only, reps)
+    flops = backward.backward_flops(b, hq, s, t, d, True)
+    nbytes = 2 * (4 * b * hq * s * d + 4 * b * hkv * t * d)  # q, o, dO, dq; k, v, dk, dv
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    rec = {
+        "shape": list(FA_TRAIN), "max_abs_err": err, "grad_readings": readings,
+        "grad_readings_fp32": small, "planted_faults": planted,
+        "ms": (b1 + b2) / 2, "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "flops": flops, "chunk_rows": backward.chunk_rows(b, hq, s, t),
+        "fwd_bwd_ms": (k1 + k2) / 2, "plain_fwd_bwd_ms": (p1 + p2) / 2,
+        "library_fwd_bwd_ms": (l1 + l2) / 2,  # F.scaled_dot_product_attention, causal
+    }
+    print(f"[kernels] flash_attention backward (attention_backward, fp32, "
+          f"{rec['chunk_rows']} query rows a chunk) at {FA_TRAIN} bf16 causal: bwd_ms "
+          f"{b1:.3f} {b2:.3f}  bound_ms {rec['bound_ms']:.3f} ({rec['bound_by']}: "
+          f"{flops:.3e} fp32 flops, {nbytes:.3e} bytes); forward + backward: K2 + Function "
+          f"{k1:.3f} {k2:.3f}  plain {p1:.3f} {p2:.3f}  sdpa {l1:.3f} {l2:.3f} ms")
+    del q, k, v, do, out, qr, kr, vr
     torch.cuda.empty_cache()
     return rec
 
@@ -1827,11 +2011,10 @@ def phase_kill_drill(torch, card: str, stream):
     return launches
 
 
-def device_profile(torch, fn, top: int = 6):
-    """One call of fn under torch.profiler: (host wall ms, device kernel ms
-    summed over the kernels' own rows, [(kernel, ms)] of the `top` largest).
-    The CPU operators' rows repeat their kernels' device time, so only the
-    rows of device activity are summed."""
+def profile_rows(torch, fn):
+    """One call of fn under torch.profiler: (host wall ms, [(kernel, device
+    ms)] largest first).  The CPU operators' rows repeat their kernels'
+    device time, so only the rows of device activity are kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1844,7 +2027,35 @@ def device_profile(torch, fn, top: int = 6):
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
+    return wall_ms, rows
+
+
+def device_profile(torch, fn, top: int = 6):
+    """profile_rows as (host wall ms, device kernel ms summed, [(kernel, ms)]
+    of the `top` largest)."""
+    wall_ms, rows = profile_rows(torch, fn)
     return wall_ms, sum(ms for _, ms in rows), [(k[:60], round(ms, 3)) for k, ms in rows[:top]]
+
+
+# Kernel names of a train step by what launched them, first match wins:
+# K2; fp32 GEMMs (SIMT sgemm: attention_backward's einsums and the fp32
+# unembedding); bf16 GEMMs (cuBLAS's nvjet / xmma: the projections and the
+# MLP); softmax; everything else (norms, rotary, SwiGLU, casts, the
+# optimizer's elementwise passes, reductions, copies).
+STEP_CATEGORIES = (("K2 forward", ("flash_attention",)),
+                   ("fp32 GEMMs", ("sgemm", "f32f32")),
+                   ("bf16 GEMMs", ("nvjet", "bf16", "xmma", "gemm")),
+                   ("softmax", ("softmax",)))
+
+
+def step_categories(rows) -> dict:
+    """Device ms of profile rows summed by STEP_CATEGORIES (else "other")."""
+    out = {name: 0.0 for name, _ in STEP_CATEGORIES}
+    out["other"] = 0.0
+    for key, ms in rows:
+        name = next((n for n, subs in STEP_CATEGORIES if any(x in key for x in subs)), "other")
+        out[name] += ms
+    return {k: round(v, 3) for k, v in out.items()}
 
 
 def phase_lm(torch, card: str):
@@ -2111,6 +2322,300 @@ def phase_xlstm(torch, card: str):
     return launches
 
 
+def model_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """6 N tokens (every parameter's multiply-add forward, twice backward;
+    N counts the tied embedding once) + 6 L B S^2 d (causal attention's q k^T
+    and p v over half the S x S pairs, 2 B S^2 d a layer forward, twice
+    that backward); the remat recompute is not model work."""
+    n = cfg.param_counts()["total"]
+    return 6.0 * n * batch * seq + 6.0 * cfg.n_layers * batch * seq * seq * cfg.d_model
+
+
+def phase_olmo_train(torch, card: str):
+    """The port's training at olmo-1b's full width through launch/train
+    (TrainRunner: checkpoint, injected fault, replay, rescale reload), the
+    first step against its plain-attention twin, one step profiled; returns
+    the run's record (K2 launches and per step)."""
+    import shutil
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.models import attention, model
+    from repro_torch.optim import for_arch
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import steps
+
+    cfg = get_config(TRAIN_ARCH)
+    n_params = cfg.param_counts()["total"]
+    state_gb = 3 * 4 * n_params / 1e9  # fp32 params, m, v
+    ckpt_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+    # keep 3 at steps 6 and 12: the committed step 6 beside step 12 being written
+    need_gb = 2 * state_gb + 2.0
+    print(f"[train] {cfg.name}: {n_params:.4e} params, train state {state_gb:.2f} GB; "
+          f"free disk under build/ {free_gb:.1f} GB (need {need_gb:.1f})")
+    if free_gb < need_gb:
+        raise AssertionError(f"train: {free_gb:.1f} GB free under build/, need {need_gb:.1f}")
+
+    # (1) The first step's loss and gradient, K2 against a plain-attention
+    # twin (K2 and its Function swapped for autograd through attention_ref).
+    batch = train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)(0)
+    params = model.init(cfg, 0, "cuda")
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+
+    def loss_and_grads():
+        loss, _ = model.loss_fn(cfg, params, batch)
+        return loss.item(), torch.autograd.grad(loss, flat)
+
+    reset_launch_counts()
+    loss_k, grads_k = loss_and_grads()
+    first_launches = ops.flash_attention.launches
+    with mock.patch.object(attention.ops, "flash_attention", ref.attention_ref):
+        loss_p, grads_p = loss_and_grads()
+    grad_rel = [rel_err(g, w) for g, w in zip(grads_k, grads_p)]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    del grads_k, grads_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    tol = cfg.n_layers * BF16_UNIT_ROUNDOFF
+    print(f"[train] first step, K2 vs plain-attention twin: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {loss_rel:.2e}, gate {BF16_UNIT_ROUNDOFF:.2e}); per-leaf max|dg|/max|g| "
+          f"max {max(grad_rel):.3e} (gate {tol:.4f} = {cfg.n_layers} layers x 2^-8): "
+          f"{[round(r, 5) for r in grad_rel]}; K2 launches {first_launches}")
+    if first_launches != 2 * cfg.n_layers:
+        raise AssertionError(f"train: {first_launches} K2 launches in one loss and gradient, "
+                             f"expected {2 * cfg.n_layers} (forward + remat recompute)")
+    if not (finite and loss_rel <= BF16_UNIT_ROUNDOFF and max(grad_rel) <= tol):
+        raise AssertionError("train: the first step's loss or gradient disagrees with the "
+                             "plain-attention twin")
+
+    # (2) One step under the profiler (after a warm one), on this state.
+    opt = for_arch(cfg, lr=cosine_warmup(3e-4, warmup=20, total=TRAIN_STEPS))
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step_fn = steps.make_train_step(cfg, opt)
+    step_fn(state, batch)
+    wall_ms, rows = profile_rows(torch, lambda: step_fn(state, batch))
+    dev_ms, top = sum(ms for _, ms in rows), [(k[:60], round(ms, 3)) for k, ms in rows[:10]]
+    categories = step_categories(rows)
+    print(f"[train] profile of one step: device kernels {dev_ms:.1f} ms, {wall_ms:.1f} ms under "
+          f"the profiler; by category {categories}; top {top}")
+    del state, params, flat, step_fn
+    torch.cuda.empty_cache()
+
+    # (3) The CLI: TRAIN_STEPS steps, a checkpoint every TRAIN_CKPT_EVERY, a
+    # fault at TRAIN_FAULT_AT, the rescale reload; checkpoint I/O timed.
+    io = {"save_s": [], "restore_s": [], "host_copy_s": []}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                io[key].append(time.perf_counter() - t)
+        return wrapper
+
+    argv = ["--arch", TRAIN_ARCH, "--full-config", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--inject-fault-at", str(TRAIN_FAULT_AT),
+            "--rescale-mesh", "1x1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"]
+    with mock.patch.object(manager, "save_pytree", timed(manager.save_pytree, "save_s")), \
+            mock.patch.object(manager, "load_pytree", timed(manager.load_pytree, "restore_s")), \
+            mock.patch.object(manager.CheckpointManager, "save",
+                              timed(manager.CheckpointManager.save, "host_copy_s")):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train.run(train.parse_args(argv))
+        wall = time.perf_counter() - t0
+        launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runner, losses = out["runner"], out["losses"]
+    executed = len(out["history"])
+    replayed = TRAIN_FAULT_AT - TRAIN_CKPT_EVERY
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    if out["faults"] != 1 or executed != TRAIN_STEPS + replayed:
+        raise AssertionError(f"train: {out['faults']} faults, {executed} steps run")
+    if launches != 2 * cfg.n_layers * executed:
+        raise AssertionError(f"train: {launches} K2 launches over {executed} steps, expected "
+                             f"{2 * cfg.n_layers} a step")
+    if out["ckpt_steps"] != [TRAIN_CKPT_EVERY, TRAIN_STEPS] or out["rescaled_step"] != TRAIN_STEPS:
+        raise AssertionError(f"train: checkpoints {out['ckpt_steps']}, rescale resumed at "
+                             f"{out['rescaled_step']}")
+    if not all(math.isfinite(x) for _, x in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    first = dict(losses[:TRAIN_FAULT_AT])
+    replay = losses[TRAIN_FAULT_AT:TRAIN_FAULT_AT + replayed]
+    replay_rel = [abs(x - first[st]) / abs(first[st]) for st, x in replay]
+    print(f"[train] replay from step {TRAIN_CKPT_EVERY}: first pass "
+          f"{[first[st] for st, _ in replay]}, replayed {[x for _, x in replay]} (the first "
+          f"exactly, the rest within {REPLAY_RTOL} relative: {replay_rel})")
+    if replay[0][1] != first[replay[0][0]]:
+        raise AssertionError("train: the first replayed loss differs from the first pass's")
+    if not max(replay_rel) <= REPLAY_RTOL:
+        raise AssertionError(f"train: a replayed loss parts from the first pass: {replay_rel}")
+
+    times = runner.step_times
+    step_s = statistics.median(times[1:])
+    flops = model_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    rec = {
+        "card": card, "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps_run": executed, "step_ms": step_s * 1e3,
+        "first_step_ms": times[0] * 1e3, "step_ms_all": [x * 1e3 for x in times],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "model_flops_per_step": flops, "mfu_bf16": flops / step_s / BF16_FLOPS_PER_S,
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "launches_per_step": launches / executed, "losses": losses,
+        "replay_rel": replay_rel, "first_step": {"loss": loss_k, "plain_loss": loss_p,
+                                                 "loss_rel": loss_rel, "grad_rel": grad_rel},
+        "profile": {"profiled_wall_ms": wall_ms, "device_ms": dev_ms,
+                    "busy_share": dev_ms / (step_s * 1e3), "categories": categories,
+                    "top": top},
+        "checkpoint_io_s": io, "state_gb": state_gb, "wall_s": wall,
+        "events": [{k: v for k, v in e.items() if k != "error"} for e in runner.events],
+    }
+    print(f"[train] {card}: {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step "
+          f"{rec['step_ms']:.1f} ms (median of {len(times) - 1} after the first, "
+          f"{rec['first_step_ms']:.1f}), {rec['tokens_per_s']:.1f} tokens/s, model-flops share "
+          f"of the bf16 peak {rec['mfu_bf16']:.4f} ({flops:.4e} flops a step / "
+          f"{BF16_FLOPS_PER_S:.3e}), peak device memory {peak_gb:.2f} GB, K2 launches "
+          f"{launches} ({rec['launches_per_step']:.0f} a step); checkpoint save "
+          f"{io['save_s']} s, host copy {io['host_copy_s']} s, restore {io['restore_s']} s; "
+          f"busy share {rec['profile']['busy_share']:.3f}; wall {wall:.1f} s")
+    print("TRAIN " + json.dumps(rec))
+    del out, runner
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_card_vs_cpu(torch):
+    """Three steps of the olmo smoke config (fp32) on the card and on the
+    CPU from one state: SGD params within 1e-4 of each leaf's largest
+    |value|, losses within 1e-5 relative; AdamW losses within 1e-5 relative
+    and the updates on the scale of lr (ADAMW_SHARE, ADAMW_FLIP:
+    tests/test_torch_train.py's gates)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import make_batches
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.runtime import steps
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    batches = make_batches(cfg, 4, 64, 0)
+    out = {}
+    for name, make, lr in (("sgd", lambda: sgd(0.5), 0.5), ("adamw", lambda: adamw(1e-3), 1e-3)):
+        start = steps.init_train_state(cfg, make(), 0, "cpu")
+        p0 = [t.clone() for t in leaves(start["params"])]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            state = tree_map(lambda t: t.clone().to(dev), start)
+            step, losses = steps.make_train_step(cfg, make()), []
+            for i in range(3):
+                state, m = step(state, batches(i))
+                losses.append(m["loss"].item())
+            runs[dev] = ([t.detach().cpu() for t in leaves(state["params"])], losses)
+        (pc, lc), (pp, lp) = runs["cuda"], runs["cpu"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        if name == "sgd":
+            reading = max(rel_err(a, b) for a, b in zip(pc, pp))
+            ok = reading <= 1e-4 and loss_rel <= 1e-5
+        else:
+            d = [((a - s) - (b - s)).abs() for a, b, s in zip(pc, pp, p0)]
+            reading = max(float(x.max()) for x in d) / lr
+            share = sum(int((x > 1e-3 * lr).sum()) for x in d) / sum(x.numel() for x in d)
+            ok = reading <= ADAMW_FLIP and share <= ADAMW_SHARE and loss_rel <= 1e-5
+        out[name] = {"param_reading": reading, "loss_rel": loss_rel, "losses_card": lc,
+                     "losses_cpu": lp}
+        if name == "adamw":
+            out[name]["share_past_1e-3_lr"] = share
+        print(f"[train card vs cpu] {name}: params {reading:.3e} "
+              f"({'max|d|/max|cpu|' if name == 'sgd' else 'max |d update| / lr'}), losses "
+              f"rel {loss_rel:.2e}: card {lc}, cpu {lp}; {out[name]}")
+        if not ok:
+            raise AssertionError(f"train card vs cpu ({name}) disagrees: {out[name]}")
+    return out
+
+
+def numbers(obj):
+    """Every float in a nest of dicts and lists."""
+    if isinstance(obj, float):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from numbers(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from numbers(v)
+
+
+def phase_twins(torch, card: str):
+    """The torch twins of examples/ at the JAX scripts' sizes on the card.
+    quickstart, denoise_image and novel_docs are plain PyTorch (no kernel);
+    graph_gossip and multi_pod run the port's coder, whose every iteration
+    is a K1 call (iters + 1 a solve); train_lm trains LM_100M through K2
+    (fp32, scalar_fp32: 2 launches a layer a step) and must lower its loss
+    by more than 1.0.  Returns the launches by twin."""
+    import shutil
+
+    from repro_torch.experiments import (denoise_image, graph_gossip, multi_pod, novel_docs,
+                                         quickstart, train_lm)
+    from repro_torch.kernels.dict_dual_step import ops as dd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.slstm_step import ops as sl_ops
+
+    solve_calls = sum(it + 1 for it in (400, 1600))  # a coder solve is iters + 1 K1 calls
+    expected = {
+        "quickstart": (0, 0), "denoise_image": (0, 0), "novel_docs": (0, 0),
+        "graph_gossip": ((len(graph_gossip.TOPOLOGIES) + len(graph_gossip.SCHEDULES))
+                         * solve_calls, 0),
+        "multi_pod": ((len(multi_pod.FLAT_AND_HIER) + len(multi_pod.POD_KNOBS)) * solve_calls
+                      + len(multi_pod.CHAINS) * 1601, 0),
+        "train_lm": (0, 2 * train_lm.LM_100M.n_layers * 300),
+    }
+    out = {}
+    for name, mod in (("quickstart", quickstart), ("denoise_image", denoise_image),
+                      ("novel_docs", novel_docs), ("graph_gossip", graph_gossip),
+                      ("multi_pod", multi_pod), ("train_lm", train_lm)):
+        reset_launch_counts()
+        t = time.perf_counter()
+        result = mod.run(device="cuda")
+        wall = time.perf_counter() - t
+        got = (dd_ops.dict_dual_step.launches, fa_ops.flash_attention.launches,
+               sl_ops.slstm_seq.launches)
+        if name == "train_lm":
+            shutil.rmtree(result["ckpt_dir"], ignore_errors=True)
+            result = {k: v for k, v in result.items() if k != "losses"}
+        out[name] = {"wall_s": wall, "launches": {"dict_dual_step": got[0],
+                                                   "flash_attention": got[1],
+                                                   "slstm_seq": got[2]}, "result": result}
+        print(f"[twins:{name}] {card}: wall {wall:.1f} s, launches (K1, K2, K3) {got}: {result}")
+        if got != (*expected[name], 0):
+            raise AssertionError(f"twin {name}: launches (K1, K2, K3) {got}, expected "
+                                 f"{(*expected[name], 0)}")
+        # novel_docs' AUC is nan at a step without novel documents, as JAX's
+        vals = [x for x in numbers(result) if not (name == "novel_docs" and math.isnan(x))]
+        if not all(math.isfinite(x) for x in vals):
+            raise AssertionError(f"twin {name}: a result is not finite: {result}")
+    den = out["denoise_image"]["result"]
+    if not min(den["denoised_all_psnr_db"], den["denoised_one_psnr_db"]) > den["noisy_psnr_db"]:
+        raise AssertionError(f"denoise_image: not above the noisy PSNR: {den}")
+    if not out["quickstart"]["result"]["eq53_snr_db"] > 60:
+        raise AssertionError(f"quickstart: nu is not the residual: {out['quickstart']}")
+    lm = out["train_lm"]["result"]
+    print("TWINS " + json.dumps({"card": card, **out}, default=str))
+    if not lm["last10_loss"] < lm["first_loss"] - 1.0:  # run() raises first; kept explicit
+        raise AssertionError(f"train_lm did not learn: {lm}")
+    return {name: r["launches"] for name, r in out.items()}
+
+
 def learner_step(torch, learner, state, x):
     """One fit_batch, synchronized: (new state, metrics as floats, seconds)."""
     torch.cuda.synchronize()
@@ -2299,6 +2804,7 @@ def main() -> int:
     rec = timed("dict_dual_step", phase_kernels, torch)
     fa_rec = timed("flash_attention", phase_flash_attention, torch)
     fa_rec["wgmma_build"] = wgmma_build  # HGMMA in the SASS, ptxas registers and spills
+    fa_rec["backward"] = timed("flash_attention gradient", phase_flash_attention_grad, torch)
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     timed("small coder", phase_small_coder, torch)
     timed("elastic small", phase_elastic_small, torch)
@@ -2306,6 +2812,12 @@ def main() -> int:
     gossip = timed("gossip modes", phase_gossip_modes, torch, card)
     fa_rec["launches"] = timed("gemma-2b serve", phase_lm, torch, card)
     sl_rec["launches"] = timed("xlstm-1.3b serve", phase_xlstm, torch, card)
+    train = timed("olmo-1b train", phase_olmo_train, torch, card)
+    timed("train card vs cpu", phase_train_card_vs_cpu, torch)
+    fa_rec["launches_by_path"] = {"gemma-2b serve": fa_rec["launches"],
+                                  "olmo-1b train": train["launches"]}
+    fa_rec["launches"] += train["launches"]
+    fa_rec["train_launches_per_step"] = train["launches_per_step"]
     # The diffusion's step is bounded by the worst block's curvature
     # (sigma_max(W_k)^2 / delta, about 58 here) while its consensus term
     # contracts by only mu / N per iteration, so after 150 iterations at this
@@ -2348,6 +2860,10 @@ def main() -> int:
         + sl_ops.slstm_seq.launches
     if stray:
         raise AssertionError(f"the learner or experiments launched {stray} kernels")
+    twins = timed("twins", phase_twins, torch, card)
+    fa_rec["launches_by_path"]["train_lm twin"] = twins["train_lm"]["flash_attention"]
+    rec["twin_launches"] = {name: twins[name]["dict_dual_step"]
+                            for name in ("graph_gossip", "multi_pod")}
 
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [rec, fa_rec, sl_rec]}))

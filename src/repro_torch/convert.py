@@ -104,3 +104,32 @@ def lm_params_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict:
     return tree_map(
         lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, cfg.dtype), tree
     )
+
+
+def train_state_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict:
+    """The port's train state from the JAX one mapped to numpy
+    (`init_train_state(cfg, opt, key)` or a restored checkpoint, every leaf
+    `np.asarray`): {"params", "opt", "step"}.  The params cross as in
+    `lm_params_from_numpy`; every leaf of "opt" (AdamW's {"m", "v"},
+    Adafactor's {"f": {"vr", "vc"} or {"v"} per param}, SGD's {"mu"} or {})
+    is an fp32 moment and crosses as fp32; "step" becomes a 0-d int32
+    tensor."""
+    dev = resolve_device(device)
+    return {
+        "params": lm_params_from_numpy(cfg, tree["params"], dev),
+        "opt": tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev),
+                        tree["opt"]),
+        "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=dev),
+    }
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """Inverse of train_state_from_numpy: every leaf a numpy array, the
+    nesting kept (bf16 params widened to float32, numpy having no bf16),
+    "step" a 0-d int32 array."""
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {"params": tree_map(one, state["params"]), "opt": tree_map(one, state["opt"]),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}

@@ -13,14 +13,17 @@ package's, so both give the same numbers for the same arguments:
     Generator: numpy's stream is sequential, so the values are bit for bit
     the same, and the host holds one float32 copy;
   * `topic_documents`: topic-mixture documents with novel topics arriving
-    by step, the stand-in for TDT2 (the novel-document experiment).
+    by step, the stand-in for TDT2 (the novel-document experiment);
+  * `TokenStream`, `lm_batches`: the Markov-bigram token stream of the LM
+    training path.
 
-The LM batch generators wait for the LM training slice.
+`audio_batches` and `vlm_batches` wait for the audio and VLM slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -183,3 +186,46 @@ def topic_documents(
         labels=np.array(labels).reshape(n_steps + 1, docs_per_step),
         novel_steps=novel_steps,
     )
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Deterministic Markov-bigram token stream, shardable by host.
+
+    The transition structure gives each token `branching` likely successors,
+    so a model that learns it drops from ln(V) to about ln(branching) nats."""
+
+    vocab: int
+    seed: int = 0
+    branching: int = 32
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self._succ = rng.integers(0, self.vocab, (self.vocab, self.branching))
+
+    def batches(
+        self,
+        batch: int,
+        seq: int,
+        n_batches: int,
+        host_index: int = 0,
+        host_count: int = 1,
+    ) -> Iterator[np.ndarray]:
+        rng = np.random.default_rng(self.seed + 1 + host_index)
+        for _ in range(n_batches):
+            toks = np.empty((batch, seq), np.int64)
+            state = rng.integers(0, self.vocab, batch)
+            for t in range(seq):
+                toks[:, t] = state
+                choice = rng.integers(0, self.branching, batch)
+                state = self._succ[state, choice]
+            yield toks.astype(np.int32)
+
+
+def lm_batches(vocab: int, batch: int, seq: int, n_batches: int, seed: int = 0):
+    return TokenStream(vocab, seed).batches(batch, seq, n_batches)

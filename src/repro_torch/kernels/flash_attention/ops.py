@@ -15,6 +15,13 @@ dtype and head dim (`variant`, the same rule as the source's
 D = 64, 128 or 256, "scalar_fp32" (CUDA-core fp32 FMAs) for float32 at
 every D and for bfloat16 at D = 16 or 32.
 
+When grad is enabled and q, k or v requires it, `flash_attention` runs
+through `FlashAttention`, an autograd Function on both devices: forward K2
+on the card (its plain version on the CPU), backward
+`backward.attention_backward`, FlashAttention-2's backward in plain PyTorch
+(the JAX package differentiates its XLA scan and has no backward kernel).
+Without grad the path is the bare forward.
+
 `flash_decode` is the single-token decode attention, plain PyTorch as the
 JAX version is plain jnp.
 """
@@ -27,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.backward import attention_backward
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -149,14 +157,39 @@ def flash_attention(
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     scale = d ** -0.5 if scale is None else float(scale)
 
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, scale=scale)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, causal=causal, scale=scale)
-    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return _forward(q, k, v, causal, scale)
 
 
 flash_attention.launches = 0
+
+
+def _forward(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal=causal, scale=scale)
+    return attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2's forward (its plain version on the CPU) with
+    `attention_backward`; saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out = _forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, dout, causal=ctx.causal,
+                                        scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_decode(

@@ -158,7 +158,9 @@ def slstm_seq(
     """The stabilized sLSTM recurrence over S steps from the zero state
     (m0 = -1e30).  Returns h (S, B, D) fp32 and the final (c, n, m), each
     (B, D) fp32; the final h is h[-1].  x_proj and R are float32 or
-    bfloat16, of one dtype, widened to fp32 inside; b is any float dtype."""
+    bfloat16, of one dtype, widened to fp32 inside; b is any float dtype.
+    Raises NotImplementedError when grad is enabled and an input requires
+    it, on both devices."""
     if x_proj.dim() != 4 or x_proj.shape[0] != 4:
         raise ValueError(f"x_proj must be (4, S, B, D), got {tuple(x_proj.shape)}")
     _, s, batch, d = x_proj.shape
@@ -177,6 +179,12 @@ def slstm_seq(
         )
     if not (x_proj.device == R.device == b.device):
         raise ValueError(f"x_proj on {x_proj.device}, R on {R.device}, b on {b.device}")
+    if torch.is_grad_enabled() and (x_proj.requires_grad or R.requires_grad or b.requires_grad):
+        raise NotImplementedError(
+            "slstm_seq has no gradient: the kernel's output is outside autograd, and its "
+            "plain version refuses too so that the card and the CPU agree (ROADMAP "
+            "section 1, the xLSTM-training item: K3's gradient)"
+        )
 
     if x_proj.device.type == "cpu":
         return slstm_seq_ref(x_proj, R, b)

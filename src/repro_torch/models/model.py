@@ -17,8 +17,18 @@ A tree already in that form passes through untouched, so a server
 prepares it once and its decode loop does no per-step tree work.  The
 decode cache is updated in place (JAX returns a new one).
 
+The cast runs inside the autograd graph, so the gradient of a loss reaches
+the fp32 master params through it, and each stack splits with
+`torch.unbind` (whose backward writes one stacked gradient, where the
+backward of one `select` per layer would write a zero-filled copy of the
+whole stack per layer).  When grad flows and `cfg.remat` is set, each
+dense layer runs under `torch.utils.checkpoint` (non-reentrant): only its
+input is kept, and its forward runs again in the backward, as the JAX
+`_maybe_remat` with `nothing_saveable`; its K2 launch then runs twice.
+
+`loss_fn` is the masked fp32 next-token cross-entropy of the dense family.
 The other families (moe, hybrid, vlm, audio) raise, naming their ROADMAP
-slice; the loss and training wait for the training slice.
+slice; xlstm trains with the xLSTM-training item (K3's gradient).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import PORTED_FAMILIES, not_ported
 from repro_torch.configs.base import ArchConfig
@@ -70,9 +81,38 @@ def cast_params(cfg: ArchConfig, params: dict) -> dict:
     cdt = cfg.cdtype
     cast = tree_map(lambda t: t.to(cdt) if t.is_floating_point() else t, params)
     for key, n in sizes.items():
-        stacked = cast[key]
-        cast[key] = [tree_map(lambda t: t[i], stacked) for i in range(n)]
+        split = tree_map(lambda t: t.unbind(0), cast[key])
+        cast[key] = [_select(split, i) for i in range(n)]
     return cast
+
+
+def _select(tree: dict, i: int) -> dict:
+    """Entry i of every tuple of a tree of tuples."""
+    return {k: _select(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def require_trainable(cfg: ArchConfig) -> None:
+    """Raise for a family the port cannot train yet, naming its item."""
+    require_ported(cfg)
+    if cfg.family == "xlstm":
+        raise NotImplementedError(
+            f"{cfg.name}: xlstm training is not ported yet (ROADMAP section 1, the "
+            f"xLSTM-training item: K3 has no gradient); the port trains the dense family"
+        )
+
+
+def _needs_grad(*trees) -> bool:
+    """Whether grad is enabled and any tensor of the trees requires it."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = list(trees)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            return True
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -157,9 +197,42 @@ def forward(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
             h = h + _xlstm_mixer(cfg, kind, lp, h, return_cache=False)
     else:
         positions = torch.arange(h.shape[1], device=h.device)
-        for i in range(cfg.n_layers):
-            h = tfm.apply_block(params["layers"][i], h, positions, cfg)
+        for lp in params["layers"]:
+            if cfg.remat and _needs_grad(lp, h):
+                h = checkpoint(tfm.apply_block, lp, h, positions, cfg, use_reentrant=False)
+            else:
+                h = tfm.apply_block(lp, h, positions, cfg)
     return _logits(cfg, params, h), torch.zeros((), device=h.device)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor,
+        mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean cross-entropy in fp32. Returns (loss, n_tokens)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    n = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll) / n, n
+
+
+def loss_fn(cfg: ArchConfig, params: dict,
+            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy of logits[:, :-1] against tokens[:, 1:] (all
+    positions count) plus 0.01 x moe_aux (0 for dense): (total, {"ce",
+    "moe_aux", "n_tokens"})."""
+    require_trainable(cfg)
+    logits, aux = forward(cfg, params, batch)
+    tokens = torch.as_tensor(batch["tokens"], device=logits.device).long()
+    mask = torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=logits.device)
+    loss, n = _ce(logits[:, :-1, :], tokens[:, 1:], mask)
+    total = loss + 0.01 * aux
+    return total, {"ce": loss, "moe_aux": aux, "n_tokens": n}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "cuda") -> dict:

@@ -411,3 +411,8 @@ class HierSchedule:
     def reconstruct(self) -> np.ndarray:
         """Dense A_pod (x) A_model of a pod-hop iteration."""
         return np.kron(self.pod.reconstruct(), self.model.reconstruct())
+
+    @property
+    def pod_messages_per_iter(self) -> float:
+        """Inter-pod rounds per iteration, averaged over the pod stride."""
+        return self.pod.messages_per_iter / self.gossip_every

@@ -98,7 +98,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
 print(len(names), bad)
-assert len(names) >= 35, names
+assert len(names) >= 70, names
 for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
            "repro_torch.kernels.flash_attention.ops", "repro_torch.launch.serve",
            "repro_torch.configs.xlstm_1p3b", "repro_torch.models.xlstm",
@@ -109,7 +109,15 @@ for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
            "repro_torch.experiments.fig5_denoise", "repro_torch.experiments.table3_auc",
            "repro_torch.experiments.table4_auc_huber", "repro_torch.runtime.serving",
            "repro_torch.runtime.service", "repro_torch.launch.serve_dict",
-           "repro_torch.experiments.streaming_quickstart"):
+           "repro_torch.experiments.streaming_quickstart",
+           "repro_torch.pytree", "repro_torch.optim", "repro_torch.optim.schedules",
+           "repro_torch.optim.optimizers", "repro_torch.optim.compression",
+           "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+           "repro_torch.kernels.flash_attention.backward", "repro_torch.runtime.steps",
+           "repro_torch.runtime.runner", "repro_torch.launch.train",
+           "repro_torch.experiments.quickstart", "repro_torch.experiments.denoise_image",
+           "repro_torch.experiments.novel_docs", "repro_torch.experiments.graph_gossip",
+           "repro_torch.experiments.multi_pod", "repro_torch.experiments.train_lm"):
     assert lm in names, lm
 assert not bad, bad
 """
