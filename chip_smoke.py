@@ -39,6 +39,18 @@ and fails (non-zero exit, no result line) if any of them fails:
    without the Function, a backward without the causal mask, one without
    the D term); the backward timed beside K2 + Function, the plain twin
    and F.scaled_dot_product_attention (forward and backward).
+   K2 at the MoE family's shapes: granite-moe's FA_MOE (wgmma_tma) and
+   kimi-k2's FA_KIMI at head dim 112 (scalar_fp32) against plain, timed
+   beside SDPA with their bounds (K2's `moe_shapes`), two planted faults
+   at D 112 rejected (logits from the first 64 columns, the causal limit
+   one key late); K2's gradient at FA_MOE (GRAD_BF16_TOL).
+   The MoE layer (models/moe.apply_moe): against moe_ref at granite-moe's
+   width on 4 x 2048 tokens with nothing dropped (fp32 at MOE_FP32_RTOL,
+   bf16 at MOE_ROW_ULPS); two launches bit-identical, forward and
+   backward; the dispatch tables against the CPU's on the same fp32
+   inputs with drops (MOE_SMALL, top-k margins above MOE_MARGIN); planted
+   faults rejected (a combine without the gate renormalisation, a dispatch
+   ignoring the capacity, positions counted slot-major).
    The whole coder (kernel path) on small inputs, every gossip mode:
    graph and exact against the plain reference engines, graph_tv (also
    with link failures from t0 = 3) against diffusion_infer under the
@@ -77,8 +89,9 @@ and fails (non-zero exit, no result line) if any of them fails:
      with the kernel swapped for its plain version must agree (last-position
      logits and every layer's K/V cache), while one re-run with a planted
      wrong attention must not;
-   - dense-LM training: the port's launch/train at olmo-1b's full width
-     (random weights, AdamW, batches of 4 x 2048 tokens, TRAIN_STEPS steps
+   - dense-LM training: the port's launch/train at olmo-1b's full width,
+     depth cut to TRAIN_LAYERS (random weights, AdamW, batches of 4 x 2048
+     tokens, TRAIN_STEPS steps
      through TrainRunner with a checkpoint, a fault injected, restored and
      replayed, and the rescale reload; 2 K2 launches a layer a step,
      forward and remat recompute).  The first step's loss and every
@@ -88,9 +101,33 @@ and fails (non-zero exit, no result line) if any of them fails:
      share of the bf16 peak, peak memory and checkpoint seconds printed
      (TRAIN line).  Then three steps of the olmo smoke config, fp32, on the
      card against the CPU (SGD params at 1e-4, AdamW losses at 1e-5);
-   - xLSTM serving: the port's serve at xlstm-1.3b's full width (random
-     weights), the same traffic; one slstm_seq launch per sLSTM block of
-     the prefill (6) and none in decode.  Tokens in the vocabulary, logits
+   - MoE serving: the port's serve at granite-moe-1b-a400m's full width,
+     the gemma path's traffic; 24 K2 launches a prefill (gated), each
+     layer's K2 against plain on its own inputs (gated, a planted wrong
+     attention rejected), the end-to-end logits against the
+     plain-attention twin and the share of routes that differ (printed:
+     a route one ulp flips moves its token by O(1)), the prefill and a
+     decode step profiled by range (router, dispatch tables, gathers,
+     expert GEMMs, attention, unembedding; MOE_SERVE line);
+   - MoE training: launch/train at granite-moe's full width, MOE_STEPS
+     steps of 4 x 2048 tokens (AdamW, cosine warmup), checkpoints every
+     MOE_CKPT_EVERY, a fault at MOE_FAULT_AT, the rescale reload: 48 K2
+     launches a step, the first replayed loss exactly the first pass's,
+     the first step's loss against its plain-attention twin
+     (MOE_LOSS_RTOL; its gradients and routes printed), one step
+     profiled; step ms, tokens/s, the model-flops share (active params)
+     and checkpoint seconds printed (MOE_TRAIN line);
+   - kimi-k2 at full width cut to KIMI_LAYERS layers (serve --n-layers):
+     a 4 x 2048 prefill and KIMI_GEN tokens, bf16 params; 2 K2 launches
+     at D 112, each against plain on its inputs, and the MoE layer at
+     kimi's width against moe_ref on MOE_KIMI_TOKENS of its own inputs
+     (KIMI line);
+   - three SGD steps of the granite-moe smoke config on the card against
+     the CPU: the first step's routes compared, params at 1e-4, a planted
+     combine without renormalisation rejected (MOE_CHECKS line);
+   - xLSTM serving: the port's serve at xlstm-1.3b's full width, depth cut
+     to XL_LAYERS (random weights), the same traffic; one slstm_seq launch
+     per sLSTM block of the prefill (3) and none in decode.  Tokens in the vocabulary, logits
      and every cache leaf finite, and in a re-run of the prefill every
      sLSTM block's recurrence must agree with its plain version on the
      inputs it got there, while a planted wrong recurrence must not (the
@@ -152,6 +189,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import itertools
 import json
 import math
@@ -207,12 +245,13 @@ BF16_ROW_ULPS = 4.0
 # reject it.
 BF16_UNIT_ROUNDOFF = 2.0 ** -8
 
-# The xLSTM main path: the port's serve at xlstm-1.3b's full width (48
-# blocks, 42 mLSTM and 6 sLSTM; d 2048, 4 heads, mLSTM P 1024, sLSTM P 512,
-# vocab 50304, bf16 compute), random weights from seed 0, the gemma path's
-# traffic.  Its sLSTM recurrence, one K3 launch per sLSTM block:
-# (B, S, D, H), bf16 x_proj and R.
-XL_ARCH = "xlstm_1p3b"
+# The xLSTM main path: the port's serve at xlstm-1.3b's full width (d 2048,
+# 4 heads, mLSTM P 1024, sLSTM P 512, vocab 50304, bf16 compute), depth cut
+# from 48 blocks to XL_LAYERS (3 groups: 21 mLSTM and 3 sLSTM blocks) to
+# keep the whole script well inside its time limit, random weights from
+# seed 0, the gemma path's traffic.  Its sLSTM recurrence, one K3 launch
+# per sLSTM block: (B, S, D, H), bf16 x_proj and R.
+XL_ARCH, XL_LAYERS = "xlstm_1p3b", 24
 SL_MAIN = (LM_BATCH, LM_PROMPT, 2048, 4)
 # K3 at the shapes of tests/test_moe_a2a.py's sLSTM tests (B, S, D, H), and
 # the smoke config's P 32 at B 4: fp32 within their 1e-5.
@@ -315,15 +354,16 @@ LEARN_MU_W, LEARN_STEPS, LEARN_DIFFUSION_STEPS, LEARN_K_TRUE = 0.1, 4, 2, 4096
 LEARN_PARITY_M, LEARN_PARITY_K, LEARN_PARITY_RTOL = 512, 16384, 1e-4
 
 # The LM-training main path: the port's launch/train at olmo-1b's full width
-# (16 layers, d 2048, 16 heads of 128, d_ff 8192, vocab 50304, bf16 compute;
-# 1.177e9 fp32 params and AdamW's two fp32 moments, 14.1 GB of state; remat
-# on), random weights from seed 0, batches of TRAIN_BATCH x TRAIN_SEQ tokens
+# (d 2048, 16 heads of 128, d_ff 8192, vocab 50304, bf16 compute; remat on),
+# depth cut from 16 layers to TRAIN_LAYERS to keep the whole script well
+# inside its time limit (6.4e8 fp32 params and AdamW's two fp32 moments,
+# 7.7 GB of state), random weights from seed 0, batches of TRAIN_BATCH x TRAIN_SEQ tokens
 # from the Markov stream, TRAIN_STEPS steps through TrainRunner with a
 # checkpoint every TRAIN_CKPT_EVERY, a fault injected at TRAIN_FAULT_AT
 # (restore TRAIN_CKPT_EVERY, replay), then the rescale reload.  K2 runs
-# forward in each layer and again in its recompute: 2 x 16 launches a step
-# at FA_TRAIN (B, Hq, Hkv, S, T, D), bf16, causal.
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "olmo_1b", 4, 2048
+# forward in each layer and again in its recompute: 2 x TRAIN_LAYERS
+# launches a step at FA_TRAIN (B, Hq, Hkv, S, T, D), bf16, causal.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "olmo_1b", 8, 4, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 12, 6, 8
 FA_TRAIN = (TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128)
 # K2's gradient (its Function: K2 forward, attention_backward) against
@@ -353,6 +393,54 @@ REPLAY_RTOL = 1e-3
 # a few % of lr (0.060 lr on the card's first run, 0.024 lr against JAX on
 # the CPU); a flipped or wrong update moves it by order lr.
 ADAMW_SHARE, ADAMW_FLIP = 1e-3, 0.5
+
+# The MoE family.  granite-moe-1b-a400m at full width (24 layers, d 1024,
+# 16 query heads over 8 KV heads of 64, 32 experts top-8 of d_ff 512, vocab
+# 49155; fp32 params, bf16 compute; 1.335e9 params, 4.29e8 active), random
+# weights from seed 0: served with the gemma path's traffic, and trained
+# through launch/train with the olmo path's batches (AdamW, cosine warmup)
+# for MOE_STEPS steps, a checkpoint every MOE_CKPT_EVERY, a fault at
+# MOE_FAULT_AT, the rescale reload.  Its attention: one K2 launch a layer
+# a prefill, two a layer a step; FA_MOE, bf16, causal, on wgmma_tma.  It
+# dispatches 16 groups of 512 tokens, 160 places an expert a group; a
+# decode step one group of 4 tokens, 1 place.
+MOE_ARCH = "granite_moe_1b_a400m"
+MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT = 8, 4, 6
+FA_MOE = (LM_BATCH, 16, 8, LM_PROMPT, LM_PROMPT, 64)
+# kimi-k2-1t-a32b at full width (d 7168, 64 query heads over 8 KV heads of
+# 112, 384 experts top-8 of d_ff 2048 and one shared expert, a dense first
+# layer of d_ff 18432, vocab 163840; bf16 params), depth cut from 61 layers
+# to KIMI_LAYERS (the dense first layer and one MoE layer: 1.88e10 params,
+# 37.5 GB), the gemma path's prompts, KIMI_GEN greedy tokens.  Its
+# attention at head dim 112: FA_KIMI on the scalar_fp32 kernel.
+KIMI_ARCH, KIMI_LAYERS, KIMI_GEN = "kimi_k2_1t_a32b", 2, 8
+FA_KIMI = (LM_BATCH, 64, 8, LM_PROMPT, LM_PROMPT, 112)
+# The MoE layer against moe_ref with nothing dropped (capacity factor E /
+# k): fp32 at MOE_FP32_RTOL of the largest |ref| (both fp32, sums in other
+# orders); bf16 at one output ulp plus MOE_ROW_ULPS x 2^-8 of the row's
+# largest |ref| (bf16_reading): the port rounds each gated expert output
+# to bf16 (2^-9) before its fp32 sum, moe_ref sums the products in fp32,
+# and each of the k = 8 expert outputs may sit an ulp apart where GEMMs of
+# other shapes round h and the output the other way.  moe_ref at kimi's
+# width holds (T, E, F) and (T, E, D) tensors: MOE_KIMI_TOKENS tokens.
+MOE_FP32_RTOL, MOE_ROW_ULPS, MOE_KIMI_TOKENS = 1e-4, 8.0, 256
+# The dispatch tables, card against CPU, at a small width with drops
+# (capacity factor 1.0): inputs whose gaps between each token's k + 1
+# largest router probabilities exceed MOE_MARGIN, so no route can flip on
+# the two devices' fp32 rounding (the check is of the dispatch logic, not of
+# rounding): the ids, slots, token_of_slot and filled tables equal, the
+# gates within MOE_GATE_RTOL (a few fp32 ulps: the two devices' exp).
+MOE_SMALL = dict(d=64, f=32, e=8, top_k=2, groups=2, shape=(4, 64), factor=1.0)
+MOE_MARGIN, MOE_GATE_RTOL = 1e-4, 1e-6
+# The first training step's loss, K2 against its plain-attention twin: the
+# mean of 8192 per-token cross-entropies (about ln 49155 = 10.8 each at
+# random weights); rounding moves it by far less than 2^-8 relative, and a
+# route that flips on a one-ulp difference moves only its own token's term
+# (if 1 % of the tokens moved by a whole nat the mean would move by 1e-3
+# relative), so the gate is 2^-8 (BF16_UNIT_ROUNDOFF).  The gradients are
+# printed per leaf, not gated: a flipped route moves its expert's gradient
+# by O(1).
+MOE_LOSS_RTOL = BF16_UNIT_ROUNDOFF
 
 
 def card_line() -> str:
@@ -524,6 +612,9 @@ def phase_build():
     wgmma = {fn: {"hgmma": n, **ptxas.get(fn, {})} for fn, n in hgmma.items()
              if "flash_attention_wgmma" in fn}
     print(f"[build] flash_attention wgmma_tma kernels (HGMMA in SASS, ptxas): {wgmma}")
+    scalar = {fn.split("flash_attention_kernelI")[1].split("EEv")[0]: r
+              for fn, r in ptxas.items() if "flash_attention_kernelI" in fn}
+    print(f"[build] flash_attention scalar_fp32 kernels by (D, type) (ptxas): {scalar}")
     if len(wgmma) != 3 or min(r["hgmma"] for r in wgmma.values()) == 0:
         raise AssertionError("the wgmma_tma kernels (D = 64, 128, 256) lack HGMMA in their SASS")
     if logs["flash_attention"] != "cached":
@@ -2178,10 +2269,11 @@ def phase_xlstm(torch, card: str):
     from repro_torch.launch import serve
     from repro_torch.models import model, xlstm
 
-    argv = ["--arch", XL_ARCH, "--full-config", "--batch", str(LM_BATCH),
-            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--device", "cuda"]
+    argv = ["--arch", XL_ARCH, "--full-config", "--n-layers", str(XL_LAYERS),
+            "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN),
+            "--device", "cuda"]
     # Warm-up at a short prompt (cuBLAS handles, the allocator's pools), not counted.
-    serve.run(serve.parse_args(argv[:5] + ["--prompt-len", "64", "--gen", "2",
+    serve.run(serve.parse_args(argv[:7] + ["--prompt-len", "64", "--gen", "2",
                                           "--device", "cuda"]))
     torch.cuda.empty_cache()
 
@@ -2211,7 +2303,7 @@ def phase_xlstm(torch, card: str):
     # decode made none), then a planted wrong recurrence (R transposed per
     # head), which the gate must reject.  The gate is K3's main-shape gate
     # (SL_TOL on h and on each final-state row) per block.  An end-to-end
-    # gate cannot be used here: with random weights the 48-block stack
+    # gate cannot be used here: with random weights the deep block stack
     # amplifies any difference in an sLSTM output, and a relative change of
     # 2^-23 (one fp32 ulp) in one block's h moves the last-position logits
     # by tenths of their row's scale (the control below records it), so the
@@ -2323,12 +2415,15 @@ def phase_xlstm(torch, card: str):
 
 
 def model_flops_per_step(cfg, batch: int, seq: int) -> float:
-    """6 N tokens (every parameter's multiply-add forward, twice backward;
-    N counts the tied embedding once) + 6 L B S^2 d (causal attention's q k^T
-    and p v over half the S x S pairs, 2 B S^2 d a layer forward, twice
-    that backward); the remat recompute is not model work."""
-    n = cfg.param_counts()["total"]
-    return 6.0 * n * batch * seq + 6.0 * cfg.n_layers * batch * seq * seq * cfg.d_model
+    """6 N tokens (every active parameter's multiply-add forward, twice
+    backward; N counts the tied embedding once and, for MoE, the router and
+    the top-k experts a token runs, not the capacity's padding) + 6 L B S^2
+    H Dh (causal attention's q k^T and p v over half the S x S pairs, 2 B
+    S^2 H Dh a layer forward, twice that backward); the remat recompute is
+    not model work."""
+    n = cfg.param_counts()["active"]
+    width = cfg.n_heads * cfg.resolved_head_dim
+    return 6.0 * n * batch * seq + 6.0 * cfg.n_layers * batch * seq * seq * width
 
 
 def phase_olmo_train(torch, card: str):
@@ -2339,7 +2434,7 @@ def phase_olmo_train(torch, card: str):
     import shutil
 
     from repro_torch.checkpoint import manager
-    from repro_torch.configs import get_config
+    from repro_torch.configs import cut_depth, get_config
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.launch import train
     from repro_torch.models import attention, model
@@ -2348,7 +2443,7 @@ def phase_olmo_train(torch, card: str):
     from repro_torch.pytree import leaves
     from repro_torch.runtime import steps
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = cut_depth(get_config(TRAIN_ARCH), TRAIN_LAYERS)
     n_params = cfg.param_counts()["total"]
     state_gb = 3 * 4 * n_params / 1e9  # fp32 params, m, v
     ckpt_dir = ROOT / "build" / "chip_smoke_train"
@@ -2422,7 +2517,8 @@ def phase_olmo_train(torch, card: str):
                 io[key].append(time.perf_counter() - t)
         return wrapper
 
-    argv = ["--arch", TRAIN_ARCH, "--full-config", "--batch", str(TRAIN_BATCH),
+    argv = ["--arch", TRAIN_ARCH, "--full-config", "--n-layers", str(TRAIN_LAYERS),
+            "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
             "--ckpt-every", str(TRAIN_CKPT_EVERY), "--inject-fault-at", str(TRAIN_FAULT_AT),
             "--rescale-mesh", "1x1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"]
@@ -2492,6 +2588,7 @@ def phase_olmo_train(torch, card: str):
           f"busy share {rec['profile']['busy_share']:.3f}; wall {wall:.1f} s")
     print("TRAIN " + json.dumps(rec))
     del out, runner
+    gc.collect()  # free whatever a reference cycle still holds of the train states
     torch.cuda.empty_cache()
     return rec
 
@@ -2542,6 +2639,740 @@ def phase_train_card_vs_cpu(torch):
         if not ok:
             raise AssertionError(f"train card vs cpu ({name}) disagrees: {out[name]}")
     return out
+
+
+def record_routes():
+    """(list, context): inside the context every MoE layer's expert ids
+    ((g, tg, k) int64) are appended to the list as apply_moe routes them."""
+    from repro_torch.models import moe
+
+    routes = []
+    real = moe._route
+
+    def recording(router, xg, top_k):
+        probs, gates, ids = real(router, xg, top_k)
+        routes.append(ids.detach().clone())
+        return probs, gates, ids
+
+    return routes, mock.patch.object(moe, "_route", recording)
+
+
+def route_share_differing(a, b) -> float:
+    """Share of assignments (token, expert) in one routing and not the
+    other, over lists of (g, tg, k) expert ids of equal shapes."""
+    if len(a) != len(b):
+        return math.nan
+    diff = total = 0
+    for x, y in zip(a, b):
+        hit = (x[..., :, None] == y[..., None, :]).any(-1)  # x's experts among y's, per token
+        diff += int((~hit).sum())
+        total += hit.numel()
+    return diff / max(total, 1)
+
+
+def attention_bound(b, hq, hkv, s, t, d):
+    """(flops, bytes, bound ms, bound_by) of one causal S = T bf16 K2 launch:
+    q k^T and p v over the visible pairs at the bf16 tensor rate, q, k, v
+    read and out written once."""
+    pairs = b * hq * s * (s + 1) // 2
+    flops = 4 * pairs * d
+    nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * t * d)
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return flops, nbytes, max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def first_columns_attention(torch, q, k, v, cols: int):
+    """Causal attention whose logits read only the first `cols` columns of
+    q and k (the plain stand-in for a kernel that stages part of D)."""
+    s, t = q.shape[2], k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    group = q.shape[1] // k.shape[1]
+    kx, vx = (x.repeat_interleave(group, dim=1).float() for x in (k, v))
+    logits = torch.matmul(q[..., :cols].float(), kx[..., :cols].transpose(-1, -2)) * scale
+    logits = logits.masked_fill(~causal_visible(torch, s, t, q.device), float("-inf"))
+    return torch.matmul(torch.softmax(logits, -1).to(v.dtype).float(), vx).to(q.dtype)
+
+
+def phase_flash_attention_moe(torch):
+    """K2 at the MoE family's shapes: granite-moe's FA_MOE (wgmma_tma) and
+    kimi-k2's FA_KIMI (head dim 112, scalar_fp32) against the plain
+    version, timed beside SDPA with their bounds, planted faults at D 112
+    rejected; K2's gradient at granite-moe's training shape.  Returns the
+    records for K2's `moe_shapes`."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    recs = []
+    for name, shape, want_kind in (("granite-moe", FA_MOE, "wgmma_tma"),
+                                   ("kimi-k2", FA_KIMI, "scalar_fp32")):
+        b, hq, hkv, s, t, d = shape
+        kind = ops.library_variant(torch.bfloat16, d)
+        if not kind == ops.variant(torch.bfloat16, d) == want_kind:
+            raise AssertionError(f"{shape} goes to {kind} (wrapper: "
+                                 f"{ops.variant(torch.bfloat16, d)}), expected {want_kind}")
+        q, k, v = (torch.randn(*sh, generator=gen).to(dev, torch.bfloat16)
+                   for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+        out = ops.flash_attention(q, k, v, causal=True)
+        want = ref.attention_ref(q, k, v, causal=True)
+        err, reading = max_err(out, want), bf16_reading(out, want)
+        faults = {}
+        if d == 112:
+            faults["logits from the first 64 columns"] = first_columns_attention(
+                torch, q, k, v, 64)
+            faults["causal offset one key late"] = masked_attention(
+                torch, q, k, v, causal_visible(torch, s, t, dev, 1))
+        fault_readings = {n: bf16_reading(bad, want) for n, bad in faults.items()}
+        print(f"[kernels] flash_attention {name} {shape} bf16 ({kind}): reading {reading:.3f} "
+              f"(tol {BF16_ROW_ULPS}), max|err| {err:.3e}; planted faults {fault_readings}")
+        if not reading <= BF16_ROW_ULPS:
+            raise AssertionError(f"flash_attention disagrees with plain at {shape}")
+        for fname, r in fault_readings.items():
+            if r <= BF16_ROW_ULPS:
+                raise AssertionError(f"the bf16 check passes a planted fault at D {d}: {fname}")
+        del out, want, faults
+
+        def kernel():
+            return ops.flash_attention(q, k, v, causal=True)
+
+        def plain():
+            return ref.attention_ref(q, k, v, causal=True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+        reps = 5 if d == 112 else 10
+        k1, p1, l1, l2, p2, k2 = (time_ms(torch, fn, reps) for fn in
+                                  (kernel, plain, library, library, plain, kernel))
+        flops, nbytes, bound_ms, bound_by = attention_bound(*shape)
+        rec = {"path": name, "shape": list(shape), "variant": kind,
+               "grid": ops.ctas(b, hq, s, torch.bfloat16, d), "max_abs_err": err,
+               "bf16_reading": reading, "planted_faults": fault_readings,
+               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+        print(f"[kernels] flash_attention ({kind}, {rec['grid']} CTAs) at {shape} bf16 causal: "
+              f"kernel_ms {k1:.3f} {k2:.3f}  plain_ms {p1:.3f} {p2:.3f}  sdpa_ms {l1:.3f} "
+              f"{l2:.3f}  bound_ms {bound_ms:.4f} ({bound_by}: {flops:.3e} flops, {nbytes:.3e} "
+              f"bytes)")
+        recs.append(rec)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # K2's gradient at granite-moe's training shape (FA_MOE, bf16).
+    b, hq, hkv, s, t, d = FA_MOE
+    q, k, v, do = (torch.randn(*sh, generator=gen).to(dev, torch.bfloat16)
+                   for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d), (b, hq, s, d)))
+    readings = grad_readings(autograd_grads(torch, ops.flash_attention, q, k, v, do),
+                             autograd_grads(torch, ref.attention_ref, q, k, v, do))
+    print(f"[kernels] flash_attention gradient bf16 at {FA_MOE}: {readings} (gate "
+          f"{GRAD_BF16_TOL})")
+    if not max(readings.values()) <= GRAD_BF16_TOL:
+        raise AssertionError(f"K2 gradient disagrees with plain at {FA_MOE}: {readings}")
+    recs[0]["grad_readings"] = readings
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return recs
+
+
+def moe_layer_params(torch, d, f, e, dtype, seed, n_shared=0):
+    """Random MoE params (models/moe.init_moe) on the card in `dtype`."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return moe.init_moe(gen, d, f, e, n_shared=n_shared, dtype=dtype)
+
+
+def route_margins(torch, router, x, top_k) -> float:
+    """The smallest gap between consecutive probabilities among each
+    token's k + 1 largest (fp32 router, as apply_moe)."""
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ router.float(), -1)
+    top = torch.topk(probs, top_k + 1, dim=-1).values
+    return float((top[:, :-1] - top[:, 1:]).min())
+
+
+def faulty_slots(flat_ids, pos, cap, n_experts):
+    """Planted: a dispatch that ignores the capacity (positions past cap
+    spill into the next expert's slots; the last expert's into the pad)."""
+    return (flat_ids * cap + pos).clamp(max=n_experts * cap)
+
+
+def faulty_positions(flat_ids, n_experts):
+    """Planted: positions counted over the assignments slot-major (every
+    token's first choice, then every token's second, ...)."""
+    import torch
+    import torch.nn.functional as F
+
+    g, n = flat_ids.shape
+    tg = n // MOE_SMALL["top_k"]
+    slot_major = flat_ids.view(g, tg, -1).transpose(1, 2).reshape(g, n)
+    onehot = F.one_hot(slot_major, n_experts).to(torch.int32)
+    running = torch.cumsum(onehot, dim=1, dtype=torch.int32)
+    pos = torch.gather(running, 2, slot_major[..., None])[..., 0] - 1
+    pos = pos.view(g, -1, tg).transpose(1, 2).reshape(g, n)
+    return pos, running[:, -1, :]
+
+
+def phase_moe_layer(torch):
+    """The MoE layer (models/moe.apply_moe) on the card: against moe_ref at
+    granite-moe's width on 8192 tokens with nothing dropped (fp32 at
+    MOE_FP32_RTOL, bf16 at MOE_ROW_ULPS); the dispatch tables against the
+    CPU's on the same fp32 inputs with drops (MOE_SMALL; inputs whose top-k
+    margins exceed MOE_MARGIN); two launches the same bits, forward and
+    backward; three planted faults rejected.  Returns its readings."""
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda")
+    d, f, e, k = 1024, 512, 32, 8
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    x32 = torch.randn(LM_BATCH, LM_PROMPT, d, generator=gen).to(dev)
+    kw = dict(top_k=k, n_groups=16, capacity_factor=e / k)  # capacity = tokens per group
+    out = {}
+    p32 = moe_layer_params(torch, d, f, e, torch.float32, 5)
+
+    def fp32_reading():
+        got, _, tables = moe.apply_moe(p32, x32, return_tables=True, **kw)
+        if not bool(tables["filled"].sum() == x32.shape[0] * x32.shape[1] * k):
+            raise AssertionError("MoE layer: assignments dropped at factor E / k")
+        return rel_err(got, moe.moe_ref(p32, x32, top_k=k))
+
+    out["fp32_rel"] = fp32_reading()
+    with mock.patch.object(moe, "_renormalise", lambda gv: gv):
+        out["planted_no_renormalisation_rel"] = fp32_reading()
+    pb = {key: t.to(torch.bfloat16) for key, t in p32.items()}
+    xb = x32.to(torch.bfloat16)
+    got, _ = moe.apply_moe(pb, xb, **kw)
+    out["bf16_reading"] = bf16_reading(got, moe.moe_ref(pb, xb, top_k=k))
+    print(f"[moe layer] granite-moe width (d {d}, f {f}, E {e}, top-{k}), {LM_BATCH} x "
+          f"{LM_PROMPT} tokens, nothing dropped: apply_moe vs moe_ref fp32 max|d|/max|ref| "
+          f"{out['fp32_rel']:.3e} (tol {MOE_FP32_RTOL}), bf16 reading {out['bf16_reading']:.3f} "
+          f"(tol {MOE_ROW_ULPS}); planted combine without renormalisation "
+          f"{out['planted_no_renormalisation_rel']:.3e}")
+    if not out["fp32_rel"] <= MOE_FP32_RTOL or not out["bf16_reading"] <= MOE_ROW_ULPS:
+        raise AssertionError(f"MoE layer disagrees with moe_ref: {out}")
+    if out["planted_no_renormalisation_rel"] <= MOE_FP32_RTOL:
+        raise AssertionError("the MoE layer check passes a combine without renormalisation")
+
+    # Two launches of the same layer (bf16, granite's groups and capacity):
+    # the output and every gradient bit for bit.
+    def fwd_bwd():
+        leaves = {key: t.detach().requires_grad_(True) for key, t in pb.items()}
+        xx = xb.detach().requires_grad_(True)
+        o, aux = moe.apply_moe(leaves, xx, top_k=k, n_groups=16)
+        grads = torch.autograd.grad((o.float() * 1e-2).sum() + aux, [xx, *leaves.values()])
+        return [o.detach(), aux.detach(), *grads]
+
+    first, second = fwd_bwd(), fwd_bwd()
+    out["repeat_bit_identical"] = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"[moe layer] two launches (forward and backward) bit-identical: "
+          f"{out['repeat_bit_identical']}")
+    if not out["repeat_bit_identical"]:
+        raise AssertionError("MoE layer: two launches gave different bits")
+    del p32, pb, x32, xb, got, first, second
+
+    # The dispatch tables, card against CPU, at MOE_SMALL with drops.
+    sm = MOE_SMALL
+    for seed in range(64):
+        g_cpu = torch.Generator().manual_seed(100 + seed)
+        params = moe.init_moe(g_cpu, sm["d"], sm["f"], sm["e"])
+        x = torch.randn(*sm["shape"], sm["d"], generator=g_cpu)
+        margin = route_margins(torch, params["router"], x, sm["top_k"])
+        if margin > MOE_MARGIN:
+            break
+    else:
+        raise AssertionError(f"no input of 64 has top-k margins above {MOE_MARGIN}")
+    skw = dict(top_k=sm["top_k"], n_groups=sm["groups"], capacity_factor=sm["factor"])
+    _, _, want = moe.apply_moe(params, x, return_tables=True, **skw)
+    dropped = int((want["slot"] == sm["e"] * want["cap"]).sum())
+
+    def card_tables():
+        pc = {key: t.to(dev) for key, t in params.items()}
+        _, _, tables = moe.apply_moe(pc, x.to(dev), return_tables=True, **skw)
+        return tables
+
+    def table_reading(tables):
+        """(every int/bool table equal, max gate |d| / max gate)."""
+        same = all(torch.equal(tables[key].cpu(), want[key])
+                   for key in ("expert_ids", "slot", "token_of_slot", "filled"))
+        return same, rel_err(tables["gate_of_slot"].cpu(), want["gate_of_slot"])
+
+    same, gate_rel = table_reading(card_tables())
+    planted = {}
+    for name, attr, fault in (("dispatch ignoring the capacity", "_slots", faulty_slots),
+                              ("positions counted slot-major", "_positions", faulty_positions)):
+        with mock.patch.object(moe, attr, fault):
+            planted[name] = table_reading(card_tables())
+    out.update(tables_equal=same, gate_rel=gate_rel, margin=margin, seed=100 + seed,
+               dropped=dropped, planted_tables=planted)
+    print(f"[moe layer] dispatch tables, card vs CPU on fp32 inputs (d {sm['d']}, E {sm['e']}, "
+          f"top-{sm['top_k']}, {sm['groups']} groups, capacity {want['cap']}, {dropped} "
+          f"assignments dropped; input seed {100 + seed}, smallest top-{sm['top_k'] + 1} "
+          f"probability gap {margin:.2e} > {MOE_MARGIN}): ids, slots, token_of_slot and filled "
+          f"equal {same}, gate_of_slot max|d|/max {gate_rel:.2e} (tol {MOE_GATE_RTOL}); planted "
+          f"{planted}")
+    if not (same and gate_rel <= MOE_GATE_RTOL and dropped > 0):
+        raise AssertionError(f"MoE dispatch tables differ between the card and the CPU: {out}")
+    for name, (eq, _) in planted.items():
+        if eq:
+            raise AssertionError(f"the dispatch-table check passes a planted fault: {name}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_checked(torch, cfg, params, prompts):
+    """A prefill whose every K2 launch is held against the plain version on
+    that launch's inputs: (last-position logits, [bf16 reading per layer],
+    the first layer's planted reading (causal limit one key late))."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models import attention, model
+
+    real = ops.flash_attention
+    layers, planted = [], []
+
+    def checked(q, k, v, *, causal=True, scale=None):
+        out = real(q, k, v, causal=causal, scale=scale)
+        want = ref.attention_ref(q, k, v, causal=causal, scale=scale)
+        layers.append(bf16_reading(out, want))
+        if not planted:
+            late = causal_visible(torch, q.shape[2], k.shape[2], q.device, 1)
+            planted.append(bf16_reading(masked_attention(torch, q, k, v, late), want))
+        return out
+
+    # _launch counts on the module's `flash_attention`, this wrapper while
+    # patched: the check's launches stay off the wrapper's real count.
+    checked.launches = 0
+    with mock.patch.object(attention.ops, "flash_attention", checked):
+        logits, _ = model.prefill(cfg, params, {"tokens": prompts})
+    return logits[:, -1, :].clone(), layers, planted[0]
+
+
+# Forward ranges of the MoE profile: (range, module, attribute).  K2's own
+# kernels are read by name ("attention (K2)"): a launch through ctypes has
+# no PyTorch operator for the profiler to hang it under.
+MOE_RANGES = (("router and top-k", "moe", "_route"), ("dispatch tables", "moe", "dispatch_tables"),
+              ("slot maps", "moe", "_expert_major"), ("gathers", "moe", "_gather_rows"),
+              ("combine sums", "moe", "_sum_rows"), ("expert GEMMs", "moe", "_experts"),
+              ("shared expert", "moe", "_shared"), ("unembedding", "model", "_logits"))
+
+
+def profile_moe(torch, fn):
+    """One call of fn under torch.profiler with a range around each of
+    MOE_RANGES: (host wall ms, device kernel ms, {range: device ms of the
+    kernels launched inside it, "attention (K2)": K2's kernels, "other":
+    the rest}, [(kernel, ms)] of the 8 largest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import model, moe
+
+    mods = {"moe": moe, "model": model}
+
+    def ranged(name, fn_):
+        def wrapper(*a, **kw):
+            with record_function(name):
+                return fn_(*a, **kw)
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for name, mod, attr in MOE_RANGES:
+            stack.enter_context(mock.patch.object(
+                mods[mod], attr, ranged(name, getattr(mods[mod], attr))))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    names = {name for name, _, _ in MOE_RANGES}
+    avg = prof.key_averages()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in avg
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                      and e.key not in names), key=lambda r: -r[1])
+    ranges = {e.key: round(e.device_time_total / 1e3, 3) for e in avg
+              if e.key in names and e.device_type == DeviceType.CPU}
+    ranges["attention (K2)"] = round(sum(ms for k_, ms in kernels if "flash_attention" in k_), 3)
+    dev_ms = sum(ms for _, ms in kernels)
+    ranges["other"] = round(dev_ms - sum(ranges.values()), 3)
+    return wall_ms, dev_ms, ranges, [(k_[:60], round(ms, 3)) for k_, ms in kernels[:8]]
+
+
+def phase_moe_serve(torch, card: str):
+    """The port's serve at granite-moe-1b-a400m's full width; returns K2's
+    launch count over the run."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, model
+
+    argv = ["--arch", MOE_ARCH, "--full-config", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--device", "cuda"]
+    serve.run(serve.parse_args(argv[:5] + ["--prompt-len", "64", "--gen", "2",
+                                          "--device", "cuda"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = serve.run(serve.parse_args(argv + ["--json"]))
+    launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, pay, tokens, last = out["cfg"], out["payload"], out["tokens"], out["last_logits"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"MoE serve: {launches} K2 launches, expected {cfg.n_layers} "
+                             f"(one per layer of the prefill)")
+    if tuple(tokens.shape) != (LM_BATCH, LM_GEN) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"MoE serve: tokens {tuple(tokens.shape)} or outside the vocabulary")
+    if not bool(torch.isfinite(last).all()) or not all(
+            bool(torch.isfinite(t).all()) for t in out["cache"]["layers"].values()):
+        raise AssertionError("MoE serve: logits or cache not finite")
+
+    # Each layer's attention, K2 against plain on that layer's own inputs
+    # (gated); the end-to-end prefill against its plain-attention twin and
+    # the share of routes that differ (printed: a route one ulp flips moves
+    # its token by O(1), so no end-to-end gate is valid).
+    params, prompts = out["params"], out["prompts"]
+    routes_k, rec_k = record_routes()
+    with rec_k:
+        last_k, layers, planted = prefill_checked(torch, cfg, params, prompts)
+    routes_p, rec_p = record_routes()
+    with rec_p, mock.patch.object(attention.ops, "flash_attention", ref.attention_ref):
+        logits_p, _ = model.prefill(cfg, params, {"tokens": prompts})
+    last_p = logits_p[:, -1, :].clone()
+    del logits_p
+    e2e = {"logits_row_reading": row_reading(last_k, last_p),
+           "argmax_agree": float((last_k.argmax(-1) == last_p.argmax(-1)).float().mean()),
+           "routes_differing": route_share_differing(routes_k, routes_p),
+           "rerun_bit_identical": bool(torch.equal(last_k, last))}
+    print(f"[moe serve] each layer's K2 vs plain on its inputs, bf16 readings (gate "
+          f"{BF16_ROW_ULPS}): {[round(r, 3) for r in layers]}; planted (layer 0, causal "
+          f"limit one key late) {planted:.3f}; end to end vs the plain-attention twin "
+          f"(printed, not gated): {e2e}")
+    if len(layers) != cfg.n_layers or not max(layers) <= BF16_ROW_ULPS:
+        raise AssertionError(f"MoE serve: a layer's K2 disagrees with plain: {layers}")
+    if planted <= BF16_ROW_ULPS:
+        raise AssertionError("MoE serve: the per-layer gate passes a planted wrong attention")
+
+    cache, tok = out["cache"], tokens[:, -1:].to(prompts.device)
+    prof = {}
+    for what, fn, run_ms in (
+        ("prefill", lambda: model.prefill(cfg, params, {"tokens": prompts}), pay["prefill_ms"]),
+        ("decode_step", lambda: model.decode_step(cfg, params, cache, tok,
+                                                  LM_PROMPT + LM_GEN - 1),
+         pay["decode_ms_per_token"]),
+    ):
+        wall, dev_ms, ranges, top = profile_moe(torch, fn)
+        prof[what] = {"profiled_wall_ms": wall, "device_ms": dev_ms,
+                      "busy_share": dev_ms / run_ms, "ranges_ms": ranges, "top": top}
+        print(f"[moe serve] profile {what}: device kernels {dev_ms:.2f} ms, {run_ms:.2f} ms "
+              f"unprofiled (busy share {dev_ms / run_ms:.3f}); by range {ranges}; top {top}")
+    print(f"[moe serve] {card}: {cfg.name} batch {LM_BATCH} prompt {LM_PROMPT} gen {LM_GEN}: "
+          f"prefill {pay['prefill_ms']:.1f} ms ({pay['prefill_tokens_per_s']:.1f} tokens/s)  "
+          f"decode {pay['decode_ms_per_token']:.3f} ms/token "
+          f"({pay['decode_tokens_per_s']:.1f} tokens/s)  K2 launches {launches}  "
+          f"peak device memory {peak_gb:.2f} GB")
+    print("MOE_SERVE " + json.dumps({
+        **pay, "card": card, "launches": launches, "peak_mem_gb": peak_gb,
+        "layer_readings": layers, "planted_layer0": planted, "end_to_end": e2e,
+        "first_row": tokens[0].tolist(), "profile": prof}))
+    del out, params, prompts, cache, last, last_k, last_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_train(torch, card: str):
+    """The port's training at granite-moe-1b-a400m's full width through
+    launch/train (AdamW, cosine warmup; MOE_STEPS steps, checkpoints every
+    MOE_CKPT_EVERY, a fault at MOE_FAULT_AT, the rescale reload): 48 K2
+    launches a step, the first replayed loss exact, the first step's loss
+    against its plain-attention twin; returns the run's record."""
+    import shutil
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.models import attention, model
+    from repro_torch.optim import for_arch
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import steps
+
+    cfg = get_config(MOE_ARCH)
+    counts = cfg.param_counts()
+    state_gb = 3 * 4 * counts["total"] / 1e9
+    ckpt_dir = ROOT / "build" / "chip_smoke_moe_train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+    need_gb = 2 * state_gb + 2.0
+    print(f"[moe train] {cfg.name}: {counts['total']:.4e} params ({counts['active']:.4e} "
+          f"active), train state {state_gb:.2f} GB; free disk under build/ {free_gb:.1f} GB "
+          f"(need {need_gb:.1f})")
+    if free_gb < need_gb:
+        raise AssertionError(f"MoE train: {free_gb:.1f} GB free under build/, need {need_gb:.1f}")
+
+    # (1) The first step, K2 against its plain-attention twin.
+    batch = train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)(0)
+    params = model.init(cfg, 0, "cuda")
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+
+    def loss_and_grads():
+        loss, metrics = model.loss_fn(cfg, params, batch)
+        return loss.item(), float(metrics["moe_aux"]), torch.autograd.grad(loss, flat)
+
+    reset_launch_counts()
+    routes_k, rec_k = record_routes()
+    with rec_k:
+        loss_k, aux_k, grads_k = loss_and_grads()
+    first_launches = ops.flash_attention.launches
+    routes_p, rec_p = record_routes()
+    with rec_p, mock.patch.object(attention.ops, "flash_attention", ref.attention_ref):
+        loss_p, aux_p, grads_p = loss_and_grads()
+    grad_rel = [rel_err(g, w) for g, w in zip(grads_k, grads_p)]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    del grads_k, grads_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    routes = route_share_differing(routes_k, routes_p)
+    del routes_k, routes_p
+    print(f"[moe train] first step, K2 vs plain-attention twin: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {loss_rel:.2e}, gate {MOE_LOSS_RTOL:.2e}), moe_aux {aux_k:.6f} vs "
+          f"{aux_p:.6f}; routes differing {routes:.3e}; per-leaf max|dg|/max|g| (printed, not "
+          f"gated) max {max(grad_rel):.3e}: {[round(r, 5) for r in grad_rel]}; K2 launches "
+          f"{first_launches}")
+    if first_launches != 2 * cfg.n_layers:
+        raise AssertionError(f"MoE train: {first_launches} K2 launches in one loss and "
+                             f"gradient, expected {2 * cfg.n_layers}")
+    if not (finite and loss_rel <= MOE_LOSS_RTOL):
+        raise AssertionError("MoE train: the first step's loss disagrees with the "
+                             "plain-attention twin, or a gradient is not finite")
+
+    # (2) One step under the profiler, after a warm one.
+    opt = for_arch(cfg, lr=cosine_warmup(3e-4, warmup=20, total=MOE_STEPS))
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step_fn = steps.make_train_step(cfg, opt)
+    step_fn(state, batch)
+    wall_ms, rows = profile_rows(torch, lambda: step_fn(state, batch))
+    dev_ms, top = sum(ms for _, ms in rows), [(k[:60], round(ms, 3)) for k, ms in rows[:10]]
+    categories = step_categories(rows)
+    _, _, ranges, _ = profile_moe(torch, lambda: step_fn(state, batch))
+    print(f"[moe train] profile of one step: device kernels {dev_ms:.1f} ms, {wall_ms:.1f} ms "
+          f"under the profiler; by category {categories}; forward ranges {ranges}; top {top}")
+    del state, params, flat, step_fn
+    torch.cuda.empty_cache()
+
+    # (3) The CLI, with the checkpoint I/O timed.
+    io = {"save_s": [], "restore_s": [], "host_copy_s": []}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                io[key].append(time.perf_counter() - t)
+        return wrapper
+
+    argv = ["--arch", MOE_ARCH, "--full-config", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(MOE_STEPS),
+            "--ckpt-every", str(MOE_CKPT_EVERY), "--inject-fault-at", str(MOE_FAULT_AT),
+            "--rescale-mesh", "1x1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"]
+    with mock.patch.object(manager, "save_pytree", timed(manager.save_pytree, "save_s")), \
+            mock.patch.object(manager, "load_pytree", timed(manager.load_pytree, "restore_s")), \
+            mock.patch.object(manager.CheckpointManager, "save",
+                              timed(manager.CheckpointManager.save, "host_copy_s")):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train.run(train.parse_args(argv))
+        wall = time.perf_counter() - t0
+        launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runner, losses, history = out["runner"], out["losses"], out["history"]
+    executed = len(history)
+    replayed = MOE_FAULT_AT - MOE_CKPT_EVERY
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if out["faults"] != 1 or executed != MOE_STEPS + replayed:
+        raise AssertionError(f"MoE train: {out['faults']} faults, {executed} steps run")
+    if launches != 2 * cfg.n_layers * executed:
+        raise AssertionError(f"MoE train: {launches} K2 launches over {executed} steps, "
+                             f"expected {2 * cfg.n_layers} a step")
+    if out["ckpt_steps"] != [MOE_CKPT_EVERY, MOE_STEPS] or out["rescaled_step"] != MOE_STEPS:
+        raise AssertionError(f"MoE train: checkpoints {out['ckpt_steps']}, rescale resumed at "
+                             f"{out['rescaled_step']}")
+    if not all(math.isfinite(x) for _, x in losses) or not all(m["moe_aux"] > 0 for m in history):
+        raise AssertionError(f"MoE train: a loss is not finite or a moe_aux not positive")
+    first = dict(losses[:MOE_FAULT_AT])
+    replay = losses[MOE_FAULT_AT:MOE_FAULT_AT + replayed]
+    replay_rel = [abs(x - first[st]) / abs(first[st]) for st, x in replay]
+    print(f"[moe train] replay from step {MOE_CKPT_EVERY}: first pass "
+          f"{[first[st] for st, _ in replay]}, replayed {[x for _, x in replay]} (the first "
+          f"exactly, the rest within {REPLAY_RTOL}: {replay_rel})")
+    if replay[0][1] != first[replay[0][0]]:
+        raise AssertionError("MoE train: the first replayed loss differs from the first pass's")
+    if not max(replay_rel) <= REPLAY_RTOL:
+        raise AssertionError(f"MoE train: a replayed loss parts from the first pass: {replay_rel}")
+
+    times = runner.step_times
+    step_s = statistics.median(times[1:])
+    flops = model_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    rec = {
+        "card": card, "arch": cfg.name, "params": counts["total"],
+        "active_params": counts["active"], "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps_run": executed, "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
+        "step_ms_all": [x * 1e3 for x in times], "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "model_flops_per_step": flops, "mfu_bf16": flops / step_s / BF16_FLOPS_PER_S,
+        "peak_mem_gb": peak_gb, "launches": launches, "launches_per_step": launches / executed,
+        "losses": losses, "moe_aux": [m["moe_aux"] for m in history], "replay_rel": replay_rel,
+        "first_step": {"loss": loss_k, "plain_loss": loss_p, "loss_rel": loss_rel,
+                       "grad_rel": grad_rel, "routes_differing": routes},
+        "profile": {"profiled_wall_ms": wall_ms, "device_ms": dev_ms,
+                    "busy_share": dev_ms / (step_s * 1e3), "categories": categories,
+                    "forward_ranges_ms": ranges, "top": top},
+        "checkpoint_io_s": io, "state_gb": state_gb, "wall_s": wall,
+        "events": [{k: v for k, v in e.items() if k != "error"} for e in runner.events],
+    }
+    print(f"[moe train] {card}: {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step "
+          f"{rec['step_ms']:.1f} ms (median of {len(times) - 1} after the first, "
+          f"{rec['first_step_ms']:.1f}), {rec['tokens_per_s']:.1f} tokens/s, model-flops share "
+          f"of the bf16 peak {rec['mfu_bf16']:.4f} ({flops:.4e} flops a step, active params), "
+          f"peak device memory {peak_gb:.2f} GB, K2 launches {launches} "
+          f"({rec['launches_per_step']:.0f} a step); checkpoint save {io['save_s']} s, host "
+          f"copy {io['host_copy_s']} s, restore {io['restore_s']} s; busy share "
+          f"{rec['profile']['busy_share']:.3f}; wall {wall:.1f} s")
+    print("MOE_TRAIN " + json.dumps(rec))
+    del out, runner
+    gc.collect()  # free whatever a reference cycle still holds of the train states
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kimi(torch, card: str):
+    """The port's serve at kimi-k2's full width, depth cut to KIMI_LAYERS:
+    2 K2 launches at head dim 112 a prefill, each held against plain on its
+    inputs; the MoE layer against moe_ref on MOE_KIMI_TOKENS of its own
+    inputs.  Returns K2's launch count over the run."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model, moe
+    from repro_torch.models.layers import apply_norm
+
+    argv = ["--arch", KIMI_ARCH, "--full-config", "--n-layers", str(KIMI_LAYERS),
+            "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen", str(KIMI_GEN),
+            "--device", "cuda"]
+    # 37.5 GB of weights: nothing of an earlier phase may still hold memory.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = serve.run(serve.parse_args(argv + ["--json"]))
+    launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, pay, tokens, last = out["cfg"], out["payload"], out["tokens"], out["last_logits"]
+    n_params = cfg.param_counts()
+    if launches != KIMI_LAYERS:
+        raise AssertionError(f"kimi: {launches} K2 launches, expected {KIMI_LAYERS}")
+    if tuple(tokens.shape) != (LM_BATCH, KIMI_GEN) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab or not bool(torch.isfinite(last).all()):
+        raise AssertionError("kimi: tokens outside the vocabulary or logits not finite")
+    for stack in ("dense", "layers"):
+        if not all(bool(torch.isfinite(t).all()) for t in out["cache"][stack].values()):
+            raise AssertionError(f"kimi: the {stack} cache is not finite")
+    params, prompts = out["params"], out["prompts"]
+    del out
+    _, layers, planted = prefill_checked(torch, cfg, params, prompts)
+    if len(layers) != KIMI_LAYERS or not max(layers) <= BF16_ROW_ULPS \
+            or planted <= BF16_ROW_ULPS:
+        raise AssertionError(f"kimi: K2 at D 112 vs plain per layer {layers}, planted {planted}")
+
+    # The MoE layer at kimi's width on the first tokens of its own input.
+    lp = params["layers"][0]
+    captured = []
+    real = moe.apply_moe
+
+    def capture(p_, x, **kw):
+        captured.append(x[:1, :MOE_KIMI_TOKENS].clone())
+        return real(p_, x, **kw)
+
+    with mock.patch("repro_torch.models.transformer.apply_moe", capture):
+        model.prefill(cfg, params, {"tokens": prompts[:1, :MOE_KIMI_TOKENS]})
+    x = captured[0]
+    k, e = cfg.top_k, cfg.n_experts
+    got, _ = moe.apply_moe(lp["moe"], x, top_k=k, n_groups=1, capacity_factor=e / k)
+    moe_read = bf16_reading(got, moe.moe_ref(lp["moe"], x, top_k=k))
+    del got, captured, x
+    print(f"[kimi] K2 at D 112 vs plain per layer {[round(r, 3) for r in layers]} (gate "
+          f"{BF16_ROW_ULPS}; planted causal limit one key late {planted:.3f}); MoE layer at "
+          f"kimi's width (E {e}, top-{k}, shared expert) on {MOE_KIMI_TOKENS} tokens vs "
+          f"moe_ref, nothing dropped: bf16 reading {moe_read:.3f} (tol {MOE_ROW_ULPS})")
+    if not moe_read <= MOE_ROW_ULPS:
+        raise AssertionError(f"kimi: the MoE layer disagrees with moe_ref ({moe_read})")
+    print(f"[kimi] {card}: {cfg.name} cut to {cfg.n_layers} layers ({n_params['total']:.4e} "
+          f"params, bf16) batch {LM_BATCH} prompt {LM_PROMPT} gen {KIMI_GEN}: prefill "
+          f"{pay['prefill_ms']:.1f} ms ({pay['prefill_tokens_per_s']:.1f} tokens/s)  decode "
+          f"{pay['decode_ms_per_token']:.3f} ms/token  K2 launches {launches} (D 112)  peak "
+          f"device memory {peak_gb:.2f} GB")
+    print("KIMI " + json.dumps({**pay, "card": card, "n_layers": cfg.n_layers,
+                                "params": n_params["total"], "launches": launches,
+                                "peak_mem_gb": peak_gb, "layer_readings": layers,
+                                "planted_layer0": planted, "moe_reading": moe_read,
+                                "first_row": tokens[0].tolist()}))
+    del params, prompts, last, lp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_card_vs_cpu(torch):
+    """Three SGD steps of the granite-moe smoke config (fp32) on the card
+    and on the CPU from one state: the first step's routing tables compared
+    first, then the params within 1e-4 of each leaf's largest |value| and
+    the losses within 1e-5 relative; a planted fault (the card's combine
+    without the gate renormalisation) must fail."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import moe
+    from repro_torch.optim import sgd
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.runtime import steps
+
+    cfg = get_smoke_config(MOE_ARCH)
+    batches = make_batches(cfg, 4, 64, 0)
+    start = steps.init_train_state(cfg, sgd(0.5), 0, "cpu")
+
+    def run(dev, fault=False):
+        state = tree_map(lambda t: t.clone().to(dev), start)
+        step, losses = steps.make_train_step(cfg, sgd(0.5)), []
+        routes, rec = record_routes()
+        with contextlib.ExitStack() as stack:
+            if fault:
+                stack.enter_context(mock.patch.object(moe, "_renormalise", lambda gv: gv))
+            for i in range(3):
+                if i == 0:
+                    with rec:
+                        state, m = step(state, batches(i))
+                else:
+                    state, m = step(state, batches(i))
+                losses.append(m["loss"].item())
+        return [t.detach().cpu() for t in leaves(state["params"])], losses, routes
+
+    pc, lc, rc = run("cuda")
+    pp, lp, rp = run("cpu")
+    routes_equal = len(rc) == len(rp) and all(torch.equal(a.cpu(), b) for a, b in zip(rc, rp))
+    reading = max(rel_err(a, b) for a, b in zip(pc, pp))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    pf, _, _ = run("cuda", fault=True)
+    planted = max(rel_err(a, b) for a, b in zip(pf, pp))
+    print(f"[moe card vs cpu] first step's routes equal {routes_equal} (share differing "
+          f"{route_share_differing([r.cpu() for r in rc], rp):.3e}); SGD params "
+          f"max|d|/max|cpu| {reading:.3e} (tol 1e-4), losses rel {loss_rel:.2e} (tol 1e-5): "
+          f"card {lc}, cpu {lp}; planted combine without renormalisation {planted:.3e}")
+    if not (reading <= 1e-4 and loss_rel <= 1e-5):
+        raise AssertionError("MoE card vs cpu: the SGD steps disagree")
+    if planted <= 1e-4:
+        raise AssertionError("MoE card vs cpu: the check passes a planted fault")
+    return {"routes_equal": routes_equal, "param_reading": reading, "loss_rel": loss_rel,
+            "planted": planted}
 
 
 def numbers(obj):
@@ -2805,6 +3636,8 @@ def main() -> int:
     fa_rec = timed("flash_attention", phase_flash_attention, torch)
     fa_rec["wgmma_build"] = wgmma_build  # HGMMA in the SASS, ptxas registers and spills
     fa_rec["backward"] = timed("flash_attention gradient", phase_flash_attention_grad, torch)
+    fa_rec["moe_shapes"] = timed("flash_attention MoE shapes", phase_flash_attention_moe, torch)
+    moe_layer = timed("MoE layer", phase_moe_layer, torch)
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     timed("small coder", phase_small_coder, torch)
     timed("elastic small", phase_elastic_small, torch)
@@ -2814,10 +3647,19 @@ def main() -> int:
     sl_rec["launches"] = timed("xlstm-1.3b serve", phase_xlstm, torch, card)
     train = timed("olmo-1b train", phase_olmo_train, torch, card)
     timed("train card vs cpu", phase_train_card_vs_cpu, torch)
+    moe_serve = timed("granite-moe serve", phase_moe_serve, torch, card)
+    moe_train = timed("granite-moe train", phase_moe_train, torch, card)
+    kimi = timed("kimi-k2 cut serve", phase_kimi, torch, card)
+    moe_cpu = timed("MoE card vs cpu", phase_moe_card_vs_cpu, torch)
     fa_rec["launches_by_path"] = {"gemma-2b serve": fa_rec["launches"],
-                                  "olmo-1b train": train["launches"]}
-    fa_rec["launches"] += train["launches"]
+                                  "olmo-1b train": train["launches"],
+                                  "granite-moe serve": moe_serve,
+                                  "granite-moe train": moe_train["launches"],
+                                  "kimi-k2 cut serve": kimi}
+    fa_rec["launches"] += train["launches"] + moe_serve + moe_train["launches"] + kimi
     fa_rec["train_launches_per_step"] = train["launches_per_step"]
+    fa_rec["moe_train_launches_per_step"] = moe_train["launches_per_step"]
+    print("MOE_CHECKS " + json.dumps({"layer": moe_layer, "card_vs_cpu": moe_cpu}))
     # The diffusion's step is bounded by the worst block's curvature
     # (sigma_max(W_k)^2 / delta, about 58 here) while its consensus term
     # contracts by only mu / N per iteration, so after 150 iterations at this

@@ -1,15 +1,16 @@
 """Architecture registry: --arch <id> resolves here.
 
-Port of src/repro/configs/__init__.py, with the same ids and aliases.  Two
-families are ported: dense (gemma_2b, olmo_1b, granite_8b, qwen3_32b) and
-xlstm (xlstm_1p3b), each config with CONFIG (the full configuration) and
-SMOKE (a reduced same-family config for CPU tests), copied from the JAX
-package.  Asking for an architecture of a family not ported yet raises
+Port of src/repro/configs/__init__.py, with the same ids and aliases.  Three
+families are ported: dense (gemma_2b, olmo_1b, granite_8b, qwen3_32b),
+xlstm (xlstm_1p3b) and moe (granite_moe_1b_a400m, kimi_k2_1t_a32b), each
+config with CONFIG (the full configuration) and SMOKE (a reduced
+same-family config for CPU tests), copied from the JAX package.  Asking for an architecture of a family not ported yet raises
 NotImplementedError naming the ROADMAP slice that ports it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import Dict, List
 
@@ -42,13 +43,13 @@ ALIASES: Dict[str, str] = {
     "hubert-xlarge": "hubert_xlarge",
 }
 
-PORTED = ("qwen3_32b", "olmo_1b", "granite_8b", "gemma_2b", "xlstm_1p3b")
-PORTED_FAMILIES = ("dense", "xlstm")
+PORTED = ("qwen3_32b", "olmo_1b", "granite_8b", "gemma_2b", "xlstm_1p3b",
+          "kimi_k2_1t_a32b", "granite_moe_1b_a400m")
+PORTED_FAMILIES = ("dense", "xlstm", "moe")
 
 # The ROADMAP section 1 slice that ports each remaining family, and the
 # family of each architecture not ported yet.
 FAMILY_SLICES: Dict[str, str] = {
-    "moe": "the MoE slice",
     "hybrid": "the hybrid (Mamba2) slice",
     "vlm": "the VLM slice",
     "audio": "the audio-encoder slice",
@@ -56,8 +57,6 @@ FAMILY_SLICES: Dict[str, str] = {
 NOT_PORTED: Dict[str, str] = {
     "zamba2_1p2b": "hybrid",
     "phi3_vision_4p2b": "vlm",
-    "kimi_k2_1t_a32b": "moe",
-    "granite_moe_1b_a400m": "moe",
     "hubert_xlarge": "audio",
 }
 
@@ -66,7 +65,7 @@ def not_ported(what: str, family: str) -> NotImplementedError:
     """The error for a family the port does not run yet."""
     return NotImplementedError(
         f"{what} ({family} family) is not ported yet (ROADMAP section 1, "
-        f"{FAMILY_SLICES[family]}); the port runs the {' and '.join(PORTED_FAMILIES)} "
+        f"{FAMILY_SLICES[family]}); the port runs the {', '.join(PORTED_FAMILIES)} "
         f"families: {', '.join(PORTED)}"
     )
 
@@ -86,3 +85,19 @@ def get_config(arch: str) -> ArchConfig:
 
 def get_smoke_config(arch: str) -> ArchConfig:
     return _module(arch).SMOKE
+
+
+def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
+    """cfg with n_layers layers and every width kept (the CLIs'
+    `--n-layers`): an MoE config keeps its leading dense layers and needs
+    one MoE layer after them, an xlstm config whole groups of slstm_every
+    blocks.  Raises ValueError for a cut it cannot make."""
+    if n_layers < 1 or n_layers > cfg.n_layers:
+        raise ValueError(f"--n-layers {n_layers}: {cfg.name} has {cfg.n_layers} layers")
+    if cfg.family == "moe" and n_layers <= cfg.first_dense:
+        raise ValueError(f"--n-layers {n_layers}: {cfg.name} has {cfg.first_dense} dense "
+                         f"layers first; keep at least one MoE layer after them")
+    if cfg.family == "xlstm" and n_layers % cfg.slstm_every:
+        raise ValueError(f"--n-layers {n_layers}: xlstm keeps whole groups of "
+                         f"{cfg.slstm_every} blocks")
+    return dataclasses.replace(cfg, n_layers=n_layers)

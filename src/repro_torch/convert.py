@@ -93,12 +93,16 @@ def lm_params_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict:
 
     Both sides hold each stack's tensors on a leading layer axis and use one
     layout.  Dense: wq/wk/wv (L, D, H, Dh), wo (L, H, Dh, D), the MLP
-    matrices (L, fan_in, fan_out).  xlstm: "mlstm" and "slstm" stacks, the
+    matrices (L, fan_in, fan_out).  moe: the "layers" stack's "moe" subtree
+    holds the router (L, D, E), the experts wi/wg (L, E, D, F) and wo
+    (L, E, F, D) and, with shared experts, a "shared" MLP; "dense_layers"
+    holds the leading dense blocks.  xlstm: "mlstm" and "slstm" stacks, the
     projections (fan_in, fan_out), the block-diagonal q/k/v and the sLSTM's
     r_* (L, H, P, P) indexed (in, out).  One embedding table (V, D) that the
     tied unembedding reads transposed.  So every leaf crosses as it is, in
-    cfg.param_dtype, onto `device`; the nesting is kept, empty dicts (the
-    nonparametric norms) included.  Families not ported raise."""
+    cfg.param_dtype (bf16 leaves, numpy's ml_dtypes bfloat16, widen to
+    fp32 exactly and round back), onto `device`; the nesting is kept, empty
+    dicts (the nonparametric norms) included.  Families not ported raise."""
     require_ported(cfg)
     dev = resolve_device(device)
     return tree_map(

@@ -57,7 +57,7 @@
 //   flight (chip_smoke.py fails on ptxas's C7514 note).
 //
 // "scalar_fp32" -- fp32 at every D (IEEE fp32, which the fp32 tests at
-// 2e-4 rely on) and bf16 at D = 16, 32:
+// 2e-4 rely on) and bf16 at D = 16, 32, 112 (kimi-k2's head dim):
 //   * one CTA of 256 threads per (batch * q head, 64-row query tile); it
 //     loops over 64-key tiles up to the causal limit;
 //   * the Q tile, and each K and V tile, are staged in shared memory as
@@ -67,6 +67,11 @@
 //     its 4 x 4 logits (keys tx + 16 j) and its 4 x D/16 accumulator columns
 //     (tx + 16 j) stay in registers; the 16 threads of a row group reduce
 //     max and sum with half-warp shuffles;
+//   * D is a multiple of 16 (D / 16 accumulator columns a thread, 7 at
+//     D = 112) and so of 4 (float4 staging); a padded row of D + 4 floats
+//     keeps the float4 reads conflict-free at every D here (at D = 112 the
+//     116-float rows of 8 lanes start on banks 0, 20, 8, 28, 16, 4, 24, 12);
+//     shared memory (192 (D + 4) + 64 x 68 floats) is 104 KB at D = 112;
 //   * scalar fp32 FMAs on the CUDA cores, keys past T zero-filled and
 //     masked.
 
@@ -700,6 +705,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
   switch (D) {
     case 16: return launch<16, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     case 32: return launch<32, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 112: return launch<112, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
   }
   if constexpr (sizeof(T) == 4) {  // bf16 at these head dims went to wgmma_tma
     switch (D) {
@@ -718,7 +724,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
 // batch, head, seq for q, k, v, out in that order) with D contiguous, every
 // base 16-byte aligned and every stride a multiple of 4 elements (of 8 for
 // the wgmma_tma kernel, whose TMA needs 16-byte strides; a stride of a
-// dimension of size 1 is not read there).  D is 16, 32, 64, 128 or 256; Hq
+// dimension of size 1 is not read there).  D is 16, 32, 64, 112, 128 or 256; Hq
 // is a multiple of Hkv.  Returns 0, the cudaError_t of the launch, 100000 +
 // the CUresult of a refused tensor map, or 99999 (no
 // cuTensorMapEncodeTiled): flash_attention_error_string names each.

@@ -13,7 +13,8 @@ The source holds two kernels, and the choice between them is fixed by
 dtype and head dim (`variant`, the same rule as the source's
 `variant_of`): "wgmma_tma" (tensor cores, TMA-fed tiles) for bfloat16 at
 D = 64, 128 or 256, "scalar_fp32" (CUDA-core fp32 FMAs) for float32 at
-every D and for bfloat16 at D = 16 or 32.
+every D and for bfloat16 at D = 16, 32 or 112 (kimi-k2's head dim; the
+Pallas kernel takes any D, and the plain version `ref.attention_ref` too).
 
 When grad is enabled and q, k or v requires it, `flash_attention` runs
 through `FlashAttention`, an autograd Function on both devices: forward K2
@@ -38,7 +39,7 @@ from repro_torch.kernels.flash_attention.backward import attention_backward
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)  # the kernel's instantiations
 WGMMA_HEAD_DIMS = (64, 128, 256)    # the bf16 head dims of the wgmma_tma kernel
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,

@@ -1,20 +1,26 @@
 """Serving launcher: batched prefill + greedy decode loop with a KV cache,
 on one card.
 
-Port of src/repro/launch/serve.py for the dense and xlstm LM families.
-Prefills the prompt batch once, then steps the decode function greedily.
-Dense: every layer's attention runs through the flash-attention kernel
-(K2), and the prompt's KV is copied into a cache of prompt + gen
-positions.  xlstm: every sLSTM block's recurrence is one launch of the
-sLSTM kernel (K3), and the prefill's state caches are carried over as
-they are.  At full width:
+Port of src/repro/launch/serve.py for the dense, moe and xlstm LM
+families.  Prefills the prompt batch once, then steps the decode function
+greedily.  Dense and moe: every layer's attention runs through the
+flash-attention kernel (K2), and the prompt's KV is copied into a cache of
+prompt + gen positions (moe with leading dense layers: the "dense" and
+"layers" caches, as JAX merges them); each MoE layer dispatches by
+capacity (models/moe.py).  xlstm: every sLSTM block's recurrence is one
+launch of the sLSTM kernel (K3), and the prefill's state caches are
+carried over as they are.  At full width:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \\
       --full-config --batch 4 --prompt-len 2048 --gen 32
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1p3b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \\
       --full-config --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi_k2_1t_a32b \\
+      --full-config --n-layers 2 --batch 4 --prompt-len 2048 --gen 8
 
-Weights are random, made from --seed on the device.  `--device cpu` runs
+`--n-layers` cuts the depth of the chosen config (kimi-k2's 61 layers do
+not fit one card; 2 keep its dense first layer and one MoE layer) and
+keeps every width.  Weights are random, made from --seed on the device.  `--device cpu` runs
 on the CPU (the default is the card, and no card is an error).  One card
 holds the whole model, so `--mesh` takes only 1x1: sharded serving is a
 later slice.
@@ -33,7 +39,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import ALIASES, ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs import ALIASES, ARCH_IDS, cut_depth, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 
@@ -42,6 +48,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", type=str, default="gemma_2b", choices=ARCH_IDS + list(ALIASES))
     ap.add_argument("--full-config", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config's depth to this many layers (widths kept)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -72,7 +80,9 @@ def run(args: argparse.Namespace) -> Dict:
                          f"serves the whole model with --mesh 1x1")
     try:
         cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
-    except NotImplementedError as e:
+        if args.n_layers is not None:
+            cfg = cut_depth(cfg, args.n_layers)
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     if not cfg.decode_supported:
         raise SystemExit(f"{args.arch} is encoder-only; no decode loop")
@@ -139,15 +149,17 @@ def run(args: argparse.Namespace) -> Dict:
 
 def _merge_prefill_cache(cfg, cache: Optional[dict], pre_cache: dict) -> dict:
     """Copy the prefill cache (length = prompt) into the max_len cache, in
-    place.  The xlstm caches are pure state: the prefill's is carried over
+    place: "layers", and "dense" where an MoE config has leading dense
+    layers.  The xlstm caches are pure state: the prefill's is carried over
     as it is (and `cache` is not read)."""
     if cfg.family == "xlstm":
         return pre_cache
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise KeyError(cfg.family)
-    for name, full in cache["layers"].items():
-        part = pre_cache["layers"][name]
-        full[:, :, : part.shape[2]] = part
+    for stack, layers in cache.items():
+        for name, full in layers.items():
+            part = pre_cache[stack][name]
+            full[:, :, : part.shape[2]] = part
     return cache
 
 

@@ -1,16 +1,21 @@
 """Training launcher, on one card.
 
-Port of src/repro/launch/train.py for the dense LM family: the smoke
-config of --arch (or with --full-config the full one) trains on the
+Port of src/repro/launch/train.py for the dense and moe LM families: the
+smoke config of --arch (or with --full-config the full one) trains on the
 Markov token stream through the fault-tolerant runner, with AdamW on a
-cosine warmup (Adafactor for a bf16-param config), checkpoints, an
-injected fault (--inject-fault-at) and an elastic reload (--rescale-mesh):
+cosine warmup (Adafactor for a bf16-param config, kimi-k2's), checkpoints,
+an injected fault (--inject-fault-at) and an elastic reload
+(--rescale-mesh).  The loss of an MoE config carries 0.01 x its
+load-balance aux (the step's `moe_aux`):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b --steps 12 \\
       --batch 8 --seq 64 --ckpt-every 5 --inject-fault-at 7 --rescale-mesh 1x1
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b --full-config \\
       --batch 4 --seq 2048 --steps 12 --ckpt-every 6 --ckpt-dir build/ckpt_olmo
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite_moe_1b_a400m \\
+      --full-config --batch 4 --seq 2048 --steps 8 --ckpt-every 4 --inject-fault-at 6
 
+`--n-layers` cuts the depth of the chosen config and keeps every width.
 Weights are random, made from --seed on the device.  `--device cpu` runs on
 the CPU (the default is the card, and no card is an error).  One card
 holds the whole run, so --mesh and --rescale-mesh take only 1x1: a sharded
@@ -31,7 +36,8 @@ import pathlib
 import tempfile
 from typing import Dict, Optional, Sequence
 
-from repro_torch.configs import ALIASES, ARCH_IDS, FAMILY_SLICES, get_config, get_smoke_config
+from repro_torch.configs import (ALIASES, ARCH_IDS, FAMILY_SLICES, cut_depth, get_config,
+                                 get_smoke_config)
 from repro_torch.data import synthetic as data
 from repro_torch.device import resolve_device
 from repro_torch.models.model import require_trainable
@@ -61,6 +67,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", type=str, default="olmo_1b", choices=ARCH_IDS + list(ALIASES))
     ap.add_argument("--full-config", action="store_true",
                     help="use the full assigned config (real hardware only)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config's depth to this many layers (widths kept)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -87,8 +95,10 @@ def run(args: argparse.Namespace) -> Dict:
         if args.rescale_mesh:
             check_mesh(args.rescale_mesh)
         cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
+        if args.n_layers is not None:
+            cfg = cut_depth(cfg, args.n_layers)
         require_trainable(cfg)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     device = resolve_device(args.device)
     opt = opt_mod.for_arch(cfg, lr=cosine_warmup(args.lr, warmup=20, total=args.steps))

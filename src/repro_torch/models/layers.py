@@ -26,9 +26,23 @@ import torch.nn.functional as F
 def dense_init(
     gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype, *, fan_in: int
 ) -> torch.Tensor:
-    """Plain normal with stddev 1 / sqrt(fan_in), on gen's device."""
-    w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
-    return (w * fan_in ** -0.5).to(dtype)
+    """Plain normal with stddev 1 / sqrt(fan_in), on gen's device, drawn in
+    fp32.  A tensor of another dtype is drawn in slabs of at most 2^26
+    elements along its leading dims, each cast into place, so no fp32 copy
+    of the whole tensor is ever held (one of kimi-k2's bf16 expert stacks
+    is 11.3 GB, 22.5 GB in fp32)."""
+    shape = tuple(shape)
+    if dtype == torch.float32:
+        w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+        return w * fan_in ** -0.5
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = out.view(-1, shape[-1]) if shape else out.view(1, 1)
+    step = max(1, (1 << 26) // rows.shape[1])
+    for i in range(0, rows.shape[0], step):
+        part = rows[i:i + step]
+        w = torch.randn(part.shape, generator=gen, device=gen.device, dtype=torch.float32)
+        part.copy_(w * fan_in ** -0.5)
+    return out
 
 
 def init_norm(kind: str, d: int, dtype: torch.dtype, device, lead: Tuple[int, ...] = ()) -> dict:

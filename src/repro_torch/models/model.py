@@ -1,18 +1,23 @@
 """Model assembly for the ported LM families: ArchConfig -> init / forward /
 prefill / decode.
 
-Port of the dense and xlstm parts of src/repro/models/model.py:
+Port of the dense, moe and xlstm parts of src/repro/models/model.py:
   dense   a pre-norm decoder stack (qwen3, olmo, granite, gemma);
+  moe     the same stack with the MoE FFN (models/moe.py), after
+          `first_dense` leading dense blocks (kimi's first layer);
   xlstm   groups of (slstm_every - 1) pre-norm mLSTM blocks followed by one
           pre-norm sLSTM block, whose recurrence is one K3 launch
           (models/xlstm.py).
 Params are a dict tree in the JAX package's layouts, every stack's
 tensors stacked on a leading layer axis (what the JAX side scans over:
-"layers" for dense; "mlstm", over n_groups * (slstm_every - 1) blocks, and
-"slstm", over n_groups, for xlstm); the port walks the layers with a
-Python loop.  Every entry point first brings the params into the form it
-walks (`cast_params`): float tensors in the compute dtype, as the JAX
-`_cast_params` does, and each stack split into a list of per-layer views.
+"layers" for dense; "dense_layers", over first_dense blocks when it is
+set, and "layers", over the rest, for moe; "mlstm", over n_groups *
+(slstm_every - 1) blocks, and "slstm", over n_groups, for xlstm); the port
+walks the layers with a Python loop.  Every entry point first brings the
+params into the form it walks (`cast_params`): float tensors in the
+compute dtype (the MoE router too: `apply_moe` widens it to fp32), as
+the JAX `_cast_params` does, and each stack split into a list of
+per-layer views.
 A tree already in that form passes through untouched, so a server
 prepares it once and its decode loop does no per-step tree work.  The
 decode cache is updated in place (JAX returns a new one).
@@ -22,13 +27,15 @@ the fp32 master params through it, and each stack splits with
 `torch.unbind` (whose backward writes one stacked gradient, where the
 backward of one `select` per layer would write a zero-filled copy of the
 whole stack per layer).  When grad flows and `cfg.remat` is set, each
-dense layer runs under `torch.utils.checkpoint` (non-reentrant): only its
+transformer layer runs under `torch.utils.checkpoint` (non-reentrant): only its
 input is kept, and its forward runs again in the backward, as the JAX
 `_maybe_remat` with `nothing_saveable`; its K2 launch then runs twice.
 
-`loss_fn` is the masked fp32 next-token cross-entropy of the dense family.
-The other families (moe, hybrid, vlm, audio) raise, naming their ROADMAP
-slice; xlstm trains with the xLSTM-training item (K3's gradient).
+`forward` returns the MoE load-balance aux summed over every layer (dense
+layers first; 0 without experts), and `loss_fn` is the masked fp32
+next-token cross-entropy plus 0.01 x that aux.  The other families
+(hybrid, vlm, audio) raise, naming their ROADMAP slice; xlstm trains with
+the xLSTM-training item (K3's gradient).
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ def require_ported(cfg: ArchConfig) -> None:
         raise not_ported(cfg.name, cfg.family)
     if not cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: untied output heads are not ported "
-                                  f"(every dense and xlstm config ties its embeddings)")
+                                  f"(every dense, moe and xlstm config ties its embeddings)")
     if cfg.family == "xlstm" and (not cfg.slstm_every or cfg.n_layers % cfg.slstm_every):
         raise ValueError(f"{cfg.name}: xlstm expects n_layers % slstm_every == 0")
 
@@ -63,6 +70,8 @@ def stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
     if cfg.family == "xlstm":
         n_groups = cfg.n_layers // cfg.slstm_every
         return {"mlstm": n_groups * (cfg.slstm_every - 1), "slstm": n_groups}
+    if cfg.family == "moe" and cfg.first_dense:
+        return {"dense_layers": cfg.first_dense, "layers": cfg.n_layers - cfg.first_dense}
     return {"layers": cfg.n_layers}
 
 
@@ -142,7 +151,10 @@ def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = "cuda") -> Dict[st
                                           lead=lead_s),
         }
     else:
-        params["layers"] = tfm.init_block(gen, cfg, cfg.n_layers)
+        sizes = stack_sizes(cfg)
+        if "dense_layers" in sizes:
+            params["dense_layers"] = tfm.init_dense_block(gen, cfg, sizes["dense_layers"])
+        params["layers"] = tfm.init_block(gen, cfg, sizes["layers"])
     params["final_norm"] = init_norm(cfg.norm, cfg.d_model, cfg.dtype, dev)
     return params
 
@@ -160,6 +172,11 @@ def _embed_inputs(cfg: ArchConfig, params: dict, tokens: torch.Tensor) -> torch.
 
 def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     return unembed(params["embed"], apply_norm(cfg.norm, params["final_norm"], h))
+
+
+def _blocks(cfg: ArchConfig, params: dict):
+    """The transformer blocks' params in order: the dense layers first."""
+    return params.get("dense_layers", []) + params["layers"]
 
 
 def _xlstm_layers(cfg: ArchConfig, params: dict):
@@ -195,14 +212,16 @@ def forward(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
     if cfg.family == "xlstm":
         for kind, _, _, lp in _xlstm_layers(cfg, params):
             h = h + _xlstm_mixer(cfg, kind, lp, h, return_cache=False)
-    else:
-        positions = torch.arange(h.shape[1], device=h.device)
-        for lp in params["layers"]:
-            if cfg.remat and _needs_grad(lp, h):
-                h = checkpoint(tfm.apply_block, lp, h, positions, cfg, use_reentrant=False)
-            else:
-                h = tfm.apply_block(lp, h, positions, cfg)
-    return _logits(cfg, params, h), torch.zeros((), device=h.device)
+        return _logits(cfg, params, h), torch.zeros((), device=h.device)
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux_total = torch.zeros((), device=h.device)
+    for lp in _blocks(cfg, params):
+        if cfg.remat and _needs_grad(lp, h):
+            h, aux = checkpoint(tfm.apply_block, lp, h, positions, cfg, use_reentrant=False)
+        else:
+            h, aux = tfm.apply_block(lp, h, positions, cfg)
+        aux_total = aux_total + aux
+    return _logits(cfg, params, h), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -235,9 +254,15 @@ def loss_fn(cfg: ArchConfig, params: dict,
     return total, {"ce": loss, "moe_aux": aux, "n_tokens": n}
 
 
+# The cache entry of each transformer layer stack (JAX's names).
+_CACHE_KEY = {"dense_layers": "dense", "layers": "layers"}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "cuda") -> dict:
-    """The decode cache, zero but for the stabilizers m (-1e30).  Dense:
-    {"layers": {"k", "v": (L, B, max_len, Hkv, Dh)}} in the compute dtype.
+    """The decode cache, zero but for the stabilizers m (-1e30).  Dense and
+    moe: {"layers": {"k", "v": (L, B, max_len, Hkv, Dh)}} in the compute
+    dtype; moe with first_dense: {"dense": the first_dense layers' cache,
+    "layers": the rest's}.
     xlstm (state caches; max_len unused): {"mlstm": {"conv_buf" (compute
     dtype), "C", "n", "m" (fp32)}, each (n_groups, slstm_every - 1, B, ...),
     "slstm": {"h", "c", "n", "m"}, each (n_groups, B, D) fp32}."""
@@ -252,18 +277,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "
             "slstm": xlstm_mod.init_slstm_cache(batch, cfg.d_model, device=dev,
                                                 lead=(n_groups,)),
         }
-    return {"layers": attn_mod.init_cache(
-        batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.cdtype, dev,
-        lead=(cfg.n_layers,),
-    )}
+    return {_CACHE_KEY[key]: attn_mod.init_cache(
+        batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.cdtype, dev, lead=(n,),
+    ) for key, n in stack_sizes(cfg).items()}
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward that also returns the decode cache of the
-    prompt: (logits (B, S, V) fp32, cache).  Dense: {"layers": {"k", "v":
-    (L, B, S, Hkv, Dh)}}; xlstm: the state cache of `init_cache`, each
-    block's final state in its slot (a prompt shorter than the convolution
-    leaves the older conv_buf rows zero, as the convolution's padding)."""
+    prompt: (logits (B, S, V) fp32, cache).  Dense and moe: {"layers": {"k",
+    "v": (L, B, S, Hkv, Dh)}}, and "dense" for moe's first_dense layers;
+    xlstm: the state cache of `init_cache`, each block's final state in its
+    slot (a prompt shorter than the convolution leaves the older conv_buf
+    rows zero, as the convolution's padding)."""
     require_ported(cfg)
     params = cast_params(cfg, params)
     h = _embed_inputs(cfg, params, batch["tokens"])
@@ -279,12 +304,15 @@ def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
                 slot.copy_(t)
         return _logits(cfg, params, h), cache
     positions = torch.arange(h.shape[1], device=h.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        h, kv = tfm.prefill_block(params["layers"][i], h, positions, cfg)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
-    return _logits(cfg, params, h), {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    cache = {}
+    for key in stack_sizes(cfg):
+        ks, vs = [], []
+        for lp in params[key]:
+            h, kv, _ = tfm.prefill_block(lp, h, positions, cfg)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        cache[_CACHE_KEY[key]] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return _logits(cfg, params, h), cache
 
 
 def decode_step(
@@ -312,8 +340,9 @@ def decode_step(
                                                 n_heads=cfg.n_heads)
             h = h + out
         return _logits(cfg, params, h), cache
-    layers = cache["layers"]
-    for i in range(cfg.n_layers):
-        layer_cache = {"k": layers["k"][i], "v": layers["v"][i]}
-        h, _ = tfm.decode_block(params["layers"][i], h, layer_cache, pos, cfg)
+    for key in stack_sizes(cfg):
+        layers = cache[_CACHE_KEY[key]]
+        for i, lp in enumerate(params[key]):
+            layer_cache = {"k": layers["k"][i], "v": layers["v"][i]}
+            h, _, _ = tfm.decode_block(lp, h, layer_cache, pos, cfg)
     return _logits(cfg, params, h), cache

@@ -196,17 +196,19 @@ def adafactor(
 def _param_states(f, params) -> list:
     """The state dicts of `f` ({"vr", "vc"} or {"v"}, one per param) in the
     params' leaf order: `f` mirrors the params with a dict at each leaf."""
-    out = []
-
-    def walk(fs, ps):
-        if isinstance(ps, dict):
-            for k in sorted(ps):
-                walk(fs[k], ps[k])
-        else:
-            out.append(fs)
-
-    walk(f, params)
+    out: list = []
+    _collect_states(f, params, out)
     return out
+
+
+def _collect_states(fs, ps, out: list) -> None:
+    # module-level recursion: a self-calling closure would be a reference
+    # cycle holding the optimizer state until the garbage collector runs
+    if isinstance(ps, dict):
+        for k in sorted(ps):
+            _collect_states(fs[k], ps[k], out)
+    else:
+        out.append(fs)
 
 
 def for_arch(cfg, lr=None) -> Optimizer:

@@ -5,6 +5,11 @@ or tuple's in order, and treats None as an empty node.  The optimizer
 states, the train state and the checkpoint files follow that order here,
 so a leaf's index in a checkpoint is the one the JAX manager gives it
 (`torch.utils._pytree` keeps a dict's insertion order instead).
+
+The walks recurse through module-level functions: a nested function that
+calls itself is a reference cycle (function -> closure cell -> function)
+that keeps what it closes over, every leaf of a train state or a step's
+gradients, alive until the cyclic garbage collector runs.
 """
 
 from __future__ import annotations
@@ -15,40 +20,40 @@ from typing import Any, Callable, List
 def leaves(tree) -> List[Any]:
     """The leaves of `tree`, dict entries in sorted-key order."""
     out: List[Any] = []
-
-    def walk(t):
-        if t is None:
-            return
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k])
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
-        else:
-            out.append(t)
-
-    walk(tree)
+    _collect(tree, out)
     return out
+
+
+def _collect(t, out: List[Any]) -> None:
+    if t is None:
+        return
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _collect(t[k], out)
+    elif isinstance(t, (list, tuple)):
+        for v in t:
+            _collect(v, out)
+    else:
+        out.append(t)
 
 
 def unflatten(like, values) -> Any:
     """A tree of `like`'s structure holding `values` in leaf order."""
     it = iter(values)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("more values than the tree has leaves")
     return out
+
+
+def _build(t, it) -> Any:
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

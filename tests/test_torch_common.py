@@ -117,7 +117,9 @@ for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
            "repro_torch.runtime.runner", "repro_torch.launch.train",
            "repro_torch.experiments.quickstart", "repro_torch.experiments.denoise_image",
            "repro_torch.experiments.novel_docs", "repro_torch.experiments.graph_gossip",
-           "repro_torch.experiments.multi_pod", "repro_torch.experiments.train_lm"):
+           "repro_torch.experiments.multi_pod", "repro_torch.experiments.train_lm",
+           "repro_torch.models.moe", "repro_torch.configs.granite_moe_1b_a400m",
+           "repro_torch.configs.kimi_k2_1t_a32b"):
     assert lm in names, lm
 assert not bad, bad
 """

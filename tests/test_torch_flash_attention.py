@@ -4,8 +4,9 @@ The port's wrapper on CPU tensors (its plain version) against the JAX
 reference `attention_ref` and the JAX wrapper running the Pallas kernel in
 interpret mode, as tests/test_kernels.py runs it, over the same FA_SHAPES
 sweep and tolerances (2e-4 fp32, 5e-2 bf16); `flash_decode` against the
-JAX one (1e-4); the wrapper's input checks; and, on the card only, the CUDA
-kernel against the plain version.
+JAX one (1e-4); head dim 112 (kimi-k2's) against the Pallas kernel; the
+wrapper's input checks; and, on the card only, the CUDA kernel against
+the plain version.
 """
 
 import numpy as np
@@ -60,6 +61,45 @@ def test_matches_jax_ref_and_pallas_interpret(b, hq, hkv, s, t, d, causal):
                  rtol=FA_TOL, atol=FA_TOL, what="vs attention_ref")
     assert_close(got, jax_fa(to_jax(q), to_jax(k), to_jax(v), causal=causal, interpret=True),
                  rtol=FA_TOL, atol=FA_TOL, what="vs the Pallas kernel")
+
+
+# kimi-k2's head dim, which the Pallas kernel takes like any other; GQA,
+# ragged S, T > S.
+D112_SHAPES = [(1, 8, 2, 128, 128, 112), (2, 4, 1, 100, 160, 112)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d", D112_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_112_matches_pallas_interpret(b, hq, hkv, s, t, d, causal):
+    from repro.kernels.flash_attention.ops import flash_attention as jax_fa
+
+    q, k, v = _qkv((b, hq, hkv, s, t, d), s + t)
+    got = _ops().flash_attention(to_torch(q), to_torch(k), to_torch(v), causal=causal)
+    assert tuple(got.shape) == (b, hq, s, d)
+    assert_close(got, jax_fa(to_jax(q), to_jax(k), to_jax(v), causal=causal, interpret=True),
+                 rtol=FA_TOL, atol=FA_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_112_kernel_matches_plain_on_the_card(dtype, causal):
+    """K2's scalar kernel at D 112 (7 accumulator columns a thread), the
+    model's (B, S, H, D) layout read in place."""
+    require_cuda()
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    ops = _ops()
+    assert ops.variant(dtype, 112) == ops.library_variant(dtype, 112) == "scalar_fp32"
+    q, k, v = _qkv((2, 8, 2, 300, 300 if causal else 333, 112), 112)
+    qt, kt, vt = (to_torch(x.transpose(0, 2, 1, 3)).cuda().to(dtype).transpose(1, 2)
+                  for x in (q, k, v))
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    want = attention_ref(qt, kt, vt, causal=causal)
+    if dtype == torch.float32:
+        assert_close(got, want, rtol=FA_TOL, atol=FA_TOL)
+    else:
+        assert_bf16_close(got, want)
 
 
 def test_bf16_matches_pallas_interpret():
@@ -171,13 +211,14 @@ def test_kernel_bf16_and_strided_on_the_card(d):
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma_tma"), (torch.bfloat16, 128, "wgmma_tma"),
     (torch.bfloat16, 256, "wgmma_tma"), (torch.bfloat16, 16, "scalar_fp32"),
-    (torch.bfloat16, 32, "scalar_fp32"), (torch.float32, 16, "scalar_fp32"),
+    (torch.bfloat16, 32, "scalar_fp32"), (torch.bfloat16, 112, "scalar_fp32"),
+    (torch.float32, 16, "scalar_fp32"), (torch.float32, 112, "scalar_fp32"),
     (torch.float32, 64, "scalar_fp32"), (torch.float32, 256, "scalar_fp32"),
 ])
 def test_variant_rule(dtype, d, want):
     """The fixed choice of kernel by dtype and head dim: bf16 at D = 64, 128,
-    256 on the tensor cores, everything else (fp32 at every D) on the
-    scalar fp32 kernel."""
+    256 on the tensor cores, everything else (fp32 at every D, bf16 at
+    kimi-k2's 112 too) on the scalar fp32 kernel."""
     assert _ops().variant(dtype, d) == want
 
 

@@ -162,6 +162,41 @@ def test_remat_reruns_each_layer_forward_in_the_backward(monkeypatch):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw", "adafactor"])
+def test_a_train_step_leaves_no_reference_cycle(opt_name):
+    """Once the caller drops a train state, its tensors are freed at once,
+    not when the cyclic garbage collector next runs: the tree walks and the
+    optimizer's walk hold no self-referential closure (on the card a
+    lingering state or a step's gradients held device memory for the next
+    phase, kimi-k2's 37.5 GB cut among them)."""
+    import gc
+    import weakref
+
+    from repro_torch import optim
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import make_batches
+    from repro_torch.runtime import steps
+
+    cfg = get_smoke_config("granite_moe_1b_a400m")
+    make = {"sgd": lambda: optim.sgd(0.1), "adamw": lambda: optim.adamw(1e-3),
+            "adafactor": lambda: optim.adafactor(1e-3)}[opt_name]
+    batch = make_batches(cfg, 2, 16)(0)
+
+    def one_step():
+        state = steps.init_train_state(cfg, make(), 0, "cpu")
+        state, _ = steps.make_train_step(cfg, make())(state, batch)
+        return [weakref.ref(t) for t in (state["params"]["embed"]["table"],
+                                         state["params"]["layers"]["moe"]["wi"])]
+
+    one_step()  # the process's first step makes PyTorch's one-time objects
+    gc.collect()
+    gc.disable()
+    try:
+        assert all(r() is None for r in one_step())
+    finally:
+        gc.enable()
+
+
 def test_loss_fn_refuses_families_it_cannot_train():
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model
@@ -399,12 +434,33 @@ def test_cli_trains_recovers_and_rescales_on_cpu(tmp_path, capsys):
     assert out["faults"] == 1 and out["rescaled_step"] == 12
 
 
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "kimi_k2_1t_a32b"])
+def test_cli_trains_moe_with_a_fault_and_replay_on_cpu(arch, tmp_path, capsys):
+    """The MoE smoke configs through the CLI: a fault at 5 restored from 4,
+    the first replayed loss exactly the first pass's, every step's moe_aux
+    in the loss (loss = ce + 0.01 moe_aux), the rescale reload."""
+    from repro_torch.launch import train
+
+    out = train.run(train.parse_args([
+        "--arch", arch, "--device", "cpu", "--steps", "8", "--batch", "2", "--seq", "16",
+        "--ckpt-every", "4", "--inject-fault-at", "5", "--rescale-mesh", "1x1",
+        "--ckpt-dir", str(tmp_path / "ck")]))
+    assert "(1 faults recovered)" in capsys.readouterr().out
+    assert [s for s, _ in out["losses"]] == list(range(5)) + list(range(4, 8))
+    assert out["losses"][5][1] == dict(out["losses"][:5])[4]  # the first replayed step
+    for m in out["history"]:
+        assert float(m["moe_aux"]) > 0
+        assert abs(float(m["loss"]) - float(m["ce"]) - 0.01 * float(m["moe_aux"])) <= 1e-5
+    assert out["ckpt_steps"] == [4, 8] and out["rescaled_step"] == 8
+
+
 @pytest.mark.parametrize("argv, match", [
     (["--arch", "xlstm_1p3b"], "xLSTM-training"),
     (["--arch", "zamba2_1p2b"], "hybrid"),
-    (["--arch", "granite_moe_1b_a400m"], "MoE"),
+    (["--arch", "phi3_vision_4p2b"], "VLM"),
     (["--mesh", "2x4"], "sharded-training"),
     (["--rescale-mesh", "4x2"], "sharded-training"),
+    (["--n-layers", "3"], "--n-layers"),  # the olmo smoke config has 2
 ])
 def test_cli_refusals(argv, match):
     from repro_torch.launch import train
