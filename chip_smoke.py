@@ -44,6 +44,14 @@ and fails (non-zero exit, no result line) if any of them fails:
    beside SDPA with their bounds (K2's `moe_shapes`), two planted faults
    at D 112 rejected (logits from the first 64 columns, the causal limit
    one key late); K2's gradient at FA_MOE (GRAD_BF16_TOL).
+   K2 at the VLM and audio shapes, all on scalar_fp32 (ptxas's registers
+   and spills of the D 96 and D 80 instantiations printed): phi-3-vision's
+   FA_VLM prefill (576 image + 2048 text positions) and FA_VLM_TRAIN at
+   D 96, causal, and hubert-xlarge's FA_AUDIO at D 80, non-causal, against
+   plain, timed beside SDPA (is_causal as the model asks) with their
+   bounds (K2's `vlm_audio_shapes`); two planted faults rejected (logits
+   from the first 64 columns at D 96, a causal mask where none was asked
+   at D 80); K2's gradient at FA_AUDIO, non-causal (GRAD_BF16_TOL).
    The MoE layer (models/moe.apply_moe): against moe_ref at granite-moe's
    width on 4 x 2048 tokens with nothing dropped (fp32 at MOE_FP32_RTOL,
    bf16 at MOE_ROW_ULPS); two launches bit-identical, forward and
@@ -125,6 +133,29 @@ and fails (non-zero exit, no result line) if any of them fails:
    - three SGD steps of the granite-moe smoke config on the card against
      the CPU: the first step's routes compared, params at 1e-4, a planted
      combine without renormalisation rejected (MOE_CHECKS line);
+   - VLM serving: the port's serve at phi-3-vision-4.2b's full width and
+     depth (3.73e9 params, bf16), 4 prompts of 2048 tokens after 576
+     image positions, VLM_GEN greedy tokens, a cache of 576 + 2048 +
+     VLM_GEN positions: 32 K2 launches a prefill (gated), each layer's K2
+     against plain on its own inputs (gated, a planted wrong attention
+     rejected), the end-to-end logits against the plain-attention twin
+     printed, the prefill and a decode step profiled (VLM_SERVE line);
+   - VLM training: launch/train at phi-3-vision's full width cut to
+     VLM_TRAIN_LAYERS layers, 4 x 2048 positions a step (the loss over
+     the 1472 text tokens), the olmo path's gates: 2 K2 launches a layer
+     a step, the first step against its plain-attention twin, the first
+     replayed loss exact (VLM_TRAIN line);
+   - the audio encoder: hubert-xlarge at full width (48 layers, 9.45e8
+     params) encodes 4 x 2048 frames through model.prefill: 48 K2
+     launches, every one non-causal, no cache, each layer's K2 against
+     plain on its own inputs (a planted causal mask rejected), profiled
+     (AUDIO_ENCODE line); then trained through launch/train, depth cut
+     to AUDIO_TRAIN_LAYERS, with the olmo path's gates (AUDIO_TRAIN
+     line);
+   - both SMOKE configs on the card against the CPU: forward logits at
+     1e-4, loss at 1e-5, three SGD steps (params 1e-4, losses 1e-5); two
+     planted faults (the image tokens after the text, hubert's attention
+     causal) rejected (VLM_AUDIO_CHECKS line);
    - xLSTM serving: the port's serve at xlstm-1.3b's full width, depth cut
      to XL_LAYERS (random weights), the same traffic; one slstm_seq launch
      per sLSTM block of the prefill (3) and none in decode.  Tokens in the vocabulary, logits
@@ -442,6 +473,50 @@ MOE_MARGIN, MOE_GATE_RTOL = 1e-4, 1e-6
 # by O(1).
 MOE_LOSS_RTOL = BF16_UNIT_ROUNDOFF
 
+# The VLM family: phi-3-vision-4.2b at full width (a phi3-mini backbone of
+# 32 layers, d 3072, 32 heads of 96 (MHA), d_ff 8192, vocab 32064; the
+# CLIP front end a stub: 576 precomputed patch embeddings of 1024 through
+# the 2-layer projector, before the text; fp32 params, bf16 compute;
+# 3.73e9 params, 7.5 GB cast to bf16), random weights from seed 0.  Served
+# at full depth: LM_BATCH prompts of LM_PROMPT tokens after the 576 image
+# positions, VLM_GEN greedy tokens, a cache of 576 + 2048 + VLM_GEN
+# positions; one K2 launch a layer a prefill at FA_VLM, bf16, causal, on
+# scalar_fp32 (D 96).  Trained through launch/train with depth cut to
+# VLM_TRAIN_LAYERS (params, gradients and AdamW's moments at full depth
+# are some 60 GB): TRAIN_BATCH x TRAIN_SEQ positions a step (576 image
+# positions and 1472 text tokens, the loss over the text), VLM_STEPS
+# steps, a checkpoint every VLM_CKPT_EVERY, a fault at VLM_FAULT_AT; two K2
+# launches a layer a step at FA_VLM_TRAIN.
+VLM_ARCH, VLM_GEN, VLM_IMG = "phi3_vision_4p2b", 8, 576
+VLM_TRAIN_LAYERS, VLM_STEPS, VLM_CKPT_EVERY, VLM_FAULT_AT = 4, 6, 3, 4
+FA_VLM = (LM_BATCH, 32, 32, VLM_IMG + LM_PROMPT, VLM_IMG + LM_PROMPT, 96)
+FA_VLM_TRAIN = (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 96)
+# The audio-encoder family: hubert-xlarge at full width (48 layers, d 1280,
+# 16 heads of 80, d_ff 5120, GELU, 504 cluster targets through an untied
+# head, non-causal; the conv waveform front end a stub: precomputed frame
+# features of 512 through one projection; fp32 params, bf16 compute; 9.45e8
+# params), random weights from seed 0.  One encode (model.prefill) of
+# LM_BATCH x LM_PROMPT frames from audio_batches: one non-causal K2 launch
+# a layer at FA_AUDIO (scalar_fp32, D 80); then trained through
+# launch/train (masked prediction over TRAIN_BATCH x TRAIN_SEQ frames),
+# AUDIO_STEPS steps, a checkpoint every AUDIO_CKPT_EVERY, a fault at
+# AUDIO_FAULT_AT, with the depth cut from 48 layers to AUDIO_TRAIN_LAYERS
+# to keep the whole script well inside its time limit (at 48 layers the
+# phase took 75.9 s and the script 1094.2 s of its 1200).
+AUDIO_ARCH, AUDIO_TRAIN_LAYERS = "hubert_xlarge", 24
+AUDIO_STEPS, AUDIO_CKPT_EVERY, AUDIO_FAULT_AT = 4, 2, 3
+FA_AUDIO = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 80)
+# The first training step's gradient against its plain-attention twin,
+# per leaf, for these two families: GRAD_BF16_TOL (what one attention's
+# bf16 gradient may differ by, the K2-gradient gate) + L x 2^-8 (the
+# residual stream's rounding, the olmo phase's rule, which its 8 layers
+# are held to alone).  A leaf's difference does not grow with depth as L x
+# 2^-8 does: it read 0.0141 at phi-3's 4 layers, 0.0156 at hubert's 48,
+# 0.0254 at olmo's 8 (my chip runs), so at 4 layers L x 2^-8 (0.0156) alone
+# would sit on the reading.  A gradient without the Function or without
+# the causal mask moves a leaf by order 1.
+VLM_AUDIO_GRAD_FLOOR = GRAD_BF16_TOL
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -596,8 +671,9 @@ def sass_counts(lib_path, opcode: str) -> dict:
 def phase_build():
     """Builds every kernel; returns the evidence that K2's bf16 kernel runs on
     the tensor cores (its ptxas registers and spills and its HGMMA count in
-    the SASS of the built library, per instantiation) and K3's ptxas report
-    per instantiation (every one a cluster kernel, none may spill)."""
+    the SASS of the built library, per instantiation), K2's scalar_fp32
+    ptxas report by (D, type), and K3's ptxas report per instantiation
+    (every one a cluster kernel, none may spill)."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -641,7 +717,7 @@ def phase_build():
         spilled = {fn: r for fn, r in slstm.items() if r["spill_bytes"]}
         if spilled:
             raise AssertionError(f"an slstm_step cluster kernel spills registers: {spilled}")
-    return wgmma, slstm
+    return wgmma, scalar, slstm
 
 
 def phase_kernels(torch):
@@ -2419,18 +2495,24 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float:
     backward; N counts the tied embedding once and, for MoE, the router and
     the top-k experts a token runs, not the capacity's padding) + 6 L B S^2
     H Dh (causal attention's q k^T and p v over half the S x S pairs, 2 B
-    S^2 H Dh a layer forward, twice that backward); the remat recompute is
-    not model work."""
+    S^2 H Dh a layer forward, twice that backward; twice that again over
+    all the pairs of a non-causal encoder); the remat recompute is not
+    model work."""
     n = cfg.param_counts()["active"]
     width = cfg.n_heads * cfg.resolved_head_dim
-    return 6.0 * n * batch * seq + 6.0 * cfg.n_layers * batch * seq * seq * width
+    attn = 6.0 * cfg.n_layers * batch * seq * seq * width
+    return 6.0 * n * batch * seq + (attn if cfg.causal else 2 * attn)
 
 
-def phase_olmo_train(torch, card: str):
-    """The port's training at olmo-1b's full width through launch/train
-    (TrainRunner: checkpoint, injected fault, replay, rescale reload), the
-    first step against its plain-attention twin, one step profiled; returns
-    the run's record (K2 launches and per step)."""
+def phase_train(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: int,
+                ckpt_every: int, fault_at: int, grad_floor: float = 0.0):
+    """The port's training of `arch` at full width, depth cut to n_layers,
+    through launch/train (TrainRunner: checkpoints every ckpt_every, a fault
+    injected at fault_at, replay, the rescale reload; TRAIN_BATCH x
+    TRAIN_SEQ positions a step), the first step against its plain-attention
+    twin (each gradient leaf within grad_floor + n_layers x 2^-8), one step
+    profiled; prints "[tag]" lines and one tag.upper() JSON line (TRAIN for
+    olmo-1b); returns the run's record (K2 launches and per step)."""
     import shutil
 
     from repro_torch.checkpoint import manager
@@ -2443,19 +2525,19 @@ def phase_olmo_train(torch, card: str):
     from repro_torch.pytree import leaves
     from repro_torch.runtime import steps
 
-    cfg = cut_depth(get_config(TRAIN_ARCH), TRAIN_LAYERS)
+    cfg = cut_depth(get_config(arch), n_layers)
     n_params = cfg.param_counts()["total"]
     state_gb = 3 * 4 * n_params / 1e9  # fp32 params, m, v
-    ckpt_dir = ROOT / "build" / "chip_smoke_train"
+    ckpt_dir = ROOT / "build" / f"chip_smoke_{tag.replace(' ', '_')}"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     ckpt_dir.mkdir(parents=True)
     free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
-    # keep 3 at steps 6 and 12: the committed step 6 beside step 12 being written
+    # keep 3 at two checkpoints: the committed one beside the one being written
     need_gb = 2 * state_gb + 2.0
-    print(f"[train] {cfg.name}: {n_params:.4e} params, train state {state_gb:.2f} GB; "
+    print(f"[{tag}] {cfg.name}: {n_params:.4e} params, train state {state_gb:.2f} GB; "
           f"free disk under build/ {free_gb:.1f} GB (need {need_gb:.1f})")
     if free_gb < need_gb:
-        raise AssertionError(f"train: {free_gb:.1f} GB free under build/, need {need_gb:.1f}")
+        raise AssertionError(f"{tag}: {free_gb:.1f} GB free under build/, need {need_gb:.1f}")
 
     # (1) The first step's loss and gradient, K2 against a plain-attention
     # twin (K2 and its Function swapped for autograd through attention_ref).
@@ -2478,20 +2560,21 @@ def phase_olmo_train(torch, card: str):
     finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
     del grads_k, grads_p
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    tol = cfg.n_layers * BF16_UNIT_ROUNDOFF
-    print(f"[train] first step, K2 vs plain-attention twin: loss {loss_k:.6f} vs {loss_p:.6f} "
+    tol = grad_floor + cfg.n_layers * BF16_UNIT_ROUNDOFF
+    print(f"[{tag}] first step, K2 vs plain-attention twin: loss {loss_k:.6f} vs {loss_p:.6f} "
           f"(rel {loss_rel:.2e}, gate {BF16_UNIT_ROUNDOFF:.2e}); per-leaf max|dg|/max|g| "
-          f"max {max(grad_rel):.3e} (gate {tol:.4f} = {cfg.n_layers} layers x 2^-8): "
+          f"max {max(grad_rel):.3e} (gate {tol:.4f} = {grad_floor:g} + {cfg.n_layers} layers "
+          f"x 2^-8): "
           f"{[round(r, 5) for r in grad_rel]}; K2 launches {first_launches}")
     if first_launches != 2 * cfg.n_layers:
-        raise AssertionError(f"train: {first_launches} K2 launches in one loss and gradient, "
+        raise AssertionError(f"{tag}: {first_launches} K2 launches in one loss and gradient, "
                              f"expected {2 * cfg.n_layers} (forward + remat recompute)")
     if not (finite and loss_rel <= BF16_UNIT_ROUNDOFF and max(grad_rel) <= tol):
-        raise AssertionError("train: the first step's loss or gradient disagrees with the "
+        raise AssertionError(f"{tag}: the first step's loss or gradient disagrees with the "
                              "plain-attention twin")
 
     # (2) One step under the profiler (after a warm one), on this state.
-    opt = for_arch(cfg, lr=cosine_warmup(3e-4, warmup=20, total=TRAIN_STEPS))
+    opt = for_arch(cfg, lr=cosine_warmup(3e-4, warmup=20, total=n_steps))
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     step_fn = steps.make_train_step(cfg, opt)
@@ -2499,13 +2582,13 @@ def phase_olmo_train(torch, card: str):
     wall_ms, rows = profile_rows(torch, lambda: step_fn(state, batch))
     dev_ms, top = sum(ms for _, ms in rows), [(k[:60], round(ms, 3)) for k, ms in rows[:10]]
     categories = step_categories(rows)
-    print(f"[train] profile of one step: device kernels {dev_ms:.1f} ms, {wall_ms:.1f} ms under "
+    print(f"[{tag}] profile of one step: device kernels {dev_ms:.1f} ms, {wall_ms:.1f} ms under "
           f"the profiler; by category {categories}; top {top}")
     del state, params, flat, step_fn
     torch.cuda.empty_cache()
 
-    # (3) The CLI: TRAIN_STEPS steps, a checkpoint every TRAIN_CKPT_EVERY, a
-    # fault at TRAIN_FAULT_AT, the rescale reload; checkpoint I/O timed.
+    # (3) The CLI: n_steps steps, a checkpoint every ckpt_every, a fault at
+    # fault_at, the rescale reload; checkpoint I/O timed.
     io = {"save_s": [], "restore_s": [], "host_copy_s": []}
 
     def timed(fn, key):
@@ -2517,10 +2600,10 @@ def phase_olmo_train(torch, card: str):
                 io[key].append(time.perf_counter() - t)
         return wrapper
 
-    argv = ["--arch", TRAIN_ARCH, "--full-config", "--n-layers", str(TRAIN_LAYERS),
+    argv = ["--arch", arch, "--full-config", "--n-layers", str(n_layers),
             "--batch", str(TRAIN_BATCH),
-            "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
-            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--inject-fault-at", str(TRAIN_FAULT_AT),
+            "--seq", str(TRAIN_SEQ), "--steps", str(n_steps),
+            "--ckpt-every", str(ckpt_every), "--inject-fault-at", str(fault_at),
             "--rescale-mesh", "1x1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"]
     with mock.patch.object(manager, "save_pytree", timed(manager.save_pytree, "save_s")), \
             mock.patch.object(manager, "load_pytree", timed(manager.load_pytree, "restore_s")), \
@@ -2535,29 +2618,29 @@ def phase_olmo_train(torch, card: str):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     runner, losses = out["runner"], out["losses"]
     executed = len(out["history"])
-    replayed = TRAIN_FAULT_AT - TRAIN_CKPT_EVERY
+    replayed = fault_at - ckpt_every
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    if out["faults"] != 1 or executed != TRAIN_STEPS + replayed:
-        raise AssertionError(f"train: {out['faults']} faults, {executed} steps run")
+    if out["faults"] != 1 or executed != n_steps + replayed:
+        raise AssertionError(f"{tag}: {out['faults']} faults, {executed} steps run")
     if launches != 2 * cfg.n_layers * executed:
-        raise AssertionError(f"train: {launches} K2 launches over {executed} steps, expected "
+        raise AssertionError(f"{tag}: {launches} K2 launches over {executed} steps, expected "
                              f"{2 * cfg.n_layers} a step")
-    if out["ckpt_steps"] != [TRAIN_CKPT_EVERY, TRAIN_STEPS] or out["rescaled_step"] != TRAIN_STEPS:
-        raise AssertionError(f"train: checkpoints {out['ckpt_steps']}, rescale resumed at "
+    if out["ckpt_steps"] != [ckpt_every, n_steps] or out["rescaled_step"] != n_steps:
+        raise AssertionError(f"{tag}: checkpoints {out['ckpt_steps']}, rescale resumed at "
                              f"{out['rescaled_step']}")
     if not all(math.isfinite(x) for _, x in losses):
-        raise AssertionError(f"train: a loss is not finite: {losses}")
-    first = dict(losses[:TRAIN_FAULT_AT])
-    replay = losses[TRAIN_FAULT_AT:TRAIN_FAULT_AT + replayed]
+        raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+    first = dict(losses[:fault_at])
+    replay = losses[fault_at:fault_at + replayed]
     replay_rel = [abs(x - first[st]) / abs(first[st]) for st, x in replay]
-    print(f"[train] replay from step {TRAIN_CKPT_EVERY}: first pass "
+    print(f"[{tag}] replay from step {ckpt_every}: first pass "
           f"{[first[st] for st, _ in replay]}, replayed {[x for _, x in replay]} (the first "
           f"exactly, the rest within {REPLAY_RTOL} relative: {replay_rel})")
     if replay[0][1] != first[replay[0][0]]:
-        raise AssertionError("train: the first replayed loss differs from the first pass's")
+        raise AssertionError(f"{tag}: the first replayed loss differs from the first pass's")
     if not max(replay_rel) <= REPLAY_RTOL:
-        raise AssertionError(f"train: a replayed loss parts from the first pass: {replay_rel}")
+        raise AssertionError(f"{tag}: a replayed loss parts from the first pass: {replay_rel}")
 
     times = runner.step_times
     step_s = statistics.median(times[1:])
@@ -2578,7 +2661,7 @@ def phase_olmo_train(torch, card: str):
         "checkpoint_io_s": io, "state_gb": state_gb, "wall_s": wall,
         "events": [{k: v for k, v in e.items() if k != "error"} for e in runner.events],
     }
-    print(f"[train] {card}: {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step "
+    print(f"[{tag}] {card}: {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} positions: step "
           f"{rec['step_ms']:.1f} ms (median of {len(times) - 1} after the first, "
           f"{rec['first_step_ms']:.1f}), {rec['tokens_per_s']:.1f} tokens/s, model-flops share "
           f"of the bf16 peak {rec['mfu_bf16']:.4f} ({flops:.4e} flops a step / "
@@ -2586,7 +2669,7 @@ def phase_olmo_train(torch, card: str):
           f"{launches} ({rec['launches_per_step']:.0f} a step); checkpoint save "
           f"{io['save_s']} s, host copy {io['host_copy_s']} s, restore {io['restore_s']} s; "
           f"busy share {rec['profile']['busy_share']:.3f}; wall {wall:.1f} s")
-    print("TRAIN " + json.dumps(rec))
+    print(tag.upper().replace(" ", "_") + " " + json.dumps(rec))
     del out, runner
     gc.collect()  # free whatever a reference cycle still holds of the train states
     torch.cuda.empty_cache()
@@ -2670,11 +2753,11 @@ def route_share_differing(a, b) -> float:
     return diff / max(total, 1)
 
 
-def attention_bound(b, hq, hkv, s, t, d):
-    """(flops, bytes, bound ms, bound_by) of one causal S = T bf16 K2 launch:
-    q k^T and p v over the visible pairs at the bf16 tensor rate, q, k, v
-    read and out written once."""
-    pairs = b * hq * s * (s + 1) // 2
+def attention_bound(b, hq, hkv, s, t, d, causal=True):
+    """(flops, bytes, bound ms, bound_by) of one bf16 K2 launch, causal at
+    S = T or not: q k^T and p v over the visible pairs at the bf16 tensor
+    rate, q, k, v read and out written once."""
+    pairs = b * hq * s * (s + 1) // 2 if causal else b * hq * s * t
     flops = 4 * pairs * d
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * t * d)
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
@@ -2920,31 +3003,33 @@ def phase_moe_layer(torch):
     return out
 
 
-def prefill_checked(torch, cfg, params, prompts):
-    """A prefill whose every K2 launch is held against the plain version on
-    that launch's inputs: (last-position logits, [bf16 reading per layer],
-    the first layer's planted reading (causal limit one key late))."""
+def prefill_checked(torch, cfg, params, batch):
+    """A prefill of `batch` whose every K2 launch is held against the plain
+    version on that launch's inputs: (the logits, [bf16 reading per layer],
+    the first layer's planted reading: the causal limit one key late, or a
+    causal mask where the call asked for none; [causal flag per layer])."""
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.models import attention, model
 
     real = ops.flash_attention
-    layers, planted = [], []
+    layers, planted, flags = [], [], []
 
     def checked(q, k, v, *, causal=True, scale=None):
+        flags.append(causal)
         out = real(q, k, v, causal=causal, scale=scale)
         want = ref.attention_ref(q, k, v, causal=causal, scale=scale)
         layers.append(bf16_reading(out, want))
         if not planted:
-            late = causal_visible(torch, q.shape[2], k.shape[2], q.device, 1)
-            planted.append(bf16_reading(masked_attention(torch, q, k, v, late), want))
+            wrong = causal_visible(torch, q.shape[2], k.shape[2], q.device, 1 if causal else 0)
+            planted.append(bf16_reading(masked_attention(torch, q, k, v, wrong), want))
         return out
 
     # _launch counts on the module's `flash_attention`, this wrapper while
     # patched: the check's launches stay off the wrapper's real count.
     checked.launches = 0
     with mock.patch.object(attention.ops, "flash_attention", checked):
-        logits, _ = model.prefill(cfg, params, {"tokens": prompts})
-    return logits[:, -1, :].clone(), layers, planted[0]
+        logits, _ = model.prefill(cfg, params, batch)
+    return logits, layers, planted[0], flags
 
 
 # Forward ranges of the MoE profile: (range, module, attribute).  K2's own
@@ -3032,7 +3117,9 @@ def phase_moe_serve(torch, card: str):
     params, prompts = out["params"], out["prompts"]
     routes_k, rec_k = record_routes()
     with rec_k:
-        last_k, layers, planted = prefill_checked(torch, cfg, params, prompts)
+        logits_k, layers, planted, _ = prefill_checked(torch, cfg, params, {"tokens": prompts})
+        last_k = logits_k[:, -1, :].clone()
+        del logits_k
     routes_p, rec_p = record_routes()
     with rec_p, mock.patch.object(attention.ops, "flash_attention", ref.attention_ref):
         logits_p, _ = model.prefill(cfg, params, {"tokens": prompts})
@@ -3281,7 +3368,7 @@ def phase_kimi(torch, card: str):
             raise AssertionError(f"kimi: the {stack} cache is not finite")
     params, prompts = out["params"], out["prompts"]
     del out
-    _, layers, planted = prefill_checked(torch, cfg, params, prompts)
+    _, layers, planted, _ = prefill_checked(torch, cfg, params, {"tokens": prompts})
     if len(layers) != KIMI_LAYERS or not max(layers) <= BF16_ROW_ULPS \
             or planted <= BF16_ROW_ULPS:
         raise AssertionError(f"kimi: K2 at D 112 vs plain per layer {layers}, planted {planted}")
@@ -3373,6 +3460,339 @@ def phase_moe_card_vs_cpu(torch):
         raise AssertionError("MoE card vs cpu: the check passes a planted fault")
     return {"routes_equal": routes_equal, "param_reading": reading, "loss_rel": loss_rel,
             "planted": planted}
+
+
+def phase_flash_attention_vlm_audio(torch, scalar_build):
+    """K2 at the VLM and audio shapes, all on scalar_fp32: phi-3-vision's
+    prefill FA_VLM and training shape FA_VLM_TRAIN (D 96, causal) and
+    hubert-xlarge's FA_AUDIO (D 80, non-causal) against the plain version,
+    timed beside SDPA (is_causal as the model asks) with their bounds;
+    planted faults rejected (at D 96 logits from the first 64 columns, at
+    D 80 a causal mask where none was asked); K2's gradient at FA_AUDIO,
+    non-causal (GRAD_BF16_TOL).  Prints ptxas's registers and spills of the
+    D 96 and D 80 instantiations.  Returns the records for K2's
+    `vlm_audio_shapes`."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    ptxas = {key: r for key, r in scalar_build.items()
+             if key.startswith(("Li80E", "Li96E", "Li112E"))}
+    print(f"[kernels] flash_attention scalar_fp32 at D 80, 96 (and 112) by (D, type), ptxas "
+          f"registers, stack frame and spill bytes: {ptxas}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    recs = []
+    for name, shape, causal in (("phi-3-vision prefill", FA_VLM, True),
+                                ("phi-3-vision train", FA_VLM_TRAIN, True),
+                                ("hubert-xlarge", FA_AUDIO, False)):
+        b, hq, hkv, s, t, d = shape
+        kind = ops.library_variant(torch.bfloat16, d)
+        if not kind == ops.variant(torch.bfloat16, d) == "scalar_fp32":
+            raise AssertionError(f"{shape} goes to {kind} (wrapper: "
+                                 f"{ops.variant(torch.bfloat16, d)}), expected scalar_fp32")
+        q, k, v = (torch.randn(*sh, generator=gen).to(dev, torch.bfloat16)
+                   for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+        out = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        err, reading = max_err(out, want), bf16_reading(out, want)
+        faults = {}
+        if shape is FA_VLM:
+            faults["logits from the first 64 columns"] = first_columns_attention(
+                torch, q, k, v, 64)
+        if not causal:
+            faults["a causal mask where none was asked"] = masked_attention(
+                torch, q, k, v, causal_visible(torch, s, t, dev))
+        fault_readings = {n: bf16_reading(bad, want) for n, bad in faults.items()}
+        print(f"[kernels] flash_attention {name} {shape} bf16 {'causal' if causal else 'non-causal'}"
+              f" ({kind}): reading {reading:.3f} (tol {BF16_ROW_ULPS}), max|err| {err:.3e}; "
+              f"planted faults {fault_readings}")
+        if not reading <= BF16_ROW_ULPS:
+            raise AssertionError(f"flash_attention disagrees with plain at {shape}")
+        for fname, r in fault_readings.items():
+            if r <= BF16_ROW_ULPS:
+                raise AssertionError(f"the bf16 check passes a planted fault at D {d}: {fname}")
+        del out, want, faults
+
+        def kernel():
+            return ops.flash_attention(q, k, v, causal=causal)
+
+        def plain():
+            return ref.attention_ref(q, k, v, causal=causal)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+        k1, p1, l1, l2, p2, k2 = (time_ms(torch, fn, 5) for fn in
+                                  (kernel, plain, library, library, plain, kernel))
+        flops, nbytes, bound_ms, bound_by = attention_bound(*shape, causal=causal)
+        rec = {"path": name, "shape": list(shape), "causal": causal, "variant": kind,
+               "grid": ops.ctas(b, hq, s, torch.bfloat16, d), "max_abs_err": err,
+               "bf16_reading": reading, "planted_faults": fault_readings,
+               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+        print(f"[kernels] flash_attention ({kind}, {rec['grid']} CTAs) at {shape} bf16 "
+              f"{'causal' if causal else 'non-causal'}: kernel_ms {k1:.3f} {k2:.3f}  plain_ms "
+              f"{p1:.3f} {p2:.3f}  sdpa_ms {l1:.3f} {l2:.3f}  bound_ms {bound_ms:.4f} "
+              f"({bound_by}: {flops:.3e} flops, {nbytes:.3e} bytes)")
+        recs.append(rec)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # K2's gradient at hubert's shape, non-causal (FA_AUDIO, bf16).
+    b, hq, hkv, s, t, d = FA_AUDIO
+    q, k, v, do = (torch.randn(*sh, generator=gen).to(dev, torch.bfloat16)
+                   for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d), (b, hq, s, d)))
+    readings = grad_readings(autograd_grads(torch, ops.flash_attention, q, k, v, do, False),
+                             autograd_grads(torch, ref.attention_ref, q, k, v, do, False))
+    print(f"[kernels] flash_attention gradient bf16 non-causal at {FA_AUDIO}: {readings} (gate "
+          f"{GRAD_BF16_TOL})")
+    if not max(readings.values()) <= GRAD_BF16_TOL:
+        raise AssertionError(f"K2 gradient disagrees with plain at {FA_AUDIO}: {readings}")
+    recs[-1]["grad_readings"] = readings
+    recs[0]["scalar_ptxas"] = ptxas
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return recs
+
+
+def profile_split(torch, fn, run_ms: float) -> dict:
+    """One call of fn under torch.profiler: device ms by STEP_CATEGORIES,
+    the busy share against an unprofiled run of run_ms, the largest
+    kernels."""
+    wall, rows = profile_rows(torch, fn)
+    dev_ms = sum(ms for _, ms in rows)
+    return {"profiled_wall_ms": wall, "device_ms": dev_ms, "busy_share": dev_ms / run_ms,
+            "categories": step_categories(rows),
+            "top": [(k[:60], round(ms, 3)) for k, ms in rows[:8]]}
+
+
+def phase_vlm_serve(torch, card: str):
+    """The port's serve at phi-3-vision-4.2b's full width and depth: LM_BATCH
+    prompts of LM_PROMPT tokens after VLM_IMG image positions, VLM_GEN greedy
+    tokens, a cache of VLM_IMG + LM_PROMPT + VLM_GEN positions.  Gates: one
+    K2 launch a layer (32), tokens in the vocabulary, logits and cache
+    finite, each layer's K2 against plain on its own inputs (a planted
+    wrong attention rejected); the end-to-end logits against the
+    plain-attention twin printed; the prefill and a decode step profiled.
+    Returns K2's launch count over the run."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, model
+
+    argv = ["--arch", VLM_ARCH, "--full-config", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(VLM_GEN), "--device", "cuda"]
+    serve.run(serve.parse_args(argv[:3] + ["--n-layers", "2", "--prompt-len", "64", "--gen", "2",
+                                          "--device", "cuda"]))  # warm, at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = serve.run(serve.parse_args(argv + ["--json"]))
+    launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, pay, tokens, last = out["cfg"], out["payload"], out["tokens"], out["last_logits"]
+    n_pos = cfg.n_img_tokens + LM_PROMPT
+    if launches != cfg.n_layers:
+        raise AssertionError(f"VLM serve: {launches} K2 launches, expected {cfg.n_layers} "
+                             f"(one per layer of the prefill)")
+    if tuple(tokens.shape) != (LM_BATCH, VLM_GEN) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"VLM serve: tokens {tuple(tokens.shape)} or outside the vocabulary")
+    cache = out["cache"]["layers"]
+    if cache["k"].shape[2] != n_pos + VLM_GEN or not bool(torch.isfinite(last).all()) \
+            or not all(bool(torch.isfinite(t).all()) for t in cache.values()):
+        raise AssertionError(f"VLM serve: a cache of {cache['k'].shape[2]} positions (expected "
+                             f"{n_pos + VLM_GEN}), or logits or cache not finite")
+
+    params, batch = out["params"], out["batch"]
+    logits_k, layers, planted, _ = prefill_checked(torch, cfg, params, batch)
+    last_k = logits_k[:, -1, :].clone()
+    del logits_k
+    with mock.patch.object(attention.ops, "flash_attention", ref.attention_ref):
+        logits_p, _ = model.prefill(cfg, params, batch)
+    last_p = logits_p[:, -1, :].clone()
+    del logits_p
+    e2e = {"logits_row_reading": row_reading(last_k, last_p),
+           "argmax_agree": float((last_k.argmax(-1) == last_p.argmax(-1)).float().mean()),
+           "rerun_bit_identical": bool(torch.equal(last_k, last))}
+    print(f"[vlm serve] each layer's K2 (D 96) vs plain on its inputs, bf16 readings (gate "
+          f"{BF16_ROW_ULPS}): {[round(r, 3) for r in layers]}; planted (layer 0, causal limit one "
+          f"key late) {planted:.3f}; end to end vs the plain-attention twin (printed): {e2e}")
+    if len(layers) != cfg.n_layers or not max(layers) <= BF16_ROW_ULPS:
+        raise AssertionError(f"VLM serve: a layer's K2 disagrees with plain: {layers}")
+    if planted <= BF16_ROW_ULPS:
+        raise AssertionError("VLM serve: the per-layer gate passes a planted wrong attention")
+
+    tok = tokens[:, -1:].to(last.device)
+    prof = {"prefill": profile_split(torch, lambda: model.prefill(cfg, params, batch),
+                                     pay["prefill_ms"]),
+            "decode_step": profile_split(
+                torch, lambda: model.decode_step(cfg, params, out["cache"], tok,
+                                                 n_pos + VLM_GEN - 1),
+                pay["decode_ms_per_token"])}
+    for what, p in prof.items():
+        print(f"[vlm serve] profile {what}: device kernels {p['device_ms']:.2f} ms (busy share "
+              f"{p['busy_share']:.3f}); by category {p['categories']}; top {p['top']}")
+    n_params = cfg.param_counts()["total"]
+    print(f"[vlm serve] {card}: {cfg.name} ({n_params:.4e} params, bf16) batch {LM_BATCH} "
+          f"image {cfg.n_img_tokens} + prompt {LM_PROMPT} gen {VLM_GEN}: prefill "
+          f"{pay['prefill_ms']:.1f} ms ({pay['prefill_tokens_per_s']:.1f} positions/s)  decode "
+          f"{pay['decode_ms_per_token']:.3f} ms/token  K2 launches {launches} (D 96)  peak "
+          f"device memory {peak_gb:.2f} GB")
+    print("VLM_SERVE " + json.dumps({
+        **pay, "card": card, "params": n_params, "launches": launches, "peak_mem_gb": peak_gb,
+        "cache_positions": n_pos + VLM_GEN, "layer_readings": layers, "planted_layer0": planted,
+        "end_to_end": e2e, "first_row": tokens[0].tolist(), "profile": prof}))
+    del out, params, batch, cache, last, last_k, last_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_audio_encode(torch, card: str):
+    """hubert-xlarge at full width and depth: one encode (model.prefill, the
+    entry point of an encoder-only arch) of LM_BATCH x LM_PROMPT frames from
+    audio_batches, after a short warm one.  Gates: one K2 launch a layer,
+    every one non-causal, no cache, logits (B, S, 504) finite, each layer's
+    K2 against plain on its own inputs (a planted causal mask rejected); the
+    logits against the plain-attention twin printed; the encode profiled.
+    Returns K2's launch count over the encode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import attention, model
+
+    cfg = get_config(AUDIO_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.cast_params(cfg, model.init(cfg, 0, "cuda"))
+    feats = torch.as_tensor(make_batches(cfg, LM_BATCH, LM_PROMPT, 0)(0)["features"],
+                            device="cuda")
+    model.prefill(cfg, params, {"features": feats[:, :64]})  # warm
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(cfg, params, {"features": feats})
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != cfg.n_layers:
+        raise AssertionError(f"audio encode: {launches} K2 launches, expected {cfg.n_layers}")
+    if cache is not None or tuple(logits.shape) != (LM_BATCH, LM_PROMPT, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"audio encode: logits {tuple(logits.shape)} not finite or a cache")
+
+    batch = {"features": feats}
+    logits_k, layers, planted, flags = prefill_checked(torch, cfg, params, batch)
+    with mock.patch.object(attention.ops, "flash_attention", ref.attention_ref):
+        logits_p, _ = model.prefill(cfg, params, batch)
+    e2e = {"logits_row_reading": row_reading(logits_k, logits_p),
+           "argmax_agree": float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean()),
+           "rerun_bit_identical": bool(torch.equal(logits_k, logits))}
+    del logits_k, logits_p
+    print(f"[audio encode] each layer's K2 (D 80) vs plain on its inputs, bf16 readings (gate "
+          f"{BF16_ROW_ULPS}): {[round(r, 3) for r in layers]}; causal flags {set(flags)}; "
+          f"planted (layer 0, a causal mask) {planted:.3f}; end to end vs the plain-attention "
+          f"twin (printed): {e2e}")
+    if len(layers) != cfg.n_layers or not max(layers) <= BF16_ROW_ULPS or any(flags):
+        raise AssertionError(f"audio encode: a layer's K2 disagrees with plain or was causal: "
+                             f"{layers}, {flags}")
+    if planted <= BF16_ROW_ULPS:
+        raise AssertionError("audio encode: the per-layer gate passes a planted causal mask")
+    prof = profile_split(torch, lambda: model.prefill(cfg, params, batch), encode_ms)
+    n_params = cfg.param_counts()["total"]
+    rec = {"card": card, "arch": cfg.name, "params": n_params, "batch": LM_BATCH,
+           "frames": LM_PROMPT, "encode_ms": encode_ms,
+           "frames_per_s": LM_BATCH * LM_PROMPT / encode_ms * 1e3, "launches": launches,
+           "peak_mem_gb": peak_gb, "layer_readings": layers, "planted_layer0": planted,
+           "end_to_end": e2e, "profile": prof}
+    print(f"[audio encode] {card}: {cfg.name} ({n_params:.4e} params, bf16) {LM_BATCH} x "
+          f"{LM_PROMPT} frames: encode {encode_ms:.1f} ms ({rec['frames_per_s']:.1f} frames/s), "
+          f"K2 launches {launches} (D 80, non-causal), peak device memory {peak_gb:.2f} GB; "
+          f"profile: device kernels {prof['device_ms']:.2f} ms (busy share "
+          f"{prof['busy_share']:.3f}), by category {prof['categories']}; top {prof['top']}")
+    print("AUDIO_ENCODE " + json.dumps(rec))
+    del params, feats, logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def image_after_text(cfg, params, batch):
+    """Planted: the VLM's projected image tokens placed after the text."""
+    import torch
+
+    from repro_torch.models import model, transformer
+
+    h = model._embed_tokens(cfg, params, batch["tokens"])
+    img = transformer.apply_vlm_projector(params["projector"], batch["img_embeds"], cfg.cdtype)
+    return torch.cat([h, img], dim=1)
+
+
+def phase_vlm_audio_card_vs_cpu(torch):
+    """The phi-3-vision and hubert-xlarge SMOKE configs (fp32) on the card
+    and on the CPU from one CPU init: the forward's logits within 1e-4 of
+    their largest |value| and the loss within 1e-5 relative, then three SGD
+    steps (params within 1e-4 of each leaf's largest |value|, losses within
+    1e-5 relative).  Planted faults must fail the forward check: the VLM's
+    image tokens after the text, hubert's attention causal."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import model
+    from repro_torch.optim import sgd
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.runtime import steps
+
+    out = {}
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        cfg = get_smoke_config(arch)
+        batches = make_batches(cfg, 4, 64, 0)
+        start = steps.init_train_state(cfg, sgd(0.5), 0, "cpu")
+
+        def forward(dev, fault=False):
+            params = tree_map(lambda t: t.clone().to(dev), start["params"])
+            batch = steps.batch_to_device(batches(0), dev)
+            c = dataclasses.replace(cfg, causal=True) if fault and cfg.family == "audio" else cfg
+            with contextlib.ExitStack() as stack:
+                if fault and cfg.family == "vlm":
+                    stack.enter_context(mock.patch.object(model, "_embed_inputs",
+                                                          image_after_text))
+                logits, _ = model.forward(c, params, batch)
+                loss, _ = model.loss_fn(c, params, batch)
+            return logits.cpu(), loss.item()
+
+        (lc, loss_c), (lp, loss_p) = forward("cuda"), forward("cpu")
+        logits_rel, loss_rel = rel_err(lc, lp), abs(loss_c - loss_p) / abs(loss_p)
+        planted = rel_err(forward("cuda", fault=True)[0], lp)
+
+        def run(dev):
+            state = tree_map(lambda t: t.clone().to(dev), start)
+            step, losses = steps.make_train_step(cfg, sgd(0.5)), []
+            for i in range(3):
+                state, m = step(state, batches(i))
+                losses.append(m["loss"].item())
+            return [t.detach().cpu() for t in leaves(state["params"])], losses
+
+        (pc, sc), (pp, sp) = run("cuda"), run("cpu")
+        reading = max(rel_err(a, b) for a, b in zip(pc, pp))
+        step_rel = max(abs(a - b) / abs(b) for a, b in zip(sc, sp))
+        out[arch] = {"logits_rel": logits_rel, "loss_rel": loss_rel, "planted": planted,
+                     "param_reading": reading, "step_loss_rel": step_rel}
+        print(f"[vlm/audio card vs cpu] {cfg.name} smoke: forward max|d|/max|cpu| "
+              f"{logits_rel:.3e} (tol 1e-4), loss rel {loss_rel:.2e} (tol 1e-5); planted "
+              f"({'image tokens after the text' if cfg.family == 'vlm' else 'causal attention'}) "
+              f"{planted:.3e}; 3 SGD steps: params {reading:.3e} (tol 1e-4), losses rel "
+              f"{step_rel:.2e} (tol 1e-5): card {sc}, cpu {sp}")
+        if not (logits_rel <= 1e-4 and loss_rel <= 1e-5 and reading <= 1e-4 and step_rel <= 1e-5):
+            raise AssertionError(f"{cfg.name}: card and CPU disagree: {out[arch]}")
+        if planted <= 1e-4:
+            raise AssertionError(f"{cfg.name}: the forward check passes a planted fault")
+    return out
 
 
 def numbers(obj):
@@ -3631,12 +4051,14 @@ def main() -> int:
         print(f"[phase] {name}: {time.perf_counter() - t:.1f}s")
         return res
 
-    wgmma_build, slstm_build = timed("build", phase_build)
+    wgmma_build, scalar_build, slstm_build = timed("build", phase_build)
     rec = timed("dict_dual_step", phase_kernels, torch)
     fa_rec = timed("flash_attention", phase_flash_attention, torch)
     fa_rec["wgmma_build"] = wgmma_build  # HGMMA in the SASS, ptxas registers and spills
     fa_rec["backward"] = timed("flash_attention gradient", phase_flash_attention_grad, torch)
     fa_rec["moe_shapes"] = timed("flash_attention MoE shapes", phase_flash_attention_moe, torch)
+    fa_rec["vlm_audio_shapes"] = timed("flash_attention VLM and audio shapes",
+                                       phase_flash_attention_vlm_audio, torch, scalar_build)
     moe_layer = timed("MoE layer", phase_moe_layer, torch)
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     timed("small coder", phase_small_coder, torch)
@@ -3645,21 +4067,38 @@ def main() -> int:
     gossip = timed("gossip modes", phase_gossip_modes, torch, card)
     fa_rec["launches"] = timed("gemma-2b serve", phase_lm, torch, card)
     sl_rec["launches"] = timed("xlstm-1.3b serve", phase_xlstm, torch, card)
-    train = timed("olmo-1b train", phase_olmo_train, torch, card)
+    train = timed("olmo-1b train", phase_train, torch, card, "train", TRAIN_ARCH, TRAIN_LAYERS,
+                  TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT)
     timed("train card vs cpu", phase_train_card_vs_cpu, torch)
     moe_serve = timed("granite-moe serve", phase_moe_serve, torch, card)
     moe_train = timed("granite-moe train", phase_moe_train, torch, card)
     kimi = timed("kimi-k2 cut serve", phase_kimi, torch, card)
     moe_cpu = timed("MoE card vs cpu", phase_moe_card_vs_cpu, torch)
+    vlm_serve = timed("phi-3-vision serve", phase_vlm_serve, torch, card)
+    vlm_train = timed("phi-3-vision train", phase_train, torch, card, "vlm train", VLM_ARCH,
+                      VLM_TRAIN_LAYERS, VLM_STEPS, VLM_CKPT_EVERY, VLM_FAULT_AT,
+                      VLM_AUDIO_GRAD_FLOOR)
+    audio = timed("hubert-xlarge encode", phase_audio_encode, torch, card)
+    audio_train = timed("hubert-xlarge train", phase_train, torch, card, "audio train",
+                        AUDIO_ARCH, AUDIO_TRAIN_LAYERS, AUDIO_STEPS, AUDIO_CKPT_EVERY,
+                        AUDIO_FAULT_AT, VLM_AUDIO_GRAD_FLOOR)
+    va_cpu = timed("VLM and audio card vs cpu", phase_vlm_audio_card_vs_cpu, torch)
     fa_rec["launches_by_path"] = {"gemma-2b serve": fa_rec["launches"],
                                   "olmo-1b train": train["launches"],
                                   "granite-moe serve": moe_serve,
                                   "granite-moe train": moe_train["launches"],
-                                  "kimi-k2 cut serve": kimi}
-    fa_rec["launches"] += train["launches"] + moe_serve + moe_train["launches"] + kimi
+                                  "kimi-k2 cut serve": kimi,
+                                  "phi-3-vision serve": vlm_serve,
+                                  "phi-3-vision train": vlm_train["launches"],
+                                  "hubert-xlarge encode": audio,
+                                  "hubert-xlarge train": audio_train["launches"]}
+    fa_rec["launches"] = sum(fa_rec["launches_by_path"].values())
     fa_rec["train_launches_per_step"] = train["launches_per_step"]
     fa_rec["moe_train_launches_per_step"] = moe_train["launches_per_step"]
+    fa_rec["vlm_train_launches_per_step"] = vlm_train["launches_per_step"]
+    fa_rec["audio_train_launches_per_step"] = audio_train["launches_per_step"]
     print("MOE_CHECKS " + json.dumps({"layer": moe_layer, "card_vs_cpu": moe_cpu}))
+    print("VLM_AUDIO_CHECKS " + json.dumps({"card_vs_cpu": va_cpu}))
     # The diffusion's step is bounded by the worst block's curvature
     # (sigma_max(W_k)^2 / delta, about 58 here) while its consensus term
     # contracts by only mu / N per iteration, so after 150 iterations at this

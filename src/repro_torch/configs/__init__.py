@@ -1,11 +1,13 @@
 """Architecture registry: --arch <id> resolves here.
 
-Port of src/repro/configs/__init__.py, with the same ids and aliases.  Three
+Port of src/repro/configs/__init__.py, with the same ids and aliases.  Five
 families are ported: dense (gemma_2b, olmo_1b, granite_8b, qwen3_32b),
-xlstm (xlstm_1p3b) and moe (granite_moe_1b_a400m, kimi_k2_1t_a32b), each
-config with CONFIG (the full configuration) and SMOKE (a reduced
-same-family config for CPU tests), copied from the JAX package.  Asking for an architecture of a family not ported yet raises
-NotImplementedError naming the ROADMAP slice that ports it.
+xlstm (xlstm_1p3b), moe (granite_moe_1b_a400m, kimi_k2_1t_a32b), vlm
+(phi3_vision_4p2b) and audio (hubert_xlarge), each config with CONFIG (the
+full configuration) and SMOKE (a reduced same-family config for CPU
+tests), copied from the JAX package.  Asking for an architecture of a
+family not ported yet (hybrid) raises NotImplementedError naming the
+ROADMAP slice that ports it.
 """
 
 from __future__ import annotations
@@ -44,20 +46,16 @@ ALIASES: Dict[str, str] = {
 }
 
 PORTED = ("qwen3_32b", "olmo_1b", "granite_8b", "gemma_2b", "xlstm_1p3b",
-          "kimi_k2_1t_a32b", "granite_moe_1b_a400m")
-PORTED_FAMILIES = ("dense", "xlstm", "moe")
+          "kimi_k2_1t_a32b", "granite_moe_1b_a400m", "phi3_vision_4p2b", "hubert_xlarge")
+PORTED_FAMILIES = ("dense", "xlstm", "moe", "vlm", "audio")
 
 # The ROADMAP section 1 slice that ports each remaining family, and the
 # family of each architecture not ported yet.
 FAMILY_SLICES: Dict[str, str] = {
     "hybrid": "the hybrid (Mamba2) slice",
-    "vlm": "the VLM slice",
-    "audio": "the audio-encoder slice",
 }
 NOT_PORTED: Dict[str, str] = {
     "zamba2_1p2b": "hybrid",
-    "phi3_vision_4p2b": "vlm",
-    "hubert_xlarge": "audio",
 }
 
 

@@ -98,8 +98,11 @@ def lm_params_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict:
     (L, E, F, D) and, with shared experts, a "shared" MLP; "dense_layers"
     holds the leading dense blocks.  xlstm: "mlstm" and "slstm" stacks, the
     projections (fan_in, fan_out), the block-diagonal q/k/v and the sLSTM's
-    r_* (L, H, P, P) indexed (in, out).  One embedding table (V, D) that the
-    tied unembedding reads transposed.  So every leaf crosses as it is, in
+    r_* (L, H, P, P) indexed (in, out).  vlm: the dense stack and
+    "projector" {"w1" (vision_dim, D), "w2" (D, D)}; audio: the dense stack,
+    "frame_proj" {"w" (frame_dim, D)} and no embedding.  One embedding table
+    (V, D) that the tied unembedding reads transposed, or an untied
+    "head" {"w" (D, V)} (audio).  So every leaf crosses as it is, in
     cfg.param_dtype (bf16 leaves, numpy's ml_dtypes bfloat16, widen to
     fp32 exactly and round back), onto `device`; the nesting is kept, empty
     dicts (the nonparametric norms) included.  Families not ported raise."""

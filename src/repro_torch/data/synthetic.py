@@ -15,9 +15,10 @@ package's, so both give the same numbers for the same arguments:
   * `topic_documents`: topic-mixture documents with novel topics arriving
     by step, the stand-in for TDT2 (the novel-document experiment);
   * `TokenStream`, `lm_batches`: the Markov-bigram token stream of the LM
-    training path.
-
-`audio_batches` and `vlm_batches` wait for the audio and VLM slices.
+    training path;
+  * `audio_batches`: HuBERT-style masked-prediction batches (frame
+    features tied to cluster targets, masked frames zeroed);
+  * `vlm_batches`: the token stream with precomputed image embeddings.
 """
 
 from __future__ import annotations
@@ -229,3 +230,36 @@ class TokenStream:
 
 def lm_batches(vocab: int, batch: int, seq: int, n_batches: int, seed: int = 0):
     return TokenStream(vocab, seed).batches(batch, seq, n_batches)
+
+
+def audio_batches(frame_dim: int, vocab: int, batch: int, seq: int, n_batches: int,
+                  mask_frac: float = 0.08, seed: int = 0):
+    """HuBERT-style masked-prediction batches: {"features" (B, T, frame_dim)
+    float32, "targets" (B, T) int32, "mask" (B, T) bool}."""
+    rng = np.random.default_rng(seed)
+    # cluster centroids tie features to targets so the task is learnable
+    centroids = rng.standard_normal((vocab, frame_dim)).astype(np.float32)
+    for _ in range(n_batches):
+        targets = rng.integers(0, vocab, (batch, seq))
+        feats = centroids[targets] + 0.3 * rng.standard_normal((batch, seq, frame_dim)).astype(np.float32)
+        mask = rng.random((batch, seq)) < mask_frac
+        feats = feats.copy()
+        feats[mask] = 0.0  # masked frames are zeroed (stub for the learned mask emb)
+        yield {
+            "features": feats.astype(np.float32),
+            "targets": targets.astype(np.int32),
+            "mask": mask,
+        }
+
+
+def vlm_batches(vocab: int, n_img_tokens: int, vision_dim: int, batch: int,
+                seq_text: int, n_batches: int, seed: int = 0):
+    """{"tokens" (B, seq_text) int32 from the token stream, "img_embeds"
+    (B, n_img_tokens, vision_dim) float32 standard normal}."""
+    rng = np.random.default_rng(seed)
+    stream = TokenStream(vocab, seed)
+    for toks in stream.batches(batch, seq_text, n_batches):
+        yield {
+            "tokens": toks,
+            "img_embeds": rng.standard_normal((batch, n_img_tokens, vision_dim)).astype(np.float32),
+        }

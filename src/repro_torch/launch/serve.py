@@ -1,15 +1,19 @@
 """Serving launcher: batched prefill + greedy decode loop with a KV cache,
 on one card.
 
-Port of src/repro/launch/serve.py for the dense, moe and xlstm LM
+Port of src/repro/launch/serve.py for the dense, moe, vlm and xlstm LM
 families.  Prefills the prompt batch once, then steps the decode function
-greedily.  Dense and moe: every layer's attention runs through the
+greedily.  Dense, moe and vlm: every layer's attention runs through the
 flash-attention kernel (K2), and the prompt's KV is copied into a cache of
 prompt + gen positions (moe with leading dense layers: the "dense" and
 "layers" caches, as JAX merges them); each MoE layer dispatches by
-capacity (models/moe.py).  xlstm: every sLSTM block's recurrence is one
-launch of the sLSTM kernel (K3), and the prefill's state caches are
-carried over as they are.  At full width:
+capacity (models/moe.py).  vlm: each prompt has n_img_tokens image
+embeddings before its text, drawn from the same generator after the
+prompts (as JAX's), so the prefill covers n_img_tokens + prompt positions
+and the cache n_img_tokens + prompt + gen.  xlstm: every sLSTM block's
+recurrence is one launch of the sLSTM kernel (K3), and the prefill's state
+caches are carried over as they are.  The audio family is encoder-only
+and is refused, as by JAX's CLI.  At full width:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \\
       --full-config --batch 4 --prompt-len 2048 --gen 32
@@ -17,6 +21,8 @@ carried over as they are.  At full width:
       --full-config --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi_k2_1t_a32b \\
       --full-config --n-layers 2 --batch 4 --prompt-len 2048 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b \\
+      --full-config --batch 4 --prompt-len 2048 --gen 8
 
 `--n-layers` cuts the depth of the chosen config (kimi-k2's 61 layers do
 not fit one card; 2 keep its dense first layer and one MoE layer) and
@@ -71,6 +77,7 @@ def run(args: argparse.Namespace) -> Dict:
     """Serve one prompt batch.  Returns {"tokens": (B, gen) int64 on the
     CPU, "prefill_ms", "decode_ms_per_token", "payload": the BENCH dict,
     and for checks: "cfg", "params" (as `cast_params` leaves them), "prompts",
+    "batch" (the prefill's input: the prompts, and vlm's image embeddings),
     "last_logits" (B, V) fp32 of the prefill's last position,
     "prefill_cache" and "cache" (for xlstm one tree: the state caches are
     carried over and the decode loop advances them in place)}."""
@@ -90,19 +97,29 @@ def run(args: argparse.Namespace) -> Dict:
         raise SystemExit("--gen must be at least 1")
     device = resolve_device(args.device)
 
-    max_len = args.prompt_len + args.gen
+    # The prefill fills the image positions and the prompt, and decode
+    # writes gen - 1 more: the cache holds n_img + prompt + gen positions.
+    # JAX's CLI (src/repro/launch/serve.py:48) sizes it prompt + gen, so a
+    # VLM's last n_img decode writes are clamped into its last slot.
+    n_img = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    max_len = n_img + args.prompt_len + args.gen
     # Serving needs only the compute copy: cast once, keep no fp32 master.
     params = M.cast_params(cfg, M.init(cfg, seed=args.seed, device=device))
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)), device=device
     )
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.as_tensor(
+            rng.standard_normal((args.batch, n_img, cfg.vision_dim)), device=device
+        ).to(cfg.cdtype)
 
     # Prefill: run the prompt through the model, then copy the per-layer KV
     # into a max_len cache (the xlstm state caches need no copy).
     _sync(device)
     t0 = time.perf_counter()
-    logits, pre_cache = M.prefill(cfg, params, {"tokens": prompts})
+    logits, pre_cache = M.prefill(cfg, params, batch)
     last_logits = logits[:, -1, :].clone()
     del logits  # (B, S, V) fp32: 8.4 GB at gemma-2b, B 4, S 2048
     cache = None if cfg.family == "xlstm" else M.init_cache(cfg, args.batch, max_len, device=device)
@@ -114,7 +131,7 @@ def run(args: argparse.Namespace) -> Dict:
     out_tokens = [tok]
     t0 = time.perf_counter()
     for i in range(args.gen - 1):
-        step_logits, cache = M.decode_step(cfg, params, cache, tok, args.prompt_len + i)
+        step_logits, cache = M.decode_step(cfg, params, cache, tok, n_img + args.prompt_len + i)
         tok = torch.argmax(step_logits[:, -1, :], dim=-1)[:, None]
         out_tokens.append(tok)
     _sync(device)
@@ -127,11 +144,12 @@ def run(args: argparse.Namespace) -> Dict:
         "device": str(device),
         "batch": args.batch,
         "prompt_len": args.prompt_len,
+        "n_img_tokens": n_img,
         "gen": args.gen,
         "prefill_ms": prefill_s * 1e3,
         "decode_ms_per_token": decode_s * 1e3 / steps,
         "decode_tokens_per_s": args.batch * (args.gen - 1) / decode_s if decode_s > 0 else None,
-        "prefill_tokens_per_s": args.batch * args.prompt_len / prefill_s,
+        "prefill_tokens_per_s": args.batch * (n_img + args.prompt_len) / prefill_s,
     }
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} gen={args.gen}")
     print(f"prefill {payload['prefill_ms']:.1f} ms; decode "
@@ -142,19 +160,20 @@ def run(args: argparse.Namespace) -> Dict:
     return {
         "tokens": gen, "prefill_ms": payload["prefill_ms"],
         "decode_ms_per_token": payload["decode_ms_per_token"], "payload": payload,
-        "cfg": cfg, "params": params, "prompts": prompts, "last_logits": last_logits,
+        "cfg": cfg, "params": params, "prompts": prompts, "batch": batch,
+        "last_logits": last_logits,
         "prefill_cache": pre_cache, "cache": cache,
     }
 
 
 def _merge_prefill_cache(cfg, cache: Optional[dict], pre_cache: dict) -> dict:
-    """Copy the prefill cache (length = prompt) into the max_len cache, in
-    place: "layers", and "dense" where an MoE config has leading dense
-    layers.  The xlstm caches are pure state: the prefill's is carried over
-    as it is (and `cache` is not read)."""
+    """Copy the prefill cache (length = prompt, with vlm's image positions)
+    into the max_len cache, in place: "layers", and "dense" where an MoE
+    config has leading dense layers.  The xlstm caches are pure state: the
+    prefill's is carried over as it is (and `cache` is not read)."""
     if cfg.family == "xlstm":
         return pre_cache
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise KeyError(cfg.family)
     for stack, layers in cache.items():
         for name, full in layers.items():

@@ -1,12 +1,14 @@
 """Training launcher, on one card.
 
-Port of src/repro/launch/train.py for the dense and moe LM families: the
-smoke config of --arch (or with --full-config the full one) trains on the
-Markov token stream through the fault-tolerant runner, with AdamW on a
-cosine warmup (Adafactor for a bf16-param config, kimi-k2's), checkpoints,
-an injected fault (--inject-fault-at) and an elastic reload
-(--rescale-mesh).  The loss of an MoE config carries 0.01 x its
-load-balance aux (the step's `moe_aux`):
+Port of src/repro/launch/train.py for the dense, moe, vlm and audio
+families: the smoke config of --arch (or with --full-config the full one)
+trains on its synthetic stream (the Markov tokens; with image embeddings
+before the text for vlm, whose loss is over the text; hubert's
+masked-prediction frames for audio) through the fault-tolerant runner,
+with AdamW on a cosine warmup (Adafactor for a bf16-param config,
+kimi-k2's), checkpoints, an injected fault (--inject-fault-at) and an
+elastic reload (--rescale-mesh).  The loss of an MoE config carries 0.01 x
+its load-balance aux (the step's `moe_aux`):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b --steps 12 \\
       --batch 8 --seq 64 --ckpt-every 5 --inject-fault-at 7 --rescale-mesh 1x1
@@ -14,13 +16,17 @@ load-balance aux (the step's `moe_aux`):
       --batch 4 --seq 2048 --steps 12 --ckpt-every 6 --ckpt-dir build/ckpt_olmo
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_moe_1b_a400m \\
       --full-config --batch 4 --seq 2048 --steps 8 --ckpt-every 4 --inject-fault-at 6
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi-3-vision-4.2b \\
+      --full-config --n-layers 4 --batch 4 --seq 2048 --steps 6 --ckpt-every 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \\
+      --full-config --batch 4 --seq 2048 --steps 6 --ckpt-every 3
 
 `--n-layers` cuts the depth of the chosen config and keeps every width.
 Weights are random, made from --seed on the device.  `--device cpu` runs on
 the CPU (the default is the card, and no card is an error).  One card
 holds the whole run, so --mesh and --rescale-mesh take only 1x1: a sharded
 run is ROADMAP section 1's sharded-training item.  xlstm waits for the
-xLSTM-training item (K3's gradient); the other families for their slices.
+xLSTM-training item (K3's gradient); hybrid for its slice.
 Checkpoints go to --ckpt-dir, by default a fresh directory under
 build/checkpoints/.
 
@@ -49,11 +55,24 @@ CKPT_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "checkpoints
 
 
 def make_batches(cfg, batch: int, seq: int, seed: int = 0):
-    """Step-indexed batch factory (replay-safe): step -> {"tokens": (B, S)
-    int32 numpy}."""
-    if cfg.family in FAMILY_SLICES:  # audio and vlm batches wait for their slices
+    """Step-indexed batch factory (replay-safe), numpy batches as JAX's:
+    step -> {"tokens": (B, S) int32}; audio {"features", "targets",
+    "mask"} of S frames; vlm {"tokens": (B, max(S - n_img_tokens, 8)),
+    "img_embeds"}, S positions in all for S >= n_img_tokens + 8."""
+    if cfg.family in FAMILY_SLICES:
         raise NotImplementedError(f"{cfg.name}: {cfg.family} batches wait for ROADMAP "
                                   f"section 1, {FAMILY_SLICES[cfg.family]}")
+    if cfg.family == "audio":
+        def fn(step):
+            gen = data.audio_batches(cfg.frame_dim, cfg.vocab, batch, seq, 1, seed=seed + step)
+            return next(iter(gen))
+        return fn
+    if cfg.family == "vlm":
+        def fn(step):
+            gen = data.vlm_batches(cfg.vocab, cfg.n_img_tokens, cfg.vision_dim, batch,
+                                   max(seq - cfg.n_img_tokens, 8), 1, seed=seed + step)
+            return next(iter(gen))
+        return fn
     stream = data.TokenStream(cfg.vocab, seed)
 
     def fn(step):

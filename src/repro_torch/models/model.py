@@ -1,10 +1,19 @@
 """Model assembly for the ported LM families: ArchConfig -> init / forward /
 prefill / decode.
 
-Port of the dense, moe and xlstm parts of src/repro/models/model.py:
+Port of the dense, moe, vlm, audio and xlstm parts of
+src/repro/models/model.py:
   dense   a pre-norm decoder stack (qwen3, olmo, granite, gemma);
   moe     the same stack with the MoE FFN (models/moe.py), after
           `first_dense` leading dense blocks (kimi's first layer);
+  vlm     the dense stack over [projected image tokens, text tokens]: the
+          batch's "img_embeds" (B, n_img_tokens, vision_dim) go through
+          the projector and come before the text (phi-3-vision); decode
+          steps are text tokens at positions n_img_tokens + prompt + i;
+  audio   an encoder-only stack (cfg.causal False: K2 non-causal) over the
+          frame projection of the batch's "features" (B, T, frame_dim),
+          with an untied head over the cluster targets (hubert); prefill
+          encodes and returns no cache, and there is no decode step;
   xlstm   groups of (slstm_every - 1) pre-norm mLSTM blocks followed by one
           pre-norm sLSTM block, whose recurrence is one K3 launch
           (models/xlstm.py).
@@ -13,10 +22,13 @@ tensors stacked on a leading layer axis (what the JAX side scans over:
 "layers" for dense; "dense_layers", over first_dense blocks when it is
 set, and "layers", over the rest, for moe; "mlstm", over n_groups *
 (slstm_every - 1) blocks, and "slstm", over n_groups, for xlstm); the port
-walks the layers with a Python loop.  Every entry point first brings the
-params into the form it walks (`cast_params`): float tensors in the
-compute dtype (the MoE router too: `apply_moe` widens it to fp32), as
-the JAX `_cast_params` does, and each stack split into a list of
+walks the layers with a Python loop.  Every entry point takes the batch
+as JAX's does (a dict of tensors or numpy arrays, moved to the params'
+device): "tokens", and "img_embeds" for vlm, "features" for audio
+("targets" and "mask" too for the audio loss).  Every entry point first
+brings the params into the form it walks (`cast_params`): float tensors
+in the compute dtype (the MoE router too: `apply_moe` widens it to fp32),
+as the JAX `_cast_params` does, and each stack split into a list of
 per-layer views.
 A tree already in that form passes through untouched, so a server
 prepares it once and its decode loop does no per-step tree work.  The
@@ -32,10 +44,12 @@ input is kept, and its forward runs again in the backward, as the JAX
 `_maybe_remat` with `nothing_saveable`; its K2 launch then runs twice.
 
 `forward` returns the MoE load-balance aux summed over every layer (dense
-layers first; 0 without experts), and `loss_fn` is the masked fp32
-next-token cross-entropy plus 0.01 x that aux.  The other families
-(hybrid, vlm, audio) raise, naming their ROADMAP slice; xlstm trains with
-the xLSTM-training item (K3's gradient).
+layers first; 0 without experts), and `loss_fn` is the fp32 cross-entropy
+plus 0.01 x that aux: next-token over the text (vlm: the logits after the
+image tokens), masked prediction of the targets at the masked frames
+(audio).  The untied head (audio; any config without tie_embeddings) is
+h @ head.w with fp32 accumulation.  The hybrid family raises, naming its
+ROADMAP slice; xlstm trains with the xLSTM-training item (K3's gradient).
 """
 
 from __future__ import annotations
@@ -51,16 +65,15 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import apply_norm, embed, init_embedding, init_norm, unembed
+from repro_torch.models.layers import (apply_norm, dense_init, embed, init_embedding, init_norm,
+                                       unembed)
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run: other families, untied heads."""
+    """Raise for what the port does not run: the families not ported yet,
+    an xlstm depth that is not whole groups."""
     if cfg.family not in PORTED_FAMILIES:
         raise not_ported(cfg.name, cfg.family)
-    if not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: untied output heads are not ported "
-                                  f"(every dense, moe and xlstm config ties its embeddings)")
     if cfg.family == "xlstm" and (not cfg.slstm_every or cfg.n_layers % cfg.slstm_every):
         raise ValueError(f"{cfg.name}: xlstm expects n_layers % slstm_every == 0")
 
@@ -106,7 +119,8 @@ def require_trainable(cfg: ArchConfig) -> None:
     if cfg.family == "xlstm":
         raise NotImplementedError(
             f"{cfg.name}: xlstm training is not ported yet (ROADMAP section 1, the "
-            f"xLSTM-training item: K3 has no gradient); the port trains the dense family"
+            f"xLSTM-training item: K3 has no gradient); the port trains the dense, "
+            f"moe, vlm and audio families"
         )
 
 
@@ -135,7 +149,16 @@ def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = "cuda") -> Dict[st
     require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, cfg.dtype)}
+    params = {}
+    if cfg.family == "audio":
+        params["frame_proj"] = tfm.init_frame_proj(gen, cfg.frame_dim, cfg.d_model, cfg.dtype)
+    else:
+        params["embed"] = init_embedding(gen, cfg.vocab, cfg.d_model, cfg.dtype)
+    if cfg.family == "audio" or not cfg.tie_embeddings:
+        params["head"] = {"w": dense_init(gen, (cfg.d_model, cfg.vocab), cfg.dtype,
+                                          fan_in=cfg.d_model)}
+    if cfg.family == "vlm":
+        params["projector"] = tfm.init_vlm_projector(gen, cfg.vision_dim, cfg.d_model, cfg.dtype)
     if cfg.family == "xlstm":
         sizes = stack_sizes(cfg)
         lead_m, lead_s = (sizes["mlstm"],), (sizes["slstm"],)
@@ -164,14 +187,36 @@ def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = "cuda") -> Dict[st
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(cfg: ArchConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(cfg: ArchConfig, params: dict, tokens) -> torch.Tensor:
     table = params["embed"]["table"]
     tokens = torch.as_tensor(tokens, device=table.device).long()
     return embed(params["embed"], tokens, scale_by_dim=cfg.embed_scale).to(cfg.cdtype)
 
 
+def _embed_inputs(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The stack's input (B, S, D) in the compute dtype: audio the frame
+    projection of "features"; else the token embedding, for vlm after the
+    projected "img_embeds" when the batch has them."""
+    cdt = cfg.cdtype
+    if cfg.family == "audio":
+        w = params["frame_proj"]["w"]
+        return tfm.apply_frame_proj(params["frame_proj"],
+                                    torch.as_tensor(batch["features"], device=w.device), cdt)
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        img = torch.as_tensor(batch["img_embeds"], device=h.device)
+        h = torch.cat([tfm.apply_vlm_projector(params["projector"], img, cdt), h], dim=1)
+    return h
+
+
 def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
-    return unembed(params["embed"], apply_norm(cfg.norm, params["final_norm"], h))
+    """fp32 logits: the tied unembedding, or h @ head.w (audio, untied).
+    Both operands widen to fp32 (exact from bf16), as `unembed` does, for
+    JAX's fp32 accumulation of the compute-dtype product."""
+    h = apply_norm(cfg.norm, params["final_norm"], h)
+    if cfg.family == "audio" or not cfg.tie_embeddings:
+        return torch.matmul(h.float(), params["head"]["w"].float())
+    return unembed(params["embed"], h)
 
 
 def _blocks(cfg: ArchConfig, params: dict):
@@ -208,7 +253,7 @@ def forward(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
     """Returns (logits (B, S, V) fp32, moe_aux scalar: 0 without experts)."""
     require_ported(cfg)
     params = cast_params(cfg, params)
-    h = _embed_inputs(cfg, params, batch["tokens"])
+    h = _embed_inputs(cfg, params, batch)
     if cfg.family == "xlstm":
         for kind, _, _, lp in _xlstm_layers(cfg, params):
             h = h + _xlstm_mixer(cfg, kind, lp, h, return_cache=False)
@@ -242,14 +287,23 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor,
 
 def loss_fn(cfg: ArchConfig, params: dict,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy of logits[:, :-1] against tokens[:, 1:] (all
-    positions count) plus 0.01 x moe_aux (0 for dense): (total, {"ce",
-    "moe_aux", "n_tokens"})."""
+    """Cross-entropy plus 0.01 x moe_aux (0 without experts): (total, {"ce",
+    "moe_aux", "n_tokens"}).  Next-token (logits[:, :-1] against
+    tokens[:, 1:], every position counting) over the text: for vlm the
+    logits after the n_img_tokens image positions; audio: the targets at
+    the frames of batch["mask"]."""
     require_trainable(cfg)
     logits, aux = forward(cfg, params, batch)
-    tokens = torch.as_tensor(batch["tokens"], device=logits.device).long()
-    mask = torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=logits.device)
-    loss, n = _ce(logits[:, :-1, :], tokens[:, 1:], mask)
+    dev = logits.device
+    if cfg.family == "audio":
+        mask = torch.as_tensor(batch["mask"], device=dev).float()
+        loss, n = _ce(logits, torch.as_tensor(batch["targets"], device=dev).long(), mask)
+    else:
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.n_img_tokens:, :]
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        mask = torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=dev)
+        loss, n = _ce(logits[:, :-1, :], tokens[:, 1:], mask)
     total = loss + 0.01 * aux
     return total, {"ce": loss, "moe_aux": aux, "n_tokens": n}
 
@@ -262,11 +316,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "
     """The decode cache, zero but for the stabilizers m (-1e30).  Dense and
     moe: {"layers": {"k", "v": (L, B, max_len, Hkv, Dh)}} in the compute
     dtype; moe with first_dense: {"dense": the first_dense layers' cache,
-    "layers": the rest's}.
+    "layers": the rest's}; vlm as dense, max_len counting the image
+    positions; audio raises (encoder-only: no decode).
     xlstm (state caches; max_len unused): {"mlstm": {"conv_buf" (compute
     dtype), "C", "n", "m" (fp32)}, each (n_groups, slstm_every - 1, B, ...),
     "slstm": {"h", "c", "n", "m"}, each (n_groups, B, D) fp32}."""
     require_ported(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: encoder-only arch has no decode cache")
     dev = resolve_device(device)
     if cfg.family == "xlstm":
         n_groups = cfg.n_layers // cfg.slstm_every
@@ -284,14 +341,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "
 
 def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward that also returns the decode cache of the
-    prompt: (logits (B, S, V) fp32, cache).  Dense and moe: {"layers": {"k",
-    "v": (L, B, S, Hkv, Dh)}}, and "dense" for moe's first_dense layers;
+    prompt: (logits (B, S, V) fp32, cache).  Dense, moe and vlm: {"layers":
+    {"k", "v": (L, B, S, Hkv, Dh)}} (vlm: S counts the image positions
+    first), and "dense" for moe's first_dense layers; audio encodes: the
+    forward's logits and a cache of None;
     xlstm: the state cache of `init_cache`, each block's final state in its
     slot (a prompt shorter than the convolution leaves the older conv_buf
     rows zero, as the convolution's padding)."""
+    if cfg.family == "audio":
+        return forward(cfg, params, batch)[0], None
     require_ported(cfg)
     params = cast_params(cfg, params)
-    h = _embed_inputs(cfg, params, batch["tokens"])
+    h = _embed_inputs(cfg, params, batch)
     if cfg.family == "xlstm":
         cache = init_cache(cfg, h.shape[0], h.shape[1], device=h.device)
         for kind, gi, li, lp in _xlstm_layers(cfg, params):
@@ -322,10 +383,13 @@ def decode_step(
     tokens: torch.Tensor,  # (B, 1)
     pos: int,  # current position (write index; the xlstm state caches need none)
 ) -> Tuple[torch.Tensor, dict]:
-    """Returns (logits (B, 1, V) fp32, the cache, updated in place)."""
+    """Returns (logits (B, 1, V) fp32, the cache, updated in place).  A vlm
+    step is a text token: pos counts the image positions of the prompt."""
     require_ported(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
     params = cast_params(cfg, params)
-    h = _embed_inputs(cfg, params, tokens)
+    h = _embed_tokens(cfg, params, tokens)
     if cfg.family == "xlstm":
         for kind, gi, li, lp in _xlstm_layers(cfg, params):
             h_in = apply_norm(cfg.norm, lp["norm"], h)

@@ -3,7 +3,10 @@
     h = h + attention(norm1(h))
     h = h + ffn(norm2(h))        # a dense MLP, or the MoE FFN with experts
 
-Port of the block part of src/repro/models/transformer.py.  A block with
+Port of the block part of src/repro/models/transformer.py, and of its two
+stub front ends: the VLM projector (phi-3-vision: precomputed CLIP patch
+embeddings through gelu(x W1) W2) and the audio frame projection (hubert:
+precomputed frame features through one matrix).  A block with
 experts (`cfg.n_experts`) holds a "moe" subtree in place of "mlp"; kimi's
 leading dense layers are `init_dense_block`s (`dense_d_ff`).  Every block
 returns its MoE load-balance aux beside h (0 without experts), as JAX's
@@ -19,9 +22,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.layers import apply_mlp, apply_norm, dense_init, init_mlp, init_norm
 from repro_torch.models.moe import apply_moe, init_moe
 
 
@@ -110,3 +114,38 @@ def decode_block(params: dict, h: torch.Tensor, cache: dict, pos: int,
     )
     h, aux = _ffn(params, h + a_out, cfg, 1)
     return h, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# VLM projector (phi-3-vision stub front end)
+# ---------------------------------------------------------------------------
+
+
+def init_vlm_projector(gen: torch.Generator, vision_dim: int, d_model: int,
+                       dtype: torch.dtype) -> dict:
+    return {
+        "w1": dense_init(gen, (vision_dim, d_model), dtype, fan_in=vision_dim),
+        "w2": dense_init(gen, (d_model, d_model), dtype, fan_in=d_model),
+    }
+
+
+def apply_vlm_projector(params: dict, img_embeds: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, n_img_tokens, vision_dim) precomputed CLIP features -> (B, n, D),
+    in `dtype` (the tanh GELU, `jax.nn.gelu`'s default)."""
+    h = F.gelu(img_embeds.to(dtype) @ params["w1"].to(dtype), approximate="tanh")
+    return h @ params["w2"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Audio frame projection (hubert stub front end)
+# ---------------------------------------------------------------------------
+
+
+def init_frame_proj(gen: torch.Generator, frame_dim: int, d_model: int,
+                    dtype: torch.dtype) -> dict:
+    return {"w": dense_init(gen, (frame_dim, d_model), dtype, fan_in=frame_dim)}
+
+
+def apply_frame_proj(params: dict, features: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, T, frame_dim) precomputed frame features -> (B, T, D) in `dtype`."""
+    return features.to(dtype) @ params["w"].to(dtype)

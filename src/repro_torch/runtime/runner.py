@@ -109,7 +109,8 @@ class TrainRunner:
         seed: int = 0,
         metrics_cb: Optional[Callable[[int, dict], None]] = None,
     ):
-        """batches(step) -> batch dict.  Step-indexed, so replay after a
+        """batches(step) -> batch dict (numpy arrays or tensors, moved to the
+        state's device by the step).  Step-indexed, so replay after a
         restore sees identical data.  Returns (state, per-step metrics as
         floats)."""
         rc = self.run_cfg

@@ -7,8 +7,10 @@ Port of the single-device parts of src/repro/runtime/steps.py:
                                    and dtypes, no storage; jax.eval_shape's
                                    role), the `like` of a restore
   make_train_step(cfg, opt)        (state, batch) -> (state, metrics): the
-                                   loss and its gradient, `opt.update`,
-                                   step + 1; the state is updated in place
+                                   batch onto the params' device
+                                   (`batch_to_device`), the loss and its
+                                   gradient, `opt.update`, step + 1; the
+                                   state is updated in place
   make_prefill_step, make_decode_step  the serve steps over model.prefill
                                    and model.decode_step
 
@@ -62,6 +64,13 @@ def abstract_train_state(cfg: ArchConfig, opt: Optimizer) -> Dict[str, Any]:
                 "step": torch.zeros((), dtype=torch.int32, device="meta")}
 
 
+def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """Every entry of a batch (numpy arrays or tensors: "tokens", audio's
+    float "features", int "targets" and bool "mask", vlm's float
+    "img_embeds") as a tensor on `device`, dtypes kept."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
 def make_train_step(cfg: ArchConfig, opt: Optimizer) -> Callable:
     """One step: loss and gradient (model.loss_fn), `opt.update` in place,
     step + 1.  Returns (state, {"loss", "ce", "moe_aux", "n_tokens"}), the
@@ -71,6 +80,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer) -> Callable:
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
         flat = leaves(params)
+        batch = batch_to_device(batch, flat[0].device)
         with torch.enable_grad():
             for p in flat:
                 p.requires_grad_(True)

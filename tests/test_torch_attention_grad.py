@@ -30,6 +30,8 @@ CASES = [
     (2, 4, 1, 37, 37, 16, True),    # MQA, ragged S
     (1, 4, 2, 20, 52, 16, True),    # T > S, causal
     (2, 2, 1, 13, 29, 8, False),    # T > S, not causal
+    (1, 4, 2, 40, 40, 96, True),    # phi-3-vision's head dim, causal, GQA
+    (2, 2, 2, 33, 33, 80, False),   # hubert's head dim, not causal, ragged S
 ]
 
 
@@ -87,7 +89,10 @@ def test_fp32_gradient_matches_jax_vjp(case, impl):
         _close(g, w, FP32_TOL, f"d{name}")
 
 
-@pytest.mark.parametrize("case", CASES[:2] + CASES[3:4], ids=[str(c) for c in CASES[:2] + CASES[3:4]])
+BF16_CASES = CASES[:2] + CASES[3:4] + CASES[5:]
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=[str(c) for c in BF16_CASES])
 def test_bf16_gradient_matches_jax_vjp(case):
     q, k, v, do = _inputs(case, seed=1)
     causal = case[-1]

@@ -119,7 +119,8 @@ for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
            "repro_torch.experiments.novel_docs", "repro_torch.experiments.graph_gossip",
            "repro_torch.experiments.multi_pod", "repro_torch.experiments.train_lm",
            "repro_torch.models.moe", "repro_torch.configs.granite_moe_1b_a400m",
-           "repro_torch.configs.kimi_k2_1t_a32b"):
+           "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.phi3_vision_4p2b",
+           "repro_torch.configs.hubert_xlarge"):
     assert lm in names, lm
 assert not bad, bad
 """
@@ -181,6 +182,8 @@ def test_entry_points_default_to_the_card():
                       lambda: M.init_cache(cfg, 1, 4),
                       lambda: lm_params_from_numpy(cfg, {}),
                       lambda: serve.run(serve.parse_args([])),
+                      lambda: serve.run(serve.parse_args(["--arch", "phi3_vision_4p2b"])),
+                      lambda: M.init(get_smoke_config("hubert_xlarge")),
                       lambda: DictionaryLearner(lcfg),
                       lambda: MairalLearner(mcfg, reg),
                       lambda: denoise_image(DictionaryLearner(lcfg), None, img, patch=2),

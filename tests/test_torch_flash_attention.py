@@ -4,9 +4,9 @@ The port's wrapper on CPU tensors (its plain version) against the JAX
 reference `attention_ref` and the JAX wrapper running the Pallas kernel in
 interpret mode, as tests/test_kernels.py runs it, over the same FA_SHAPES
 sweep and tolerances (2e-4 fp32, 5e-2 bf16); `flash_decode` against the
-JAX one (1e-4); head dim 112 (kimi-k2's) against the Pallas kernel; the
-wrapper's input checks; and, on the card only, the CUDA kernel against
-the plain version.
+JAX one (1e-4); head dims 112 (kimi-k2's), 96 (phi-3-vision's) and 80
+(hubert-xlarge's) against the Pallas kernel; the wrapper's input checks;
+and, on the card only, the CUDA kernel against the plain version.
 """
 
 import numpy as np
@@ -78,6 +78,64 @@ def test_head_dim_112_matches_pallas_interpret(b, hq, hkv, s, t, d, causal):
     assert tuple(got.shape) == (b, hq, s, d)
     assert_close(got, jax_fa(to_jax(q), to_jax(k), to_jax(v), causal=causal, interpret=True),
                  rtol=FA_TOL, atol=FA_TOL)
+
+
+# phi-3-vision's head dim (MHA, causal in the model) and hubert-xlarge's
+# (MHA, non-causal), each causal and not, with GQA, ragged S and T > S.
+D96_D80_SHAPES = [(1, 4, 4, 128, 128, 96), (2, 4, 1, 100, 160, 96),
+                  (1, 4, 4, 128, 128, 80), (2, 6, 2, 77, 130, 80)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d", D96_D80_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dims_96_and_80_match_pallas_interpret(b, hq, hkv, s, t, d, causal):
+    from repro.kernels.flash_attention.ops import flash_attention as jax_fa
+
+    q, k, v = _qkv((b, hq, hkv, s, t, d), s + t + d)
+    got = _ops().flash_attention(to_torch(q), to_torch(k), to_torch(v), causal=causal)
+    assert tuple(got.shape) == (b, hq, s, d)
+    assert_close(got, jax_fa(to_jax(q), to_jax(k), to_jax(v), causal=causal, interpret=True),
+                 rtol=FA_TOL, atol=FA_TOL)
+
+
+def test_kernel_head_dims_include_96_and_80_and_refuse_others():
+    """The CUDA kernel's instantiations take D 96 and 80 (on the scalar
+    kernel in bf16 too); `_launch` refuses a D it has none for before it
+    reaches the library."""
+    ops = _ops()
+    assert {80, 96} <= set(ops.HEAD_DIMS)
+    for d in (80, 96):
+        assert ops.variant(torch.bfloat16, d) == ops.variant(torch.float32, d) == "scalar_fp32"
+    q = torch.zeros(1, 2, 8, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops._launch(q, q, q, causal=True, scale=1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [96, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dims_96_and_80_kernel_match_plain_on_the_card(d, dtype, causal):
+    """K2's scalar kernel at D 96 and 80 (6 and 5 accumulator columns a
+    thread), the model's (B, S, H, D) layout read in place, one launch
+    counted."""
+    require_cuda()
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    ops = _ops()
+    assert ops.variant(dtype, d) == ops.library_variant(dtype, d) == "scalar_fp32"
+    q, k, v = _qkv((2, 8, 2, 300, 300 if causal else 333, d), d)
+    qt, kt, vt = (to_torch(x.transpose(0, 2, 1, 3)).cuda().to(dtype).transpose(1, 2)
+                  for x in (q, k, v))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = attention_ref(qt, kt, vt, causal=causal)
+    if dtype == torch.float32:
+        assert_close(got, want, rtol=FA_TOL, atol=FA_TOL)
+    else:
+        assert_bf16_close(got, want)
 
 
 @pytest.mark.gpu
@@ -214,11 +272,13 @@ def test_kernel_bf16_and_strided_on_the_card(d):
     (torch.bfloat16, 32, "scalar_fp32"), (torch.bfloat16, 112, "scalar_fp32"),
     (torch.float32, 16, "scalar_fp32"), (torch.float32, 112, "scalar_fp32"),
     (torch.float32, 64, "scalar_fp32"), (torch.float32, 256, "scalar_fp32"),
+    (torch.bfloat16, 96, "scalar_fp32"), (torch.bfloat16, 80, "scalar_fp32"),
 ])
 def test_variant_rule(dtype, d, want):
     """The fixed choice of kernel by dtype and head dim: bf16 at D = 64, 128,
     256 on the tensor cores, everything else (fp32 at every D, bf16 at
-    kimi-k2's 112 too) on the scalar fp32 kernel."""
+    kimi-k2's 112, phi-3-vision's 96 and hubert's 80 too) on the scalar
+    fp32 kernel."""
     assert _ops().variant(dtype, d) == want
 
 

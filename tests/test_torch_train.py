@@ -3,9 +3,11 @@ runtime/runner, convert's train state, launch/train, the token stream)
 against the JAX package on the CPU.
 
   * TokenStream, lm_batches and launch/train.make_batches bit for bit;
-  * loss_fn and its gradient on the olmo, gemma and qwen3 smoke configs,
-    remat on and off, against jax.value_and_grad(loss_fn): loss within 1e-5
-    relative, each gradient leaf within 1e-4 of its largest |value|;
+  * loss_fn and its gradient on the olmo, gemma, qwen3, phi3_vision (the
+    text loss after the image tokens) and hubert (masked prediction) smoke
+    configs, remat on and off, against jax.value_and_grad(loss_fn): loss
+    within 1e-5 relative, each gradient leaf within 1e-4 of its largest
+    |value|;
   * three train steps against JAX's jitted make_train_step from one state
     (convert.train_state_from_numpy): SGD params within 1e-4 of each leaf's
     largest |value| and losses within 1e-5 relative; AdamW losses within
@@ -33,7 +35,7 @@ import torch
 
 from test_torch_common import assert_close, one_torch_thread  # noqa: F401
 
-ARCHS = ["olmo_1b", "gemma_2b", "qwen3_32b"]
+ARCHS = ["olmo_1b", "gemma_2b", "qwen3_32b", "phi3_vision_4p2b", "hubert_xlarge"]
 LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
 # AdamW's updates after three steps, in units of lr: all but 1e-3 of the
 # elements within ADAMW_TYPICAL, none past ADAMW_MAX.  m_hat / sqrt(v_hat)
@@ -59,6 +61,22 @@ def _jax_params(arch):
 
 def _tokens(cfg, seed=1, b=B, s=S):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
+
+
+def _batch(cfg):
+    """The loss tests' batch: B x S tokens from seed 1; vlm and audio the
+    training CLI's batch of S positions (make_batches, step 1)."""
+    if cfg.family in ("vlm", "audio"):
+        from repro_torch.launch.train import make_batches
+
+        return make_batches(cfg, B, S, seed=0)(1)
+    return {"tokens": _tokens(cfg)}
+
+
+def _n_loss_tokens(cfg, batch) -> float:
+    if cfg.family == "audio":
+        return float(batch["mask"].sum())
+    return B * (batch["tokens"].shape[1] - 1)
 
 
 def _port_params(cfg, tree):
@@ -109,18 +127,19 @@ def test_loss_and_gradient_match_jax(arch, remat, one_torch_thread):  # noqa: F8
     jcfg = dataclasses.replace(jax_smoke(arch), remat=remat)
     cfg = dataclasses.replace(get_smoke_config(arch), remat=remat)
     tree = _jax_params(arch)
-    toks = _tokens(cfg)
-    (jl, jm), jg = jax.value_and_grad(lambda p: JM.loss_fn(jcfg, p, {"tokens": toks}),
-                                      has_aux=True)(jax.tree.map(jnp.asarray, tree))
+    batch = _batch(cfg)
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True)(jax.tree.map(jnp.asarray, tree))
     params = _port_params(cfg, tree)
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
-    loss, metrics = model.loss_fn(cfg, params, {"tokens": torch.from_numpy(toks)})
+    loss, metrics = model.loss_fn(cfg, params, {k: torch.from_numpy(v) for k, v in batch.items()})
     grads = torch.autograd.grad(loss, flat)
     assert abs(loss.item() - float(jl)) <= LOSS_RTOL * abs(float(jl))
     assert abs(float(metrics["ce"]) - float(jm["ce"])) <= LOSS_RTOL * abs(float(jm["ce"]))
-    assert float(metrics["n_tokens"]) == float(jm["n_tokens"]) == B * (S - 1)
+    assert float(metrics["n_tokens"]) == float(jm["n_tokens"]) == _n_loss_tokens(cfg, batch) > 0
     assert float(metrics["moe_aux"]) == 0.0
     jflat = jax.tree.leaves(jg)
     assert len(jflat) == len(grads)
@@ -457,7 +476,7 @@ def test_cli_trains_moe_with_a_fault_and_replay_on_cpu(arch, tmp_path, capsys):
 @pytest.mark.parametrize("argv, match", [
     (["--arch", "xlstm_1p3b"], "xLSTM-training"),
     (["--arch", "zamba2_1p2b"], "hybrid"),
-    (["--arch", "phi3_vision_4p2b"], "VLM"),
+    (["--arch", "hubert_xlarge", "--n-layers", "3"], "--n-layers"),  # its smoke config has 2
     (["--mesh", "2x4"], "sharded-training"),
     (["--rescale-mesh", "4x2"], "sharded-training"),
     (["--n-layers", "3"], "--n-layers"),  # the olmo smoke config has 2
