@@ -9,10 +9,11 @@ and fails (non-zero exit, no result line) if any of them fails:
 1. Card and build: prints the card's name and power limit, builds every
    CUDA kernel from the sources in this checkout (one nvcc per source, all
    started together) and prints nvcc's -Xptxas -v register, shared-memory
-   and spill lines; fails unless flash_attention's wgmma_tma kernels show
-   HGMMA (tensor-core) instructions in the built library's SASS
-   (cuobjdump), spill no register, and are not serialized by ptxas, and
-   unless every slstm_step cluster kernel spills nothing.
+   and spill lines; fails unless flash_attention's six wgmma_tma kernels
+   (bf16 at D 64, 80, 96, 112, 128, 256) each show HGMMA (tensor-core)
+   instructions in the built library's SASS (cuobjdump), spill no
+   register, and are not serialized by ptxas (its C7511/C7514/C7515
+   notes), and unless every slstm_step cluster kernel spills nothing.
 2. Kernel against plain: each kernel's wrapper is called on tensors on the
    card and held against its plain PyTorch version on the same inputs, at
    the test shapes and at the shape the main path gives it, then timed
@@ -39,19 +40,23 @@ and fails (non-zero exit, no result line) if any of them fails:
    without the Function, a backward without the causal mask, one without
    the D term); the backward timed beside K2 + Function, the plain twin
    and F.scaled_dot_product_attention (forward and backward).
-   K2 at the MoE family's shapes: granite-moe's FA_MOE (wgmma_tma) and
-   kimi-k2's FA_KIMI at head dim 112 (scalar_fp32) against plain, timed
-   beside SDPA with their bounds (K2's `moe_shapes`), two planted faults
-   at D 112 rejected (logits from the first 64 columns, the causal limit
-   one key late); K2's gradient at FA_MOE (GRAD_BF16_TOL).
-   K2 at the VLM and audio shapes, all on scalar_fp32 (ptxas's registers
-   and spills of the D 96 and D 80 instantiations printed): phi-3-vision's
-   FA_VLM prefill (576 image + 2048 text positions) and FA_VLM_TRAIN at
-   D 96, causal, and hubert-xlarge's FA_AUDIO at D 80, non-causal, against
-   plain, timed beside SDPA (is_causal as the model asks) with their
-   bounds (K2's `vlm_audio_shapes`); two planted faults rejected (logits
-   from the first 64 columns at D 96, a causal mask where none was asked
-   at D 80); K2's gradient at FA_AUDIO, non-causal (GRAD_BF16_TOL).
+   K2's forward at FA_TRAIN (D 128) timed beside its plain version and
+   SDPA, with its bound.
+   K2 at the MoE family's shapes, both on wgmma_tma: granite-moe's FA_MOE
+   and kimi-k2's FA_KIMI at head dim 112 (a zero-filled tail chunk)
+   against plain, timed beside SDPA with their bounds (K2's
+   `moe_shapes`), three planted faults at D 112 rejected (logits from the
+   first 64 columns, P V without its tail chunk, the causal limit one key
+   late); K2's gradient at FA_MOE (GRAD_BF16_TOL).
+   K2 at the VLM and audio shapes, all on wgmma_tma with a zero-filled
+   tail chunk: phi-3-vision's FA_VLM prefill (576 image + 2048 text
+   positions) and FA_VLM_TRAIN at D 96, causal, and hubert-xlarge's
+   FA_AUDIO at D 80, non-causal, against plain, timed
+   beside SDPA (is_causal as the model asks) with their bounds (K2's
+   `vlm_audio_shapes`); planted faults rejected (at D 96 and at D 80
+   logits from the first 64 columns and P V without its tail chunk, at D
+   80 a causal mask where none was asked); K2's gradient at FA_AUDIO,
+   non-causal (GRAD_BF16_TOL).
    The MoE layer (models/moe.apply_moe): against moe_ref at granite-moe's
    width on 4 x 2048 tokens with nothing dropped (fp32 at MOE_FP32_RTOL,
    bf16 at MOE_ROW_ULPS); two launches bit-identical, forward and
@@ -228,6 +233,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -256,6 +262,9 @@ BF16_FLOPS_PER_S = 989e12
 # (B, Hq, Hkv, S, T, D), bf16, causal.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma_2b", 4, 2048, 32
 FA_MAIN = (LM_BATCH, 8, 1, LM_PROMPT, LM_PROMPT, 256)
+# K2's bf16 head dims on its tensor-core kernel, wgmma_tma: one instance
+# each in the build (D 80, 96 and 112 with a zero-filled tail chunk).
+WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128, 256)
 
 # K2's bf16 output against its plain version, element by element.  Both
 # round one fp32 result to bf16, so one output ulp (2^-7 |ref|) is allowed;
@@ -443,7 +452,7 @@ FA_MOE = (LM_BATCH, 16, 8, LM_PROMPT, LM_PROMPT, 64)
 # layer of d_ff 18432, vocab 163840; bf16 params), depth cut from 61 layers
 # to KIMI_LAYERS (the dense first layer and one MoE layer: 1.88e10 params,
 # 37.5 GB), the gemma path's prompts, KIMI_GEN greedy tokens.  Its
-# attention at head dim 112: FA_KIMI on the scalar_fp32 kernel.
+# attention at head dim 112: FA_KIMI on wgmma_tma (a zero-filled tail chunk).
 KIMI_ARCH, KIMI_LAYERS, KIMI_GEN = "kimi_k2_1t_a32b", 2, 8
 FA_KIMI = (LM_BATCH, 64, 8, LM_PROMPT, LM_PROMPT, 112)
 # The MoE layer against moe_ref with nothing dropped (capacity factor E /
@@ -481,7 +490,7 @@ MOE_LOSS_RTOL = BF16_UNIT_ROUNDOFF
 # at full depth: LM_BATCH prompts of LM_PROMPT tokens after the 576 image
 # positions, VLM_GEN greedy tokens, a cache of 576 + 2048 + VLM_GEN
 # positions; one K2 launch a layer a prefill at FA_VLM, bf16, causal, on
-# scalar_fp32 (D 96).  Trained through launch/train with depth cut to
+# wgmma_tma (D 96).  Trained through launch/train with depth cut to
 # VLM_TRAIN_LAYERS (params, gradients and AdamW's moments at full depth
 # are some 60 GB): TRAIN_BATCH x TRAIN_SEQ positions a step (576 image
 # positions and 1472 text tokens, the loss over the text), VLM_STEPS
@@ -497,7 +506,7 @@ FA_VLM_TRAIN = (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 96)
 # features of 512 through one projection; fp32 params, bf16 compute; 9.45e8
 # params), random weights from seed 0.  One encode (model.prefill) of
 # LM_BATCH x LM_PROMPT frames from audio_batches: one non-causal K2 launch
-# a layer at FA_AUDIO (scalar_fp32, D 80); then trained through
+# a layer at FA_AUDIO (wgmma_tma, D 80); then trained through
 # launch/train (masked prediction over TRAIN_BATCH x TRAIN_SEQ frames),
 # AUDIO_STEPS steps, a checkpoint every AUDIO_CKPT_EVERY, a fault at
 # AUDIO_FAULT_AT, with the depth cut from 48 layers to AUDIO_TRAIN_LAYERS
@@ -671,9 +680,10 @@ def sass_counts(lib_path, opcode: str) -> dict:
 def phase_build():
     """Builds every kernel; returns the evidence that K2's bf16 kernel runs on
     the tensor cores (its ptxas registers and spills and its HGMMA count in
-    the SASS of the built library, per instantiation), K2's scalar_fp32
-    ptxas report by (D, type), and K3's ptxas report per instantiation
-    (every one a cluster kernel, none may spill)."""
+    the SASS of the built library, per instantiation: bf16 at D 64, 80, 96,
+    112, 128 and 256) and K3's ptxas report per instantiation (every one a
+    cluster kernel, none may spill); prints K2's scalar_fp32 ptxas report
+    by (D, type) (fp32 at every D, bf16 at 16 and 32)."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -685,18 +695,22 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
     ptxas = ptxas_report(logs["flash_attention"])
     hgmma = sass_counts(build.library_path("flash_attention"), "HGMMA")
-    wgmma = {fn: {"hgmma": n, **ptxas.get(fn, {})} for fn, n in hgmma.items()
-             if "flash_attention_wgmma" in fn}
+    wgmma = {fn: {"d": int(fn.split("flash_attention_wgmmaILi")[1].split("E")[0]), "hgmma": n,
+                  **ptxas.get(fn, {})}
+             for fn, n in hgmma.items() if "flash_attention_wgmma" in fn}
     print(f"[build] flash_attention wgmma_tma kernels (HGMMA in SASS, ptxas): {wgmma}")
     scalar = {fn.split("flash_attention_kernelI")[1].split("EEv")[0]: r
               for fn, r in ptxas.items() if "flash_attention_kernelI" in fn}
     print(f"[build] flash_attention scalar_fp32 kernels by (D, type) (ptxas): {scalar}")
-    if len(wgmma) != 3 or min(r["hgmma"] for r in wgmma.values()) == 0:
-        raise AssertionError("the wgmma_tma kernels (D = 64, 128, 256) lack HGMMA in their SASS")
+    if sorted(r["d"] for r in wgmma.values()) != sorted(WGMMA_HEAD_DIMS) \
+            or min(r["hgmma"] for r in wgmma.values()) == 0:
+        raise AssertionError(f"the wgmma_tma kernels (D = {WGMMA_HEAD_DIMS}) lack HGMMA in "
+                             f"their SASS: {wgmma}")
     if logs["flash_attention"] != "cached":
         if any(r.get("spill_bytes") for r in wgmma.values()):
             raise AssertionError("a wgmma_tma kernel spills registers")
-        # ptxas's C7514/C7515 notes: it made every wgmma wait for the one before.
+        # ptxas's C7511/C7514/C7515 notes: it made every wgmma wait for the
+        # one before (C7511 for "insufficient register resources").
         serialized = [line for line in logs["flash_attention"].splitlines()
                       if "wgmma.mma_async instructions are serialized" in line]
         if serialized:
@@ -717,7 +731,7 @@ def phase_build():
         spilled = {fn: r for fn, r in slstm.items() if r["spill_bytes"]}
         if spilled:
             raise AssertionError(f"an slstm_step cluster kernel spills registers: {spilled}")
-    return wgmma, scalar, slstm
+    return wgmma, slstm
 
 
 def phase_kernels(torch):
@@ -904,17 +918,32 @@ def phase_flash_attention(torch):
     # (copied: TMA needs 16-byte strides).
     for shape, causal in [((2, 4, 2, 1000, 1000, 64), True), ((1, 8, 1, 300, 1000, 128), True),
                           ((2, 4, 1, 1000, 1000, 256), True), ((2, 4, 2, 200, 333, 128), False),
-                          ((1, 8, 1, 640, 640, 256), False)]:
+                          ((1, 8, 1, 640, 640, 256), False), ((2, 4, 2, 1000, 1000, 80), True),
+                          ((1, 8, 1, 300, 1000, 96), True), ((2, 4, 2, 200, 333, 112), False)]:
         q, k, v = qkv(*shape, dtype=torch.bfloat16)
         check_bf16(f"bf16 {shape} causal={causal}", ops.flash_attention(q, k, v, causal=causal),
                    ref.attention_ref(q, k, v, causal=causal))
-    q, k, v = (torch.nn.functional.pad(x, (0, 4))[..., :256]
-               for x in qkv(1, 8, 1, 200, 200, 256, dtype=torch.bfloat16))
-    check_bf16("bf16 seq stride 260", ops.flash_attention(q, k, v, causal=True),
-               ref.attention_ref(q, k, v, causal=True))
+    for d in (256, 80):
+        q, k, v = (torch.nn.functional.pad(x, (0, 4))[..., :d]
+                   for x in qkv(1, 8, 1, 200, 200, d, dtype=torch.bfloat16))
+        check_bf16(f"bf16 seq stride {d + 4}", ops.flash_attention(q, k, v, causal=True),
+                   ref.attention_ref(q, k, v, causal=True))
+    # D 80, 96, 112 (a zero-filled tail chunk) on the model's (B, S, H, D)
+    # layout, where columns D .. 127 of head h are head h + 1's: each head
+    # held on its own, so a store past D fails.
+    for d in (80, 96, 112):
+        for causal in (True, False):
+            q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                       for x in qkv(2, 8, 2, 300, 333, d, dtype=torch.bfloat16))
+            out = ops.flash_attention(q, k, v, causal=causal)
+            want = ref.attention_ref(q, k, v, causal=causal)
+            for h in range(q.shape[1]):
+                check_bf16(f"bf16 (B, S, H, D) D {d} head {h} causal={causal}", out[:, h],
+                           want[:, h])
     torch.cuda.synchronize()
-    print("[kernels] flash_attention's wgmma_tma kernel agrees with plain at D = 64, 128, 256 "
-          "(ragged, T > S, non-causal, a copied 4-mod-8 stride)")
+    print("[kernels] flash_attention's wgmma_tma kernel agrees with plain at D = 64, 80, 96, "
+          "112, 128, 256 (ragged, T > S, non-causal, copied 4-mod-8 strides; D 80, 96, 112 "
+          "head by head on the (B, S, H, D) layout)")
 
     # The main-path shape: one gemma-2b prefill layer.  Planted faults, made
     # by the plain arithmetic under a wrong mask, must fail the same check.
@@ -1016,7 +1045,8 @@ def grad_readings(got, want) -> dict:
 def phase_flash_attention_grad(torch):
     """K2's gradient (ops.FlashAttention: K2 forward, attention_backward)
     against autograd through attention_ref, with planted faults; returns the
-    backward's readings and times for K2's record."""
+    backward's readings and times for K2's record, and (its `forward`) the
+    forward's reading, times and bound at FA_TRAIN."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import backward, ops, ref
@@ -1113,6 +1143,33 @@ def phase_flash_attention_grad(torch):
           f"{b1:.3f} {b2:.3f}  bound_ms {rec['bound_ms']:.3f} ({rec['bound_by']}: "
           f"{flops:.3e} fp32 flops, {nbytes:.3e} bytes); forward + backward: K2 + Function "
           f"{k1:.3f} {k2:.3f}  plain {p1:.3f} {p2:.3f}  sdpa {l1:.3f} {l2:.3f} ms")
+
+    # K2's forward alone here (D 128, wgmma_tma), the olmo path's 16
+    # launches a step, against plain and beside SDPA.
+    def fwd_kernel():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def fwd_plain():
+        return ref.attention_ref(q, k, v, causal=True)
+
+    def fwd_library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    fwd_reading = check_bf16(f"K2 forward at {FA_TRAIN}", out, fwd_plain())
+    f1, fp1, fl1, fl2, fp2, f2 = (time_ms(torch, fn, reps) for fn in
+                                  (fwd_kernel, fwd_plain, fwd_library, fwd_library, fwd_plain,
+                                   fwd_kernel))
+    fwd_flops, fwd_bytes, fwd_bound, fwd_by = attention_bound(*FA_TRAIN)
+    rec["forward"] = {
+        "variant": ops.library_variant(torch.bfloat16, d),
+        "grid": ops.ctas(b, hq, s, torch.bfloat16, d), "bf16_reading": fwd_reading,
+        "ms": (f1 + f2) / 2, "plain_ms": (fp1 + fp2) / 2, "library_ms": (fl1 + fl2) / 2,
+        "bound_ms": fwd_bound, "bound_by": fwd_by, "flops": fwd_flops, "bytes": fwd_bytes,
+    }
+    print(f"[kernels] flash_attention forward ({rec['forward']['variant']}, "
+          f"{rec['forward']['grid']} CTAs) at {FA_TRAIN} bf16 causal: reading {fwd_reading:.3f}"
+          f"  kernel_ms {f1:.3f} {f2:.3f}  plain_ms {fp1:.3f} {fp2:.3f}  sdpa_ms {fl1:.3f} "
+          f"{fl2:.3f}  bound_ms {fwd_bound:.4f} ({fwd_by})")
     del q, k, v, do, out, qr, kr, vr
     torch.cuda.empty_cache()
     return rec
@@ -2764,24 +2821,34 @@ def attention_bound(b, hq, hkv, s, t, d, causal=True):
     return flops, nbytes, max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
-def first_columns_attention(torch, q, k, v, cols: int):
-    """Causal attention whose logits read only the first `cols` columns of
-    q and k (the plain stand-in for a kernel that stages part of D)."""
+def first_columns_attention(torch, q, k, v, cols: int, causal: bool = True):
+    """Attention whose logits read only the first `cols` columns of q and k
+    (the plain stand-in for a kernel whose Q K^T drops the tail chunk)."""
     s, t = q.shape[2], k.shape[2]
     scale = q.shape[-1] ** -0.5
     group = q.shape[1] // k.shape[1]
     kx, vx = (x.repeat_interleave(group, dim=1).float() for x in (k, v))
     logits = torch.matmul(q[..., :cols].float(), kx[..., :cols].transpose(-1, -2)) * scale
-    logits = logits.masked_fill(~causal_visible(torch, s, t, q.device), float("-inf"))
+    if causal:
+        logits = logits.masked_fill(~causal_visible(torch, s, t, q.device), float("-inf"))
     return torch.matmul(torch.softmax(logits, -1).to(v.dtype).float(), vx).to(q.dtype)
 
 
+def without_tail_chunk(out, cols: int = 64):
+    """The plain output with columns `cols` and past zeroed (the stand-in for
+    a kernel whose P V drops the tail chunk, or whose epilogue never stores
+    it)."""
+    bad = out.clone()
+    bad[..., cols:] = 0
+    return bad
+
+
 def phase_flash_attention_moe(torch):
-    """K2 at the MoE family's shapes: granite-moe's FA_MOE (wgmma_tma) and
-    kimi-k2's FA_KIMI (head dim 112, scalar_fp32) against the plain
-    version, timed beside SDPA with their bounds, planted faults at D 112
-    rejected; K2's gradient at granite-moe's training shape.  Returns the
-    records for K2's `moe_shapes`."""
+    """K2 at the MoE family's shapes, both on wgmma_tma: granite-moe's
+    FA_MOE and kimi-k2's FA_KIMI (head dim 112, a zero-filled tail chunk)
+    against the plain version, timed beside SDPA with their bounds, planted
+    faults at D 112 rejected; K2's gradient at granite-moe's training
+    shape.  Returns the records for K2's `moe_shapes`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
@@ -2789,13 +2856,12 @@ def phase_flash_attention_moe(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(3)
     recs = []
-    for name, shape, want_kind in (("granite-moe", FA_MOE, "wgmma_tma"),
-                                   ("kimi-k2", FA_KIMI, "scalar_fp32")):
+    for name, shape in (("granite-moe", FA_MOE), ("kimi-k2", FA_KIMI)):
         b, hq, hkv, s, t, d = shape
         kind = ops.library_variant(torch.bfloat16, d)
-        if not kind == ops.variant(torch.bfloat16, d) == want_kind:
+        if not kind == ops.variant(torch.bfloat16, d) == "wgmma_tma":
             raise AssertionError(f"{shape} goes to {kind} (wrapper: "
-                                 f"{ops.variant(torch.bfloat16, d)}), expected {want_kind}")
+                                 f"{ops.variant(torch.bfloat16, d)}), expected wgmma_tma")
         q, k, v = (torch.randn(*sh, generator=gen).to(dev, torch.bfloat16)
                    for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
         out = ops.flash_attention(q, k, v, causal=True)
@@ -2805,6 +2871,7 @@ def phase_flash_attention_moe(torch):
         if d == 112:
             faults["logits from the first 64 columns"] = first_columns_attention(
                 torch, q, k, v, 64)
+            faults["P V without its tail chunk"] = without_tail_chunk(want)
             faults["causal offset one key late"] = masked_attention(
                 torch, q, k, v, causal_visible(torch, s, t, dev, 1))
         fault_readings = {n: bf16_reading(bad, want) for n, bad in faults.items()}
@@ -3462,24 +3529,20 @@ def phase_moe_card_vs_cpu(torch):
             "planted": planted}
 
 
-def phase_flash_attention_vlm_audio(torch, scalar_build):
-    """K2 at the VLM and audio shapes, all on scalar_fp32: phi-3-vision's
-    prefill FA_VLM and training shape FA_VLM_TRAIN (D 96, causal) and
-    hubert-xlarge's FA_AUDIO (D 80, non-causal) against the plain version,
-    timed beside SDPA (is_causal as the model asks) with their bounds;
-    planted faults rejected (at D 96 logits from the first 64 columns, at
-    D 80 a causal mask where none was asked); K2's gradient at FA_AUDIO,
-    non-causal (GRAD_BF16_TOL).  Prints ptxas's registers and spills of the
-    D 96 and D 80 instantiations.  Returns the records for K2's
+def phase_flash_attention_vlm_audio(torch):
+    """K2 at the VLM and audio shapes, all on wgmma_tma with a zero-filled
+    tail chunk: phi-3-vision's prefill FA_VLM and training shape
+    FA_VLM_TRAIN (D 96, causal) and hubert-xlarge's FA_AUDIO (D 80,
+    non-causal) against the plain version, timed beside SDPA (is_causal as
+    the model asks) with their bounds; planted faults rejected (at D 96 and
+    D 80 logits from the first 64 columns and P V without its tail chunk,
+    at D 80 a causal mask where none was asked); K2's gradient at FA_AUDIO,
+    non-causal (GRAD_BF16_TOL).  Returns the records for K2's
     `vlm_audio_shapes`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
 
-    ptxas = {key: r for key, r in scalar_build.items()
-             if key.startswith(("Li80E", "Li96E", "Li112E"))}
-    print(f"[kernels] flash_attention scalar_fp32 at D 80, 96 (and 112) by (D, type), ptxas "
-          f"registers, stack frame and spill bytes: {ptxas}")
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(5)
     recs = []
@@ -3488,18 +3551,19 @@ def phase_flash_attention_vlm_audio(torch, scalar_build):
                                 ("hubert-xlarge", FA_AUDIO, False)):
         b, hq, hkv, s, t, d = shape
         kind = ops.library_variant(torch.bfloat16, d)
-        if not kind == ops.variant(torch.bfloat16, d) == "scalar_fp32":
+        if not kind == ops.variant(torch.bfloat16, d) == "wgmma_tma":
             raise AssertionError(f"{shape} goes to {kind} (wrapper: "
-                                 f"{ops.variant(torch.bfloat16, d)}), expected scalar_fp32")
+                                 f"{ops.variant(torch.bfloat16, d)}), expected wgmma_tma")
         q, k, v = (torch.randn(*sh, generator=gen).to(dev, torch.bfloat16)
                    for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
         out = ops.flash_attention(q, k, v, causal=causal)
         want = ref.attention_ref(q, k, v, causal=causal)
         err, reading = max_err(out, want), bf16_reading(out, want)
         faults = {}
-        if shape is FA_VLM:
+        if shape is not FA_VLM_TRAIN:  # once at each head dim
             faults["logits from the first 64 columns"] = first_columns_attention(
-                torch, q, k, v, 64)
+                torch, q, k, v, 64, causal)
+            faults["P V without its tail chunk"] = without_tail_chunk(want)
         if not causal:
             faults["a causal mask where none was asked"] = masked_attention(
                 torch, q, k, v, causal_visible(torch, s, t, dev))
@@ -3550,7 +3614,6 @@ def phase_flash_attention_vlm_audio(torch, scalar_build):
     if not max(readings.values()) <= GRAD_BF16_TOL:
         raise AssertionError(f"K2 gradient disagrees with plain at {FA_AUDIO}: {readings}")
     recs[-1]["grad_readings"] = readings
-    recs[0]["scalar_ptxas"] = ptxas
     del q, k, v, do
     torch.cuda.empty_cache()
     return recs
@@ -4051,14 +4114,28 @@ def main() -> int:
         print(f"[phase] {name}: {time.perf_counter() - t:.1f}s")
         return res
 
-    wgmma_build, scalar_build, slstm_build = timed("build", phase_build)
+    # Every serve_dict run codes the same planted stream (serve_dict's
+    # sparse_stream call at M, K and seed 1), whose 262144 planted atoms take
+    # the host 40-70 s to draw: drawn once, memoized, in a thread beside the
+    # build (which waits on nvcc), and joined before the first timed phase.
+    from repro_torch.data.synthetic import sparse_stream
+
+    stream = functools.lru_cache(maxsize=1)(sparse_stream)
+    draw = threading.Thread(target=stream, args=(SAMPLES,), kwargs=dict(
+        m=M, k_true=ATOMS_PER_AGENT * N_AGENTS, nonneg=False, seed=1))
+    draw.start()
+    wgmma_build, slstm_build = timed("build", phase_build)
+    t = time.perf_counter()
+    draw.join()
+    print(f"[phase] planted stream (drawn beside the build): {time.perf_counter() - t:.1f}s "
+          f"more; {stream.cache_info()}")
     rec = timed("dict_dual_step", phase_kernels, torch)
     fa_rec = timed("flash_attention", phase_flash_attention, torch)
     fa_rec["wgmma_build"] = wgmma_build  # HGMMA in the SASS, ptxas registers and spills
     fa_rec["backward"] = timed("flash_attention gradient", phase_flash_attention_grad, torch)
     fa_rec["moe_shapes"] = timed("flash_attention MoE shapes", phase_flash_attention_moe, torch)
     fa_rec["vlm_audio_shapes"] = timed("flash_attention VLM and audio shapes",
-                                       phase_flash_attention_vlm_audio, torch, scalar_build)
+                                       phase_flash_attention_vlm_audio, torch)
     moe_layer = timed("MoE layer", phase_moe_layer, torch)
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     timed("small coder", phase_small_coder, torch)
@@ -4107,11 +4184,8 @@ def main() -> int:
     # zero.  exact_fista converges in 150 iterations and must code.
     # The two schedule-driven paths run the service too: graph_tv_q8 with
     # link failures and the three-level chain of the gossip phase.
-    # Every run codes the same planted stream (the same M, K and seed), whose
-    # 262144 planted atoms take the host some 40 s to draw: draw it once.
-    from repro_torch.data.synthetic import sparse_stream
-
-    stream = functools.lru_cache(maxsize=1)(sparse_stream)
+    # Every run codes the same planted stream, `stream` (drawn beside the
+    # build).
     serve_runs = {"graph": (), "exact_fista": (),
                   "graph_tv_q8": ("--fail-p", "0.25"),
                   "chain": ("--mesh", "2x2x1x4", "--levels",

@@ -17,15 +17,22 @@
 //     D contiguous, so the model passes its (B, S, H, D) projections
 //     without a transpose copy.
 //
-// What bounds it on this card: operations.  At the LM main path (gemma-2b
-// prefill: B 4, Hq 8, Hkv 1, S = T = 2048, D 256, bf16, causal) one launch
-// needs 6.9e10 flops against 75 MB of inputs and output, 0.069 ms at the
-// 989 TFLOP/s bf16 tensor-core rate against 0.023 ms at 3.35 TB/s.
+// What bounds it on this card: operations, at the 989 TFLOP/s bf16
+// tensor-core rate, at every shape of the models' paths (B 4, S = T, bf16):
+//   gemma-2b prefill (Hq 8 / Hkv 1, 2048, D 256, causal): 6.9e10 flops,
+//     0.069 ms, against 75 MB of inputs and output, 0.023 ms at 3.35 TB/s;
+//   kimi-k2 (64 / 8, 2048, D 112, causal): 2.4e11 flops, 0.243 ms (264 MB,
+//     0.079 ms);
+//   phi-3-vision prefill (32 / 32, 576 + 2048, D 96, causal): 1.7e11 flops,
+//     0.171 ms (258 MB, 0.077 ms); its training shape (2048): 0.104 ms;
+//   hubert-xlarge (16 / 16, 2048, D 80, non-causal): 8.6e10 flops, 0.087 ms
+//     (84 MB, 0.025 ms).
 //
 // Two kernels; the choice is fixed by dtype and head dim (`variant_of`,
 // mirrored by ops.variant):
 //
-// "wgmma_tma" -- bf16 at D = 64, 128, 256 (the full-size LM configs):
+// "wgmma_tma" -- bf16 at D = 64, 80, 96, 112, 128, 256 (every bf16 head dim
+// of the full-size configs):
 //   * one CTA per (batch * q head, 64-row query tile): one consumer
 //     warpgroup (128 threads) and one producer warp (160 threads);
 //     blockIdx.y runs over query tiles longest first, so the causal
@@ -37,28 +44,40 @@
 //     consumer frees a stage's K as soon as S is computed and its V after
 //     P V, so the next tiles' loads overlap this tile's work.  TMA
 //     zero-fills rows past S or T;
+//   * a D that is not a multiple of 64 (80, 96, 112) takes D = 128's tile
+//     layout, (D + 63) / 64 = 2 boxes a row: the second box starts at
+//     column 64 and TMA zero-fills its columns D .. 127, which lie past the
+//     tensor map (the transaction counts the whole box, fill included, as
+//     for rows past S or T).  S = Q K^T runs only the k-steps over real
+//     columns; P V runs whole chunks, V's zero columns giving zero
+//     accumulator columns, rescaled with the rest (left alone they made
+//     ptxas serialize the wgmmas) and never stored: the epilogue stores
+//     only columns < D (in the model's (B, S, H, D) layout columns
+//     D .. 127 of head h are head h + 1's);
 //   * S = Q K^T is wgmma m64n64k16 (bf16 in, fp32 accumulate), Q and K
-//     K-major from shared memory, D / 16 k-steps; the causal and ragged-T
-//     mask acts on the fp32 S fragment in registers, only on tiles that
-//     cross the diagonal or T;
+//     K-major from shared memory, D / 16 k-steps (5, 6, 7 at D = 80, 96,
+//     112); the causal and ragged-T mask acts on the fp32 S fragment in
+//     registers, only on tiles that cross the diagonal or T;
 //   * the online softmax runs on the fragment (each thread holds 2 rows x
 //     16 keys; a row's max and sum reduce over its 4-thread quad); p is
 //     rounded to bf16 into the register A operand of O += P V
-//     (wgmma m64n64k16, the accumulator fragment of S is the A fragment
-//     of P), with V MN-major from shared memory (transpose bit);
+//     (wgmma m64n64k16 per 64-column chunk, the accumulator fragment of S
+//     is the A fragment of P), with V MN-major from shared memory
+//     (transpose bit);
 //   * the warpgroup pipelines itself: S of tile j + 1 and P V of tile j go
 //     to the tensor cores back to back, and the softmax of tile j + 1 runs
 //     while P V of tile j is still in flight (wait_group 1);
-//   * O (64 x D fp32: D / 2 registers a thread, 128 at D = 256), m and l
-//     stay in registers; the epilogue divides by l and stores bf16 pairs.
-//   Shared memory: Q 64 x D, and 2 x (K + V) 64 x D tiles, bf16 (160 KB at
-//   D = 256: one CTA an SM).  ptxas must not serialize the wgmmas: no
-//   non-wgmma instruction may touch an accumulator while its product is in
-//   flight (chip_smoke.py fails on ptxas's C7514 note).
+//   * O (64 x 64 (D + 63) / 64 fp32: 32 registers a thread a chunk, 128 at
+//     D = 256), m and l stay in registers; the epilogue divides by l and
+//     stores bf16 pairs.
+//   Shared memory: Q 64 x 64 chunks, and 2 x (K + V) tiles of as many, bf16
+//   (80 KB at D = 80 .. 128, 160 KB at D = 256: one CTA an SM).  ptxas must
+//   not serialize the wgmmas: no non-wgmma instruction may touch an
+//   accumulator while its product is in flight (chip_smoke.py fails on
+//   ptxas's C7514 note).
 //
 // "scalar_fp32" -- fp32 at every D (IEEE fp32, which the fp32 tests at
-// 2e-4 rely on) and bf16 at D = 16, 32, 80 (hubert-xlarge's head dim), 96
-// (phi-3-vision's) and 112 (kimi-k2's):
+// 2e-4 rely on) and bf16 at D = 16, 32 (the smoke configs):
 //   * one CTA of 256 threads per (batch * q head, 64-row query tile); it
 //     loops over 64-key tiles up to the causal limit;
 //   * the Q tile, and each K and V tile, are staged in shared memory as
@@ -340,9 +359,12 @@ constexpr int kThreads = kConsumers + 32;  // + one producer warp
 
 template <int D, int kStages>
 struct Layout {
-  static constexpr int kChunks = D / 64;  // 64-column boxes per row
-  static constexpr size_t q_bytes = size_t(kBQ) * D * 2;
-  static constexpr size_t kv_bytes = size_t(kBK) * D * 2;  // one K or V tile
+  static_assert(D % 16 == 0, "k-steps of 16 columns; stores of 8");
+  // 64-column boxes per row, the last one zero-filled past D.
+  static constexpr int kChunks = (D + 63) / 64;
+  // Whole boxes: a TMA transaction counts the zero-filled part too.
+  static constexpr size_t q_bytes = size_t(kBQ) * kChunks * 64 * 2;
+  static constexpr size_t kv_bytes = size_t(kBK) * kChunks * 64 * 2;  // one K or V tile
   static constexpr size_t bar_offset = q_bytes + 2 * kStages * kv_bytes;
   // q_full, then k_full, v_full, k_empty, v_empty per stage
   static constexpr size_t bytes = bar_offset + 8 * (1 + 4 * kStages) + 1024;  // + alignment
@@ -455,19 +477,19 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
   float alpha[2];    // the rescale of acc for the tile in sc
   uint32_t pa[4][4];  // P in bf16: the A operand of the P V product in flight
 
-  // S = Q K_j^T (64 x 64, fp32) into sc: started, not waited for.
+  // S = Q K_j^T (64 x 64, fp32) into sc: started, not waited for.  Only
+  // the D / 16 k-steps over real columns: the zero-filled ones would add 0.
   auto start_s = [&](int j) {
     const int s = j % kStages;
     sm90::mbar_wait(&k_full[s], (j / kStages) & 1);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t da = sm90::desc_sw128(sQ + c * kBQ * 64 + kk * 16, 16);
-        const uint64_t db = sm90::desc_sw128(sK + (s * kChunks + c) * kBK * 64 + kk * 16, 16);
-        sm90::wgmma_m64n64k16_ss(sc, da, db, (c | kk) != 0);
-      }
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int c = ks / 4, kk = ks % 4;  // 64-column chunk, 16-column step in it
+      const uint64_t da = sm90::desc_sw128(sQ + c * kBQ * 64 + kk * 16, 16);
+      const uint64_t db = sm90::desc_sw128(sK + (s * kChunks + c) * kBK * 64 + kk * 16, 16);
+      sm90::wgmma_m64n64k16_ss(sc, da, db, ks != 0);
+    }
     sm90::wgmma_commit();
   };
   // Once S_j is in: release K_j, scale to log2 units, mask (diagonal and
@@ -520,7 +542,9 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
   };
   // With no product in flight: round the probabilities in sc to bf16 into
   // pa, the A operand of four m64n64k16 steps (16 keys each: the S
-  // fragment's columns 16 kc .. 16 kc + 15); rescale acc.
+  // fragment's columns 16 kc .. 16 kc + 15); rescale acc, every register:
+  // left out, the zero columns past D made ptxas serialize the wgmmas
+  // (C7511, "insufficient register resources").
   auto pack = [&]() {
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)
@@ -541,7 +565,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
           acc[c][4 * n + 2 * i + 1] *= alpha[i];
         }
   };
-  // O += P_j V_j, V MN-major: started, not waited for.
+  // O += P_j V_j, V MN-major: started, not waited for.  Whole 64-column
+  // chunks, past D too (V's zero-filled columns).
   auto start_pv = [&](int j) {
     const int s = j % kStages;
     sm90::mbar_wait(&v_full[s], (j / kStages) & 1);
@@ -590,7 +615,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
   start_pv(n_tiles - 1);
   finish_pv(n_tiles - 1);
 
-  // ---- out = acc / l (0 where l = 0), bf16, rows past S not written ----
+  // ---- out = acc / l (0 where l = 0), bf16, rows past S and columns
+  // past D not written (in a (B, S, H, D) layout they are another head's) ----
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float l = quad_sum(l_run[i]);
@@ -598,14 +624,11 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
     if (r >= S) continue;
     __nv_bfloat16* orow = o + b * os.b + h * os.h + r * os.s;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float v0 = l > 0.f ? acc[c][4 * n + 2 * i] / l : 0.f;
-        const float v1 = l > 0.f ? acc[c][4 * n + 2 * i + 1] / l : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(orow + c * 64 + 8 * n + col0) =
-            __floats2bfloat162_rn(v0, v1);
-      }
+    for (int g = 0; g < D / 8; ++g) {  // columns 8 g .. 8 g + 7: chunk g / 8, n = g % 8
+      const float v0 = l > 0.f ? acc[g / 8][4 * (g % 8) + 2 * i] / l : 0.f;
+      const float v1 = l > 0.f ? acc[g / 8][4 * (g % 8) + 2 * i + 1] / l : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g + col0) = __floats2bfloat162_rn(v0, v1);
+    }
   }
 }
 
@@ -637,8 +660,13 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map of a bf16 (batch, head, seq, D) tensor, innermost first, with
-// boxes of 64 columns x box_rows rows.  A dimension of size 1 is never
-// stepped, so its stride is replaced by a harmless 16-byte multiple.
+// boxes of 64 columns x box_rows rows.  The innermost dimension is D
+// itself, so where D is not a multiple of 64 the last box's columns past D
+// lie outside the map and arrive as zeros, as do rows past S or T
+// (FLOAT_OOB_FILL_NONE fills zeros; with the NaN fill a key row past T
+// would poison P V, its p being 0 and 0 x NaN NaN).  A dimension of size 1
+// is never stepped, so its stride is replaced by a harmless 16-byte
+// multiple (2 D bytes: D is a multiple of 16).
 int make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads, int batch,
              Strides st, int box_rows) {
   EncodeTiled encode = encode_tiled();
@@ -689,7 +717,8 @@ const char* const kVariantNames[] = {"scalar_fp32", "wgmma_tma"};
 
 // The fixed choice of kernel (ops.variant says the same).
 Variant variant_of(int bf16, int D) {
-  return bf16 && (D == 64 || D == 128 || D == 256) ? kWgmma : kScalar;
+  return bf16 && (D == 64 || D == 80 || D == 96 || D == 112 || D == 128 || D == 256) ? kWgmma
+                                                                                       : kScalar;
 }
 
 template <typename T>
@@ -701,6 +730,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
   if (variant_of(sizeof(T) == 2, D) == kWgmma) {
     switch (D) {
       case 64: return wg::launch<64>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+      case 80: return wg::launch<80>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+      case 96: return wg::launch<96>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+      case 112: return wg::launch<112>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
       case 128: return wg::launch<128>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
       case 256: return wg::launch<256>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     }
@@ -708,13 +740,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
   switch (D) {
     case 16: return launch<16, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     case 32: return launch<32, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 80: return launch<80, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 96: return launch<96, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 112: return launch<112, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
   }
   if constexpr (sizeof(T) == 4) {  // bf16 at these head dims went to wgmma_tma
     switch (D) {
       case 64: return launch<64, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+      case 80: return launch<80, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+      case 96: return launch<96, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+      case 112: return launch<112, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
       case 128: return launch<128, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
       case 256: return launch<256, T>(q, k, v, o, B, Hq, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     }

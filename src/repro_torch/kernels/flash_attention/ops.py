@@ -12,9 +12,9 @@ counterpart here.
 The source holds two kernels, and the choice between them is fixed by
 dtype and head dim (`variant`, the same rule as the source's
 `variant_of`): "wgmma_tma" (tensor cores, TMA-fed tiles) for bfloat16 at
-D = 64, 128 or 256, "scalar_fp32" (CUDA-core fp32 FMAs) for float32 at
-every D and for bfloat16 at D = 16, 32, 80 (hubert-xlarge's head dim), 96
-(phi-3-vision's) or 112 (kimi-k2's).  The Pallas kernel takes any D, and
+D = 64, 80 (hubert-xlarge's head dim), 96 (phi-3-vision's), 112
+(kimi-k2's), 128 or 256, "scalar_fp32" (CUDA-core fp32 FMAs) for float32 at
+every D and for bfloat16 at D = 16 or 32.  The Pallas kernel takes any D, and
 the plain version `ref.attention_ref` too; the CUDA kernel takes the
 HEAD_DIMS it is instantiated for and raises on any other.
 
@@ -42,7 +42,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128, 256)  # the kernel's instantiations
-WGMMA_HEAD_DIMS = (64, 128, 256)    # the bf16 head dims of the wgmma_tma kernel
+WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128, 256)  # the bf16 head dims of the wgmma_tma kernel
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 ]
@@ -64,7 +64,9 @@ def _library() -> ctypes.CDLL:
 
 def variant(dtype: torch.dtype, d: int) -> str:
     """The kernel a launch of this dtype and head dim runs: "wgmma_tma" for
-    bfloat16 at D in WGMMA_HEAD_DIMS, else "scalar_fp32"."""
+    bfloat16 at D in WGMMA_HEAD_DIMS (every bf16 head dim of the full-size
+    configs), else "scalar_fp32" (float32 at every D, bfloat16 at 16 and
+    32)."""
     return "wgmma_tma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "scalar_fp32"
 
 

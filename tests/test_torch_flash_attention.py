@@ -99,13 +99,14 @@ def test_head_dims_96_and_80_match_pallas_interpret(b, hq, hkv, s, t, d, causal)
 
 
 def test_kernel_head_dims_include_96_and_80_and_refuse_others():
-    """The CUDA kernel's instantiations take D 96 and 80 (on the scalar
-    kernel in bf16 too); `_launch` refuses a D it has none for before it
-    reaches the library."""
+    """The CUDA kernel's instantiations take D 96 and 80 (bf16 on the
+    tensor-core kernel, fp32 on the scalar one); `_launch` refuses a D it
+    has none for before it reaches the library."""
     ops = _ops()
     assert {80, 96} <= set(ops.HEAD_DIMS)
     for d in (80, 96):
-        assert ops.variant(torch.bfloat16, d) == ops.variant(torch.float32, d) == "scalar_fp32"
+        assert ops.variant(torch.bfloat16, d) == "wgmma_tma"
+        assert ops.variant(torch.float32, d) == "scalar_fp32"
     q = torch.zeros(1, 2, 8, 48)
     with pytest.raises(ValueError, match="head_dim"):
         ops._launch(q, q, q, causal=True, scale=1.0)
@@ -116,14 +117,15 @@ def test_kernel_head_dims_include_96_and_80_and_refuse_others():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_head_dims_96_and_80_kernel_match_plain_on_the_card(d, dtype, causal):
-    """K2's scalar kernel at D 96 and 80 (6 and 5 accumulator columns a
-    thread), the model's (B, S, H, D) layout read in place, one launch
-    counted."""
+    """K2 at D 96 and 80 (bf16 on wgmma_tma, a zero-filled tail chunk; fp32
+    on scalar_fp32, 6 and 5 accumulator columns a thread), the model's (B,
+    S, H, D) layout read in place, one launch counted."""
     require_cuda()
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     ops = _ops()
-    assert ops.variant(dtype, d) == ops.library_variant(dtype, d) == "scalar_fp32"
+    want_kind = "wgmma_tma" if dtype == torch.bfloat16 else "scalar_fp32"
+    assert ops.variant(dtype, d) == ops.library_variant(dtype, d) == want_kind
     q, k, v = _qkv((2, 8, 2, 300, 300 if causal else 333, d), d)
     qt, kt, vt = (to_torch(x.transpose(0, 2, 1, 3)).cuda().to(dtype).transpose(1, 2)
                   for x in (q, k, v))
@@ -142,13 +144,15 @@ def test_head_dims_96_and_80_kernel_match_plain_on_the_card(d, dtype, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_head_dim_112_kernel_matches_plain_on_the_card(dtype, causal):
-    """K2's scalar kernel at D 112 (7 accumulator columns a thread), the
-    model's (B, S, H, D) layout read in place."""
+    """K2 at D 112 (bf16 on wgmma_tma, 7 k-steps of S; fp32 on scalar_fp32,
+    7 accumulator columns a thread), the model's (B, S, H, D) layout read in
+    place."""
     require_cuda()
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     ops = _ops()
-    assert ops.variant(dtype, 112) == ops.library_variant(dtype, 112) == "scalar_fp32"
+    want_kind = "wgmma_tma" if dtype == torch.bfloat16 else "scalar_fp32"
+    assert ops.variant(dtype, 112) == ops.library_variant(dtype, 112) == want_kind
     q, k, v = _qkv((2, 8, 2, 300, 300 if causal else 333, 112), 112)
     qt, kt, vt = (to_torch(x.transpose(0, 2, 1, 3)).cuda().to(dtype).transpose(1, 2)
                   for x in (q, k, v))
@@ -158,6 +162,31 @@ def test_head_dim_112_kernel_matches_plain_on_the_card(dtype, causal):
         assert_close(got, want, rtol=FA_TOL, atol=FA_TOL)
     else:
         assert_bf16_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [80, 96, 112])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_tail_chunk_keeps_to_its_head_on_the_card(d, causal):
+    """wgmma_tma at a D that is not a multiple of 64, on the model's (B, S,
+    H, D) layout, where columns D .. 127 of head h are head h + 1's: every
+    head's output is checked on its own, so a store past D, which lands in
+    the next head (or the last head's in the next row's first), fails."""
+    require_cuda()
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    ops = _ops()
+    assert ops.variant(torch.bfloat16, d) == "wgmma_tma"
+    q, k, v = _qkv((2, 8, 2, 300, 333, d), 3 * d + causal)
+    qt, kt, vt = (to_torch(x.transpose(0, 2, 1, 3)).cuda().bfloat16().transpose(1, 2)
+                  for x in (q, k, v))
+    assert ops._kernel_layout(qt, "wgmma_tma") is qt
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    torch.cuda.synchronize()
+    assert got.stride() == qt.stride()
+    want = attention_ref(qt, kt, vt, causal=causal)
+    for h in range(8):
+        assert_bf16_close(got[:, h], want[:, h])
 
 
 def test_bf16_matches_pallas_interpret():
@@ -269,16 +298,17 @@ def test_kernel_bf16_and_strided_on_the_card(d):
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma_tma"), (torch.bfloat16, 128, "wgmma_tma"),
     (torch.bfloat16, 256, "wgmma_tma"), (torch.bfloat16, 16, "scalar_fp32"),
-    (torch.bfloat16, 32, "scalar_fp32"), (torch.bfloat16, 112, "scalar_fp32"),
+    (torch.bfloat16, 32, "scalar_fp32"), (torch.bfloat16, 112, "wgmma_tma"),
     (torch.float32, 16, "scalar_fp32"), (torch.float32, 112, "scalar_fp32"),
     (torch.float32, 64, "scalar_fp32"), (torch.float32, 256, "scalar_fp32"),
-    (torch.bfloat16, 96, "scalar_fp32"), (torch.bfloat16, 80, "scalar_fp32"),
+    (torch.bfloat16, 96, "wgmma_tma"), (torch.bfloat16, 80, "wgmma_tma"),
+    (torch.float32, 96, "scalar_fp32"), (torch.float32, 80, "scalar_fp32"),
 ])
 def test_variant_rule(dtype, d, want):
-    """The fixed choice of kernel by dtype and head dim: bf16 at D = 64, 128,
-    256 on the tensor cores, everything else (fp32 at every D, bf16 at
-    kimi-k2's 112, phi-3-vision's 96 and hubert's 80 too) on the scalar
-    fp32 kernel."""
+    """The fixed choice of kernel by dtype and head dim: bf16 at D = 64, 80
+    (hubert), 96 (phi-3-vision), 112 (kimi-k2), 128 and 256 on the tensor
+    cores; fp32 at every D and bf16 at the smoke configs' 16 and 32 on the
+    scalar fp32 kernel."""
     assert _ops().variant(dtype, d) == want
 
 
@@ -300,6 +330,22 @@ def test_kernel_layout_rule():
         assert layout(odd, kind).is_contiguous()
     gapped = torch.zeros(2, 4, 100, 128, dtype=torch.bfloat16)[..., ::2]  # D not contiguous
     assert layout(gapped, "wgmma_tma").stride(-1) == 1
+
+
+@pytest.mark.parametrize("heads,d", [(32, 96), (16, 80), (64, 112), (8, 112)])
+def test_kernel_layout_reads_the_new_head_dims_in_place(heads, d):
+    """The (B, S, H, D) views of phi-3-vision (H 32, D 96), hubert-xlarge
+    (16, 80) and kimi-k2 (64 query and 8 KV heads, 112) go to wgmma_tma and
+    are read in place (head stride D and seq stride H D are multiples of 8
+    elements); a seq stride of 4 mod 8 is copied first."""
+    ops = _ops()
+    assert ops.variant(torch.bfloat16, d) == "wgmma_tma"
+    bsh = torch.zeros(2, 40, heads, d, dtype=torch.bfloat16).transpose(1, 2)
+    assert not bsh.is_contiguous() and ops._kernel_layout(bsh, "wgmma_tma") is bsh
+    four = torch.randn(2, heads, 40, d + 4).bfloat16()[..., :d]  # seq stride d + 4 = 4 mod 8
+    assert four.stride(2) % 8 == 4
+    copied = ops._kernel_layout(four, "wgmma_tma")
+    assert copied is not four and copied.is_contiguous() and torch.equal(copied, four)
 
 
 WGMMA_CASES = [
