@@ -57,6 +57,9 @@ and fails (non-zero exit, no result line) if any of them fails:
    logits from the first 64 columns and P V without its tail chunk, at D
    80 a causal mask where none was asked); K2's gradient at FA_AUDIO,
    non-causal (GRAD_BF16_TOL).
+   K2 at zamba2-1.2b's shared-block shape FA_HYBRID (D 64, 32 over 32
+   heads, causal) on wgmma_tma against plain, timed beside SDPA with its
+   bound (K2's `hybrid_shape`), a planted wrong causal mask rejected.
    The MoE layer (models/moe.apply_moe): against moe_ref at granite-moe's
    width on 4 x 2048 tokens with nothing dropped (fp32 at MOE_FP32_RTOL,
    bf16 at MOE_ROW_ULPS); two launches bit-identical, forward and
@@ -108,7 +111,10 @@ and fails (non-zero exit, no result line) if any of them fails:
      through TrainRunner with a checkpoint, a fault injected, restored and
      replayed, and the rescale reload; 2 K2 launches a layer a step,
      forward and remat recompute).  The first step's loss and every
-     gradient leaf against its plain-attention twin (L x 2^-8), the first
+     gradient leaf against its plain-attention twin (L x 2^-8), and each
+     layer's attention gradient in that step against plain on its own
+     inputs (GRAD_BF16_TOL, a planted wrong attention rejected; every
+     family's training phase holds these), the first
      replayed loss exactly the first pass's (the rest REPLAY_RTOL), one
      step profiled by kernel category; step ms, tokens/s, the model-flops
      share of the bf16 peak, peak memory and checkpoint seconds printed
@@ -161,6 +167,29 @@ and fails (non-zero exit, no result line) if any of them fails:
      1e-4, loss at 1e-5, three SGD steps (params 1e-4, losses 1e-5); two
      planted faults (the image tokens after the text, hubert's attention
      causal) rejected (VLM_AUDIO_CHECKS line);
+   - hybrid serving: the port's serve at zamba2-1.2b's full width and
+     depth (38 Mamba2 blocks, 6 applications of the weight-tied shared
+     block; 1.10e9 params, bf16), the gemma path's traffic: exactly 6 K2
+     launches a prefill and none in decode (gated), each application's K2
+     against plain on its own inputs (gated, a planted wrong attention
+     rejected), tokens in the vocabulary, logits, K/V and the Mamba2
+     states finite, the end-to-end logits against the plain-attention
+     twin printed, the prefill profiled by range (SSD, convolution, gated
+     norm, unembedding) and by kernel category, a decode step profiled
+     (HYBRID_SERVE line);
+   - hybrid training: launch/train at zamba2-1.2b's full width cut to
+     HYBRID_TRAIN_LAYERS (2 groups, so the tied block's gradient sums two
+     applications, and the 2-block tail), the olmo path's gates: 2 K2
+     launches an application a step, the first step against its
+     plain-attention twin (the loss gated, each application's attention
+     gradient gated on its own inputs, the gradient leaves printed: the
+     random-weight Mamba2 stack carries a rounding-sized change far), the
+     first replayed loss exact (HYBRID_TRAIN line); then the SMOKE config
+     cut to 5 layers on the card against the CPU in fp32: prefill logits
+     and every cache leaf, three decode steps and the final cache at 1e-4,
+     three SGD steps (losses 1e-5, params against an fp64 run of the same
+     steps), two planted faults (the Mamba2 states without their decay,
+     one layer's conv_b update skipped) rejected (HYBRID_CHECKS line);
    - xLSTM serving: the port's serve at xlstm-1.3b's full width, depth cut
      to XL_LAYERS (random weights), the same traffic; one slstm_seq launch
      per sLSTM block of the prefill (3) and none in decode.  Tokens in the vocabulary, logits
@@ -524,7 +553,25 @@ FA_AUDIO = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 80)
 # 0.0254 at olmo's 8 (my chip runs), so at 4 layers L x 2^-8 (0.0156) alone
 # would sit on the reading.  A gradient without the Function or without
 # the causal mask moves a leaf by order 1.
-VLM_AUDIO_GRAD_FLOOR = GRAD_BF16_TOL
+TWIN_GRAD_FLOOR = GRAD_BF16_TOL
+
+# The hybrid family: zamba2-1.2b at full width (38 Mamba2 blocks of d 2048,
+# d_inner 4096, 64 SSM heads of 64, state 64, chunk 128: 6 groups of 6,
+# each followed by one application of the weight-tied shared transformer
+# block, 32 heads of 64 (MHA), d_ff 8192; then a 2-block tail; vocab 32000;
+# fp32 params, bf16 compute; 1.10e9 params), random weights from seed 0.
+# Served at full depth with the gemma path's traffic: one K2 launch an
+# application a prefill (6) at FA_HYBRID, bf16, causal, on wgmma_tma (D
+# 64), none in decode (plain flash_decode).  Trained through launch/train
+# with the depth cut to HYBRID_TRAIN_LAYERS: 2 groups (the tied block's
+# gradient sums two applications) and the 2-block tail, TRAIN_BATCH x
+# TRAIN_SEQ tokens a step, HYBRID_STEPS steps, a checkpoint every
+# HYBRID_CKPT_EVERY, a fault at HYBRID_FAULT_AT; two K2 launches an
+# application a step (forward and remat recompute).  The SSD is plain
+# PyTorch, as it is plain jnp in the JAX package (no kernel is owed).
+HYBRID_ARCH, HYBRID_TRAIN_LAYERS = "zamba2_1p2b", 14
+HYBRID_STEPS, HYBRID_CKPT_EVERY, HYBRID_FAULT_AT = 4, 2, 3
+FA_HYBRID = (LM_BATCH, 32, 32, LM_PROMPT, LM_PROMPT, 64)
 
 
 def card_line() -> str:
@@ -1083,18 +1130,15 @@ def phase_flash_attention_grad(torch):
     def no_function(qq, kk, vv, *, causal=True):
         return ops._forward(qq, kk, vv, causal, scale)  # today's fault: outside autograd
 
-    def no_mask(qq, kk, vv, oo, dd, *, causal, scale):
-        return backward.attention_backward(qq, kk, vv, oo, dd, causal=False, scale=scale)
-
-    def no_delta(qq, kk, vv, oo, dd, *, causal, scale):  # D = rowsum(dO * 0) = 0
-        return backward.attention_backward(qq, kk, vv, torch.zeros_like(oo), dd,
-                                           causal=causal, scale=scale)
+    def no_mask(qq, kk, vv, dd, *, causal, scale):
+        return backward.attention_backward(qq, kk, vv, dd, causal=False, scale=scale)
 
     planted = {"wrapper without the Function":
                grad_readings(autograd_grads(torch, no_function, q, k, v, do), want)}
-    for name, bwd in (("backward without the causal mask", no_mask),
-                      ("backward without the D term", no_delta)):
-        with mock.patch.object(ops, "attention_backward", bwd):
+    for name, target, attr, fault in (
+            ("backward without the causal mask", ops, "attention_backward", no_mask),
+            ("backward without the D term", backward, "softmax_grad", lambda p, dp: dp.mul_(p))):
+        with mock.patch.object(target, attr, fault):
             planted[name] = grad_readings(autograd_grads(torch, ops.flash_attention, q, k, v, do),
                                           want)
     del want
@@ -1110,7 +1154,7 @@ def phase_flash_attention_grad(torch):
     qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
 
     def bwd_only():
-        return backward.attention_backward(q, k, v, out, do, causal=True, scale=scale)
+        return backward.attention_backward(q, k, v, do, causal=True, scale=scale)
 
     def fwd_bwd(attn):
         def fn():
@@ -1127,7 +1171,7 @@ def phase_flash_attention_grad(torch):
                               (kernel, plain, library, library, plain, kernel))
     b2 = time_ms(torch, bwd_only, reps)
     flops = backward.backward_flops(b, hq, s, t, d, True)
-    nbytes = 2 * (4 * b * hq * s * d + 4 * b * hkv * t * d)  # q, o, dO, dq; k, v, dk, dv
+    nbytes = 2 * (3 * b * hq * s * d + 4 * b * hkv * t * d)  # q, dO, dq; k, v, dk, dv
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
     rec = {
         "shape": list(FA_TRAIN), "max_abs_err": err, "grad_readings": readings,
@@ -2547,29 +2591,59 @@ def phase_xlstm(torch, card: str):
     return launches
 
 
+def attention_applications(cfg) -> int:
+    """How many times a forward applies attention (one K2 launch each): one
+    a layer, or for hybrid one a group (the shared block)."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def residual_blocks(cfg) -> int:
+    """The residual stream's depth: every layer, and hybrid's shared-block
+    applications besides its Mamba2 blocks."""
+    return cfg.n_layers + (attention_applications(cfg) if cfg.family == "hybrid" else 0)
+
+
 def model_flops_per_step(cfg, batch: int, seq: int) -> float:
     """6 N tokens (every active parameter's multiply-add forward, twice
-    backward; N counts the tied embedding once and, for MoE, the router and
-    the top-k experts a token runs, not the capacity's padding) + 6 L B S^2
-    H Dh (causal attention's q k^T and p v over half the S x S pairs, 2 B
-    S^2 H Dh a layer forward, twice that backward; twice that again over
-    all the pairs of a non-causal encoder); the remat recompute is not
-    model work."""
+    backward; N counts the tied embedding once, hybrid's shared block once
+    an application and, for MoE, the router and the top-k experts a token
+    runs, not the capacity's padding) + 6 A B S^2 H Dh over the A attention
+    applications (causal attention's q k^T and p v over half the S x S
+    pairs, 2 B S^2 H Dh forward, twice that backward; twice that again over
+    all the pairs of a non-causal encoder) + for hybrid the SSD's products,
+    6 B S (Q / 2 (N + H P) + 2 N H P) a Mamba2 block (C B^T and att x over
+    the causal half of each chunk of Q, the chunk summaries and the state
+    read-out); the remat recompute is not model work."""
     n = cfg.param_counts()["active"]
     width = cfg.n_heads * cfg.resolved_head_dim
-    attn = 6.0 * cfg.n_layers * batch * seq * seq * width
-    return 6.0 * n * batch * seq + (attn if cfg.causal else 2 * attn)
+    attn = 6.0 * attention_applications(cfg) * batch * seq * seq * width
+    flops = 6.0 * n * batch * seq + (attn if cfg.causal else 2 * attn)
+    if cfg.family == "hybrid":
+        q, nst = min(cfg.ssm_chunk, seq), cfg.ssm_state
+        hp = cfg.ssm_expand * cfg.d_model
+        flops += 6.0 * cfg.n_layers * batch * seq * (q / 2 * (nst + hp) + 2 * nst * hp)
+    return flops
 
 
 def phase_train(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: int,
-                ckpt_every: int, fault_at: int, grad_floor: float = 0.0):
+                ckpt_every: int, fault_at: int, grad_floor: float | None = 0.0):
     """The port's training of `arch` at full width, depth cut to n_layers,
     through launch/train (TrainRunner: checkpoints every ckpt_every, a fault
     injected at fault_at, replay, the rescale reload; TRAIN_BATCH x
-    TRAIN_SEQ positions a step), the first step against its plain-attention
-    twin (each gradient leaf within grad_floor + n_layers x 2^-8), one step
-    profiled; prints "[tag]" lines and one tag.upper() JSON line (TRAIN for
-    olmo-1b); returns the run's record (K2 launches and per step)."""
+    TRAIN_SEQ positions a step), two K2 launches an attention application a
+    step, one step profiled, and the first step: every attention
+    application held on its own inputs (each K2 launch, forward and remat
+    recompute, within BF16_ROW_ULPS of plain; the dq, dk, dv the step
+    computed within GRAD_BF16_TOL of the exact gradient, autograd through
+    fp32 attention; a wrong visibility at the first application, the
+    causal limit one key late or causal where it is not, outside both);
+    against its plain-attention twin, the loss within 2^-8 and each gradient leaf
+    within grad_floor + the residual stream's depth x 2^-8, or with
+    grad_floor None printed, not gated (the hybrid: its random-weight
+    Mamba2 stack carries a one-ulp change of an attention output to some
+    0.3 of a leaf, HYBRID_SERVE's noise control).  Prints "[tag]" lines
+    and one tag.upper() JSON line (TRAIN for olmo-1b); returns the run's
+    record (K2 launches and per step)."""
     import shutil
 
     from repro_torch.checkpoint import manager
@@ -2608,25 +2682,84 @@ def phase_train(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: i
         loss, _ = model.loss_fn(cfg, params, batch)
         return loss.item(), torch.autograd.grad(loss, flat)
 
-    reset_launch_counts()
-    loss_k, grads_k = loss_and_grads()
-    first_launches = ops.flash_attention.launches
+    # Each attention application of the step, held on its own inputs:
+    # every K2 launch (forward and remat recompute) against plain, and the
+    # dq, dk, dv the step computed against the exact gradient (autograd
+    # through fp32 attention); a wrong visibility (the causal limit one
+    # key late, or causal where the call asked for none) planted at the
+    # first of each.
+    real, backward = ops.flash_attention, ops.attention_backward
+    forwards, planted, applied = [], {}, []
+
+    def wrong(q, k, causal):
+        return causal_visible(torch, q.shape[2], k.shape[2], q.device, int(causal))
+
+    def checked(q, k, v, *, causal=True, scale=None):
+        out = real(q, k, v, causal=causal, scale=scale)
+        with torch.no_grad():
+            want = ref.attention_ref(q, k, v, causal=causal, scale=scale)
+            forwards.append(bf16_reading(out, want))
+            planted.setdefault("forward", bf16_reading(
+                masked_attention(torch, q, k, v, wrong(q, k, causal)), want))
+        return out
+
+    def recorded(q, k, v, dout, *, causal, scale):
+        grads = backward(q, k, v, dout, causal=causal, scale=scale)
+        applied.append((q, k, v, dout, causal, scale, grads))
+        return grads
+
+    checked.launches = 0  # _launch counts on the patched name while patched
+    with mock.patch.object(ops, "flash_attention", checked), \
+            mock.patch.object(ops, "attention_backward", recorded):
+        loss_k, grads_k = loss_and_grads()
+    first_launches = checked.launches
+
+    def gradient_reading(q, k, v, dout, causal, scale, got):
+        g = q.shape[1] // k.shape[1]
+        want = autograd_grads(torch, lambda a, b, c, causal: exact_attention(
+            a, b.repeat_interleave(g, 1), c.repeat_interleave(g, 1), causal=causal,
+            scale=scale), *(x.float() for x in (q, k, v, dout)), causal)
+        if "gradient" not in planted:
+            planted["gradient"] = max(grad_readings(autograd_grads(
+                torch, lambda a, b, c, causal: masked_attention(torch, a, b, c, wrong(a, b, causal)),
+                q, k, v, dout, causal), want).values())
+        return max(grad_readings(got, want).values())
+
+    app_readings = [gradient_reading(*a) for a in applied]
+    del applied
     with mock.patch.object(attention.ops, "flash_attention", ref.attention_ref):
         loss_p, grads_p = loss_and_grads()
     grad_rel = [rel_err(g, w) for g, w in zip(grads_k, grads_p)]
     finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
     del grads_k, grads_p
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    tol = grad_floor + cfg.n_layers * BF16_UNIT_ROUNDOFF
+    depth, per_step = residual_blocks(cfg), 2 * attention_applications(cfg)
+    if grad_floor is None:
+        tol, rule = None, "printed, not gated"
+    else:
+        tol = grad_floor + depth * BF16_UNIT_ROUNDOFF
+        rule = f"gate {tol:.4f} = {grad_floor:g} + {depth} residual blocks x 2^-8"
+    print(f"[{tag}] first step, each attention application on its own inputs: K2 vs plain, "
+          f"bf16 readings (gate {BF16_ROW_ULPS}) {[round(r, 3) for r in forwards]}; dq, dk, dv "
+          f"vs the exact gradient (gate {GRAD_BF16_TOL}) {[round(r, 5) for r in app_readings]}; "
+          f"planted (the first application's visibility "
+          f"{'one key late' if cfg.causal else 'causal'}) {planted}")
     print(f"[{tag}] first step, K2 vs plain-attention twin: loss {loss_k:.6f} vs {loss_p:.6f} "
           f"(rel {loss_rel:.2e}, gate {BF16_UNIT_ROUNDOFF:.2e}); per-leaf max|dg|/max|g| "
-          f"max {max(grad_rel):.3e} (gate {tol:.4f} = {grad_floor:g} + {cfg.n_layers} layers "
-          f"x 2^-8): "
-          f"{[round(r, 5) for r in grad_rel]}; K2 launches {first_launches}")
-    if first_launches != 2 * cfg.n_layers:
-        raise AssertionError(f"{tag}: {first_launches} K2 launches in one loss and gradient, "
-                             f"expected {2 * cfg.n_layers} (forward + remat recompute)")
-    if not (finite and loss_rel <= BF16_UNIT_ROUNDOFF and max(grad_rel) <= tol):
+          f"max {max(grad_rel):.3e} ({rule}): {[round(r, 5) for r in grad_rel]}; K2 launches "
+          f"{first_launches}")
+    if first_launches != per_step or len(forwards) != per_step \
+            or len(app_readings) != per_step // 2:
+        raise AssertionError(f"{tag}: {first_launches} K2 launches and {len(app_readings)} "
+                             f"backwards in one loss and gradient, expected {per_step} "
+                             f"(forward + remat recompute) and {per_step // 2}")
+    if not (max(forwards) <= BF16_ROW_ULPS and max(app_readings) <= GRAD_BF16_TOL):
+        raise AssertionError(f"{tag}: an application's attention or its gradient disagrees "
+                             f"on its inputs: {forwards}, {app_readings}")
+    if not (planted["forward"] > BF16_ROW_ULPS and planted["gradient"] > GRAD_BF16_TOL):
+        raise AssertionError(f"{tag}: a per-application gate passes a planted wrong "
+                             f"attention: {planted}")
+    if not (finite and loss_rel <= BF16_UNIT_ROUNDOFF and (tol is None or max(grad_rel) <= tol)):
         raise AssertionError(f"{tag}: the first step's loss or gradient disagrees with the "
                              "plain-attention twin")
 
@@ -2680,9 +2813,9 @@ def phase_train(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: i
 
     if out["faults"] != 1 or executed != n_steps + replayed:
         raise AssertionError(f"{tag}: {out['faults']} faults, {executed} steps run")
-    if launches != 2 * cfg.n_layers * executed:
+    if launches != per_step * executed:
         raise AssertionError(f"{tag}: {launches} K2 launches over {executed} steps, expected "
-                             f"{2 * cfg.n_layers} a step")
+                             f"{per_step} a step")
     if out["ckpt_steps"] != [ckpt_every, n_steps] or out["rescaled_step"] != n_steps:
         raise AssertionError(f"{tag}: checkpoints {out['ckpt_steps']}, rescale resumed at "
                              f"{out['rescaled_step']}")
@@ -2711,7 +2844,10 @@ def phase_train(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: i
         "peak_mem_gb": peak_gb, "launches": launches,
         "launches_per_step": launches / executed, "losses": losses,
         "replay_rel": replay_rel, "first_step": {"loss": loss_k, "plain_loss": loss_p,
-                                                 "loss_rel": loss_rel, "grad_rel": grad_rel},
+                                                 "loss_rel": loss_rel, "grad_rel": grad_rel,
+                                                 "grad_tol": tol, "application_forwards": forwards,
+                                                 "application_grads": app_readings,
+                                                 "planted": planted},
         "profile": {"profiled_wall_ms": wall_ms, "device_ms": dev_ms,
                     "busy_share": dev_ms / (step_s * 1e3), "categories": categories,
                     "top": top},
@@ -3108,17 +3244,18 @@ MOE_RANGES = (("router and top-k", "moe", "_route"), ("dispatch tables", "moe", 
               ("shared expert", "moe", "_shared"), ("unembedding", "model", "_logits"))
 
 
-def profile_moe(torch, fn):
+def profile_ranges(torch, fn, ranges=MOE_RANGES):
     """One call of fn under torch.profiler with a range around each of
-    MOE_RANGES: (host wall ms, device kernel ms, {range: device ms of the
-    kernels launched inside it, "attention (K2)": K2's kernels, "other":
-    the rest}, [(kernel, ms)] of the 8 largest)."""
+    `ranges` ((name, module, attribute) of models/): (host wall ms, device
+    kernel ms, {range: device ms of the kernels launched inside it,
+    "attention (K2)": K2's kernels, "other": the rest}, [(kernel, ms)] of
+    the 8 largest)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.models import model, moe
+    from repro_torch.models import model, moe, ssm
 
-    mods = {"moe": moe, "model": model}
+    mods = {"moe": moe, "model": model, "ssm": ssm}
 
     def ranged(name, fn_):
         def wrapper(*a, **kw):
@@ -3127,7 +3264,7 @@ def profile_moe(torch, fn):
         return wrapper
 
     with contextlib.ExitStack() as stack:
-        for name, mod, attr in MOE_RANGES:
+        for name, mod, attr in ranges:
             stack.enter_context(mock.patch.object(
                 mods[mod], attr, ranged(name, getattr(mods[mod], attr))))
         torch.cuda.synchronize()
@@ -3136,7 +3273,7 @@ def profile_moe(torch, fn):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    names = {name for name, _, _ in MOE_RANGES}
+    names = {name for name, _, _ in ranges}
     avg = prof.key_averages()
     kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in avg
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
@@ -3213,7 +3350,7 @@ def phase_moe_serve(torch, card: str):
                                                   LM_PROMPT + LM_GEN - 1),
          pay["decode_ms_per_token"]),
     ):
-        wall, dev_ms, ranges, top = profile_moe(torch, fn)
+        wall, dev_ms, ranges, top = profile_ranges(torch, fn)
         prof[what] = {"profiled_wall_ms": wall, "device_ms": dev_ms,
                       "busy_share": dev_ms / run_ms, "ranges_ms": ranges, "top": top}
         print(f"[moe serve] profile {what}: device kernels {dev_ms:.2f} ms, {run_ms:.2f} ms "
@@ -3310,7 +3447,7 @@ def phase_moe_train(torch, card: str):
     wall_ms, rows = profile_rows(torch, lambda: step_fn(state, batch))
     dev_ms, top = sum(ms for _, ms in rows), [(k[:60], round(ms, 3)) for k, ms in rows[:10]]
     categories = step_categories(rows)
-    _, _, ranges, _ = profile_moe(torch, lambda: step_fn(state, batch))
+    _, _, ranges, _ = profile_ranges(torch, lambda: step_fn(state, batch))
     print(f"[moe train] profile of one step: device kernels {dev_ms:.1f} ms, {wall_ms:.1f} ms "
           f"under the profiler; by category {categories}; forward ranges {ranges}; top {top}")
     del state, params, flat, step_fn
@@ -3529,6 +3666,64 @@ def phase_moe_card_vs_cpu(torch):
             "planted": planted}
 
 
+def k2_at_shape(torch, gen, name: str, shape, causal: bool, faults) -> dict:
+    """K2 at one bf16 shape (B, Hq, Hkv, S, T, D) on wgmma_tma: against the
+    plain version (BF16_ROW_ULPS), each planted fault that faults(q, k, v,
+    plain output) returns ({name: wrong output}) rejected by the same
+    check, then timed beside the plain version and SDPA (is_causal as asked)
+    with its bound.  Returns the shape's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda")
+    b, hq, hkv, s, t, d = shape
+    kind = ops.library_variant(torch.bfloat16, d)
+    if not kind == ops.variant(torch.bfloat16, d) == "wgmma_tma":
+        raise AssertionError(f"{shape} goes to {kind} (wrapper: "
+                             f"{ops.variant(torch.bfloat16, d)}), expected wgmma_tma")
+    q, k, v = (torch.randn(*sh, generator=gen).to(dev, torch.bfloat16)
+               for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+    out = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    err, reading = max_err(out, want), bf16_reading(out, want)
+    fault_readings = {n: bf16_reading(bad, want) for n, bad in faults(q, k, v, want).items()}
+    print(f"[kernels] flash_attention {name} {shape} bf16 {'causal' if causal else 'non-causal'}"
+          f" ({kind}): reading {reading:.3f} (tol {BF16_ROW_ULPS}), max|err| {err:.3e}; "
+          f"planted faults {fault_readings}")
+    if not reading <= BF16_ROW_ULPS:
+        raise AssertionError(f"flash_attention disagrees with plain at {shape}")
+    for fname, r in fault_readings.items():
+        if r <= BF16_ROW_ULPS:
+            raise AssertionError(f"the bf16 check passes a planted fault at {shape}: {fname}")
+    del out, want
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    def plain():
+        return ref.attention_ref(q, k, v, causal=causal)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+    k1, p1, l1, l2, p2, k2 = (time_ms(torch, fn, 5) for fn in
+                              (kernel, plain, library, library, plain, kernel))
+    flops, nbytes, bound_ms, bound_by = attention_bound(*shape, causal=causal)
+    rec = {"path": name, "shape": list(shape), "causal": causal, "variant": kind,
+           "grid": ops.ctas(b, hq, s, torch.bfloat16, d), "max_abs_err": err,
+           "bf16_reading": reading, "planted_faults": fault_readings,
+           "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+    print(f"[kernels] flash_attention ({kind}, {rec['grid']} CTAs) at {shape} bf16 "
+          f"{'causal' if causal else 'non-causal'}: kernel_ms {k1:.3f} {k2:.3f}  plain_ms "
+          f"{p1:.3f} {p2:.3f}  sdpa_ms {l1:.3f} {l2:.3f}  bound_ms {bound_ms:.4f} "
+          f"({bound_by}: {flops:.3e} flops, {nbytes:.3e} bytes)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_flash_attention_vlm_audio(torch):
     """K2 at the VLM and audio shapes, all on wgmma_tma with a zero-filled
     tail chunk: phi-3-vision's prefill FA_VLM and training shape
@@ -3539,8 +3734,6 @@ def phase_flash_attention_vlm_audio(torch):
     at D 80 a causal mask where none was asked); K2's gradient at FA_AUDIO,
     non-causal (GRAD_BF16_TOL).  Returns the records for K2's
     `vlm_audio_shapes`."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import ops, ref
 
     dev = torch.device("cuda")
@@ -3549,59 +3742,19 @@ def phase_flash_attention_vlm_audio(torch):
     for name, shape, causal in (("phi-3-vision prefill", FA_VLM, True),
                                 ("phi-3-vision train", FA_VLM_TRAIN, True),
                                 ("hubert-xlarge", FA_AUDIO, False)):
-        b, hq, hkv, s, t, d = shape
-        kind = ops.library_variant(torch.bfloat16, d)
-        if not kind == ops.variant(torch.bfloat16, d) == "wgmma_tma":
-            raise AssertionError(f"{shape} goes to {kind} (wrapper: "
-                                 f"{ops.variant(torch.bfloat16, d)}), expected wgmma_tma")
-        q, k, v = (torch.randn(*sh, generator=gen).to(dev, torch.bfloat16)
-                   for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
-        out = ops.flash_attention(q, k, v, causal=causal)
-        want = ref.attention_ref(q, k, v, causal=causal)
-        err, reading = max_err(out, want), bf16_reading(out, want)
-        faults = {}
-        if shape is not FA_VLM_TRAIN:  # once at each head dim
-            faults["logits from the first 64 columns"] = first_columns_attention(
-                torch, q, k, v, 64, causal)
-            faults["P V without its tail chunk"] = without_tail_chunk(want)
-        if not causal:
-            faults["a causal mask where none was asked"] = masked_attention(
-                torch, q, k, v, causal_visible(torch, s, t, dev))
-        fault_readings = {n: bf16_reading(bad, want) for n, bad in faults.items()}
-        print(f"[kernels] flash_attention {name} {shape} bf16 {'causal' if causal else 'non-causal'}"
-              f" ({kind}): reading {reading:.3f} (tol {BF16_ROW_ULPS}), max|err| {err:.3e}; "
-              f"planted faults {fault_readings}")
-        if not reading <= BF16_ROW_ULPS:
-            raise AssertionError(f"flash_attention disagrees with plain at {shape}")
-        for fname, r in fault_readings.items():
-            if r <= BF16_ROW_ULPS:
-                raise AssertionError(f"the bf16 check passes a planted fault at D {d}: {fname}")
-        del out, want, faults
 
-        def kernel():
-            return ops.flash_attention(q, k, v, causal=causal)
+        def faults(q, k, v, want, shape=shape, causal=causal):
+            bad = {}
+            if shape is not FA_VLM_TRAIN:  # once at each head dim
+                bad["logits from the first 64 columns"] = first_columns_attention(
+                    torch, q, k, v, 64, causal)
+                bad["P V without its tail chunk"] = without_tail_chunk(want)
+            if not causal:
+                bad["a causal mask where none was asked"] = masked_attention(
+                    torch, q, k, v, causal_visible(torch, q.shape[2], k.shape[2], dev))
+            return bad
 
-        def plain():
-            return ref.attention_ref(q, k, v, causal=causal)
-
-        def library():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
-
-        k1, p1, l1, l2, p2, k2 = (time_ms(torch, fn, 5) for fn in
-                                  (kernel, plain, library, library, plain, kernel))
-        flops, nbytes, bound_ms, bound_by = attention_bound(*shape, causal=causal)
-        rec = {"path": name, "shape": list(shape), "causal": causal, "variant": kind,
-               "grid": ops.ctas(b, hq, s, torch.bfloat16, d), "max_abs_err": err,
-               "bf16_reading": reading, "planted_faults": fault_readings,
-               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
-               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes}
-        print(f"[kernels] flash_attention ({kind}, {rec['grid']} CTAs) at {shape} bf16 "
-              f"{'causal' if causal else 'non-causal'}: kernel_ms {k1:.3f} {k2:.3f}  plain_ms "
-              f"{p1:.3f} {p2:.3f}  sdpa_ms {l1:.3f} {l2:.3f}  bound_ms {bound_ms:.4f} "
-              f"({bound_by}: {flops:.3e} flops, {nbytes:.3e} bytes)")
-        recs.append(rec)
-        del q, k, v
-        torch.cuda.empty_cache()
+        recs.append(k2_at_shape(torch, gen, name, shape, causal, faults))
 
     # K2's gradient at hubert's shape, non-causal (FA_AUDIO, bf16).
     b, hq, hkv, s, t, d = FA_AUDIO
@@ -3855,6 +4008,283 @@ def phase_vlm_audio_card_vs_cpu(torch):
             raise AssertionError(f"{cfg.name}: card and CPU disagree: {out[arch]}")
         if planted <= 1e-4:
             raise AssertionError(f"{cfg.name}: the forward check passes a planted fault")
+    return out
+
+
+def phase_flash_attention_hybrid(torch):
+    """K2 at zamba2-1.2b's shared-block shape FA_HYBRID (D 64, 32 query over
+    32 KV heads, causal) on wgmma_tma against the plain version, a planted
+    wrong causal mask (the limit one key late) rejected, timed beside SDPA
+    with its bound; K2's gradient there (GRAD_BF16_TOL).  Returns the
+    record for K2's `hybrid_shape`."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+
+    def faults(q, k, v, want):
+        late = causal_visible(torch, q.shape[2], k.shape[2], q.device, 1)
+        return {"causal limit one key late": masked_attention(torch, q, k, v, late)}
+
+    rec = k2_at_shape(torch, gen, "zamba2-1.2b shared block", FA_HYBRID, True, faults)
+    b, hq, hkv, s, t, d = FA_HYBRID
+    q, k, v, do = (torch.randn(*sh, generator=gen).to("cuda", torch.bfloat16)
+                   for sh in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d), (b, hq, s, d)))
+    readings = grad_readings(autograd_grads(torch, ops.flash_attention, q, k, v, do),
+                             autograd_grads(torch, ref.attention_ref, q, k, v, do))
+    print(f"[kernels] flash_attention gradient bf16 causal at {FA_HYBRID}: {readings} (gate "
+          f"{GRAD_BF16_TOL})")
+    if not max(readings.values()) <= GRAD_BF16_TOL:
+        raise AssertionError(f"K2 gradient disagrees with plain at {FA_HYBRID}: {readings}")
+    rec["grad_readings"] = readings
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ulp_noise_attention(torch, seed: int = 7):
+    """The plain attention with one bf16 ulp of noise on its output (each
+    element times 1 + 2^-8 n, n standard normal, fixed by `seed` so a remat
+    recompute draws the same): the control for how far a random-weight
+    stack carries a rounding-sized difference in one attention's output."""
+    from repro_torch.kernels.flash_attention import ref
+
+    def attn(q, k, v, *, causal=True, scale=None):
+        out = ref.attention_ref(q, k, v, causal=causal, scale=scale)
+        noise = torch.randn(out.shape, device=out.device,
+                            generator=torch.Generator(out.device).manual_seed(seed))
+        return (out.float() * (1 + 2.0 ** -8 * noise)).to(out.dtype)
+
+    return attn
+
+
+# Forward ranges of the hybrid prefill's profile (see MOE_RANGES): the SSD
+# (einsums and elementwise work in fp32), the convolution, the gated norm
+# with out_proj, the fp32 unembedding; K2 by name; the rest is the in_proj
+# GEMMs, the shared block's GEMMs and MLP, the norms.
+HYBRID_RANGES = (("SSD chunked scan (fp32)", "ssm", "_ssd_chunked"),
+                 ("Mamba2 convolution", "ssm", "_causal_conv"),
+                 ("gated norm and out_proj", "ssm", "_gated_out"),
+                 ("unembedding (fp32)", "model", "_logits"))
+
+
+def phase_hybrid_serve(torch, card: str):
+    """The port's serve at zamba2-1.2b's full width and depth (38 Mamba2
+    blocks, 6 applications of the shared block), the gemma path's traffic.
+    Gates: one K2 launch an application of the prefill (6) and none in
+    decode, tokens in the vocabulary, logits, K/V and the Mamba2 states
+    finite, each application's K2 against plain on its own inputs (a
+    planted wrong attention rejected); the end-to-end logits against the
+    plain-attention twin printed; the prefill profiled by range
+    (HYBRID_RANGES) and by kernel category, and a decode step.  Returns
+    K2's launch count over the run."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, model
+
+    argv = ["--arch", HYBRID_ARCH, "--full-config", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--device", "cuda"]
+    serve.run(serve.parse_args(argv[:3] + ["--n-layers", "6", "--prompt-len", "256", "--gen", "2",
+                                          "--device", "cuda"]))  # warm, at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = serve.run(serve.parse_args(argv + ["--json"]))
+    launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, pay, tokens, last = out["cfg"], out["payload"], out["tokens"], out["last_logits"]
+    n_groups = attention_applications(cfg)
+    if cfg.n_layers != 38 or launches != n_groups:
+        raise AssertionError(f"hybrid serve: {cfg.n_layers} layers, {launches} K2 launches, "
+                             f"expected {n_groups} (one an application of the prefill, none "
+                             f"in decode)")
+    if tuple(tokens.shape) != (LM_BATCH, LM_GEN) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"hybrid serve: tokens {tuple(tokens.shape)} or outside the "
+                             f"vocabulary")
+    cache = out["cache"]
+    shapes = {f"{stack}/{name}": tuple(t.shape) for stack, d in cache.items()
+              for name, t in d.items()}
+    finite = all(bool(torch.isfinite(t).all()) for d in cache.values() for t in d.values())
+    if shapes["attn/k"] != (n_groups, LM_BATCH, LM_PROMPT + LM_GEN, 32, 64) \
+            or shapes["mamba/S"][:3] != (n_groups, cfg.attn_every, LM_BATCH) \
+            or "mamba_tail/S" not in shapes or not finite or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"hybrid serve: cache {shapes}, or logits or cache not finite")
+
+    params, batch = out["params"], out["batch"]
+    logits_k, layers, planted, _ = prefill_checked(torch, cfg, params, batch)
+    last_k = logits_k[:, -1, :].clone()
+    del logits_k
+    with mock.patch.object(attention.ops, "flash_attention", ref.attention_ref):
+        logits_p, _ = model.prefill(cfg, params, batch)
+    last_p = logits_p[:, -1, :].clone()
+    with mock.patch.object(attention.ops, "flash_attention", ulp_noise_attention(torch)):
+        logits_c, _ = model.prefill(cfg, params, batch)
+    last_c = logits_c[:, -1, :].clone()
+    del logits_p, logits_c
+    e2e = {"logits_row_reading": row_reading(last_k, last_p),
+           "argmax_agree": float((last_k.argmax(-1) == last_p.argmax(-1)).float().mean()),
+           "rerun_bit_identical": bool(torch.equal(last_k, last)),
+           "ulp_noise_control_row_reading": row_reading(last_c, last_p)}
+    print(f"[hybrid serve] each application's K2 (D 64) vs plain on its inputs, bf16 readings "
+          f"(gate {BF16_ROW_ULPS}): {[round(r, 3) for r in layers]}; planted (application 0, "
+          f"causal limit one key late) {planted:.3f}; end to end vs the plain-attention twin "
+          f"(printed): {e2e}")
+    if len(layers) != n_groups or not max(layers) <= BF16_ROW_ULPS:
+        raise AssertionError(f"hybrid serve: an application's K2 disagrees with plain: {layers}")
+    if planted <= BF16_ROW_ULPS:
+        raise AssertionError("hybrid serve: the per-application gate passes a planted wrong "
+                             "attention")
+
+    tok = tokens[:, -1:].to(last.device)
+
+    def prefill():
+        return model.prefill(cfg, params, batch)
+
+    _, _, ranges, _ = profile_ranges(torch, prefill, HYBRID_RANGES)
+    prof = {"prefill": profile_split(torch, prefill, pay["prefill_ms"]),
+            "decode_step": profile_split(
+                torch, lambda: model.decode_step(cfg, params, cache, tok, LM_PROMPT + LM_GEN - 1),
+                pay["decode_ms_per_token"])}
+    prof["prefill"]["ranges"] = ranges
+    print(f"[hybrid serve] profile prefill by range: {ranges}")
+    for what, p in prof.items():
+        print(f"[hybrid serve] profile {what}: device kernels {p['device_ms']:.2f} ms (busy share "
+              f"{p['busy_share']:.3f}); by category {p['categories']}; top {p['top']}")
+    n_params = cfg.param_counts()["total"]
+    print(f"[hybrid serve] {card}: {cfg.name} ({n_params:.4e} params, bf16; {cfg.n_layers} "
+          f"Mamba2 blocks, {n_groups} shared-block applications) batch {LM_BATCH} prompt "
+          f"{LM_PROMPT} gen {LM_GEN}: prefill {pay['prefill_ms']:.1f} ms "
+          f"({pay['prefill_tokens_per_s']:.1f} tokens/s)  decode "
+          f"{pay['decode_ms_per_token']:.3f} ms/token  K2 launches {launches} (D 64)  peak "
+          f"device memory {peak_gb:.2f} GB")
+    print("HYBRID_SERVE " + json.dumps({
+        **pay, "card": card, "params": n_params, "n_layers": cfg.n_layers, "launches": launches,
+        "peak_mem_gb": peak_gb, "cache_shapes": shapes, "application_readings": layers,
+        "planted_application0": planted, "end_to_end": e2e, "first_row": tokens[0].tolist(),
+        "profile": prof}))
+    del out, params, batch, cache, last, last_k, last_p, last_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def exact_attention(q, k, v, *, causal=True, scale=None):
+    """Attention in the inputs' own dtype throughout (fp64 for the exact
+    twin of a train step), the causal limit aligned as K2's."""
+    import torch
+
+    s, t = q.shape[2], k.shape[2]
+    logits = (q @ k.transpose(-1, -2)) * (q.shape[-1] ** -0.5 if scale is None else scale)
+    if causal:
+        visible = torch.ones(s, t, dtype=torch.bool, device=q.device).tril(diagonal=t - s)
+        logits = logits.masked_fill(~visible, float("-inf"))
+    return torch.softmax(logits, dim=-1) @ v
+
+
+def phase_hybrid_card_vs_cpu(torch):
+    """zamba2's SMOKE config cut to 5 layers (2 groups and a 1-block tail;
+    fp32) on the card and on the CPU from one CPU init: the prefill's logits
+    and every cache leaf, three decode steps (teacher-forced) and the final
+    cache, each within 1e-4 of its largest |value|; then three SGD steps:
+    losses within 1e-5 relative, and each param leaf within 1e-4 of its
+    largest |value| of the same steps run exactly (fp64 on the CPU), or,
+    where the CPU's fp32 run itself is further than that from the exact one
+    (the zero-initialised conv_b and dt_bias, whose values are only their
+    summed, cancelling gradients: some 2e-4), within 4 times the CPU's
+    distance.  Planted faults must fail: the prefill check with the Mamba2
+    states carried without their decay (A = 0), the parameter check with
+    the third step's update of layer 0's conv_b skipped on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import _merge_prefill_cache
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import attention, model, ssm
+    from repro_torch.optim import sgd
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get_smoke_config(HYBRID_ARCH), n_layers=5)
+    batches = make_batches(cfg, 4, 64, 0)
+    prompt, fed = (torch.as_tensor(batches(i)["tokens"]).long() for i in (0, 1))
+    start = steps.init_train_state(cfg, sgd(0.5), 0, "cpu")
+    real = ssm._dt_and_A
+
+    def no_decay(params, dt_raw):
+        return real(params, dt_raw)[0], torch.zeros_like(params["A_log"].float())
+
+    def serve_on(dev, fault=False):
+        params = tree_map(lambda t: t.clone().to(dev), start["params"])
+        with contextlib.ExitStack() as stack:
+            if fault:
+                stack.enter_context(mock.patch.object(ssm, "_dt_and_A", no_decay))
+            logits, pre = model.prefill(cfg, params, {"tokens": prompt.to(dev)})
+            first = {f"{k}/{n}": t.cpu().clone() for k, d in pre.items() for n, t in d.items()}
+            cache = _merge_prefill_cache(cfg, model.init_cache(cfg, 4, 67, device=dev), pre)
+            steps_ = [model.decode_step(cfg, params, cache, fed[:, i:i + 1].to(dev), 64 + i)[0]
+                      .cpu() for i in range(3)]
+        final = {f"{k}/{n}": t.cpu() for k, d in cache.items() for n, t in d.items()}
+        return logits.cpu(), first, steps_, final
+
+    (lc, fc, sc, xc), (lp, fp, sp, xp) = serve_on("cuda"), serve_on("cpu")
+    readings = {"prefill logits": rel_err(lc, lp)}
+    readings.update((f"prefill {n}", rel_err(fc[n], fp[n])) for n in fp)
+    readings.update((f"decode {i}", rel_err(a, b)) for i, (a, b) in enumerate(zip(sc, sp)))
+    readings.update((f"final {n}", rel_err(xc[n], xp[n])) for n in xp)
+    planted = rel_err(serve_on("cuda", fault=True)[0], lp)
+
+    def run(dev, dtype=torch.float32, skip_update=False):
+        c = dataclasses.replace(cfg, param_dtype=str(dtype)[6:], compute_dtype=str(dtype)[6:])
+        state = tree_map(lambda t: t.clone().to(dev, dtype) if t.is_floating_point()
+                         else t.clone().to(dev), start)
+        step, losses = steps.make_train_step(c, sgd(0.5)), []
+        with contextlib.ExitStack() as stack:
+            if dtype == torch.float64:
+                stack.enter_context(mock.patch.object(attention.ops, "flash_attention",
+                                                      exact_attention))
+            for i in range(3):
+                before = state["params"]["mamba"]["mixer"]["conv_b"][0].clone()
+                state, m = step(state, batches(i))
+                if skip_update and i == 2:  # planted: layer 0's conv_b keeps its value
+                    with torch.no_grad():
+                        state["params"]["mamba"]["mixer"]["conv_b"][0].copy_(before)
+                losses.append(m["loss"].item())
+        return [t.detach().cpu().double() for t in leaves(state["params"])], losses
+
+    (pc, lsc), (pp, lsp), (px, _) = run("cuda"), run("cpu"), run("cpu", torch.float64)
+
+    def param_rows_of(card_params):
+        rows = []
+        for a, b, x in zip(card_params, pp, px):
+            scale = max(float(x.abs().max()), 1e-30)
+            card, cpu = float((a - x).abs().max()) / scale, float((b - x).abs().max()) / scale
+            rows.append({"card_vs_exact": card, "cpu_vs_exact": cpu,
+                         "bound": max(1e-4, 4 * cpu), "card_vs_cpu": rel_err(a, b)})
+        return rows
+
+    param_rows = param_rows_of(pc)
+    param_ok = all(r["card_vs_exact"] <= r["bound"] for r in param_rows)
+    # the worst leaf's distance from the exact run over its bound: > 1 fails
+    planted_update = max(r["card_vs_exact"] / r["bound"]
+                         for r in param_rows_of(run("cuda", skip_update=True)[0]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lsc, lsp))
+    out = {"readings": readings, "planted_no_decay": planted, "param_rows": param_rows,
+           "planted_skipped_update": planted_update, "step_loss_rel": loss_rel,
+           "losses_card": lsc, "losses_cpu": lsp}
+    print(f"[hybrid card vs cpu] {cfg.name} smoke, 5 layers: max|d|/max|cpu| (tol 1e-4) "
+          f"{readings}; planted (no decay) {planted:.3e}; 3 SGD steps: losses rel "
+          f"{loss_rel:.2e} (tol 1e-5): card {lsc}, cpu {lsp}; params per leaf, max|d|/max|exact| "
+          f"(card vs fp64, CPU fp32 vs fp64, bound): "
+          f"{[(round(r['card_vs_exact'], 7), round(r['cpu_vs_exact'], 7)) for r in param_rows]}; "
+          f"planted (layer 0's conv_b update skipped at step 3) worst leaf over its bound "
+          f"{planted_update:.3f} (fails above 1)")
+    if not (max(readings.values()) <= 1e-4 and param_ok and loss_rel <= 1e-5):
+        raise AssertionError(f"hybrid: card and CPU disagree: {out}")
+    if planted <= 1e-4:
+        raise AssertionError("hybrid: the prefill check passes a planted fault (no decay)")
+    if not planted_update > 1:
+        raise AssertionError("hybrid: the parameter check passes a skipped conv_b update")
     return out
 
 
@@ -4136,6 +4566,8 @@ def main() -> int:
     fa_rec["moe_shapes"] = timed("flash_attention MoE shapes", phase_flash_attention_moe, torch)
     fa_rec["vlm_audio_shapes"] = timed("flash_attention VLM and audio shapes",
                                        phase_flash_attention_vlm_audio, torch)
+    fa_rec["hybrid_shape"] = timed("flash_attention hybrid shape", phase_flash_attention_hybrid,
+                                   torch)
     moe_layer = timed("MoE layer", phase_moe_layer, torch)
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     timed("small coder", phase_small_coder, torch)
@@ -4154,12 +4586,17 @@ def main() -> int:
     vlm_serve = timed("phi-3-vision serve", phase_vlm_serve, torch, card)
     vlm_train = timed("phi-3-vision train", phase_train, torch, card, "vlm train", VLM_ARCH,
                       VLM_TRAIN_LAYERS, VLM_STEPS, VLM_CKPT_EVERY, VLM_FAULT_AT,
-                      VLM_AUDIO_GRAD_FLOOR)
+                      TWIN_GRAD_FLOOR)
     audio = timed("hubert-xlarge encode", phase_audio_encode, torch, card)
     audio_train = timed("hubert-xlarge train", phase_train, torch, card, "audio train",
                         AUDIO_ARCH, AUDIO_TRAIN_LAYERS, AUDIO_STEPS, AUDIO_CKPT_EVERY,
-                        AUDIO_FAULT_AT, VLM_AUDIO_GRAD_FLOOR)
+                        AUDIO_FAULT_AT, TWIN_GRAD_FLOOR)
     va_cpu = timed("VLM and audio card vs cpu", phase_vlm_audio_card_vs_cpu, torch)
+    hybrid_serve = timed("zamba2-1.2b serve", phase_hybrid_serve, torch, card)
+    hybrid_train = timed("zamba2-1.2b train", phase_train, torch, card, "hybrid train",
+                         HYBRID_ARCH, HYBRID_TRAIN_LAYERS, HYBRID_STEPS, HYBRID_CKPT_EVERY,
+                         HYBRID_FAULT_AT, None)
+    hybrid_cpu = timed("hybrid card vs cpu", phase_hybrid_card_vs_cpu, torch)
     fa_rec["launches_by_path"] = {"gemma-2b serve": fa_rec["launches"],
                                   "olmo-1b train": train["launches"],
                                   "granite-moe serve": moe_serve,
@@ -4168,14 +4605,18 @@ def main() -> int:
                                   "phi-3-vision serve": vlm_serve,
                                   "phi-3-vision train": vlm_train["launches"],
                                   "hubert-xlarge encode": audio,
-                                  "hubert-xlarge train": audio_train["launches"]}
+                                  "hubert-xlarge train": audio_train["launches"],
+                                  "zamba2 serve": hybrid_serve,
+                                  "zamba2 train": hybrid_train["launches"]}
     fa_rec["launches"] = sum(fa_rec["launches_by_path"].values())
     fa_rec["train_launches_per_step"] = train["launches_per_step"]
     fa_rec["moe_train_launches_per_step"] = moe_train["launches_per_step"]
     fa_rec["vlm_train_launches_per_step"] = vlm_train["launches_per_step"]
     fa_rec["audio_train_launches_per_step"] = audio_train["launches_per_step"]
+    fa_rec["hybrid_train_launches_per_step"] = hybrid_train["launches_per_step"]
     print("MOE_CHECKS " + json.dumps({"layer": moe_layer, "card_vs_cpu": moe_cpu}))
     print("VLM_AUDIO_CHECKS " + json.dumps({"card_vs_cpu": va_cpu}))
+    print("HYBRID_CHECKS " + json.dumps({"card_vs_cpu": hybrid_cpu}))
     # The diffusion's step is bounded by the worst block's curvature
     # (sigma_max(W_k)^2 / delta, about 58 here) while its consensus term
     # contracts by only mu / N per iteration, so after 150 iterations at this

@@ -1,13 +1,11 @@
 """Architecture registry: --arch <id> resolves here.
 
-Port of src/repro/configs/__init__.py, with the same ids and aliases.  Five
-families are ported: dense (gemma_2b, olmo_1b, granite_8b, qwen3_32b),
-xlstm (xlstm_1p3b), moe (granite_moe_1b_a400m, kimi_k2_1t_a32b), vlm
-(phi3_vision_4p2b) and audio (hubert_xlarge), each config with CONFIG (the
-full configuration) and SMOKE (a reduced same-family config for CPU
-tests), copied from the JAX package.  Asking for an architecture of a
-family not ported yet (hybrid) raises NotImplementedError naming the
-ROADMAP slice that ports it.
+Port of src/repro/configs/__init__.py, with the same ids and aliases.  Every
+family of the registry is ported: dense (gemma_2b, olmo_1b, granite_8b,
+qwen3_32b), xlstm (xlstm_1p3b), moe (granite_moe_1b_a400m,
+kimi_k2_1t_a32b), vlm (phi3_vision_4p2b), audio (hubert_xlarge) and hybrid
+(zamba2_1p2b), each config with CONFIG (the full configuration) and SMOKE
+(a reduced same-family config for CPU tests), copied from the JAX package.
 """
 
 from __future__ import annotations
@@ -45,33 +43,11 @@ ALIASES: Dict[str, str] = {
     "hubert-xlarge": "hubert_xlarge",
 }
 
-PORTED = ("qwen3_32b", "olmo_1b", "granite_8b", "gemma_2b", "xlstm_1p3b",
-          "kimi_k2_1t_a32b", "granite_moe_1b_a400m", "phi3_vision_4p2b", "hubert_xlarge")
-PORTED_FAMILIES = ("dense", "xlstm", "moe", "vlm", "audio")
-
-# The ROADMAP section 1 slice that ports each remaining family, and the
-# family of each architecture not ported yet.
-FAMILY_SLICES: Dict[str, str] = {
-    "hybrid": "the hybrid (Mamba2) slice",
-}
-NOT_PORTED: Dict[str, str] = {
-    "zamba2_1p2b": "hybrid",
-}
-
-
-def not_ported(what: str, family: str) -> NotImplementedError:
-    """The error for a family the port does not run yet."""
-    return NotImplementedError(
-        f"{what} ({family} family) is not ported yet (ROADMAP section 1, "
-        f"{FAMILY_SLICES[family]}); the port runs the {', '.join(PORTED_FAMILIES)} "
-        f"families: {', '.join(PORTED)}"
-    )
+PORTED_FAMILIES = ("dense", "xlstm", "moe", "vlm", "audio", "hybrid")
 
 
 def _module(arch: str):
     arch = ALIASES.get(arch, arch)
-    if arch in NOT_PORTED:
-        raise not_ported(arch, NOT_PORTED[arch])
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
@@ -89,7 +65,10 @@ def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
     """cfg with n_layers layers and every width kept (the CLIs'
     `--n-layers`): an MoE config keeps its leading dense layers and needs
     one MoE layer after them, an xlstm config whole groups of slstm_every
-    blocks.  Raises ValueError for a cut it cannot make."""
+    blocks, a hybrid config at least one group of attn_every Mamba2 layers
+    (it keeps n_layers // attn_every groups, each followed by the shared
+    block, and a tail of the remainder, as JAX's init).  Raises ValueError
+    for a cut it cannot make."""
     if n_layers < 1 or n_layers > cfg.n_layers:
         raise ValueError(f"--n-layers {n_layers}: {cfg.name} has {cfg.n_layers} layers")
     if cfg.family == "moe" and n_layers <= cfg.first_dense:
@@ -98,4 +77,8 @@ def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
     if cfg.family == "xlstm" and n_layers % cfg.slstm_every:
         raise ValueError(f"--n-layers {n_layers}: xlstm keeps whole groups of "
                          f"{cfg.slstm_every} blocks")
+    if cfg.family == "hybrid" and n_layers < cfg.attn_every:
+        raise ValueError(f"--n-layers {n_layers}: {cfg.name} runs its shared attention block "
+                         f"after each group of {cfg.attn_every} Mamba2 layers; keep at least "
+                         f"one group")
     return dataclasses.replace(cfg, n_layers=n_layers)

@@ -100,12 +100,18 @@ def lm_params_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict:
     projections (fan_in, fan_out), the block-diagonal q/k/v and the sLSTM's
     r_* (L, H, P, P) indexed (in, out).  vlm: the dense stack and
     "projector" {"w1" (vision_dim, D), "w2" (D, D)}; audio: the dense stack,
-    "frame_proj" {"w" (frame_dim, D)} and no embedding.  One embedding table
+    "frame_proj" {"w" (frame_dim, D)} and no embedding.  hybrid: "mamba"
+    (n_groups * attn_every blocks) and, when n_layers % attn_every,
+    "mamba_tail" stacks of {"norm", "mixer": in_proj (L, D, d_proj), conv_w
+    (L, 4, conv_dim), conv_b, dt_bias, A_log, D, norm_scale, out_proj
+    (L, d_inner, D)}, and "shared_attn", ONE dense block with no layer
+    axis (weight-tied across its applications).  One embedding table
     (V, D) that the tied unembedding reads transposed, or an untied
     "head" {"w" (D, V)} (audio).  So every leaf crosses as it is, in
     cfg.param_dtype (bf16 leaves, numpy's ml_dtypes bfloat16, widen to
     fp32 exactly and round back), onto `device`; the nesting is kept, empty
-    dicts (the nonparametric norms) included.  Families not ported raise."""
+    dicts (the nonparametric norms) included.  A family outside the
+    registry raises."""
     require_ported(cfg)
     dev = resolve_device(device)
     return tree_map(

@@ -7,12 +7,20 @@ The JAX package has no backward kernel: its training path runs
 backward of the function K2 computes, with its mask: causal aligned
 bottom-right (query row r sees key c iff c <= r + T - S).  For each chunk
 of query rows it recomputes the logits from q and k (nothing of the
-forward is kept but q, k, v and the output O), so memory holds one chunk's
-(B, Hq, rows, T) fp32 logits, not the whole S x T:
+forward is kept but q, k and v), so memory holds one chunk's (B, Hq, rows,
+T) fp32 logits, not the whole S x T:
 
-    P  = softmax(scale q k^T, masked)       D  = rowsum(dO * O)
+    P  = softmax(scale q k^T, masked)       D  = rowsum(P * dP)
     dP = dO v^T                             dS = P * (dP - D)
     dq = scale dS k     dk = scale dS^T q   dv = P^T dO
+
+A chunk holds whole rows of P, so D is summed from the chunk's own fp32 P
+and dP, and each row of dS sums to zero as the exact gradient's does.
+FlashAttention-2's D = rowsum(dO * O), from the forward's bf16 output,
+differs from it by O's rounding, which dS then carries into dq along the
+mean key: where the keys share a large common part (the deep layers of a
+random-weight stack) dq is then wrong by a large share of its size
+(tests/test_torch_attention_grad.py).
 
 dk and dv sum over the `group` query heads that read each kv head.  Under a
 causal mask a chunk of rows ending at row r1 sees no key past r1 + T - S,
@@ -35,11 +43,17 @@ def chunk_rows(b: int, hq: int, s: int, t: int) -> int:
     return max(1, min(s, CHUNK_BYTES // (4 * b * hq * t)))
 
 
+def softmax_grad(p: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
+    """dS = P * (dP - rowsum(P * dP)) over whole rows, computed in dp's
+    storage."""
+    dp.mul_(p)
+    return dp.addcmul_(p, dp.sum(-1, keepdim=True), value=-1.0)
+
+
 def attention_backward(
     q: torch.Tensor,  # (B, Hq, S, D)
     k: torch.Tensor,  # (B, Hkv, T, D)
     v: torch.Tensor,  # (B, Hkv, T, D)
-    out: torch.Tensor,  # (B, Hq, S, D), the forward's output
     dout: torch.Tensor,  # (B, Hq, S, D)
     *,
     causal: bool,
@@ -51,10 +65,8 @@ def attention_backward(
     group = hq // hkv
     # (B, Hkv, G, S, D): query head h is (h // group, h % group)
     qf = q.float().reshape(b, hkv, group, s, d)
-    of = out.float().reshape(b, hkv, group, s, d)
     dof = dout.float().reshape(b, hkv, group, s, d)
     kf, vf = k.float(), v.float()
-    delta = (dof * of).sum(-1)  # D, (B, Hkv, G, S)
     dq = torch.empty_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
@@ -71,9 +83,7 @@ def attention_backward(
             logits = logits.masked_fill(c > r + (t - s), float("-inf"))
         p = torch.softmax(logits, dim=-1)
         del logits
-        dp = torch.einsum("bhgsd,bhtd->bhgst", doc, vc)
-        ds = p * (dp - delta[:, :, :, r0:r1, None])
-        del dp
+        ds = softmax_grad(p, torch.einsum("bhgsd,bhtd->bhgst", doc, vc))
         dq[:, :, :, r0:r1] = torch.einsum("bhgst,bhtd->bhgsd", ds, kc) * scale
         dk[:, :, :tc] += torch.einsum("bhgst,bhgsd->bhtd", ds, qc) * scale
         dv[:, :, :tc] += torch.einsum("bhgst,bhgsd->bhtd", p, doc)

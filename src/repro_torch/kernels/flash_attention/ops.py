@@ -22,7 +22,9 @@ When grad is enabled and q, k or v requires it, `flash_attention` runs
 through `FlashAttention`, an autograd Function on both devices: forward K2
 on the card (its plain version on the CPU), backward
 `backward.attention_backward`, FlashAttention-2's backward in plain PyTorch
-(the JAX package differentiates its XLA scan and has no backward kernel).
+with the softmax's D summed from P and dP, so the forward's output is not
+kept (the JAX package differentiates its XLA scan and has no backward
+kernel).
 Without grad the path is the bare forward.
 
 `flash_decode` is the single-token decode attention, plain PyTorch as the
@@ -180,20 +182,18 @@ def _forward(q, k, v, causal: bool, scale: float) -> torch.Tensor:
 
 class FlashAttention(torch.autograd.Function):
     """K2's forward (its plain version on the CPU) with
-    `attention_backward`; saves q, k, v and the output."""
+    `attention_backward`; saves q, k and v."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        out = _forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
-        return out
+        return _forward(q, k, v, causal, scale)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, out, dout, causal=ctx.causal,
-                                        scale=ctx.scale)
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, dout, causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -1,8 +1,8 @@
 """Serving launcher: batched prefill + greedy decode loop with a KV cache,
 on one card.
 
-Port of src/repro/launch/serve.py for the dense, moe, vlm and xlstm LM
-families.  Prefills the prompt batch once, then steps the decode function
+Port of src/repro/launch/serve.py for the dense, moe, vlm, xlstm and
+hybrid LM families.  Prefills the prompt batch once, then steps the decode function
 greedily.  Dense, moe and vlm: every layer's attention runs through the
 flash-attention kernel (K2), and the prompt's KV is copied into a cache of
 prompt + gen positions (moe with leading dense layers: the "dense" and
@@ -12,7 +12,10 @@ embeddings before its text, drawn from the same generator after the
 prompts (as JAX's), so the prefill covers n_img_tokens + prompt positions
 and the cache n_img_tokens + prompt + gen.  xlstm: every sLSTM block's
 recurrence is one launch of the sLSTM kernel (K3), and the prefill's state
-caches are carried over as they are.  The audio family is encoder-only
+caches are carried over as they are.  hybrid: each application of the
+shared block attends through K2 (n_layers // attn_every a prefill), its
+K/V is copied into a cache of prompt + gen positions, and the Mamba2
+state caches are carried over as they are.  The audio family is encoder-only
 and is refused, as by JAX's CLI.  At full width:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \\
@@ -23,10 +26,13 @@ and is refused, as by JAX's CLI.  At full width:
       --full-config --n-layers 2 --batch 4 --prompt-len 2048 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b \\
       --full-config --batch 4 --prompt-len 2048 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --full-config --batch 4 --prompt-len 2048 --gen 32
 
 `--n-layers` cuts the depth of the chosen config (kimi-k2's 61 layers do
-not fit one card; 2 keep its dense first layer and one MoE layer) and
-keeps every width.  Weights are random, made from --seed on the device.  `--device cpu` runs
+not fit one card; 2 keep its dense first layer and one MoE layer; a hybrid
+config keeps at least one group of attn_every Mamba2 layers) and keeps
+every width.  Weights are random, made from --seed on the device.  `--device cpu` runs
 on the CPU (the default is the card, and no card is an error).  One card
 holds the whole model, so `--mesh` takes only 1x1: sharded serving is a
 later slice.
@@ -80,7 +86,8 @@ def run(args: argparse.Namespace) -> Dict:
     "batch" (the prefill's input: the prompts, and vlm's image embeddings),
     "last_logits" (B, V) fp32 of the prefill's last position,
     "prefill_cache" and "cache" (for xlstm one tree: the state caches are
-    carried over and the decode loop advances them in place)}."""
+    carried over and the decode loop advances them in place; hybrid's
+    Mamba2 states are shared by the two the same way)}."""
     if args.mesh != "1x1":
         raise SystemExit(f"--mesh {args.mesh!r}: sharded serving is not ported yet "
                          f"(ROADMAP section 1, the sharded-serving slice); one card "
@@ -169,13 +176,20 @@ def run(args: argparse.Namespace) -> Dict:
 def _merge_prefill_cache(cfg, cache: Optional[dict], pre_cache: dict) -> dict:
     """Copy the prefill cache (length = prompt, with vlm's image positions)
     into the max_len cache, in place: "layers", and "dense" where an MoE
-    config has leading dense layers.  The xlstm caches are pure state: the
-    prefill's is carried over as it is (and `cache` is not read)."""
+    config has leading dense layers; hybrid's "attn", one K/V per
+    application of the shared block.  The xlstm caches and hybrid's
+    "mamba" and "mamba_tail" are pure state: the prefill's are carried over
+    as they are (and for xlstm `cache` is not read)."""
     if cfg.family == "xlstm":
         return pre_cache
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
         raise KeyError(cfg.family)
-    for stack, layers in cache.items():
+    if cfg.family == "hybrid":
+        cache.update({key: pre_cache[key] for key in pre_cache if key != "attn"})
+        stacks = {"attn": cache["attn"]}
+    else:
+        stacks = cache
+    for stack, layers in stacks.items():
         for name, full in layers.items():
             part = pre_cache[stack][name]
             full[:, :, : part.shape[2]] = part

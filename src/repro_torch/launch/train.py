@@ -1,8 +1,9 @@
 """Training launcher, on one card.
 
-Port of src/repro/launch/train.py for the dense, moe, vlm and audio
-families: the smoke config of --arch (or with --full-config the full one)
-trains on its synthetic stream (the Markov tokens; with image embeddings
+Port of src/repro/launch/train.py for the dense, moe, vlm, audio and
+hybrid families: the smoke config of --arch (or with --full-config the
+full one) trains on its synthetic stream (the Markov tokens, for dense,
+moe and hybrid; with image embeddings
 before the text for vlm, whose loss is over the text; hubert's
 masked-prediction frames for audio) through the fault-tolerant runner,
 with AdamW on a cosine warmup (Adafactor for a bf16-param config,
@@ -20,30 +21,37 @@ its load-balance aux (the step's `moe_aux`):
       --full-config --n-layers 4 --batch 4 --seq 2048 --steps 6 --ckpt-every 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \\
       --full-config --batch 4 --seq 2048 --steps 6 --ckpt-every 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --full-config --n-layers 14 --batch 4 --seq 2048 --steps 6 --ckpt-every 3
 
-`--n-layers` cuts the depth of the chosen config and keeps every width.
+`--n-layers` cuts the depth of the chosen config and keeps every width
+(a hybrid config keeps at least one group of attn_every Mamba2 layers:
+n_layers // attn_every groups, each followed by the shared block, and a
+tail of the remainder).
 Weights are random, made from --seed on the device.  `--device cpu` runs on
 the CPU (the default is the card, and no card is an error).  One card
 holds the whole run, so --mesh and --rescale-mesh take only 1x1: a sharded
 run is ROADMAP section 1's sharded-training item.  xlstm waits for the
-xLSTM-training item (K3's gradient); hybrid for its slice.
+xLSTM-training item (K3's gradient).
 Checkpoints go to --ckpt-dir, by default a fresh directory under
 build/checkpoints/.
 
 Prints the JAX CLI's lines: the loss every 10 steps, the final loss with
 the faults recovered, the checkpoint list, and "elastic rescale ...:
-resumed at step ...".
+resumed at step ..."; then, from the command line, the step time (the
+median after the first step) and, on the card, the process's peak device
+memory.
 """
 
 from __future__ import annotations
 
 import argparse
 import pathlib
+import statistics
 import tempfile
 from typing import Dict, Optional, Sequence
 
-from repro_torch.configs import (ALIASES, ARCH_IDS, FAMILY_SLICES, cut_depth, get_config,
-                                 get_smoke_config)
+from repro_torch.configs import ALIASES, ARCH_IDS, cut_depth, get_config, get_smoke_config
 from repro_torch.data import synthetic as data
 from repro_torch.device import resolve_device
 from repro_torch.models.model import require_trainable
@@ -56,12 +64,10 @@ CKPT_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "checkpoints
 
 def make_batches(cfg, batch: int, seq: int, seed: int = 0):
     """Step-indexed batch factory (replay-safe), numpy batches as JAX's:
-    step -> {"tokens": (B, S) int32}; audio {"features", "targets",
-    "mask"} of S frames; vlm {"tokens": (B, max(S - n_img_tokens, 8)),
-    "img_embeds"}, S positions in all for S >= n_img_tokens + 8."""
-    if cfg.family in FAMILY_SLICES:
-        raise NotImplementedError(f"{cfg.name}: {cfg.family} batches wait for ROADMAP "
-                                  f"section 1, {FAMILY_SLICES[cfg.family]}")
+    step -> {"tokens": (B, S) int32} (dense, moe, hybrid, xlstm); audio
+    {"features", "targets", "mask"} of S frames; vlm {"tokens": (B, max(S -
+    n_img_tokens, 8)), "img_embeds"}, S positions in all for S >=
+    n_img_tokens + 8."""
     if cfg.family == "audio":
         def fn(step):
             gen = data.audio_batches(cfg.frame_dim, cfg.vocab, batch, seq, 1, seed=seed + step)
@@ -167,7 +173,18 @@ def run(args: argparse.Namespace) -> Dict:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
-    out = run(parse_args(argv))
+    args = parse_args(argv)
+    out = run(args)
+    times = out["runner"].step_times
+    line = (f"{out['cfg'].name}, {out['cfg'].n_layers} layers, {args.batch} x {args.seq} "
+            f"positions: step {statistics.median(times[1:] or times) * 1e3:.1f} ms (median "
+            f"of the {len(times) - 1} steps run after the first; first {times[0] * 1e3:.1f} ms)")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        import torch
+
+        line += f"; peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB"
+    print(line)
     return {k: out[k] for k in ("losses", "faults", "ckpt_dir", "ckpt_steps", "rescaled_step")}
 
 

@@ -1,8 +1,7 @@
 """Model assembly for the ported LM families: ArchConfig -> init / forward /
 prefill / decode.
 
-Port of the dense, moe, vlm, audio and xlstm parts of
-src/repro/models/model.py:
+Port of src/repro/models/model.py, every family:
   dense   a pre-norm decoder stack (qwen3, olmo, granite, gemma);
   moe     the same stack with the MoE FFN (models/moe.py), after
           `first_dense` leading dense blocks (kimi's first layer);
@@ -16,13 +15,20 @@ src/repro/models/model.py:
           encodes and returns no cache, and there is no decode step;
   xlstm   groups of (slstm_every - 1) pre-norm mLSTM blocks followed by one
           pre-norm sLSTM block, whose recurrence is one K3 launch
-          (models/xlstm.py).
+          (models/xlstm.py);
+  hybrid  n_layers // attn_every groups of attn_every pre-norm Mamba2
+          blocks (models/ssm.py, plain torch as JAX's einsums), each group
+          followed by one application of the weight-TIED "shared_attn"
+          transformer block (K2), then a tail of the remaining Mamba2
+          blocks ("mamba_tail", when n_layers % attn_every) (zamba2).
 Params are a dict tree in the JAX package's layouts, every stack's
 tensors stacked on a leading layer axis (what the JAX side scans over:
 "layers" for dense; "dense_layers", over first_dense blocks when it is
 set, and "layers", over the rest, for moe; "mlstm", over n_groups *
-(slstm_every - 1) blocks, and "slstm", over n_groups, for xlstm); the port
-walks the layers with a Python loop.  Every entry point takes the batch
+(slstm_every - 1) blocks, and "slstm", over n_groups, for xlstm; "mamba",
+over n_groups * attn_every blocks, and "mamba_tail" for hybrid, whose
+"shared_attn" is one block with no layer axis, as JAX's); the port walks
+the layers with a Python loop.  Every entry point takes the batch
 as JAX's does (a dict of tensors or numpy arrays, moved to the params'
 device): "tokens", and "img_embeds" for vlm, "features" for audio
 ("targets" and "mask" too for the audio loss).  Every entry point first
@@ -39,17 +45,20 @@ the fp32 master params through it, and each stack splits with
 `torch.unbind` (whose backward writes one stacked gradient, where the
 backward of one `select` per layer would write a zero-filled copy of the
 whole stack per layer).  When grad flows and `cfg.remat` is set, each
-transformer layer runs under `torch.utils.checkpoint` (non-reentrant): only its
+transformer layer (and each hybrid Mamba2 block and shared-block
+application) runs under `torch.utils.checkpoint` (non-reentrant): only its
 input is kept, and its forward runs again in the backward, as the JAX
 `_maybe_remat` with `nothing_saveable`; its K2 launch then runs twice.
+The shared block's applications reuse its tensors, so autograd sums its
+gradient over them, as JAX's.
 
 `forward` returns the MoE load-balance aux summed over every layer (dense
 layers first; 0 without experts), and `loss_fn` is the fp32 cross-entropy
 plus 0.01 x that aux: next-token over the text (vlm: the logits after the
 image tokens), masked prediction of the targets at the masked frames
 (audio).  The untied head (audio; any config without tie_embeddings) is
-h @ head.w with fp32 accumulation.  The hybrid family raises, naming its
-ROADMAP slice; xlstm trains with the xLSTM-training item (K3's gradient).
+h @ head.w with fp32 accumulation.  xlstm trains with the xLSTM-training
+item (K3's gradient).
 """
 
 from __future__ import annotations
@@ -59,10 +68,11 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs import PORTED_FAMILIES, not_ported
+from repro_torch.configs import PORTED_FAMILIES
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, embed, init_embedding, init_norm,
@@ -70,12 +80,16 @@ from repro_torch.models.layers import (apply_norm, dense_init, embed, init_embed
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run: the families not ported yet,
-    an xlstm depth that is not whole groups."""
+    """Raise for what the port does not run: a family outside the registry,
+    an xlstm depth that is not whole groups, a hybrid depth without one
+    group (its shared block would never run)."""
     if cfg.family not in PORTED_FAMILIES:
-        raise not_ported(cfg.name, cfg.family)
+        raise KeyError(f"{cfg.name}: unknown family {cfg.family!r}; the port runs "
+                       f"{', '.join(PORTED_FAMILIES)}")
     if cfg.family == "xlstm" and (not cfg.slstm_every or cfg.n_layers % cfg.slstm_every):
         raise ValueError(f"{cfg.name}: xlstm expects n_layers % slstm_every == 0")
+    if cfg.family == "hybrid" and (not cfg.attn_every or cfg.n_layers < cfg.attn_every):
+        raise ValueError(f"{cfg.name}: hybrid expects n_layers >= attn_every (one group)")
 
 
 def stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
@@ -83,6 +97,10 @@ def stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
     if cfg.family == "xlstm":
         n_groups = cfg.n_layers // cfg.slstm_every
         return {"mlstm": n_groups * (cfg.slstm_every - 1), "slstm": n_groups}
+    if cfg.family == "hybrid":
+        n_grouped = cfg.n_layers // cfg.attn_every * cfg.attn_every
+        n_tail = cfg.n_layers - n_grouped
+        return {"mamba": n_grouped, **({"mamba_tail": n_tail} if n_tail else {})}
     if cfg.family == "moe" and cfg.first_dense:
         return {"dense_layers": cfg.first_dense, "layers": cfg.n_layers - cfg.first_dense}
     return {"layers": cfg.n_layers}
@@ -96,7 +114,8 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: dict) -> dict:
 def cast_params(cfg: ArchConfig, params: dict) -> dict:
     """The params as the entry points walk them: float tensors in the
     compute dtype, each layer stack a list of per-layer trees (views of the
-    stacked tensors).  A tree already in that form is returned as it is."""
+    stacked tensors; hybrid's shared block stays one tree).  A tree already
+    in that form is returned as it is."""
     sizes = stack_sizes(cfg)
     if all(isinstance(params[key], list) for key in sizes):
         return params
@@ -120,7 +139,7 @@ def require_trainable(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: xlstm training is not ported yet (ROADMAP section 1, the "
             f"xLSTM-training item: K3 has no gradient); the port trains the dense, "
-            f"moe, vlm and audio families"
+            f"moe, vlm, audio and hybrid families"
         )
 
 
@@ -173,6 +192,15 @@ def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = "cuda") -> Dict[st
             "mixer": xlstm_mod.init_slstm(gen, cfg.d_model, cfg.n_heads, dtype=cfg.dtype,
                                           lead=lead_s),
         }
+    elif cfg.family == "hybrid":
+        for key, n in stack_sizes(cfg).items():
+            params[key] = {
+                "norm": init_norm(cfg.norm, cfg.d_model, cfg.dtype, dev, (n,)),
+                "mixer": ssm_mod.init_mamba2(gen, cfg.d_model, d_state=cfg.ssm_state,
+                                             head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+                                             dtype=cfg.dtype, lead=(n,)),
+            }
+        params["shared_attn"] = tfm.init_block(gen, cfg, None)
     else:
         sizes = stack_sizes(cfg)
         if "dense_layers" in sizes:
@@ -244,6 +272,37 @@ def _xlstm_mixer(cfg: ArchConfig, kind: str, lp: dict, h: torch.Tensor, return_c
                                  return_cache=return_cache)
 
 
+def _hybrid_layers(cfg: ArchConfig, params: dict):
+    """The hybrid blocks in order: (kind, index into its cache stack, params):
+    ("mamba", (group, i), ...) for the attn_every blocks of each group, then
+    ("attn", (group,), the shared block), and ("mamba_tail", (i,), ...)."""
+    g = cfg.attn_every
+    for gi in range(cfg.n_layers // g):
+        for i in range(g):
+            yield "mamba", (gi, i), params["mamba"][gi * g + i]
+        yield "attn", (gi,), params["shared_attn"]
+    for i, lp in enumerate(params.get("mamba_tail", [])):
+        yield "mamba_tail", (i,), lp
+
+
+def _mamba_kw(cfg: ArchConfig) -> dict:
+    return dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand)
+
+
+def _mamba_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """One pre-norm Mamba2 block over the full sequence."""
+    h_in = apply_norm(cfg.norm, lp["norm"], h)
+    return h + ssm_mod.mamba2_block(lp["mixer"], h_in, chunk=cfg.ssm_chunk, **_mamba_kw(cfg))
+
+
+def _remat(cfg: ArchConfig, fn: Callable, *args):
+    """fn(*args), under non-reentrant checkpoint when cfg.remat is set and
+    grad flows into any of the args."""
+    if cfg.remat and _needs_grad(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # ---------------------------------------------------------------------------
 # Forward, prefill, decode
 # ---------------------------------------------------------------------------
@@ -260,11 +319,15 @@ def forward(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
         return _logits(cfg, params, h), torch.zeros((), device=h.device)
     positions = torch.arange(h.shape[1], device=h.device)
     aux_total = torch.zeros((), device=h.device)
+    if cfg.family == "hybrid":
+        for kind, _, lp in _hybrid_layers(cfg, params):
+            if kind == "attn":
+                h = _remat(cfg, tfm.apply_block, lp, h, positions, cfg)[0]
+            else:
+                h = _remat(cfg, _mamba_layer, lp, h, cfg)
+        return _logits(cfg, params, h), aux_total
     for lp in _blocks(cfg, params):
-        if cfg.remat and _needs_grad(lp, h):
-            h, aux = checkpoint(tfm.apply_block, lp, h, positions, cfg, use_reentrant=False)
-        else:
-            h, aux = tfm.apply_block(lp, h, positions, cfg)
+        h, aux = _remat(cfg, tfm.apply_block, lp, h, positions, cfg)
         aux_total = aux_total + aux
     return _logits(cfg, params, h), aux_total
 
@@ -289,9 +352,9 @@ def loss_fn(cfg: ArchConfig, params: dict,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy plus 0.01 x moe_aux (0 without experts): (total, {"ce",
     "moe_aux", "n_tokens"}).  Next-token (logits[:, :-1] against
-    tokens[:, 1:], every position counting) over the text: for vlm the
-    logits after the n_img_tokens image positions; audio: the targets at
-    the frames of batch["mask"]."""
+    tokens[:, 1:], every position counting; dense, moe and hybrid) over the
+    text: for vlm the logits after the n_img_tokens image positions; audio:
+    the targets at the frames of batch["mask"]."""
     require_trainable(cfg)
     logits, aux = forward(cfg, params, batch)
     dev = logits.device
@@ -320,11 +383,27 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "
     positions; audio raises (encoder-only: no decode).
     xlstm (state caches; max_len unused): {"mlstm": {"conv_buf" (compute
     dtype), "C", "n", "m" (fp32)}, each (n_groups, slstm_every - 1, B, ...),
-    "slstm": {"h", "c", "n", "m"}, each (n_groups, B, D) fp32}."""
+    "slstm": {"h", "c", "n", "m"}, each (n_groups, B, D) fp32}.
+    hybrid: {"mamba": {"conv_buf" (n_groups, attn_every, B, 3, conv_dim) in
+    the compute dtype, "S" (n_groups, attn_every, B, H, N, P) fp32}, "attn":
+    {"k", "v": (n_groups, B, max_len, Hkv, Dh)} (one per application of the
+    shared block), and "mamba_tail" as "mamba" with (n_tail,) in front}."""
     require_ported(cfg)
     if cfg.family == "audio":
         raise ValueError(f"{cfg.name}: encoder-only arch has no decode cache")
     dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        n_groups = cfg.n_layers // cfg.attn_every
+        cache = {"attn": attn_mod.init_cache(batch, max_len, cfg.n_kv_heads,
+                                             cfg.resolved_head_dim, cfg.cdtype, dev,
+                                             lead=(n_groups,))}
+        sizes, leads = stack_sizes(cfg), {"mamba": (n_groups, cfg.attn_every)}
+        if "mamba_tail" in sizes:
+            leads["mamba_tail"] = (sizes["mamba_tail"],)
+        for key, lead in leads.items():
+            cache[key] = ssm_mod.init_mamba2_cache(batch, cfg.d_model, dtype=cfg.cdtype,
+                                                   device=dev, lead=lead, **_mamba_kw(cfg))
+        return cache
     if cfg.family == "xlstm":
         n_groups = cfg.n_layers // cfg.slstm_every
         return {
@@ -345,9 +424,10 @@ def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
     {"k", "v": (L, B, S, Hkv, Dh)}} (vlm: S counts the image positions
     first), and "dense" for moe's first_dense layers; audio encodes: the
     forward's logits and a cache of None;
-    xlstm: the state cache of `init_cache`, each block's final state in its
-    slot (a prompt shorter than the convolution leaves the older conv_buf
-    rows zero, as the convolution's padding)."""
+    xlstm and hybrid: the cache of `init_cache` (hybrid's K/V of S
+    positions), each block's final state in its slot (a prompt shorter than
+    the convolution leaves the older conv_buf rows zero, as the
+    convolution's padding)."""
     if cfg.family == "audio":
         return forward(cfg, params, batch)[0], None
     require_ported(cfg)
@@ -365,6 +445,22 @@ def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
                 slot.copy_(t)
         return _logits(cfg, params, h), cache
     positions = torch.arange(h.shape[1], device=h.device)
+    if cfg.family == "hybrid":
+        cache = init_cache(cfg, h.shape[0], h.shape[1], device=h.device)
+        for kind, at, lp in _hybrid_layers(cfg, params):
+            if kind == "attn":
+                h, state, _ = tfm.prefill_block(lp, h, positions, cfg)
+            else:
+                h_in = apply_norm(cfg.norm, lp["norm"], h)
+                out, state = ssm_mod.mamba2_block(lp["mixer"], h_in, chunk=cfg.ssm_chunk,
+                                                  return_cache=True, **_mamba_kw(cfg))
+                h = h + out
+            for name, t in state.items():
+                slot = cache[kind][name][at]
+                if name == "conv_buf":  # (B, rows, conv_dim), rows = min(S, width - 1)
+                    slot = slot[:, -t.shape[1]:]
+                slot.copy_(t)
+        return _logits(cfg, params, h), cache
     cache = {}
     for key in stack_sizes(cfg):
         ks, vs = [], []
@@ -381,7 +477,7 @@ def decode_step(
     params: dict,
     cache: dict,
     tokens: torch.Tensor,  # (B, 1)
-    pos: int,  # current position (write index; the xlstm state caches need none)
+    pos: int,  # current position (write index; the state caches need none)
 ) -> Tuple[torch.Tensor, dict]:
     """Returns (logits (B, 1, V) fp32, the cache, updated in place).  A vlm
     step is a text token: pos counts the image positions of the prompt."""
@@ -403,6 +499,16 @@ def decode_step(
                 out, _ = xlstm_mod.slstm_decode(lp["mixer"], h_in, layer_cache,
                                                 n_heads=cfg.n_heads)
             h = h + out
+        return _logits(cfg, params, h), cache
+    if cfg.family == "hybrid":
+        for kind, at, lp in _hybrid_layers(cfg, params):
+            layer_cache = {name: t[at] for name, t in cache[kind].items()}
+            if kind == "attn":
+                h, _, _ = tfm.decode_block(lp, h, layer_cache, pos, cfg)
+            else:
+                h_in = apply_norm(cfg.norm, lp["norm"], h)
+                out, _ = ssm_mod.mamba2_decode(lp["mixer"], h_in, layer_cache, **_mamba_kw(cfg))
+                h = h + out
         return _logits(cfg, params, h), cache
     for key in stack_sizes(cfg):
         layers = cache[_CACHE_KEY[key]]

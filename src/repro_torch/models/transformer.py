@@ -1,4 +1,5 @@
-"""Decoder blocks: the pre-norm residual unit of the dense and MoE families.
+"""Decoder blocks: the pre-norm residual unit of the dense and MoE families
+(and the hybrid family's weight-tied shared block).
 
     h = h + attention(norm1(h))
     h = h + ffn(norm2(h))        # a dense MLP, or the MoE FFN with experts
@@ -19,7 +20,7 @@ activation-sharding hook has no counterpart on one card.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,10 +41,11 @@ def _init_attention_half(gen: torch.Generator, cfg, lead) -> dict:
     }
 
 
-def init_block(gen: torch.Generator, cfg, n: int = 1) -> dict:
-    """Params of n decoder blocks stacked on a leading layer axis: "moe"
-    when cfg has experts, else "mlp"."""
-    lead = (n,)
+def init_block(gen: torch.Generator, cfg, n: Optional[int]) -> dict:
+    """Params of n decoder blocks stacked on a leading layer axis, or of one
+    block without that axis when n is None (the hybrid family's weight-tied
+    shared block): "moe" when cfg has experts, else "mlp"."""
+    lead = () if n is None else (n,)
     p = _init_attention_half(gen, cfg, lead)
     if cfg.n_experts:
         p["moe"] = init_moe(gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,

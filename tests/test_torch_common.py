@@ -120,7 +120,8 @@ for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
            "repro_torch.experiments.multi_pod", "repro_torch.experiments.train_lm",
            "repro_torch.models.moe", "repro_torch.configs.granite_moe_1b_a400m",
            "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.phi3_vision_4p2b",
-           "repro_torch.configs.hubert_xlarge"):
+           "repro_torch.configs.hubert_xlarge", "repro_torch.configs.zamba2_1p2b",
+           "repro_torch.models.ssm"):
     assert lm in names, lm
 assert not bad, bad
 """

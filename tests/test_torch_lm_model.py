@@ -93,12 +93,19 @@ def test_smoke_configs_match_the_jax_ones():
 
 
 @pytest.mark.parametrize("arch", ["zamba2_1p2b"])
-def test_families_not_ported_raise(arch):
-    from repro_torch.configs import get_config, get_smoke_config
+def test_the_last_family_ported_has_the_jax_configs(arch):
+    """zamba2 (hybrid), the last arch the registry refused: CONFIG and SMOKE
+    equal JAX's, parameter counts included, and every arch and family of
+    the registry is ported."""
+    from repro.configs import get_config as jax_config
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro_torch.configs import ARCH_IDS, PORTED_FAMILIES, get_config, get_smoke_config
 
-    for fn in (get_config, get_smoke_config):
-        with pytest.raises(NotImplementedError, match="ROADMAP section 1"):
-            fn(arch)
+    for ours, theirs in ((get_config(arch), jax_config(arch)),
+                         (get_smoke_config(arch), jax_smoke(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert ours.param_counts() == theirs.param_counts()
+    assert {get_config(a).family for a in ARCH_IDS} == set(PORTED_FAMILIES)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -120,9 +127,6 @@ def test_init_has_the_jax_tree_and_shapes(arch):
                 assert v.dtype == torch.float32
     walk(ours, "")
     assert flat_t == flat_j
-    hybrid = dataclasses.replace(cfg, family="hybrid")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        _M().init(hybrid, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

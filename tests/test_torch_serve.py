@@ -143,7 +143,7 @@ def test_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--mesh", "2x4"],
-    ["--arch", "zamba2_1p2b"],
+    ["--arch", "zamba2_1p2b", "--n-layers", "1"],  # below attn_every: no shared block
     ["--arch", "hubert_xlarge"],  # encoder-only: no decode loop
     ["--gen", "0"],
 ])

@@ -475,7 +475,7 @@ def test_cli_trains_moe_with_a_fault_and_replay_on_cpu(arch, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv, match", [
     (["--arch", "xlstm_1p3b"], "xLSTM-training"),
-    (["--arch", "zamba2_1p2b"], "hybrid"),
+    (["--arch", "zamba2_1p2b", "--n-layers", "1"], "--n-layers"),  # below attn_every
     (["--arch", "hubert_xlarge", "--n-layers", "3"], "--n-layers"),  # its smoke config has 2
     (["--mesh", "2x4"], "sharded-training"),
     (["--rescale-mesh", "4x2"], "sharded-training"),
