@@ -42,6 +42,14 @@ and fails (non-zero exit, no result line) if any of them fails:
    and F.scaled_dot_product_attention (forward and backward).
    K2's forward at FA_TRAIN (D 128) timed beside its plain version and
    SDPA, with its bound.
+   K3's gradient (ops.SlstmSeq: K3 forward, backward.slstm_backward, BPTT
+   in plain PyTorch) against autograd through slstm_seq_ref in fp64 at
+   SL_MAIN and SL_GRAD_SMALL in bf16 (dx_proj, dR, db each within
+   SLSTM_GRAD_RTOL beyond bf16 rounding), with three planted faults
+   rejected (R not transposed in the recurrent term, the dc carry
+   dropped, h_{t-1} read one step late); the backward timed beside K3 +
+   the Function and autograd through the plain recurrence, with its
+   bound (K3's record, `backward`).
    K2 at the MoE family's shapes, both on wgmma_tma: granite-moe's FA_MOE
    and kimi-k2's FA_KIMI at head dim 112 (a zero-filled tail chunk)
    against plain, timed beside SDPA with their bounds (K2's
@@ -93,8 +101,8 @@ and fails (non-zero exit, no result line) if any of them fails:
    shape's gate.
    Then every mode of the engine once at the production dictionary (M
    8192, K 262144, N 16, one micro-batch of 16, GOSSIP_CASES): exactly
-   iters + 1 K1 launches per solve, nu and y finite, the solve timed (mean
-   of 3 after a warm one) and re-solved with K1's plain version within
+   iters + 1 K1 launches per solve, nu and y finite, the solve timed (one
+   after a warm one) and re-solved with K1's plain version within
    SOLVE_RTOL (Q8_RTOL on the int8 wire); one GOSSIP line each.
 3. Main paths, each driven with every kernel's launch count set to 0 just
    before and read just after:
@@ -128,10 +136,11 @@ and fails (non-zero exit, no result line) if any of them fails:
      a route one ulp flips moves its token by O(1)), the prefill and a
      decode step profiled by range (router, dispatch tables, gathers,
      expert GEMMs, attention, unembedding; MOE_SERVE line);
-   - MoE training: launch/train at granite-moe's full width, MOE_STEPS
-     steps of 4 x 2048 tokens (AdamW, cosine warmup), checkpoints every
-     MOE_CKPT_EVERY, a fault at MOE_FAULT_AT, the rescale reload: 48 K2
-     launches a step, the first replayed loss exactly the first pass's,
+   - MoE training: launch/train at granite-moe's full width, depth cut to
+     MOE_TRAIN_LAYERS, MOE_STEPS steps of 4 x 2048 tokens (AdamW, cosine
+     warmup), checkpoints every MOE_CKPT_EVERY, a fault at MOE_FAULT_AT,
+     the rescale reload: 2 K2 launches a layer a step (24 at 12 layers),
+     the first replayed loss exactly the first pass's,
      the first step's loss against its plain-attention twin
      (MOE_LOSS_RTOL; its gradients and routes printed), one step
      profiled; step ms, tokens/s, the model-flops share (active params)
@@ -190,9 +199,25 @@ and fails (non-zero exit, no result line) if any of them fails:
      three SGD steps (losses 1e-5, params against an fp64 run of the same
      steps), two planted faults (the Mamba2 states without their decay,
      one layer's conv_b update skipped) rejected (HYBRID_CHECKS line);
+   - xLSTM training: launch/train at xlstm-1.3b's full width cut to
+     XL_TRAIN_LAYERS (2 groups: 14 mLSTM and 2 sLSTM blocks), XL_STEPS
+     steps of 4 x 2048 tokens, a fault at XL_FAULT_AT, the rescale reload:
+     exactly one K3 launch an sLSTM block a step (the mLSTM blocks under
+     remat, the sLSTM block not, as JAX's), every replayed loss exact; in
+     the first step each sLSTM block's K3 against plain on its own inputs
+     (SL_TOL, a planted R transposed rejected) and the gradient the step
+     computed against the exact one (SLSTM_GRAD_RTOL); the step against its
+     plain-K3 twin printed, not gated (the random-weight stack amplifies
+     noise); one step profiled; step ms, tokens/s, the model-flops share
+     (the mLSTM's chunk products counted, no attention), peak memory and
+     checkpoint seconds (XLSTM_TRAIN line).  Then the SMOKE config on the
+     card against the CPU: the forward's loss 1e-5 (its logits against an
+     fp64 forward printed), three SGD steps (losses 1e-5, params against
+     an fp64 run), a backward without its dc carry rejected (XLSTM_CHECKS
+     line);
    - xLSTM serving: the port's serve at xlstm-1.3b's full width, depth cut
      to XL_LAYERS (random weights), the same traffic; one slstm_seq launch
-     per sLSTM block of the prefill (3) and none in decode.  Tokens in the vocabulary, logits
+     per sLSTM block of the prefill (2) and none in decode.  Tokens in the vocabulary, logits
      and every cache leaf finite, and in a re-run of the prefill every
      sLSTM block's recurrence must agree with its plain version on the
      inputs it got there, while a planted wrong recurrence must not (the
@@ -237,14 +262,17 @@ and fails (non-zero exit, no result line) if any of them fails:
      card and on the CPU from one numpy state at M 512, K 16384, N 16: W
      and the four metrics within 1e-4 relative, while a planted fault (each
      agent's codes taken from the next agent) must fail the W check;
-   - the experiment twins table3_auc (n_steps 2) and fig5_denoise
-     (n_patches 1200) on the card: every AUC in [0, 1], every PSNR finite
-     and each denoised PSNR above the noisy one.
-   - the twins of examples/ at the JAX scripts' sizes: quickstart,
+   - the experiment twins at EXPERIMENT_CUTS (table3_auc n_steps 1,
+     fig5_denoise n_patches 300) on the card: every AUC in [0, 1], every
+     PSNR finite and each denoised PSNR above the noisy one.
+   - the twins of examples/, at the JAX scripts' sizes but for the depth
+     TWIN_CUTS sets (quickstart 2 epochs, denoise_image 1000 patches,
+     novel_docs 2 steps, train_lm 4 of 12 layers): quickstart,
      denoise_image and novel_docs launch no kernel; graph_gossip and
      multi_pod run the port's coder, exactly iters + 1 K1 calls a solve;
-     train_lm (LM_100M, fp32) exactly 2 K2 launches a layer a step and its
-     loss falling by more than 1.0.  Every result finite (TWINS line).
+     train_lm (LM_100M, fp32, 300 steps) exactly 2 K2 launches a layer a
+     step and its loss falling by more than 1.0.  Every result finite
+     (TWINS line).
 5. Result: one JSON line listing every kernel (launches on its main path,
    error against plain, times and bound), the card line, and last the
    device line {"ok": true, "device": {...}}.
@@ -316,11 +344,12 @@ BF16_UNIT_ROUNDOFF = 2.0 ** -8
 
 # The xLSTM main path: the port's serve at xlstm-1.3b's full width (d 2048,
 # 4 heads, mLSTM P 1024, sLSTM P 512, vocab 50304, bf16 compute), depth cut
-# from 48 blocks to XL_LAYERS (3 groups: 21 mLSTM and 3 sLSTM blocks) to
-# keep the whole script well inside its time limit, random weights from
-# seed 0, the gemma path's traffic.  Its sLSTM recurrence, one K3 launch
-# per sLSTM block: (B, S, D, H), bf16 x_proj and R.
-XL_ARCH, XL_LAYERS = "xlstm_1p3b", 24
+# from 48 blocks to XL_LAYERS (2 groups: 14 mLSTM and 2 sLSTM blocks; 24
+# before xLSTM training needed the room) to keep the whole script well
+# inside its time limit, random weights from seed 0, the gemma path's
+# traffic.  Its sLSTM recurrence, one K3 launch per sLSTM block: (B, S, D,
+# H), bf16 x_proj and R.
+XL_ARCH, XL_LAYERS = "xlstm_1p3b", 16
 SL_MAIN = (LM_BATCH, LM_PROMPT, 2048, 4)
 # K3 at the shapes of tests/test_moe_a2a.py's sLSTM tests (B, S, D, H), and
 # the smoke config's P 32 at B 4: fp32 within their 1e-5.
@@ -341,6 +370,18 @@ SL_GROUPS = (9, 256, 2048, 4)
 # the last axis), the state being what the decode cache carries on.  The
 # planted faults change h or the state by orders of magnitude more.
 SL_TOL = 2.0 ** -9
+# K3's gradient (ops.SlstmSeq: K3 forward, backward.slstm_backward in plain
+# PyTorch) against the exact gradient, autograd through slstm_seq_ref in
+# fp64 on the same inputs widened, at SL_MAIN and at SL_GRAD_SMALL (S 1 and
+# 2, a ragged batch of 5 rows: one full group of K3's 4 and one row), bf16
+# x_proj and R.  Per gradient (dx_proj, dR, db) the largest |got - exact|
+# beyond the rounding of the gradient to its dtype (bf16: 2^-8 |exact|),
+# over the largest |exact|: the backward runs fp32 from K3's h, which is
+# within SL_TOL of plain, so fp32 rounding over 2048 steps and K3's h leave
+# some 1e-5; a wrong transpose, a dropped carry or a late h move a gradient
+# by order 1.  Gate SLSTM_GRAD_RTOL.
+SL_GRAD_SMALL = [(5, 1, 2048, 4), (5, 2, 2048, 4)]
+SLSTM_GRAD_RTOL = 1e-3
 
 # Solve agreement, kernel path vs plain path on one micro-batch: both run
 # the same 150 iterations with fp32 sums in different orders; the iteration
@@ -377,7 +418,7 @@ GOSSIP_CASES = [
     ("chain", dict(mode="chain", levels="torus,ring_metropolis:2:q8,ring:4:q8:stale"),
      (4, 2, 2)),
 ]
-GOSSIP_TIMED = 3  # timed solves per mode, after a warm one
+GOSSIP_TIMED = 1  # timed solves per mode, after a warm one
 
 # The elastic drills at the production dictionary: serve_dict with a grow at
 # sample DRILL_GROW_AT and a drain at DRILL_DRAIN_AT (mode, flags, agents a
@@ -469,12 +510,15 @@ ADAMW_SHARE, ADAMW_FLIP = 1e-3, 0.5
 # weights from seed 0: served with the gemma path's traffic, and trained
 # through launch/train with the olmo path's batches (AdamW, cosine warmup)
 # for MOE_STEPS steps, a checkpoint every MOE_CKPT_EVERY, a fault at
-# MOE_FAULT_AT, the rescale reload.  Its attention: one K2 launch a layer
-# a prefill, two a layer a step; FA_MOE, bf16, causal, on wgmma_tma.  It
+# MOE_FAULT_AT, the rescale reload, with the depth cut to MOE_TRAIN_LAYERS
+# (full depth until xLSTM training needed the room: 100.2 s of the script,
+# its 16.0 GB state written twice and read twice).  Its attention: one K2
+# launch a layer a prefill, two a layer a step; FA_MOE, bf16, causal, on
+# wgmma_tma.  It
 # dispatches 16 groups of 512 tokens, 160 places an expert a group; a
 # decode step one group of 4 tokens, 1 place.
 MOE_ARCH = "granite_moe_1b_a400m"
-MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT = 8, 4, 6
+MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT, MOE_TRAIN_LAYERS = 8, 4, 6, 12
 FA_MOE = (LM_BATCH, 16, 8, LM_PROMPT, LM_PROMPT, 64)
 # kimi-k2-1t-a32b at full width (d 7168, 64 query heads over 8 KV heads of
 # 112, 384 experts top-8 of d_ff 2048 and one shared expert, a dense first
@@ -540,8 +584,9 @@ FA_VLM_TRAIN = (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 96)
 # AUDIO_STEPS steps, a checkpoint every AUDIO_CKPT_EVERY, a fault at
 # AUDIO_FAULT_AT, with the depth cut from 48 layers to AUDIO_TRAIN_LAYERS
 # to keep the whole script well inside its time limit (at 48 layers the
-# phase took 75.9 s and the script 1094.2 s of its 1200).
-AUDIO_ARCH, AUDIO_TRAIN_LAYERS = "hubert_xlarge", 24
+# phase took 75.9 s and the script 1094.2 s of its 1200; at 24, 38.9 s and
+# 1162.0 with xLSTM training).
+AUDIO_ARCH, AUDIO_TRAIN_LAYERS = "hubert_xlarge", 12
 AUDIO_STEPS, AUDIO_CKPT_EVERY, AUDIO_FAULT_AT = 4, 2, 3
 FA_AUDIO = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 80)
 # The first training step's gradient against its plain-attention twin,
@@ -554,6 +599,20 @@ FA_AUDIO = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 80)
 # would sit on the reading.  A gradient without the Function or without
 # the causal mask moves a leaf by order 1.
 TWIN_GRAD_FLOOR = GRAD_BF16_TOL
+
+# The twins of examples/ and of experiments/ are plain PyTorch loops over
+# small matrices (train_lm excepted), bound by the host, whose speed varies
+# by a third from machine to machine: each runs at the JAX script's sizes
+# but cut in depth (epochs, patches, time steps, train steps) to keep the
+# script inside its limit on a slow host.  Every check is kept.  train_lm
+# keeps the script's 300 steps (at 100 its loss fell only 7.41 -> 6.79,
+# short of the twin's gate, a fall of more than 1.0: the cosine schedule
+# is set by the steps) and is cut to 4 of LM_100M's 12 layers instead.
+TWIN_CUTS = {"quickstart": {"epochs": 2}, "denoise_image": {"n_patches": 1000},
+             "novel_docs": {"n_steps": 2}, "graph_gossip": {}, "multi_pod": {},
+             "train_lm": {"n_layers": 4}}
+TWIN_LM_STEPS = 300  # train_lm.run's default
+EXPERIMENT_CUTS = {"table3_auc": {"n_steps": 1}, "fig5_denoise": {"n_patches": 300}}
 
 # The hybrid family: zamba2-1.2b at full width (38 Mamba2 blocks of d 2048,
 # d_inner 4096, 64 SSM heads of 64, state 64, chunk 128: 6 groups of 6,
@@ -572,6 +631,16 @@ TWIN_GRAD_FLOOR = GRAD_BF16_TOL
 HYBRID_ARCH, HYBRID_TRAIN_LAYERS = "zamba2_1p2b", 14
 HYBRID_STEPS, HYBRID_CKPT_EVERY, HYBRID_FAULT_AT = 4, 2, 3
 FA_HYBRID = (LM_BATCH, 32, 32, LM_PROMPT, LM_PROMPT, 64)
+
+# xLSTM training: launch/train at xlstm-1.3b's full width (above), depth cut
+# from 48 blocks to XL_TRAIN_LAYERS: 2 groups, 14 mLSTM and 2 sLSTM blocks,
+# the least depth at which one sLSTM block's input gradient flows into
+# another's parameters (6.7e8 params, 8.1 GB of state); TRAIN_BATCH x
+# TRAIN_SEQ tokens a step, XL_STEPS steps, a checkpoint every XL_CKPT_EVERY,
+# a fault at XL_FAULT_AT.  The mLSTM blocks run under remat, the sLSTM
+# block does not (as JAX's forward): one K3 launch an sLSTM block a step,
+# its gradient the plain BPTT backward.
+XL_TRAIN_LAYERS, XL_STEPS, XL_CKPT_EVERY, XL_FAULT_AT = 16, 4, 2, 3
 
 
 def card_line() -> str:
@@ -1440,6 +1509,148 @@ def phase_slstm(torch, build_report):
     return rec
 
 
+def slstm_exact_grads(torch, x_proj, R, b, dh):
+    """(dx_proj, dR, db) of h by autograd through ref.slstm_seq_ref in fp64
+    on the inputs widened: the exact gradient."""
+    from repro_torch.kernels.slstm_step import ref
+
+    args = [t.detach().double().requires_grad_(True) for t in (x_proj, R, b)]
+    h, _ = ref.slstm_seq_ref(*args)
+    return torch.autograd.grad(h, args, dh.double())
+
+
+def slstm_grad_reading(got, exact) -> float:
+    """max |got - exact| / max |exact| beyond the rounding of the gradient
+    to its dtype (bf16's unit roundoff, 2^-8 |exact| per element; none for
+    fp32); 0 for an exact gradient of 0 that got matches, inf if anything is
+    off there or not finite."""
+    g, e = got.double(), exact.double()
+    allow = BF16_UNIT_ROUNDOFF if str(got.dtype) == "torch.bfloat16" else 0.0
+    excess = ((g - e).abs() - allow * e.abs()).clamp_min(0)
+    scale = float(e.abs().max())
+    if scale == 0.0:
+        return 0.0 if float(g.abs().max()) == 0.0 else math.inf
+    r = float(excess.max()) / scale
+    return r if math.isfinite(r) else math.inf
+
+
+def slstm_grad_readings(torch, x_proj, R, b, dh, exact=None) -> dict:
+    """K3's gradient through its Function (slstm_seq under grad: K3 forward,
+    backward.slstm_backward) against the exact gradient: {dx_proj, dR, db:
+    slstm_grad_reading}."""
+    from repro_torch.kernels.slstm_step import ops
+
+    args = [t.detach().requires_grad_(True) for t in (x_proj, R, b)]
+    h, _ = ops.slstm_seq(*args)
+    got = torch.autograd.grad(h, args, dh)
+    exact = exact if exact is not None else slstm_exact_grads(torch, x_proj, R, b, dh)
+    return {name: slstm_grad_reading(g, e) for name, g, e in zip(("dx_proj", "dR", "db"), got,
+                                                                 exact)}
+
+
+def phase_slstm_grad(torch):
+    """K3's gradient (ops.SlstmSeq: K3 forward, the plain BPTT backward)
+    against the exact gradient (autograd through slstm_seq_ref in fp64 on
+    the same inputs widened) at SL_MAIN and SL_GRAD_SMALL in bf16, each of
+    dx_proj, dR and db within SLSTM_GRAD_RTOL; three planted faults of the
+    backward rejected at SL_MAIN (R not transposed in the recurrent term,
+    the dc carry dropped, h_{t-1} read one step late); the backward timed
+    beside K3 + the Function and autograd through the plain recurrence
+    (fp32), with its bound.  Returns the record K3's gets as `backward`
+    (without `launches_per_step`, which XLSTM_TRAIN fills in)."""
+    from repro_torch.kernels.slstm_step import backward, ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(b, s, d, h):
+        p = d // h
+        xp = torch.randn(4, s, b, d, generator=gen, device=dev).bfloat16()
+        R = (torch.randn(4, h, p, p, generator=gen, device=dev) * p ** -0.5).bfloat16()
+        bias = torch.tensor([0.0, 3.0, 0.0, 0.0], device=dev)[:, None].repeat(1, d)
+        bias = bias + 0.1 * torch.randn(4, d, generator=gen, device=dev)
+        dh = torch.randn(s, b, d, generator=gen, device=dev)
+        return xp, R, bias, dh
+
+    readings = {}
+    for shape in SL_GRAD_SMALL:
+        readings[str(shape)] = slstm_grad_readings(torch, *inputs(*shape))
+    b, s, d, h = SL_MAIN
+    xp, R, bias, dh = inputs(*SL_MAIN)
+    exact = slstm_exact_grads(torch, xp, R, bias, dh)
+    readings[str(SL_MAIN)] = slstm_grad_readings(torch, xp, R, bias, dh, exact)
+
+    def late(hs):  # h_{t-2} where h_{t-1} belongs
+        return torch.cat([torch.zeros_like(hs[:2]), hs[:-2]])
+
+    def untransposed(Rf):
+        return Rf.permute(1, 0, 2, 3).reshape(Rf.shape[1], 4 * Rf.shape[2], Rf.shape[3])
+
+    def no_dc(dcn, f_s):
+        out = dcn.mul_(f_s)
+        out[:, :, 0] = 0.0
+        return out
+
+    faults = {"R not transposed in the recurrent term": ("transposed", untransposed),
+              "the dc carry dropped": ("carried", no_dc),
+              "h_{t-1} read one step late": ("previous", late)}
+    planted = {}
+    for name, (attr, fn) in faults.items():
+        with mock.patch.object(backward, attr, fn):
+            planted[name] = slstm_grad_readings(torch, xp, R, bias, dh, exact)
+    del exact
+    print(f"[kernels] slstm_seq gradient (K3 forward, plain backward) vs autograd through the "
+          f"plain recurrence in fp64, max|d|/max|exact| beyond the bf16 rounding (gate "
+          f"{SLSTM_GRAD_RTOL}): {readings}; planted faults at {SL_MAIN}: {planted}")
+    if not max(max(r.values()) for r in readings.values()) <= SLSTM_GRAD_RTOL:
+        raise AssertionError(f"slstm_seq's gradient disagrees with the exact one: {readings}")
+    for name, r in planted.items():
+        if max(r.values()) <= SLSTM_GRAD_RTOL:
+            raise AssertionError(f"the slstm_seq gradient gate passes a planted fault: {name}")
+
+    # Timed at SL_MAIN: the backward alone (on K3's h), K3 + the Function's
+    # backward, and autograd through the plain recurrence (fp32), in turns.
+    h_k, _ = ops.slstm_seq(xp, R, bias)
+    args = [t.detach().requires_grad_(True) for t in (xp, R, bias)]
+
+    def bwd():
+        return backward.slstm_backward(xp, R, bias, h_k, dh)
+
+    def function():
+        return torch.autograd.grad(ops.slstm_seq(*args)[0], args, dh)
+
+    def plain():
+        return torch.autograd.grad(ref.slstm_seq_ref(*args)[0], args, dh)
+
+    # (the plain version, some 10x slower, once)
+    b1, f1, p1, f2, b2 = (time_ms(torch, bwd, 2), time_ms(torch, function, 2),
+                          time_ms(torch, plain, 1), time_ms(torch, function, 2),
+                          time_ms(torch, bwd, 2))
+    flops = backward.backward_flops(b, s, d, h)
+    nbytes = (xp.numel() * xp.element_size() * 2 + R.numel() * R.element_size() * 2
+              + 4 * bias.numel() * 2 + 4 * 2 * s * b * d)  # x_proj, R, b in and out; h, dh
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    rec = {
+        "route": "plain PyTorch (BPTT)",
+        "source": "src/repro_torch/kernels/slstm_step/backward.py",
+        "shape": list(SL_MAIN),
+        "ms": (b1 + b2) / 2,
+        "function_ms": (f1 + f2) / 2,  # K3 forward + the backward, through autograd
+        "plain_ms": p1,  # autograd through slstm_seq_ref, forward + backward
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": None,
+        "readings": readings, "tol": SLSTM_GRAD_RTOL, "planted_faults": planted,
+    }
+    print(f"[kernels] slstm_seq backward at (B, S, D, H) {SL_MAIN} bf16: backward_ms {b1:.1f} "
+          f"{b2:.1f}  K3 + Function (forward and backward) {f1:.1f} {f2:.1f}  autograd through "
+          f"plain (fp32) {p1:.1f}  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}: "
+          f"{flops:.3e} flops, {nbytes:.3e} bytes)")
+    del xp, R, bias, dh, h_k, args
+    torch.cuda.empty_cache()
+    return rec
+
+
 def stale_diffusion(torch, res, reg, Wb, x, A, mu, iters):
     """One-step-stale diffusion, the plain reference of the async modes:
     nu_k <- project(a_kk psi_k + sum_{l != k} a_lk psi_l of the previous
@@ -2281,13 +2492,15 @@ def phase_kill_drill(torch, card: str, stream):
 
 def profile_rows(torch, fn):
     """One call of fn under torch.profiler: (host wall ms, [(kernel, device
-    ms)] largest first).  The CPU operators' rows repeat their kernels'
-    device time, so only the rows of device activity are kept."""
+    ms)] largest first).  Only device activity is traced: the CPU
+    operators' rows would repeat their kernels' device time, and tracing
+    them cost an xlstm-1.3b step (some 45k launches) 56 s of processing
+    against 19 without."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2306,11 +2519,12 @@ def device_profile(torch, fn, top: int = 6):
 
 
 # Kernel names of a train step by what launched them, first match wins:
-# K2; fp32 GEMMs (SIMT sgemm: attention_backward's einsums and the fp32
+# K2; K3; fp32 GEMMs (SIMT sgemm: attention_backward's einsums and the fp32
 # unembedding); bf16 GEMMs (cuBLAS's nvjet / xmma: the projections and the
 # MLP); softmax; everything else (norms, rotary, SwiGLU, casts, the
 # optimizer's elementwise passes, reductions, copies).
 STEP_CATEGORIES = (("K2 forward", ("flash_attention",)),
+                   ("K3 forward", ("slstm_cluster",)),
                    ("fp32 GEMMs", ("sgemm", "f32f32")),
                    ("bf16 GEMMs", ("nvjet", "bf16", "xmma", "gemm")),
                    ("softmax", ("softmax",)))
@@ -2593,7 +2807,9 @@ def phase_xlstm(torch, card: str):
 
 def attention_applications(cfg) -> int:
     """How many times a forward applies attention (one K2 launch each): one
-    a layer, or for hybrid one a group (the shared block)."""
+    a layer, for hybrid one a group (the shared block), none for xlstm."""
+    if cfg.family == "xlstm":
+        return 0
     return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
 
 
@@ -2613,7 +2829,10 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float:
     all the pairs of a non-causal encoder) + for hybrid the SSD's products,
     6 B S (Q / 2 (N + H P) + 2 N H P) a Mamba2 block (C B^T and att x over
     the causal half of each chunk of Q, the chunk summaries and the state
-    read-out); the remat recompute is not model work."""
+    read-out), and for xlstm the mLSTM's, 6 B S H (Q P + 2 P^2) an mLSTM
+    block (q k^T and w v over the causal half of each chunk of Q, the state
+    read-out q C and the update k^T v; the sLSTM's h R is a product with
+    parameters, in 6 N); the remat recompute is not model work."""
     n = cfg.param_counts()["active"]
     width = cfg.n_heads * cfg.resolved_head_dim
     attn = 6.0 * attention_applications(cfg) * batch * seq * seq * width
@@ -2622,7 +2841,157 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float:
         q, nst = min(cfg.ssm_chunk, seq), cfg.ssm_state
         hp = cfg.ssm_expand * cfg.d_model
         flops += 6.0 * cfg.n_layers * batch * seq * (q / 2 * (nst + hp) + 2 * nst * hp)
+    if cfg.family == "xlstm":
+        q, di = min(cfg.ssm_chunk, seq), cfg.mlstm_proj_factor * cfg.d_model
+        n_mlstm = cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1)
+        flops += 6.0 * n_mlstm * batch * seq * di * (q + 2 * di // cfg.n_heads)
     return flops
+
+
+def check_disk(tag: str, cfg) -> None:
+    """Fail unless build/ has room for two train states of cfg (keep 3 at
+    two checkpoints: the committed one beside the one being written)."""
+    import shutil
+
+    n_params = cfg.param_counts()["total"]
+    state_gb = 3 * 4 * n_params / 1e9  # fp32 params, m, v
+    (ROOT / "build").mkdir(exist_ok=True)
+    free_gb = shutil.disk_usage(ROOT / "build").free / 1e9
+    need_gb = 2 * state_gb + 2.0
+    print(f"[{tag}] {cfg.name}: {n_params:.4e} params, train state {state_gb:.2f} GB; "
+          f"free disk under build/ {free_gb:.1f} GB (need {need_gb:.1f})")
+    if free_gb < need_gb:
+        raise AssertionError(f"{tag}: {free_gb:.1f} GB free under build/, need {need_gb:.1f}")
+
+
+def profile_train_step(torch, tag: str, cfg, params, batch, n_steps: int) -> dict:
+    """One train step of params (AdamW on a cosine warmup, as launch/train)
+    under the profiler, after a warm one: {profiled_wall_ms, device_ms,
+    categories, top}."""
+    from repro_torch.optim import for_arch
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.runtime import steps
+
+    opt = for_arch(cfg, lr=cosine_warmup(3e-4, warmup=20, total=n_steps))
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step_fn = steps.make_train_step(cfg, opt)
+    step_fn(state, batch)
+    wall_ms, rows = profile_rows(torch, lambda: step_fn(state, batch))
+    dev_ms, top = sum(ms for _, ms in rows), [(k[:60], round(ms, 3)) for k, ms in rows[:10]]
+    categories = step_categories(rows)
+    print(f"[{tag}] profile of one step: device kernels {dev_ms:.1f} ms, {wall_ms:.1f} ms under "
+          f"the profiler; by category {categories}; top {top}")
+    del state, step_fn
+    return {"profiled_wall_ms": wall_ms, "device_ms": dev_ms, "categories": categories,
+            "top": top}
+
+
+def train_cli(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: int,
+              ckpt_every: int, fault_at: int, launches_of, per_step: int, kernel: str,
+              exact_replay: bool = False) -> dict:
+    """launch/train at arch's full width cut to n_layers: n_steps steps of
+    TRAIN_BATCH x TRAIN_SEQ positions, a checkpoint every ckpt_every, a
+    fault at fault_at (restore, replay), the rescale reload, checkpoint I/O
+    timed.  Fails unless the kernel counted by launches_of() (set to 0
+    just before) launched per_step times a step run, the checkpoints and
+    the rescale are where they belong, every loss is finite and the first
+    replayed loss equals the first pass's (with exact_replay every one; else
+    the rest within REPLAY_RTOL).  Returns the run's record."""
+    import shutil
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.launch import train
+
+    cfg = cut_depth(get_config(arch), n_layers)
+    ckpt_dir = ROOT / "build" / f"chip_smoke_{tag.replace(' ', '_')}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    io = {"save_s": [], "restore_s": [], "host_copy_s": []}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                io[key].append(time.perf_counter() - t)
+        return wrapper
+
+    argv = ["--arch", arch, "--full-config", "--n-layers", str(n_layers),
+            "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(n_steps),
+            "--ckpt-every", str(ckpt_every), "--inject-fault-at", str(fault_at),
+            "--rescale-mesh", "1x1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"]
+    with mock.patch.object(manager, "save_pytree", timed(manager.save_pytree, "save_s")), \
+            mock.patch.object(manager, "load_pytree", timed(manager.load_pytree, "restore_s")), \
+            mock.patch.object(manager.CheckpointManager, "save",
+                              timed(manager.CheckpointManager.save, "host_copy_s")):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train.run(train.parse_args(argv))
+        wall = time.perf_counter() - t0
+        launches = launches_of()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runner, losses = out["runner"], out["losses"]
+    executed = len(out["history"])
+    replayed = fault_at - ckpt_every
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    if out["faults"] != 1 or executed != n_steps + replayed:
+        raise AssertionError(f"{tag}: {out['faults']} faults, {executed} steps run")
+    if launches != per_step * executed:
+        raise AssertionError(f"{tag}: {launches} {kernel} launches over {executed} steps, "
+                             f"expected {per_step} a step")
+    if out["ckpt_steps"] != [ckpt_every, n_steps] or out["rescaled_step"] != n_steps:
+        raise AssertionError(f"{tag}: checkpoints {out['ckpt_steps']}, rescale resumed at "
+                             f"{out['rescaled_step']}")
+    if not all(math.isfinite(x) for _, x in losses):
+        raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+    first = dict(losses[:fault_at])
+    replay = losses[fault_at:fault_at + replayed]
+    replay_rel = [abs(x - first[st]) / abs(first[st]) for st, x in replay]
+    rule = "every one exactly" if exact_replay else f"the first exactly, the rest within " \
+        f"{REPLAY_RTOL} relative"
+    print(f"[{tag}] replay from step {ckpt_every}: first pass "
+          f"{[first[st] for st, _ in replay]}, replayed {[x for _, x in replay]} ({rule}: "
+          f"{replay_rel})")
+    if replay[0][1] != first[replay[0][0]]:
+        raise AssertionError(f"{tag}: the first replayed loss differs from the first pass's")
+    if not max(replay_rel) <= (0.0 if exact_replay else REPLAY_RTOL):
+        raise AssertionError(f"{tag}: a replayed loss parts from the first pass: {replay_rel}")
+
+    times = runner.step_times
+    step_s = statistics.median(times[1:])
+    flops = model_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    n_params = cfg.param_counts()["total"]
+    rec = {
+        "card": card, "arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps_run": executed,
+        "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
+        "step_ms_all": [x * 1e3 for x in times],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "model_flops_per_step": flops, "mfu_bf16": flops / step_s / BF16_FLOPS_PER_S,
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "launches_per_step": launches / executed, "losses": losses,
+        "replay_rel": replay_rel, "checkpoint_io_s": io, "state_gb": 3 * 4 * n_params / 1e9,
+        "wall_s": wall,
+        "events": [{k: v for k, v in e.items() if k != "error"} for e in runner.events],
+    }
+    print(f"[{tag}] {card}: {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} positions: step "
+          f"{rec['step_ms']:.1f} ms (median of {len(times) - 1} after the first, "
+          f"{rec['first_step_ms']:.1f}), {rec['tokens_per_s']:.1f} tokens/s, model-flops share "
+          f"of the bf16 peak {rec['mfu_bf16']:.4f} ({flops:.4e} flops a step / "
+          f"{BF16_FLOPS_PER_S:.3e}), peak device memory {peak_gb:.2f} GB, {kernel} launches "
+          f"{launches} ({rec['launches_per_step']:.0f} a step); checkpoint save "
+          f"{io['save_s']} s, host copy {io['host_copy_s']} s, restore {io['restore_s']} s; "
+          f"wall {wall:.1f} s")
+    del out, runner
+    gc.collect()  # free whatever a reference cycle still holds of the train states
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_train(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: int,
@@ -2644,31 +3013,14 @@ def phase_train(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: i
     0.3 of a leaf, HYBRID_SERVE's noise control).  Prints "[tag]" lines
     and one tag.upper() JSON line (TRAIN for olmo-1b); returns the run's
     record (K2 launches and per step)."""
-    import shutil
-
-    from repro_torch.checkpoint import manager
     from repro_torch.configs import cut_depth, get_config
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.launch import train
     from repro_torch.models import attention, model
-    from repro_torch.optim import for_arch
-    from repro_torch.optim.schedules import cosine_warmup
     from repro_torch.pytree import leaves
-    from repro_torch.runtime import steps
 
     cfg = cut_depth(get_config(arch), n_layers)
-    n_params = cfg.param_counts()["total"]
-    state_gb = 3 * 4 * n_params / 1e9  # fp32 params, m, v
-    ckpt_dir = ROOT / "build" / f"chip_smoke_{tag.replace(' ', '_')}"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    ckpt_dir.mkdir(parents=True)
-    free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
-    # keep 3 at two checkpoints: the committed one beside the one being written
-    need_gb = 2 * state_gb + 2.0
-    print(f"[{tag}] {cfg.name}: {n_params:.4e} params, train state {state_gb:.2f} GB; "
-          f"free disk under build/ {free_gb:.1f} GB (need {need_gb:.1f})")
-    if free_gb < need_gb:
-        raise AssertionError(f"{tag}: {free_gb:.1f} GB free under build/, need {need_gb:.1f}")
+    check_disk(tag, cfg)
 
     # (1) The first step's loss and gradient, K2 against a plain-attention
     # twin (K2 and its Function swapped for autograd through attention_ref).
@@ -2763,109 +3115,18 @@ def phase_train(torch, card: str, tag: str, arch: str, n_layers: int, n_steps: i
         raise AssertionError(f"{tag}: the first step's loss or gradient disagrees with the "
                              "plain-attention twin")
 
-    # (2) One step under the profiler (after a warm one), on this state.
-    opt = for_arch(cfg, lr=cosine_warmup(3e-4, warmup=20, total=n_steps))
-    state = {"params": params, "opt": opt.init(params),
-             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
-    step_fn = steps.make_train_step(cfg, opt)
-    step_fn(state, batch)
-    wall_ms, rows = profile_rows(torch, lambda: step_fn(state, batch))
-    dev_ms, top = sum(ms for _, ms in rows), [(k[:60], round(ms, 3)) for k, ms in rows[:10]]
-    categories = step_categories(rows)
-    print(f"[{tag}] profile of one step: device kernels {dev_ms:.1f} ms, {wall_ms:.1f} ms under "
-          f"the profiler; by category {categories}; top {top}")
-    del state, params, flat, step_fn
+    profile = profile_train_step(torch, tag, cfg, params, batch, n_steps)
+    del params, flat
     torch.cuda.empty_cache()
-
-    # (3) The CLI: n_steps steps, a checkpoint every ckpt_every, a fault at
-    # fault_at, the rescale reload; checkpoint I/O timed.
-    io = {"save_s": [], "restore_s": [], "host_copy_s": []}
-
-    def timed(fn, key):
-        def wrapper(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                io[key].append(time.perf_counter() - t)
-        return wrapper
-
-    argv = ["--arch", arch, "--full-config", "--n-layers", str(n_layers),
-            "--batch", str(TRAIN_BATCH),
-            "--seq", str(TRAIN_SEQ), "--steps", str(n_steps),
-            "--ckpt-every", str(ckpt_every), "--inject-fault-at", str(fault_at),
-            "--rescale-mesh", "1x1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"]
-    with mock.patch.object(manager, "save_pytree", timed(manager.save_pytree, "save_s")), \
-            mock.patch.object(manager, "load_pytree", timed(manager.load_pytree, "restore_s")), \
-            mock.patch.object(manager.CheckpointManager, "save",
-                              timed(manager.CheckpointManager.save, "host_copy_s")):
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        out = train.run(train.parse_args(argv))
-        wall = time.perf_counter() - t0
-        launches = ops.flash_attention.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    runner, losses = out["runner"], out["losses"]
-    executed = len(out["history"])
-    replayed = fault_at - ckpt_every
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-
-    if out["faults"] != 1 or executed != n_steps + replayed:
-        raise AssertionError(f"{tag}: {out['faults']} faults, {executed} steps run")
-    if launches != per_step * executed:
-        raise AssertionError(f"{tag}: {launches} K2 launches over {executed} steps, expected "
-                             f"{per_step} a step")
-    if out["ckpt_steps"] != [ckpt_every, n_steps] or out["rescaled_step"] != n_steps:
-        raise AssertionError(f"{tag}: checkpoints {out['ckpt_steps']}, rescale resumed at "
-                             f"{out['rescaled_step']}")
-    if not all(math.isfinite(x) for _, x in losses):
-        raise AssertionError(f"{tag}: a loss is not finite: {losses}")
-    first = dict(losses[:fault_at])
-    replay = losses[fault_at:fault_at + replayed]
-    replay_rel = [abs(x - first[st]) / abs(first[st]) for st, x in replay]
-    print(f"[{tag}] replay from step {ckpt_every}: first pass "
-          f"{[first[st] for st, _ in replay]}, replayed {[x for _, x in replay]} (the first "
-          f"exactly, the rest within {REPLAY_RTOL} relative: {replay_rel})")
-    if replay[0][1] != first[replay[0][0]]:
-        raise AssertionError(f"{tag}: the first replayed loss differs from the first pass's")
-    if not max(replay_rel) <= REPLAY_RTOL:
-        raise AssertionError(f"{tag}: a replayed loss parts from the first pass: {replay_rel}")
-
-    times = runner.step_times
-    step_s = statistics.median(times[1:])
-    flops = model_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    rec = {
-        "card": card, "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH,
-        "seq": TRAIN_SEQ, "steps_run": executed, "step_ms": step_s * 1e3,
-        "first_step_ms": times[0] * 1e3, "step_ms_all": [x * 1e3 for x in times],
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
-        "model_flops_per_step": flops, "mfu_bf16": flops / step_s / BF16_FLOPS_PER_S,
-        "peak_mem_gb": peak_gb, "launches": launches,
-        "launches_per_step": launches / executed, "losses": losses,
-        "replay_rel": replay_rel, "first_step": {"loss": loss_k, "plain_loss": loss_p,
-                                                 "loss_rel": loss_rel, "grad_rel": grad_rel,
-                                                 "grad_tol": tol, "application_forwards": forwards,
-                                                 "application_grads": app_readings,
-                                                 "planted": planted},
-        "profile": {"profiled_wall_ms": wall_ms, "device_ms": dev_ms,
-                    "busy_share": dev_ms / (step_s * 1e3), "categories": categories,
-                    "top": top},
-        "checkpoint_io_s": io, "state_gb": state_gb, "wall_s": wall,
-        "events": [{k: v for k, v in e.items() if k != "error"} for e in runner.events],
-    }
-    print(f"[{tag}] {card}: {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} positions: step "
-          f"{rec['step_ms']:.1f} ms (median of {len(times) - 1} after the first, "
-          f"{rec['first_step_ms']:.1f}), {rec['tokens_per_s']:.1f} tokens/s, model-flops share "
-          f"of the bf16 peak {rec['mfu_bf16']:.4f} ({flops:.4e} flops a step / "
-          f"{BF16_FLOPS_PER_S:.3e}), peak device memory {peak_gb:.2f} GB, K2 launches "
-          f"{launches} ({rec['launches_per_step']:.0f} a step); checkpoint save "
-          f"{io['save_s']} s, host copy {io['host_copy_s']} s, restore {io['restore_s']} s; "
-          f"busy share {rec['profile']['busy_share']:.3f}; wall {wall:.1f} s")
+    rec = train_cli(torch, card, tag, arch, n_layers, n_steps, ckpt_every, fault_at,
+                    lambda: ops.flash_attention.launches, per_step, "K2")
+    rec["first_step"] = {"loss": loss_k, "plain_loss": loss_p, "loss_rel": loss_rel,
+                         "grad_rel": grad_rel, "grad_tol": tol,
+                         "application_forwards": forwards, "application_grads": app_readings,
+                         "planted": planted}
+    rec["profile"] = {**profile, "busy_share": profile["device_ms"] / rec["step_ms"]}
+    print(f"[{tag}] busy share {rec['profile']['busy_share']:.3f}")
     print(tag.upper().replace(" ", "_") + " " + json.dumps(rec))
-    del out, runner
-    gc.collect()  # free whatever a reference cycle still holds of the train states
-    torch.cuda.empty_cache()
     return rec
 
 
@@ -3371,14 +3632,15 @@ def phase_moe_serve(torch, card: str):
 
 def phase_moe_train(torch, card: str):
     """The port's training at granite-moe-1b-a400m's full width through
-    launch/train (AdamW, cosine warmup; MOE_STEPS steps, checkpoints every
-    MOE_CKPT_EVERY, a fault at MOE_FAULT_AT, the rescale reload): 48 K2
-    launches a step, the first replayed loss exact, the first step's loss
-    against its plain-attention twin; returns the run's record."""
+    launch/train, depth cut to MOE_TRAIN_LAYERS (AdamW, cosine warmup;
+    MOE_STEPS steps, checkpoints every MOE_CKPT_EVERY, a fault at
+    MOE_FAULT_AT, the rescale reload): 2 K2 launches a layer a step, the
+    first replayed loss exact, the first step's loss against its
+    plain-attention twin; returns the run's record."""
     import shutil
 
     from repro_torch.checkpoint import manager
-    from repro_torch.configs import get_config
+    from repro_torch.configs import cut_depth, get_config
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.launch import train
     from repro_torch.models import attention, model
@@ -3387,7 +3649,7 @@ def phase_moe_train(torch, card: str):
     from repro_torch.pytree import leaves
     from repro_torch.runtime import steps
 
-    cfg = get_config(MOE_ARCH)
+    cfg = cut_depth(get_config(MOE_ARCH), MOE_TRAIN_LAYERS)
     counts = cfg.param_counts()
     state_gb = 3 * 4 * counts["total"] / 1e9
     ckpt_dir = ROOT / "build" / "chip_smoke_moe_train"
@@ -3465,7 +3727,8 @@ def phase_moe_train(torch, card: str):
                 io[key].append(time.perf_counter() - t)
         return wrapper
 
-    argv = ["--arch", MOE_ARCH, "--full-config", "--batch", str(TRAIN_BATCH),
+    argv = ["--arch", MOE_ARCH, "--full-config", "--n-layers", str(MOE_TRAIN_LAYERS),
+            "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--steps", str(MOE_STEPS),
             "--ckpt-every", str(MOE_CKPT_EVERY), "--inject-fault-at", str(MOE_FAULT_AT),
             "--rescale-mesh", "1x1", "--ckpt-dir", str(ckpt_dir), "--device", "cuda"]
@@ -4288,6 +4551,250 @@ def phase_hybrid_card_vs_cpu(torch):
     return out
 
 
+def phase_xlstm_train(torch, card: str):
+    """The port's xlstm-1.3b training at full width, depth cut to
+    XL_TRAIN_LAYERS, through launch/train (train_cli: XL_STEPS steps, a
+    checkpoint every XL_CKPT_EVERY, a fault at XL_FAULT_AT, every replayed
+    loss exact, the rescale reload), one K3 launch an sLSTM block a step
+    (the block is not rematerialised, as JAX's is not), one step profiled,
+    and the first step: every sLSTM block held on its own inputs (K3's h
+    and final state against plain within SL_TOL, a planted R transposed
+    rejected at the first block; the dx_proj, dR, db the step computed
+    within SLSTM_GRAD_RTOL of the exact gradient, autograd through the
+    plain recurrence in fp64); the step's loss and gradient leaves against
+    its plain-K3 twin printed, not gated (the random-weight stack amplifies
+    a rounding-sized change of an sLSTM output, XLSTM's noise control).
+    Prints "[xlstm train]" lines and one XLSTM_TRAIN JSON line; returns the
+    run's record."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.kernels.slstm_step import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.models import model, xlstm
+    from repro_torch.pytree import leaves
+
+    tag = "xlstm train"
+    cfg = cut_depth(get_config(XL_ARCH), XL_TRAIN_LAYERS)
+    n_slstm = cfg.n_layers // cfg.slstm_every
+    check_disk(tag, cfg)
+    batch = train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)(0)
+    params = model.init(cfg, 0, "cuda")
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+
+    def loss_and_grads():
+        loss, _ = model.loss_fn(cfg, params, batch)
+        return loss.item(), torch.autograd.grad(loss, flat)
+
+    # (1) Each sLSTM block of the first step on its own inputs: K3's forward
+    # against plain (and a planted R transposed at the first block), and the
+    # gradient the step's backward computed against the exact one.
+    forwards, planted, recorded = [], {}, []
+    real_seq, real_backward = ops.slstm_seq, ops.slstm_backward
+
+    def checked(x_proj, R, b):
+        out = real_seq(x_proj, R, b)
+        with torch.no_grad():
+            args = (x_proj.detach(), R.detach(), b.detach())
+            want = ref.slstm_seq_ref(*args)
+            forwards.append(slstm_readings(out[0], out[1], *want))
+            if "forward" not in planted:
+                wrong = ref.slstm_seq_ref(args[0], args[1].transpose(-1, -2), args[2])
+                planted["forward"] = max(slstm_readings(*wrong, *want).values())
+        return out
+
+    def recording(x_proj, R, b, h, dh):
+        grads = real_backward(x_proj, R, b, h, dh)
+        recorded.append((x_proj, R, b, dh, grads))
+        return grads
+
+    launches0 = ops.slstm_seq.launches
+    with mock.patch.object(xlstm.ops, "slstm_seq", checked), \
+            mock.patch.object(ops, "slstm_backward", recording):
+        loss_k, grads_k = loss_and_grads()
+    first_launches = ops.slstm_seq.launches - launches0
+    grad_rows = []
+    for x_proj, R, b, dh, got in recorded:
+        exact = slstm_exact_grads(torch, x_proj, R, b, dh)
+        grad_rows.append({name: slstm_grad_reading(g, e) for name, g, e in
+                          zip(("dx_proj", "dR", "db"), got, exact)})
+        del exact
+    del recorded
+
+    # (2) The plain-K3 twin: the same step with autograd through the plain
+    # recurrence (fp32), its loss and every gradient leaf printed.
+    with mock.patch.object(xlstm.ops, "slstm_seq", ref.slstm_seq_ref):
+        loss_p, grads_p = loss_and_grads()
+    names = [name for name, _ in named_leaves(params)]
+    plain = dict(zip(names, grads_p))
+    grad_rel = {name: float((g - plain[name]).abs().max())
+                / max(float(plain[zero_grad_sibling(name)].abs().max()), 1e-30)
+                for name, g in zip(names, grads_k)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    del grads_k, grads_p, plain
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst_forward = max(max(r.values()) for r in forwards)
+    worst_grad = max(max(r.values()) for r in grad_rows)
+    print(f"[{tag}] first step, each sLSTM block on its own inputs: K3 vs plain {forwards} "
+          f"(gate {SL_TOL}); the step's gradient vs the exact one {grad_rows} (gate "
+          f"{SLSTM_GRAD_RTOL}); planted (R transposed at the first block) {planted}")
+    print(f"[{tag}] first step, K3 vs plain-K3 twin (printed, not gated): loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {loss_rel:.2e}); per-leaf max|dg|/max|g| (b_i at r_i's scale) max "
+          f"{max(grad_rel.values()):.3e}: {({k: float(f'{v:.4g}') for k, v in grad_rel.items()})}; K3 "
+          f"launches {first_launches}")
+    if first_launches != n_slstm or len(forwards) != n_slstm or len(grad_rows) != n_slstm:
+        raise AssertionError(f"{tag}: {first_launches} K3 launches, {len(forwards)} forwards and "
+                             f"{len(grad_rows)} backwards in one loss and gradient, expected "
+                             f"{n_slstm} each (the sLSTM block is not rematerialised)")
+    if not (worst_forward <= SL_TOL and worst_grad <= SLSTM_GRAD_RTOL and finite):
+        raise AssertionError(f"{tag}: an sLSTM block's K3 or its gradient disagrees on its "
+                             f"inputs: {forwards}, {grad_rows}")
+    if not planted["forward"] > SL_TOL:
+        raise AssertionError(f"{tag}: the per-block gate passes a planted wrong recurrence")
+
+    profile = profile_train_step(torch, tag, cfg, params, batch, XL_STEPS)
+    del params, flat
+    torch.cuda.empty_cache()
+    rec = train_cli(torch, card, tag, XL_ARCH, XL_TRAIN_LAYERS, XL_STEPS, XL_CKPT_EVERY,
+                    XL_FAULT_AT, lambda: ops.slstm_seq.launches, n_slstm, "K3",
+                    exact_replay=True)
+    rec["first_step"] = {"loss": loss_k, "plain_loss": loss_p, "loss_rel": loss_rel,
+                         "grad_rel": grad_rel, "block_forwards": forwards,
+                         "block_grads": grad_rows, "planted": planted}
+    rec["profile"] = {**profile, "busy_share": profile["device_ms"] / rec["step_ms"]}
+    print(f"[{tag}] busy share {rec['profile']['busy_share']:.3f}")
+    print("XLSTM_TRAIN " + json.dumps(rec))
+    return rec
+
+
+def zero_grad_sibling(name: str) -> str:
+    """The leaf whose scale holds `name` when its exact gradient is zero: the
+    sLSTM input-gate bias (h is invariant under a constant shift of raw_i,
+    which scales c and n alike) against the input gate's recurrent weights."""
+    return {"slstm/mixer/b_i": "slstm/mixer/r_i"}.get(name, name)
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of a nested dict in the port's leaf order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def phase_xlstm_card_vs_cpu(torch):
+    """xlstm's SMOKE config (2 groups of an mLSTM and an sLSTM block; fp32)
+    on the card and on the CPU from one CPU init: the forward's loss within
+    1e-5 relative (its logits against an fp64 forward printed beside a
+    one-ulp noise control); then
+    three SGD steps: losses within 1e-5 relative, and each param leaf within
+    max(1e-4, 4 x the CPU's distance) of its largest |value| of the same
+    steps run in fp64 on the CPU (the plain recurrence in fp64 for K3; the
+    mLSTM cell keeps its fp32 internals, as the hybrid's anchor keeps the
+    SSD's), the sLSTM input-gate bias, whose exact gradient is zero, at
+    its sibling's scale (zero_grad_sibling).  A planted fault (the card's
+    backward dropping the dc carry) must fail the parameter check."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.slstm_step import backward, ref
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import model, xlstm
+    from repro_torch.optim import sgd
+    from repro_torch.pytree import tree_map
+    from repro_torch.runtime import steps
+
+    cfg = get_smoke_config(XL_ARCH)
+    batches = make_batches(cfg, 4, 64, 0)
+    start = steps.init_train_state(cfg, sgd(0.5), 0, "cpu")
+
+    def config(dtype):
+        return dataclasses.replace(cfg, param_dtype=str(dtype)[6:], compute_dtype=str(dtype)[6:])
+
+    def exact_recurrence(dtype):
+        if dtype == torch.float64:
+            return mock.patch.object(xlstm.ops, "slstm_seq", ref.slstm_seq_ref)
+        return contextlib.nullcontext()
+
+    def forward_on(dev, dtype=torch.float32):
+        params = tree_map(lambda t: t.clone().to(dev, dtype), start["params"])
+        with torch.no_grad(), exact_recurrence(dtype):
+            logits, _ = model.forward(config(dtype), params, batches(0))
+            loss, _ = model.loss_fn(config(dtype), params, batches(0))
+        return logits.cpu().double(), loss.item()
+
+    # The logits of the random-weight stack carry a change of an sLSTM
+    # output far (XLSTM's noise control), and K3's fp32 h may differ from
+    # plain by more than an ulp (SL_TEST_TOL): the card's and the CPU's
+    # logits against the fp64 forward are printed beside a control, the
+    # CPU's forward with one fp32 ulp of noise on every sLSTM h; the loss is
+    # gated.
+    def ulp_noise(x_proj, R, b):
+        h, state = ref.slstm_seq_ref(x_proj, R, b)
+        noise = torch.randn(h.shape, generator=torch.Generator().manual_seed(3))
+        return h * (1 + 2.0 ** -23 * noise), state
+
+    (lc, lsc), (lp, lsp), (lx, _) = (forward_on("cuda"), forward_on("cpu"),
+                                     forward_on("cpu", torch.float64))
+    with mock.patch.object(xlstm.ops, "slstm_seq", ulp_noise):
+        control = rel_err(forward_on("cpu")[0], lx)
+    forward = {"logits_card_vs_exact": rel_err(lc, lx), "logits_cpu_vs_exact": rel_err(lp, lx),
+               "logits_ulp_noise_control": control, "logits_card_vs_cpu": rel_err(lc, lp),
+               "loss_rel": abs(lsc - lsp) / abs(lsp)}
+
+    def no_dc(dcn, f_s):
+        out = dcn.mul_(f_s)
+        out[:, :, 0] = 0.0
+        return out
+
+    def run(dev, dtype=torch.float32, fault=False):
+        state = tree_map(lambda t: t.clone().to(dev, dtype) if t.is_floating_point()
+                         else t.clone().to(dev), start)
+        step, losses = steps.make_train_step(config(dtype), sgd(0.5)), []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(exact_recurrence(dtype))
+            if fault:
+                stack.enter_context(mock.patch.object(backward, "carried", no_dc))
+            for i in range(3):
+                state, m = step(state, batches(i))
+                losses.append(m["loss"].item())
+        return {n: t.detach().cpu().double() for n, t in named_leaves(state["params"])}, losses
+
+    (pc, lsc3), (pp, lsp3), (px, _) = run("cuda"), run("cpu"), run("cpu", torch.float64)
+
+    def param_rows_of(card_params):
+        rows = {}
+        for name, x in px.items():
+            scale = max(float(px[zero_grad_sibling(name)].abs().max()), 1e-30)
+            card = float((card_params[name] - x).abs().max()) / scale
+            cpu = float((pp[name] - x).abs().max()) / scale
+            rows[name] = {"card_vs_exact": card, "cpu_vs_exact": cpu,
+                          "bound": max(1e-4, 4 * cpu)}
+        return rows
+
+    param_rows = param_rows_of(pc)
+    param_ok = all(r["card_vs_exact"] <= r["bound"] for r in param_rows.values())
+    planted = max(r["card_vs_exact"] / r["bound"]
+                  for r in param_rows_of(run("cuda", fault=True)[0]).values())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lsc3, lsp3))
+    out = {"forward": forward, "param_rows": param_rows, "step_loss_rel": loss_rel,
+           "losses_card": lsc3, "losses_cpu": lsp3, "planted_no_dc_carry": planted}
+    print(f"[xlstm card vs cpu] {cfg.name} smoke: forward {forward} (loss tol 1e-5, logits "
+          f"printed); "
+          f"3 SGD steps: losses rel {loss_rel:.2e} (tol 1e-5): card {lsc3}, cpu {lsp3}; params "
+          f"per leaf, max|d|/max|exact| (card vs fp64, CPU fp32 vs fp64): "
+          f"{[(n, round(r['card_vs_exact'], 7), round(r['cpu_vs_exact'], 7)) for n, r in param_rows.items()]}; "
+          f"planted (the backward's dc carry dropped on the card) worst leaf over its bound "
+          f"{planted:.3f} (fails above 1)")
+    if not (forward["loss_rel"] <= 1e-5 and param_ok and loss_rel <= 1e-5):
+        raise AssertionError(f"xlstm: card and CPU disagree: {out}")
+    if not planted > 1:
+        raise AssertionError("xlstm: the parameter check passes a backward without its dc carry")
+    return out
+
+
 def numbers(obj):
     """Every float in a nest of dicts and lists."""
     if isinstance(obj, float):
@@ -4301,10 +4808,11 @@ def numbers(obj):
 
 
 def phase_twins(torch, card: str):
-    """The torch twins of examples/ at the JAX scripts' sizes on the card.
-    quickstart, denoise_image and novel_docs are plain PyTorch (no kernel);
+    """The torch twins of examples/ on the card, at the JAX scripts' sizes
+    cut in depth as TWIN_CUTS says.  quickstart, denoise_image and
+    novel_docs are plain PyTorch (no kernel);
     graph_gossip and multi_pod run the port's coder, whose every iteration
-    is a K1 call (iters + 1 a solve); train_lm trains LM_100M through K2
+    is a K1 call (iters + 1 a solve); train_lm trains LM_100M (cut) through K2
     (fp32, scalar_fp32: 2 launches a layer a step) and must lower its loss
     by more than 1.0.  Returns the launches by twin."""
     import shutil
@@ -4322,7 +4830,7 @@ def phase_twins(torch, card: str):
                          * solve_calls, 0),
         "multi_pod": ((len(multi_pod.FLAT_AND_HIER) + len(multi_pod.POD_KNOBS)) * solve_calls
                       + len(multi_pod.CHAINS) * 1601, 0),
-        "train_lm": (0, 2 * train_lm.LM_100M.n_layers * 300),
+        "train_lm": (0, 2 * TWIN_CUTS["train_lm"]["n_layers"] * TWIN_LM_STEPS),
     }
     out = {}
     for name, mod in (("quickstart", quickstart), ("denoise_image", denoise_image),
@@ -4330,17 +4838,18 @@ def phase_twins(torch, card: str):
                       ("multi_pod", multi_pod), ("train_lm", train_lm)):
         reset_launch_counts()
         t = time.perf_counter()
-        result = mod.run(device="cuda")
+        result = mod.run(device="cuda", **TWIN_CUTS[name])
         wall = time.perf_counter() - t
         got = (dd_ops.dict_dual_step.launches, fa_ops.flash_attention.launches,
                sl_ops.slstm_seq.launches)
         if name == "train_lm":
             shutil.rmtree(result["ckpt_dir"], ignore_errors=True)
             result = {k: v for k, v in result.items() if k != "losses"}
-        out[name] = {"wall_s": wall, "launches": {"dict_dual_step": got[0],
-                                                   "flash_attention": got[1],
-                                                   "slstm_seq": got[2]}, "result": result}
-        print(f"[twins:{name}] {card}: wall {wall:.1f} s, launches (K1, K2, K3) {got}: {result}")
+        out[name] = {"cut": TWIN_CUTS[name], "wall_s": wall,
+                     "launches": {"dict_dual_step": got[0], "flash_attention": got[1],
+                                  "slstm_seq": got[2]}, "result": result}
+        print(f"[twins:{name}] {card}: wall {wall:.1f} s at {TWIN_CUTS[name]}, launches "
+              f"(K1, K2, K3) {got}: {result}")
         if got != (*expected[name], 0):
             raise AssertionError(f"twin {name}: launches (K1, K2, K3) {got}, expected "
                                  f"{(*expected[name], 0)}")
@@ -4493,10 +5002,10 @@ def phase_learner(torch, card: str):
 
 
 def phase_experiments(torch, card: str):
-    """The table3_auc and fig5_denoise twins on the card at cut sizes."""
+    """The table3_auc and fig5_denoise twins on the card at EXPERIMENT_CUTS."""
     from repro_torch.experiments import fig5_denoise, table3_auc
 
-    cuts = {"table3_auc": {"n_steps": 2}, "fig5_denoise": {"n_patches": 1200}}
+    cuts = EXPERIMENT_CUTS
     out = {}
     for name, run in (("table3_auc", table3_auc.run), ("fig5_denoise", fig5_denoise.run)):
         t = time.perf_counter()
@@ -4570,6 +5079,7 @@ def main() -> int:
                                    torch)
     moe_layer = timed("MoE layer", phase_moe_layer, torch)
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
+    sl_rec["backward"] = timed("slstm_seq gradient", phase_slstm_grad, torch)
     timed("small coder", phase_small_coder, torch)
     timed("elastic small", phase_elastic_small, torch)
     rec["grown_shapes"] = timed("dict_dual_step at N 18, 20", phase_k1_grown_shapes, torch)
@@ -4597,6 +5107,13 @@ def main() -> int:
                          HYBRID_ARCH, HYBRID_TRAIN_LAYERS, HYBRID_STEPS, HYBRID_CKPT_EVERY,
                          HYBRID_FAULT_AT, None)
     hybrid_cpu = timed("hybrid card vs cpu", phase_hybrid_card_vs_cpu, torch)
+    xlstm_train = timed("xlstm-1.3b train", phase_xlstm_train, torch, card)
+    xlstm_cpu = timed("xlstm card vs cpu", phase_xlstm_card_vs_cpu, torch)
+    sl_rec["launches_by_path"] = {"xlstm-1.3b serve": sl_rec["launches"],
+                                  "xlstm-1.3b train": xlstm_train["launches"]}
+    sl_rec["launches"] = sum(sl_rec["launches_by_path"].values())
+    sl_rec["train_launches_per_step"] = xlstm_train["launches_per_step"]
+    sl_rec["backward"]["launches_per_step"] = xlstm_train["launches_per_step"]
     fa_rec["launches_by_path"] = {"gemma-2b serve": fa_rec["launches"],
                                   "olmo-1b train": train["launches"],
                                   "granite-moe serve": moe_serve,
@@ -4617,6 +5134,7 @@ def main() -> int:
     print("MOE_CHECKS " + json.dumps({"layer": moe_layer, "card_vs_cpu": moe_cpu}))
     print("VLM_AUDIO_CHECKS " + json.dumps({"card_vs_cpu": va_cpu}))
     print("HYBRID_CHECKS " + json.dumps({"card_vs_cpu": hybrid_cpu}))
+    print("XLSTM_CHECKS " + json.dumps({"card_vs_cpu": xlstm_cpu}))
     # The diffusion's step is bounded by the worst block's curvature
     # (sigma_max(W_k)^2 / delta, about 58 here) while its consensus term
     # contracts by only mu / N per iteration, so after 150 iterations at this

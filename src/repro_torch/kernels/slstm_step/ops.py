@@ -13,6 +13,14 @@ follows from (B, P) and the dtype by the source's `make_plan`, mirrored by
 `library_plan`.  A head dim without a plan (see `plan`) raises before a
 launch.
 
+When grad is enabled and x_proj, R or b requires it, `slstm_seq` runs
+through `SlstmSeq`, an autograd Function on both devices: forward K3 on the
+card (its plain version on the CPU), backward `backward.slstm_backward`,
+backpropagation through time in plain PyTorch (the JAX package
+differentiates its `lax.scan` and has no backward kernel).  Only h has a
+gradient: one arriving for the final (c, n, m) raises.  Without grad the
+path is the bare forward.
+
 `slstm_block_kernel` adapts the model's per-gate parameters (w_*, r_*,
 b_*) to the stacked tensors the recurrence takes, as the JAX wrapper does.
 """
@@ -25,6 +33,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.slstm_step.backward import slstm_backward
 from repro_torch.kernels.slstm_step.ref import GATES, slstm_seq_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -159,8 +168,7 @@ def slstm_seq(
     (m0 = -1e30).  Returns h (S, B, D) fp32 and the final (c, n, m), each
     (B, D) fp32; the final h is h[-1].  x_proj and R are float32 or
     bfloat16, of one dtype, widened to fp32 inside; b is any float dtype.
-    Raises NotImplementedError when grad is enabled and an input requires
-    it, on both devices."""
+    Under grad, through `SlstmSeq` (the gradient of h only)."""
     if x_proj.dim() != 4 or x_proj.shape[0] != 4:
         raise ValueError(f"x_proj must be (4, S, B, D), got {tuple(x_proj.shape)}")
     _, s, batch, d = x_proj.shape
@@ -179,22 +187,44 @@ def slstm_seq(
         )
     if not (x_proj.device == R.device == b.device):
         raise ValueError(f"x_proj on {x_proj.device}, R on {R.device}, b on {b.device}")
+    if x_proj.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"slstm_seq runs on cuda or cpu, not {x_proj.device}")
     if torch.is_grad_enabled() and (x_proj.requires_grad or R.requires_grad or b.requires_grad):
-        raise NotImplementedError(
-            "slstm_seq has no gradient: the kernel's output is outside autograd, and its "
-            "plain version refuses too so that the card and the CPU agree (ROADMAP "
-            "section 1, the xLSTM-training item: K3's gradient)"
-        )
-
-    if x_proj.device.type == "cpu":
-        return slstm_seq_ref(x_proj, R, b)
-    if x_proj.device.type == "cuda":
-        return _launch(x_proj, R, b)
-    raise ValueError(f"slstm_seq runs on cuda or cpu, not {x_proj.device}")
+        h, c, n, m = SlstmSeq.apply(x_proj, R, b)
+        return h, (c, n, m)
+    return _forward(x_proj, R, b)
 
 
 slstm_seq.launches = 0
 _counted = slstm_seq  # the count stays on the wrapper while a check patches the name
+
+
+def _forward(x_proj: torch.Tensor, R: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, State]:
+    if x_proj.device.type == "cuda":
+        return _launch(x_proj, R, b)
+    return slstm_seq_ref(x_proj, R, b)
+
+
+class SlstmSeq(torch.autograd.Function):
+    """K3's forward (its plain version on the CPU) with `slstm_backward`;
+    saves x_proj, R, b and the output h.  Returns h, c, n, m; a gradient
+    for the final c, n or m raises (it would need the stabilizer's
+    derivative, which the backward leaves out: backward.py)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, R, b):
+        h, (c, n, m) = _forward(x_proj, R, b)
+        ctx.save_for_backward(x_proj, R, b, h)
+        ctx.set_materialize_grads(False)
+        return h, c, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dc, dn, dm):
+        if dc is not None or dn is not None or dm is not None:
+            raise RuntimeError("slstm_seq has a gradient for h only, not for the final "
+                               "(c, n, m)")
+        x_proj, R, b, h = ctx.saved_tensors
+        return slstm_backward(x_proj, R, b, h, dh)
 
 
 def stack_gates(params: dict, x: torch.Tensor, n_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -1,9 +1,9 @@
 """Training launcher, on one card.
 
-Port of src/repro/launch/train.py for the dense, moe, vlm, audio and
-hybrid families: the smoke config of --arch (or with --full-config the
-full one) trains on its synthetic stream (the Markov tokens, for dense,
-moe and hybrid; with image embeddings
+Port of src/repro/launch/train.py for every family (dense, moe, vlm,
+audio, hybrid and xlstm): the smoke config of --arch (or with
+--full-config the full one) trains on its synthetic stream (the Markov
+tokens, for dense, moe, hybrid and xlstm; with image embeddings
 before the text for vlm, whose loss is over the text; hubert's
 masked-prediction frames for audio) through the fault-tolerant runner,
 with AdamW on a cosine warmup (Adafactor for a bf16-param config,
@@ -23,16 +23,18 @@ its load-balance aux (the step's `moe_aux`):
       --full-config --batch 4 --seq 2048 --steps 6 --ckpt-every 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --full-config --n-layers 14 --batch 4 --seq 2048 --steps 6 --ckpt-every 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_1p3b \\
+      --full-config --n-layers 16 --batch 4 --seq 2048 --steps 6 --ckpt-every 3
 
 `--n-layers` cuts the depth of the chosen config and keeps every width
 (a hybrid config keeps at least one group of attn_every Mamba2 layers:
 n_layers // attn_every groups, each followed by the shared block, and a
-tail of the remainder).
+tail of the remainder; an xlstm config whole groups of slstm_every
+blocks, the last of each the sLSTM block).
 Weights are random, made from --seed on the device.  `--device cpu` runs on
 the CPU (the default is the card, and no card is an error).  One card
 holds the whole run, so --mesh and --rescale-mesh take only 1x1: a sharded
-run is ROADMAP section 1's sharded-training item.  xlstm waits for the
-xLSTM-training item (K3's gradient).
+run is ROADMAP section 1's sharded-training item.
 Checkpoints go to --ckpt-dir, by default a fresh directory under
 build/checkpoints/.
 
@@ -54,7 +56,7 @@ from typing import Dict, Optional, Sequence
 from repro_torch.configs import ALIASES, ARCH_IDS, cut_depth, get_config, get_smoke_config
 from repro_torch.data import synthetic as data
 from repro_torch.device import resolve_device
-from repro_torch.models.model import require_trainable
+from repro_torch.models.model import require_ported
 from repro_torch.optim import optimizers as opt_mod
 from repro_torch.optim.schedules import cosine_warmup
 from repro_torch.runtime.runner import RunnerConfig, TrainRunner, check_mesh
@@ -122,7 +124,7 @@ def run(args: argparse.Namespace) -> Dict:
         cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
         if args.n_layers is not None:
             cfg = cut_depth(cfg, args.n_layers)
-        require_trainable(cfg)
+        require_ported(cfg)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     device = resolve_device(args.device)

@@ -15,7 +15,8 @@ Port of src/repro/models/model.py, every family:
           encodes and returns no cache, and there is no decode step;
   xlstm   groups of (slstm_every - 1) pre-norm mLSTM blocks followed by one
           pre-norm sLSTM block, whose recurrence is one K3 launch
-          (models/xlstm.py);
+          (models/xlstm.py; in training K3's forward with the plain BPTT
+          backward, kernels/slstm_step/backward.py);
   hybrid  n_layers // attn_every groups of attn_every pre-norm Mamba2
           blocks (models/ssm.py, plain torch as JAX's einsums), each group
           followed by one application of the weight-TIED "shared_attn"
@@ -46,9 +47,12 @@ the fp32 master params through it, and each stack splits with
 backward of one `select` per layer would write a zero-filled copy of the
 whole stack per layer).  When grad flows and `cfg.remat` is set, each
 transformer layer (and each hybrid Mamba2 block and shared-block
-application) runs under `torch.utils.checkpoint` (non-reentrant): only its
-input is kept, and its forward runs again in the backward, as the JAX
-`_maybe_remat` with `nothing_saveable`; its K2 launch then runs twice.
+application, and each xlstm mLSTM block) runs under
+`torch.utils.checkpoint` (non-reentrant): only its input is kept, and its
+forward runs again in the backward, as the JAX `_maybe_remat` with
+`nothing_saveable`; its K2 launch then runs twice.  The sLSTM block is not
+rematerialised, as JAX's is not (src/repro/models/model.py:298-305): K3
+launches once an sLSTM block a step.
 The shared block's applications reuse its tensors, so autograd sums its
 gradient over them, as JAX's.
 
@@ -57,8 +61,7 @@ layers first; 0 without experts), and `loss_fn` is the fp32 cross-entropy
 plus 0.01 x that aux: next-token over the text (vlm: the logits after the
 image tokens), masked prediction of the targets at the masked frames
 (audio).  The untied head (audio; any config without tie_embeddings) is
-h @ head.w with fp32 accumulation.  xlstm trains with the xLSTM-training
-item (K3's gradient).
+h @ head.w with fp32 accumulation.
 """
 
 from __future__ import annotations
@@ -130,17 +133,6 @@ def cast_params(cfg: ArchConfig, params: dict) -> dict:
 def _select(tree: dict, i: int) -> dict:
     """Entry i of every tuple of a tree of tuples."""
     return {k: _select(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
-
-
-def require_trainable(cfg: ArchConfig) -> None:
-    """Raise for a family the port cannot train yet, naming its item."""
-    require_ported(cfg)
-    if cfg.family == "xlstm":
-        raise NotImplementedError(
-            f"{cfg.name}: xlstm training is not ported yet (ROADMAP section 1, the "
-            f"xLSTM-training item: K3 has no gradient); the port trains the dense, "
-            f"moe, vlm, audio and hybrid families"
-        )
 
 
 def _needs_grad(*trees) -> bool:
@@ -262,6 +254,11 @@ def _xlstm_layers(cfg: ArchConfig, params: dict):
         yield "slstm", gi, 0, params["slstm"][gi]
 
 
+def _xlstm_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str) -> torch.Tensor:
+    """One pre-norm xlstm block over the full sequence."""
+    return h + _xlstm_mixer(cfg, kind, lp, h, return_cache=False)
+
+
 def _xlstm_mixer(cfg: ArchConfig, kind: str, lp: dict, h: torch.Tensor, return_cache: bool):
     h_in = apply_norm(cfg.norm, lp["norm"], h)
     if kind == "mlstm":
@@ -315,7 +312,10 @@ def forward(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
     h = _embed_inputs(cfg, params, batch)
     if cfg.family == "xlstm":
         for kind, _, _, lp in _xlstm_layers(cfg, params):
-            h = h + _xlstm_mixer(cfg, kind, lp, h, return_cache=False)
+            if kind == "mlstm":
+                h = _remat(cfg, _xlstm_layer, lp, h, cfg, kind)
+            else:  # JAX does not remat the sLSTM block: K3 runs once a step
+                h = _xlstm_layer(lp, h, cfg, kind)
         return _logits(cfg, params, h), torch.zeros((), device=h.device)
     positions = torch.arange(h.shape[1], device=h.device)
     aux_total = torch.zeros((), device=h.device)
@@ -352,10 +352,10 @@ def loss_fn(cfg: ArchConfig, params: dict,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy plus 0.01 x moe_aux (0 without experts): (total, {"ce",
     "moe_aux", "n_tokens"}).  Next-token (logits[:, :-1] against
-    tokens[:, 1:], every position counting; dense, moe and hybrid) over the
+    tokens[:, 1:], every position counting; dense, moe, xlstm and hybrid) over the
     text: for vlm the logits after the n_img_tokens image positions; audio:
     the targets at the frames of batch["mask"]."""
-    require_trainable(cfg)
+    require_ported(cfg)
     logits, aux = forward(cfg, params, batch)
     dev = logits.device
     if cfg.family == "audio":

@@ -17,7 +17,11 @@ the C update, walks the chunks in order.  All of it in IEEE fp32.
 
 The sLSTM block always runs its recurrence through
 `kernels.slstm_step.ops.slstm_seq` (K3): the CUDA kernel on the card, its
-plain version on the CPU.  The JAX side's manual-over-DP wrapper
+plain version on the CPU; under grad through its autograd Function, whose
+backward is BPTT in plain PyTorch (`kernels/slstm_step/backward.py`).  The
+mLSTM's chunk loop writes each chunk's q C and q n into preallocated
+tensors, which autograd records as slice copies, so the block trains as
+it serves.  The JAX side's manual-over-DP wrapper
 (`slstm_block_auto`) has no meaning on one card.  Decode steps stay plain
 (one cell step; K3 is a sequence kernel) and update the cache in place
 (JAX returns a new one); the cache layouts are the JAX ones.

@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, List, Optional
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import require_trainable
+from repro_torch.models.model import require_ported
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.runtime import steps as S
 
@@ -73,7 +73,7 @@ class TrainRunner:
         fault_hook: Optional[Callable[[int], None]] = None,
     ):
         check_mesh(mesh)
-        require_trainable(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)

@@ -16,7 +16,7 @@ Port of the single-device parts of src/repro/runtime/steps.py:
 
 The step counter is a 0-d int32 tensor, as JAX's.  The sharding hooks,
 `jit_train_step` and the `lower_*` functions are XLA's (ROADMAP section 1,
-item 4 and the sharded-training item).
+the XLA-only tooling and the sharded-training items).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def init_train_state(cfg: ArchConfig, opt: Optimizer, seed: int = 0,
                      device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Random params from `seed` (model.init), the optimizer's state and a
     step of 0, on `device`."""
-    M.require_trainable(cfg)
+    M.require_ported(cfg)
     dev = resolve_device(device)
     params = M.init(cfg, seed, dev)
     return {"params": params, "opt": opt.init(params),
@@ -57,7 +57,7 @@ class _OnMeta(TorchFunctionMode):
 
 def abstract_train_state(cfg: ArchConfig, opt: Optimizer) -> Dict[str, Any]:
     """init_train_state's tree on the meta device."""
-    M.require_trainable(cfg)
+    M.require_ported(cfg)
     with _OnMeta():
         params = M.init(cfg, 0, "cpu")
         return {"params": params, "opt": opt.init(params),
@@ -75,7 +75,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer) -> Callable:
     """One step: loss and gradient (model.loss_fn), `opt.update` in place,
     step + 1.  Returns (state, {"loss", "ce", "moe_aux", "n_tokens"}), the
     metrics 0-d tensors without grad."""
-    M.require_trainable(cfg)
+    M.require_ported(cfg)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]

@@ -1,4 +1,4 @@
-"""Port: the gradient through K2's wrapper, and K3's refusal of one.
+"""Port: the gradient through K2's wrapper, and through K3's.
 
 `ops.flash_attention` runs through the `FlashAttention` autograd Function
 when grad flows (on the CPU its forward is K2's plain version, as on the
@@ -10,8 +10,8 @@ causal and not, ragged S, T > S (queries at positions T - S .. T - 1, K2's
 bottom-right alignment); fp32 within 1e-5, bf16 within BF16_TOL (5e-2,
 rtol and atol x the gradient's largest |value|: JAX rounds the probability
 cotangent to bf16 where the port keeps fp32).  Without grad the wrapper's
-path is the bare forward.  `slstm_seq` raises under grad on the CPU as on
-the card.
+path is the bare forward.  `slstm_seq` under grad gives its inputs the
+gradient of h (tests/test_torch_slstm_grad.py holds its values).
 """
 
 import jax
@@ -180,16 +180,25 @@ def test_model_gradient_reaches_every_attention_projection():
 
 @pytest.mark.parametrize("which", ["x_proj", "R", "b"])
 def test_slstm_seq_raises_under_grad(which):
-    from repro_torch.kernels.slstm_step import ops
+    """slstm_seq no longer raises under grad: the gradient of h reaches the
+    one input that requires it (through `SlstmSeq`, with the plain
+    version's forward on the CPU) and no other, and serving under no_grad
+    is unchanged, the bare forward with the same bits."""
+    from repro_torch.kernels.slstm_step import ops, ref
 
     rng = np.random.default_rng(0)
     x_proj = to_torch(rng.standard_normal((4, 6, 2, 8)).astype(np.float32))
-    R = to_torch(rng.standard_normal((4, 2, 4, 4)).astype(np.float32))
+    R = to_torch(rng.standard_normal((4, 2, 4, 4)).astype(np.float32) * 0.5)
     b = to_torch(rng.standard_normal((4, 8)).astype(np.float32))
     args = {"x_proj": x_proj, "R": R, "b": b}
     args[which].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="xLSTM-training"):
-        ops.slstm_seq(**args)
+    h, _ = ops.slstm_seq(**args)
+    assert h.grad_fn is not None
+    (g,) = torch.autograd.grad(h.sum(), [args[which]])
+    assert g.shape == args[which].shape and float(g.abs().max()) > 0
+    assert all(t.grad is None for t in args.values())
     with torch.no_grad():
-        h, _ = ops.slstm_seq(**args)  # serving is unchanged
-    assert h.shape == (6, 2, 8)
+        h0, _ = ops.slstm_seq(**args)  # serving is unchanged
+    assert h0.grad_fn is None
+    torch.testing.assert_close(h0, ref.slstm_seq_ref(x_proj, R, b)[0], rtol=0, atol=0)
+    torch.testing.assert_close(h.detach(), h0, rtol=0, atol=0)

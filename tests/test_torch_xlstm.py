@@ -1,5 +1,5 @@
 """Port parity: the xLSTM family (models/xlstm.py and the xlstm branches of
-models/model.py, convert.py and launch/serve.py).
+models/model.py, convert.py, launch/serve.py and training).
 
 The mLSTM chunked form against JAX's and against the step-by-step
 `mlstm_ref` (the JAX suite's 2e-3, tests/test_models.py); the mLSTM and
@@ -8,8 +8,12 @@ smoke config (2 groups of one mLSTM and one sLSTM block, fp32 compute) the
 JAX params crossing with `lm_params_from_numpy`, then forward, prefill
 (logits and every cache leaf) and six teacher-forced decode steps held
 against the JAX model at 1e-4.  Greedy prefill + decode must equal the
-argmax of the teacher-forced forward.  The sLSTM recurrence runs through
-K3's plain version (CPU tensors).
+argmax of the teacher-forced forward.  Training: three SGD and AdamW
+steps against JAX's jitted step, remat (each mLSTM block twice a step, the
+sLSTM block once, as JAX's forward), train states crossing between the two
+checkpoint managers bit for bit, and the runner's bit-for-bit replay after
+faults.  The sLSTM recurrence runs through K3's plain version (CPU
+tensors) and, under grad, its BPTT backward.
 """
 
 import dataclasses
@@ -19,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import assert_close, rand, to_jax, to_torch
+from test_torch_common import ZERO_GRAD_LEAVES, assert_close, rand, to_jax, to_torch
 
 TOL = 1e-4
 CHUNK_TOL = 2e-3  # tests/test_models.py::test_mlstm_chunked_vs_sequential
@@ -323,3 +327,179 @@ def test_xlstm_entry_points_default_to_the_card(monkeypatch):
     assert M.init_cache(cfg, 1, 4, device="cpu")["slstm"]["m"].device.type == "cpu"
     m = X.init_slstm_cache(1, 16, device="cpu")["m"]
     assert torch.equal(m, torch.full_like(m, -1e30))
+
+
+# -- training (K3's forward with the plain BPTT backward) ----------------------
+
+LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4  # tests/test_torch_train.py's rules
+ADAMW_TYPICAL, ADAMW_MAX = 1e-3, 0.5
+# The sLSTM input-gate bias has an exact gradient of zero, so after SGD
+# steps it holds only rounding on both sides: held to GRAD_TOL of its
+# sibling's largest |value| (ZERO_GRAD_LEAVES).  AdamW maps that rounding
+# (some 1e-9) to updates of up to ~0.1 lr on each side (m_hat / (sqrt(v_hat)
+# + 1e-8)), of either sign: such a leaf is held to ADAMW_MAX alone.
+
+
+def _named(tree) -> dict:
+    import jax
+
+    return {jax.tree_util.keystr(p): np.asarray(v, np.float32)
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("which", ["sgd", "adamw"])
+def test_three_train_steps_match_jax(which):
+    """Three steps of the smoke config from one state, JAX's jitted step
+    against the port's: losses within 1e-5 relative; SGD params within 1e-4
+    of each leaf's largest |value|, AdamW's updates on the scale of lr."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.optim import adamw as jadamw, sgd as jsgd
+    from repro.runtime import steps as JS
+    from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.launch.train import make_batches
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.runtime import steps
+
+    jcfg, _, cfg, _, _ = _setup()
+    lr = 0.5 if which == "sgd" else 1e-3
+    jopt, topt = (jsgd(lr), sgd(lr)) if which == "sgd" else (jadamw(lr), adamw(lr))
+    jstate = JS.init_train_state(jcfg, jopt, jax.random.PRNGKey(0))
+    state = train_state_from_numpy(cfg, jax.tree.map(np.array, jstate), device="cpu")
+    start = _named(jax.tree.map(np.array, jstate["params"]))
+    jstep, step = jax.jit(JS.make_train_step(jcfg, jopt)), steps.make_train_step(cfg, topt)
+    batches = make_batches(cfg, 4, 24, seed=0)
+    for i in range(3):
+        jstate, jm = jstep(jstate, {"tokens": jnp.asarray(batches(i)["tokens"])})
+        state, m = step(state, batches(i))
+        assert abs(float(m["loss"]) - float(jm["loss"])) <= LOSS_RTOL * abs(float(jm["loss"]))
+    assert int(state["step"]) == int(jstate["step"]) == 3
+    got, want = _named(train_state_to_numpy(state)["params"]), _named(jstate["params"])
+    assert list(got) == list(want)
+    for name, w in want.items():
+        if which == "sgd":
+            scale = max(float(np.abs(want[ZERO_GRAD_LEAVES.get(name, name)]).max()), 1e-30)
+            np.testing.assert_allclose(got[name], w, rtol=0, atol=GRAD_TOL * scale,
+                                       err_msg=name)
+        else:  # the three updates, on the scale of lr
+            d = np.abs((got[name] - start[name]) - (w - start[name]))
+            assert float(d.max()) <= ADAMW_MAX * lr, (name, float(d.max()) / lr)
+            if name not in ZERO_GRAD_LEAVES:
+                assert float(np.mean(d > ADAMW_TYPICAL * lr)) <= 1e-3, name
+
+
+def test_remat_reruns_the_mlstm_blocks_and_not_the_slstm_block(monkeypatch):
+    """As JAX's forward: with cfg.remat each mLSTM block runs twice a step
+    (forward and the backward's recompute) and each sLSTM block once, so
+    K3 (SlstmSeq's forward) runs once an sLSTM block; without remat every
+    block once; the gradients agree."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.slstm_step import ops
+    from repro_torch.pytree import leaves
+
+    X, M = _X(), _M()
+    calls = {"slstm": 0, "mlstm": 0}
+    real_seq, real_mlstm = ops.SlstmSeq.forward, X.mlstm_block
+
+    def seq(ctx, *a):
+        calls["slstm"] += 1
+        return real_seq(ctx, *a)
+
+    def mlstm(*a, **kw):
+        calls["mlstm"] += 1
+        return real_mlstm(*a, **kw)
+
+    monkeypatch.setattr(ops.SlstmSeq, "forward", staticmethod(seq))
+    monkeypatch.setattr(X, "mlstm_block", mlstm)
+    grads = {}
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 16)))
+    for remat in (True, False):
+        cfg = dataclasses.replace(get_smoke_config(ARCH), remat=remat)
+        params = M.init(cfg, 0, "cpu")
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        calls.update(slstm=0, mlstm=0)
+        loss, _ = M.loss_fn(cfg, params, {"tokens": toks})
+        grads[remat] = torch.autograd.grad(loss, flat)
+        n_groups = cfg.n_layers // cfg.slstm_every
+        assert calls == {"slstm": n_groups,
+                         "mlstm": (2 if remat else 1) * n_groups * (cfg.slstm_every - 1)}
+    for a, b in zip(grads[True], grads[False]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_train_state_checkpoints_cross_between_the_packages(tmp_path):
+    """A state the port saves restores in JAX, and one JAX saves restores in
+    the port, bit for bit, leaf i the same leaf on both sides ("mlstm" and
+    "slstm" stacks, AdamW's moments), as `abstract_train_state` lays it."""
+    import jax
+
+    from repro.checkpoint import CheckpointManager as JaxManager
+    from repro.optim.optimizers import for_arch as jax_for_arch
+    from repro.runtime import steps as JS
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.optim import for_arch
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import steps
+
+    jcfg, _, cfg, _, _ = _setup()
+    assert for_arch(cfg).name == jax_for_arch(jcfg).name
+    jstate = jax.tree.map(np.asarray, JS.init_train_state(jcfg, jax_for_arch(jcfg),
+                                                          jax.random.PRNGKey(0)))
+    state = train_state_from_numpy(cfg, jstate, device="cpu")
+    ours, theirs = leaves(state), jax.tree.leaves(jstate)
+    assert [tuple(t.shape) for t in ours] == [np.shape(w) for w in theirs]
+    like = steps.abstract_train_state(cfg, for_arch(cfg))
+    assert [tuple(t.shape) for t in leaves(like)] == [tuple(t.shape) for t in ours]
+    for a, b in zip(jax.tree.leaves(train_state_to_numpy(state)), theirs):
+        np.testing.assert_array_equal(a, b)
+
+    CheckpointManager(tmp_path / "port").save(3, state)
+    jgot, jstep = JaxManager(tmp_path / "port").restore(jstate)
+    assert jstep == 3
+    for a, b in zip(jax.tree.leaves(jgot), theirs):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    bumped = jax.tree.map(lambda a: a + 1 if a.dtype == np.float32 else a, jstate)
+    JaxManager(tmp_path / "jax").save(5, bumped)
+    got, step = CheckpointManager(tmp_path / "jax").restore(like, device="cpu")
+    assert step == 5
+    for a, b in zip(leaves(got), jax.tree.leaves(bumped)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_runner_fault_recovery_replays_bit_for_bit(tmp_path):
+    """TrainRunner on the smoke config: faults at steps 5 and 6 restore step
+    4 and replay; every replayed loss and the final state equal the
+    uninterrupted run's bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import make_batches
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime.runner import RunnerConfig, TrainRunner
+
+    cfg = get_smoke_config(ARCH)
+    batches = make_batches(cfg, 2, 16)
+
+    def runner(name, hook=None):
+        return TrainRunner(cfg, (1, 1), adamw(1e-3), RunnerConfig(str(tmp_path / name),
+                                                                  ckpt_every=4),
+                           device="cpu", fault_hook=hook)
+
+    s1, h1 = runner("clean").run(batches, 8)
+    fail_at = {5: True, 6: True}
+
+    def hook(step):
+        if fail_at.pop(step, False):
+            raise RuntimeError(f"injected failure at {step}")
+
+    r2 = runner("faulty", hook)
+    s2, h2 = r2.run(batches, 8)
+    assert [e["step"] for e in r2.events if e["kind"] == "restore"] == [4, 4]
+    # history: 0-4, replay 4-5, replay 4-7; every replayed step is the first pass's
+    losses1, losses2 = [h["loss"] for h in h1], [h["loss"] for h in h2]
+    assert losses2 == losses1[:5] + losses1[4:6] + losses1[4:]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(s1), leaves(s2)))
