@@ -14,6 +14,10 @@ and fails (non-zero exit, no result line) if any of them fails:
    instructions in the built library's SASS (cuobjdump), spill no
    register, and are not serialized by ptxas (its C7511/C7514/C7515
    notes), and unless every slstm_step cluster kernel spills nothing.
+   The build runs on a thread while the card runs the learner and the
+   experiment twins of phase 4 (they launch no kernel), and while the
+   host draws the serving phases' planted stream and the fleet's publish
+   dictionary.
 2. Kernel against plain: each kernel's wrapper is called on tensors on the
    card and held against its plain PyTorch version on the same inputs, at
    the test shapes and at the shape the main path gives it, then timed
@@ -139,7 +143,7 @@ and fails (non-zero exit, no result line) if any of them fails:
    - MoE training: launch/train at granite-moe's full width, depth cut to
      MOE_TRAIN_LAYERS, MOE_STEPS steps of 4 x 2048 tokens (AdamW, cosine
      warmup), checkpoints every MOE_CKPT_EVERY, a fault at MOE_FAULT_AT,
-     the rescale reload: 2 K2 launches a layer a step (24 at 12 layers),
+     the rescale reload: 2 K2 launches a layer a step (12 at 6 layers),
      the first replayed loss exactly the first pass's,
      the first step's loss against its plain-attention twin
      (MOE_LOSS_RTOL; its gradients and routes printed), one step
@@ -153,6 +157,24 @@ and fails (non-zero exit, no result line) if any of them fails:
    - three SGD steps of the granite-moe smoke config on the card against
      the CPU: the first step's routes compared, params at 1e-4, a planted
      combine without renormalisation rejected (MOE_CHECKS line);
+   - sharded training over a (data, model) mesh, the ranks sharing the
+     card over gloo_staged (runtime/mesh.py: NCCL takes one rank a card):
+     one spawned world of 4 ranks runs launch/train's rank body (what
+     --mesh runs) for olmo-1b at full width cut to SHARD_LAYERS, 2x2, three
+     SGD steps, held against the same run on one device without a mesh
+     (first loss 2^-7, step-3 params within bf16 rounding, their updates
+     within GRAD_BF16_TOL), K2 on every rank on its 8 local heads
+     (wgmma_tma); the same run through the CLI on a 1x1 mesh over nccl
+     (its one rank this process) bit for bit the run without a mesh;
+     granite-moe at full width cut to SHARD_LAYERS, 1x2 (16
+     experts a rank through moe_a2a), AdamW, a fault, an exact replay and
+     the reload at 2x1 (its loss against the same checkpoint's on one
+     device, 2^-7; and against the saved run's); the a2a layer at
+     granite's widths against moe_ref (output and gradients); at the olmo
+     SMOKE config 2x2 against 1x1 on the card, with the attention's
+     row-parallel output without its psum and the data-parallel
+     gradients unaveraged each rejected (SHARDED line; step times beside
+     the transport, which they measure);
    - VLM serving: the port's serve at phi-3-vision-4.2b's full width and
      depth (3.73e9 params, bf16), 4 prompts of 2048 tokens after 576
      image positions, VLM_GEN greedy tokens, a cache of 576 + 2048 +
@@ -250,7 +272,8 @@ and fails (non-zero exit, no result line) if any of them fails:
      work queued: failed 0, at least one request re-routed.
 4. The learner and the paper's applications, plain PyTorch on the card
    (no kernel of the port is on their path, and the script fails if one
-   launches), then the twins of examples/, each with its exact launches:
+   launches; they run beside the build of phase 1), then the twins of
+   examples/, each with its exact launches:
    - core/learner.DictionaryLearner at the production dictionary (M 8192,
      K 262144, N 16, sparse_svd, gamma 0.05, delta 0.1, 150 iterations,
      mu_w 0.1, batches of 16 from sparse_stream): engine fista, one warm
@@ -290,7 +313,6 @@ import pathlib
 import statistics
 import subprocess
 import sys
-import threading
 import time
 from unittest import mock
 
@@ -436,6 +458,7 @@ DRILLS = [
      1, "0", False),
 ]
 FLEET_PUBLISH_AT, KILL_AT = 32, 32
+FLEET_SEED = 0  # serve_dict's --seed default: its W0, and the publish's draw at FLEET_SEED + 3
 # The kill drill's router seed: its first tie-break (both replicas idle at
 # the first admission batch of 32) picks r1 (numpy's default_rng(0).integers(2)
 # is 1), so r1 is solving half of it, the other half queued, when the stream
@@ -467,7 +490,10 @@ LEARN_PARITY_M, LEARN_PARITY_K, LEARN_PARITY_RTOL = 512, 16384, 1e-4
 # (d 2048, 16 heads of 128, d_ff 8192, vocab 50304, bf16 compute; remat on),
 # depth cut from 16 layers to TRAIN_LAYERS to keep the whole script well
 # inside its time limit (6.4e8 fp32 params and AdamW's two fp32 moments,
-# 7.7 GB of state), random weights from seed 0, batches of TRAIN_BATCH x TRAIN_SEQ tokens
+# 7.7 GB of state; at 4 layers, on an H100 80GB HBM3 at 700 W, the first
+# step's gradient leaves part from the plain twin by 0.0191 of their
+# largest, past the depth-scaled gate of 4 x 2^-8, so the depth stays),
+# random weights from seed 0, batches of TRAIN_BATCH x TRAIN_SEQ tokens
 # from the Markov stream, TRAIN_STEPS steps through TrainRunner with a
 # checkpoint every TRAIN_CKPT_EVERY, a fault injected at TRAIN_FAULT_AT
 # (restore TRAIN_CKPT_EVERY, replay), then the rescale reload.  K2 runs
@@ -512,13 +538,14 @@ ADAMW_SHARE, ADAMW_FLIP = 1e-3, 0.5
 # for MOE_STEPS steps, a checkpoint every MOE_CKPT_EVERY, a fault at
 # MOE_FAULT_AT, the rescale reload, with the depth cut to MOE_TRAIN_LAYERS
 # (full depth until xLSTM training needed the room: 100.2 s of the script,
-# its 16.0 GB state written twice and read twice).  Its attention: one K2
+# its 16.0 GB state written twice and read twice; 12 layers until the
+# sharded phase needed it: its gates do not scale with depth).  Its attention: one K2
 # launch a layer a prefill, two a layer a step; FA_MOE, bf16, causal, on
 # wgmma_tma.  It
 # dispatches 16 groups of 512 tokens, 160 places an expert a group; a
 # decode step one group of 4 tokens, 1 place.
 MOE_ARCH = "granite_moe_1b_a400m"
-MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT, MOE_TRAIN_LAYERS = 8, 4, 6, 12
+MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT, MOE_TRAIN_LAYERS = 8, 4, 6, 6
 FA_MOE = (LM_BATCH, 16, 8, LM_PROMPT, LM_PROMPT, 64)
 # kimi-k2-1t-a32b at full width (d 7168, 64 query heads over 8 KV heads of
 # 112, 384 experts top-8 of d_ff 2048 and one shared expert, a dense first
@@ -585,8 +612,8 @@ FA_VLM_TRAIN = (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 96)
 # AUDIO_FAULT_AT, with the depth cut from 48 layers to AUDIO_TRAIN_LAYERS
 # to keep the whole script well inside its time limit (at 48 layers the
 # phase took 75.9 s and the script 1094.2 s of its 1200; at 24, 38.9 s and
-# 1162.0 with xLSTM training).
-AUDIO_ARCH, AUDIO_TRAIN_LAYERS = "hubert_xlarge", 12
+# 1162.0 with xLSTM training; 12 until the sharded phase needed the room).
+AUDIO_ARCH, AUDIO_TRAIN_LAYERS = "hubert_xlarge", 6
 AUDIO_STEPS, AUDIO_CKPT_EVERY, AUDIO_FAULT_AT = 4, 2, 3
 FA_AUDIO = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 80)
 # The first training step's gradient against its plain-attention twin,
@@ -793,31 +820,32 @@ def sass_counts(lib_path, opcode: str) -> dict:
     return counts
 
 
-def phase_build():
+def phase_build(say=print):
     """Builds every kernel; returns the evidence that K2's bf16 kernel runs on
     the tensor cores (its ptxas registers and spills and its HGMMA count in
     the SASS of the built library, per instantiation: bf16 at D 64, 80, 96,
     112, 128 and 256) and K3's ptxas report per instantiation (every one a
     cluster kernel, none may spill); prints K2's scalar_fp32 ptxas report
-    by (D, type) (fp32 at every D, bf16 at 16 and 32)."""
+    by (D, type) (fp32 at every D, bf16 at 16 and 32).  Its lines go to
+    `say` (main() prints them after the phases that run beside the build)."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     logs = build.build()
-    print(f"[build] {len(logs)} kernel(s) built for sm_90a in {time.perf_counter() - t0:.1f}s")
+    say(f"[build] {len(logs)} kernel(s) built for sm_90a in {time.perf_counter() - t0:.1f}s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "cached" in line:
-                print(f"[build] {name}: {line.strip()}")
+                say(f"[build] {name}: {line.strip()}")
     ptxas = ptxas_report(logs["flash_attention"])
     hgmma = sass_counts(build.library_path("flash_attention"), "HGMMA")
     wgmma = {fn: {"d": int(fn.split("flash_attention_wgmmaILi")[1].split("E")[0]), "hgmma": n,
                   **ptxas.get(fn, {})}
              for fn, n in hgmma.items() if "flash_attention_wgmma" in fn}
-    print(f"[build] flash_attention wgmma_tma kernels (HGMMA in SASS, ptxas): {wgmma}")
+    say(f"[build] flash_attention wgmma_tma kernels (HGMMA in SASS, ptxas): {wgmma}")
     scalar = {fn.split("flash_attention_kernelI")[1].split("EEv")[0]: r
               for fn, r in ptxas.items() if "flash_attention_kernelI" in fn}
-    print(f"[build] flash_attention scalar_fp32 kernels by (D, type) (ptxas): {scalar}")
+    say(f"[build] flash_attention scalar_fp32 kernels by (D, type) (ptxas): {scalar}")
     if sorted(r["d"] for r in wgmma.values()) != sorted(WGMMA_HEAD_DIMS) \
             or min(r["hgmma"] for r in wgmma.values()) == 0:
         raise AssertionError(f"the wgmma_tma kernels (D = {WGMMA_HEAD_DIMS}) lack HGMMA in "
@@ -832,14 +860,14 @@ def phase_build():
         if serialized:
             raise AssertionError(f"ptxas serialized the wgmma_tma kernels: {serialized}")
     slstm = ptxas_report(logs["slstm_step"])
-    print(f"[build] slstm_step cluster kernels (ptxas: registers, stack frame, spills): "
+    say(f"[build] slstm_step cluster kernels (ptxas: registers, stack frame, spills): "
           f"{slstm if slstm else 'cached'}")
     import torch
 
     from repro_torch.kernels.slstm_step import ops as sl_ops
 
     b, _, d, h = SL_MAIN
-    print(f"[build] slstm_step plan at the main shape (cudaOccupancyMaxActiveClusters: "
+    say(f"[build] slstm_step plan at the main shape (cudaOccupancyMaxActiveClusters: "
           f"max_active_clusters): {sl_ops.library_plan(torch.bfloat16, b, d // h, h)}")
     if logs["slstm_step"] != "cached":
         if not any("slstm_cluster_kernel" in fn for fn in slstm):
@@ -2356,22 +2384,53 @@ def phase_drill(torch, mode: str, card: str, stream, extra, grow: int, drain: st
     return launches
 
 
-def phase_fleet(torch, card: str, stream):
+def fleet_w0(torch):
+    """The fleet's W0 on the host, as serve_dict makes it at --seed
+    FLEET_SEED (init_dictionary on the card, blocks_from_full, host_full):
+    main() draws the fleet's publish dictionary from it ahead,
+    serve_dict.perturbed(W0, FLEET_SEED + 3, nonneg False), what the
+    rolling publish installs (0.01 N(0, 1) from numpy, 40-80 s of the host
+    at this size)."""
+    from repro_torch.core.dictionary import blocks_from_full, init_dictionary
+    from repro_torch.launch import serve_dict
+
+    gen = torch.Generator(device="cuda").manual_seed(FLEET_SEED)
+    W0 = serve_dict.host_full(blocks_from_full(
+        init_dictionary(gen, M, ATOMS_PER_AGENT * N_AGENTS, device="cuda"), N_AGENTS))
+    torch.cuda.empty_cache()
+    return W0
+
+
+def phase_fleet(torch, card: str, stream, publish):
     """serve_dict --replicas 2 --publish-at FLEET_PUBLISH_AT (graph) at the
     production dictionary: every sample coded, none failed, one rolling
     publish reaching both replicas; a batch re-solved on r0's final
-    snapshot with K1 against plain.  Returns K1's launches."""
+    snapshot with K1 against plain.  `publish` is (fleet_w0's W0, the
+    future of its publish dictionary drawn ahead): the run's publish takes
+    that draw when its W0 is that one (else it draws its own, and the line
+    says so).  Returns K1's launches."""
     import numpy as np
 
     from repro_torch.kernels.dict_dual_step import ops
     from repro_torch.launch import serve_dict
+
+    W0_ahead, W1_ahead = publish
+    ahead = []
+
+    def perturbed(W0, seed, nonneg):
+        if seed == FLEET_SEED + 3 and not nonneg and np.array_equal(W0, W0_ahead):
+            ahead.append(True)
+            return W1_ahead.result()
+        ahead.append(False)
+        return serve_dict.perturbed(W0, seed, nonneg)
 
     argv = ["--mode", "graph", "--m", str(M), "--atoms-per-agent", str(ATOMS_PER_AGENT),
             "--mesh", f"1x{N_AGENTS}", "--samples", str(SAMPLES), "--micro-batch",
             str(MICRO_BATCH), "--iters", str(ITERS), "--gamma", str(GAMMA), "--delta",
             str(DELTA), "--device", "cuda", "--json", "--replicas", "2", "--publish-at",
             str(FLEET_PUBLISH_AT)]
-    with mock.patch.object(serve_dict, "sparse_stream", stream):
+    with mock.patch.object(serve_dict, "sparse_stream", stream), \
+            mock.patch.object(serve_dict, "perturbed", perturbed):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -2403,11 +2462,12 @@ def phase_fleet(torch, card: str, stream):
            "publish_versions": pay["publish_versions"], "per_replica": pay["per_replica"],
            "k1_calls": launches, "peak_mem_gb": peak_gb, "publish_s": out["publish_s"],
            "y_dims": sorted({int(y.shape[0]) for _, y in results}),
-           "resolve_rel_err": {"nu": nu_err, "y": y_err}}
+           "resolve_rel_err": {"nu": nu_err, "y": y_err}, "publish_drawn_ahead": ahead == [True]}
     print(f"[fleet] {card}: {pay['agg_samples_per_s']:.4f} samples/s over 2 replicas  p50 "
           f"{lat['p50']:.1f} ms  p99 {lat['p99']:.1f} ms  wall {pay['wall_s']:.1f} s  routed "
           f"{pay['routed']}  publish {pay['publish_versions']} (waited "
-          f"{out['publish_s']['draw_wait']:.1f} s for the host's draw, installed in "
+          f"{out['publish_s']['draw_wait']:.1f} s for the host's draw, "
+          f"{'drawn beside the build' if ahead == [True] else 'drawn in this run'}; installed in "
           f"{out['publish_s']['install']:.1f} s)  K1 calls {launches}  peak device memory "
           f"{peak_gb:.2f} GB")
     print("FLEET " + json.dumps(row))
@@ -5029,6 +5089,408 @@ def phase_experiments(torch, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sharded training over a (data, model) mesh (SHARDED line)
+# ---------------------------------------------------------------------------
+
+# One card, several ranks: NCCL takes one rank a card, so the ranks of a
+# mesh share the card and move their collectives through host memory
+# (runtime/mesh.py's gloo_staged); compute and every K2 launch stay on the
+# card.  Step times here measure that transport, not a deployment.  Gates:
+#   * olmo-1b at full width cut to SHARD_LAYERS layers, mesh 2x2 (tensor-
+#     parallel over 2, data-parallel over 2: 8 of 16 heads a rank, 2 of the
+#     4 rows), SHARD_STEPS SGD steps at SHARD_LR (constant), launch/train's
+#     rank body (`train._train_ranks`, what --mesh runs on each rank) in one
+#     spawned world with the granite, a2a and planted runs below (starting
+#     a world costs each rank seconds), against the same config, seed and
+#     batches at 1x1 here:
+#     the first loss within SHARD_LOSS_RTOL, the step-3 params within bf16
+#     rounding of the 1x1 run's (each leaf's largest |difference| at most
+#     2^-8 of its largest |value|) and their updates (p3 - p0) within
+#     GRAD_BF16_TOL of the 1x1 updates, leaf by leaf; K2 launched on every
+#     rank, two a layer a step, only at (2, 8 / 8, 2048, 128) bf16 on
+#     wgmma_tma.  SGD, never AdamW: AdamW maps rounding to updates of order
+#     lr (ROADMAP section 3);
+#   * the same run through launch/train on a 1x1 mesh over nccl (world
+#     size 1, the one check of the NCCL path one card allows; its one rank
+#     is this process): every loss and every param bit for bit the 1x1
+#     run's without a mesh;
+#   * granite-moe-1b-a400m at full width cut to SHARD_LAYERS, mesh 1x2 (16
+#     experts a rank through moe_a2a), AdamW, SHARD_MOE_STEPS steps with a
+#     checkpoint every SHARD_MOE_CKPT and a fault at SHARD_MOE_FAULT: the
+#     replayed loss bit for bit the first pass's; then the reload of step
+#     SHARD_MOE_RESCALE on a 2x1 mesh (its capacity dispatch over the data
+#     shards), whose loss there is within SHARD_LOSS_RTOL of the saved
+#     run's; K2 on every rank at (4, 8 / 4, 2048, 64), then (2, 16 / 8);
+#   * the a2a layer at granite's widths (d 1024, 32 experts, top 8, d_ff
+#     512) on a 1x2 mesh at capacity SHARD_A2A_CF (nothing dropped) against
+#     moe_ref on the card, fp32: the output and the gradients of every
+#     weight and of x within SHARD_A2A_RTOL of the largest;
+#   * planted faults at the olmo SMOKE config (fp32) on a 2x2 mesh: the
+#     clean run's three SGD steps within SHARD_SMOKE_RTOL of the 1x1 run on
+#     the card (losses and every param), and each of the attention's
+#     row-parallel output without its psum and the data-parallel
+#     gradients left unaveraged outside it.
+SHARD_ARCH, SHARD_MOE_ARCH, SHARD_LAYERS = "olmo_1b", "granite_moe_1b_a400m", 4
+SHARD_STEPS, SHARD_LR = 3, 0.1
+SHARD_MOE_STEPS, SHARD_MOE_CKPT, SHARD_MOE_FAULT, SHARD_MOE_RESCALE = 4, 2, 3, 2
+SHARD_LOSS_RTOL = 2.0 ** -7
+SHARD_A2A_WIDTHS = (1024, 512, 32, 8)  # granite-moe: d, expert d_ff, experts, top-k
+SHARD_A2A_SHAPE, SHARD_A2A_CF, SHARD_A2A_RTOL = (2, 512), 4.0, 1e-4
+SHARD_SMOKE_RTOL = 1e-4
+SHARD_TRANSPORT = "gloo_staged"
+
+
+def print_sharded_run(tag: str, out: dict) -> None:
+    times = out["step_times"]
+    print(f"[sharded {tag}] mesh {out['mesh']}, transport {out['transport']}, world "
+          f"{out['world']}: losses {out['losses']}; K2 launches per rank {out['k2_launches']} "
+          f"at {out['k2_shapes']}; step ms (rank 0's clock) {[round(t * 1e3, 1) for t in times]};"
+          f" rank 0's last step on the wire, per axis [collectives, bytes] "
+          f"{out['step_traffic']}; rank 0's seconds {out['rank0_seconds']}")
+
+
+def sharded_cli(torch, tag: str, argv) -> dict:
+    """launch/train with argv on the card (mesh.launch spawns the ranks);
+    rank 0's result, the wall seconds beside it."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    out = train.run(train.parse_args(argv + ["--device", "cuda"]))
+    out["wall_s"] = time.perf_counter() - t0
+    print_sharded_run(tag, out)
+    return out
+
+
+def cli_rank_args(argv, ckpt_dir) -> dict:
+    """The arguments launch/train's ranks take for argv (on the card)."""
+    from repro_torch.launch import train
+
+    return dict(vars(train.parse_args(argv + ["--device", "cuda"])), ckpt_dir=str(ckpt_dir))
+
+
+def _sgd_reference(torch, cfg, batches, lr, n_steps):
+    """The SGD run on one device without a mesh: (losses, params before,
+    params after), the params as CPU tensors in leaf order."""
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import constant
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import steps
+
+    opt = sgd(constant(lr))
+    state = steps.init_train_state(cfg, opt, 0, "cuda")
+    before = [t.detach().cpu().clone() for t in leaves(state["params"])]
+    step = steps.make_train_step(cfg, opt)
+    losses = []
+    for i in range(n_steps):
+        state, m = step(state, batches(i))
+        losses.append(float(m["loss"]))
+    after = [t.detach().cpu().clone() for t in leaves(state["params"])]
+    del state
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return losses, before, after
+
+
+def _checkpoint_params(cfg, opt, directory, step):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import steps
+
+    tree, got = CheckpointManager(directory).restore(steps.abstract_train_state(cfg, opt), step)
+    if got != step:
+        raise AssertionError(f"no checkpoint of step {step} in {directory}")
+    return leaves(tree["params"])
+
+
+def _one_device_loss(torch, cfg, directory, step) -> float:
+    """The loss of checkpoint `step`'s state on batch `step`, on one
+    device in this process (what a reload computes at its first step)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    tree, got = CheckpointManager(directory).restore(
+        steps.abstract_train_state(cfg, adamw(1e-3)), step, device="cuda")
+    with torch.no_grad():
+        loss, _ = model.loss_fn(cfg, tree["params"],
+                                train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)(step))
+    del tree
+    return float(loss)
+
+
+def _k2_ranks(tag, out, per_rank, shape, key="k2_launches", shapes_key="k2_shapes"):
+    """Rank r launched K2 per_rank[r] times, only at `shape` (none where 0)."""
+    counts, shapes = out[key], out[shapes_key]
+    want = [[shape] if n else [] for n in per_rank]
+    if list(counts) != list(per_rank) or [list(map(tuple, s)) for s in shapes] != want:
+        raise AssertionError(f"{tag}: K2 launches per rank {counts} at {shapes}, expected "
+                             f"{per_rank} at {shape}")
+
+
+def sharded_world(mesh, job: dict) -> dict:
+    """Rank function (mesh.launch, 2x2 over gloo_staged; one world, since
+    starting one costs each rank seconds): launch/train's own rank body
+    (`train._train_ranks`, what `--mesh` runs on each rank) for olmo-1b on
+    this 2x2 mesh and for granite-moe on the 1x2 mesh of ranks 0-1 (the
+    others idle) with its 2x1 reload; then the a2a layer at granite's
+    widths on that 1x2 mesh against moe_ref; then the olmo SMOKE config's
+    three SGD steps at 2x2, clean and with each planted fault.  Rank 0
+    returns the runs and the readings."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models import attention, moe, moe_a2a
+    from repro_torch.optim import sgd
+    from repro_torch.pytree import leaves, unflatten
+    from repro_torch.runtime import mesh as mesh_mod, sharding, steps
+
+    out = {}
+    sub = mesh_mod.make_mesh((1, 2))
+    for tag, m in (("olmo", mesh), ("granite", sub)):
+        t0 = time.perf_counter()
+        run = train._train_ranks(m, job[tag])
+        if mesh.rank == 0:
+            out[tag] = {**run, "wall_s": time.perf_counter() - t0}
+    if sub is not None:
+        d, f, e, k = job["a2a_widths"]
+        dev = mesh.device
+        gen = torch.Generator(device=dev).manual_seed(3)
+        full = moe.init_moe(gen, d, f, e, dtype=torch.float32)
+        x = torch.randn(*job["a2a_tokens"], d, generator=gen, device=dev)
+        c = torch.randn(*job["a2a_tokens"], d, generator=gen, device=dev)
+        specs = {"router": (None, None), "wi": ("model", None, None),
+                 "wg": ("model", None, None), "wo": ("model", None, None)}
+        params = sharding.shard_tree(full, specs, sub)
+        flat = leaves(params) + [x]
+        for t in flat:
+            t.requires_grad_(True)
+        t0 = time.perf_counter()
+        y, _ = moe_a2a.apply_moe_a2a(sub, params, x, top_k=k, n_experts=e,
+                                     capacity_factor=SHARD_A2A_CF)
+        grads = torch.autograd.grad(torch.sum(y * c), flat)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gfull = leaves(sharding.unshard_tree(unflatten(params, grads[:-1]), specs, sub))
+        gx = grads[-1]
+        if sub.rank == 0:
+            ref_flat = [t.detach().clone().requires_grad_(True) for t in leaves(full) + [x]]
+            ref_params = unflatten(full, ref_flat[:-1])
+            want = moe.moe_ref(ref_params, ref_flat[-1], top_k=k)
+            rgrads = torch.autograd.grad(torch.sum(want * c), ref_flat)
+            out["a2a"] = {
+                "out": rel_err(y.detach(), want.detach()),
+                "grads": [rel_err(g, w) for g, w in zip(gfull + [gx], rgrads)],
+                "wall_s": wall,
+            }
+    from repro_torch.models import sharding_hook
+
+    class NoRowPsum:  # the attention's view of the hook, its g the identity
+        def __getattr__(self, name):
+            return getattr(sharding_hook, name)
+
+        @staticmethod
+        def leave_model(x):
+            return x
+
+    cfg = job["smoke_cfg"]
+    faults = {"clean": contextlib.nullcontext(),
+              "row-parallel output without its psum": mock.patch.object(
+                  attention, "hook", NoRowPsum()),
+              "data-parallel gradients unaveraged": mock.patch.object(
+                  steps, "_average_over_data", lambda m, grads, specs: list(grads))}
+    opt = sgd(job["smoke_lr"])
+    for name, patch in faults.items():
+        state = steps.init_train_state(cfg, opt, 0, mesh.device, mesh)
+        specs = steps.state_shardings(cfg, opt, mesh)["params"]
+        step = steps.make_train_step(cfg, opt, mesh)
+        losses = []
+        with patch:
+            for b in job["smoke_batches"]:
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+        whole = [t.detach().cpu() for t in
+                 leaves(sharding.unshard_tree(state["params"], specs, mesh))]
+        if mesh.rank == 0:
+            out[name] = {"losses": losses, "params": whole}
+    return out
+
+
+def _param_readings(got, want) -> list:
+    """Per leaf max |got - want| / max |want|."""
+    return [rel_err(g, w) for g, w in zip(got, want)]
+
+
+def phase_sharded(torch, card: str) -> dict:
+    """The SHARDED gates (see SHARD_ARCH's comment): one gloo_staged world
+    of 4 ranks (sharded_world) and launch/train on a 1x1 mesh over nccl,
+    held against runs on one device without a mesh.  Prints "[sharded ...]" lines and one
+    SHARDED JSON line; returns the record (K2 launches per rank and
+    path)."""
+    import shutil
+
+    from repro_torch.configs import cut_depth, get_config, get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import mesh as mesh_mod
+
+    rec = {"card": card, "transport": SHARD_TRANSPORT}
+    root = ROOT / "build" / "chip_smoke_sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = cut_depth(get_config(SHARD_ARCH), SHARD_LAYERS)
+    moe_cfg = cut_depth(get_config(SHARD_MOE_ARCH), SHARD_LAYERS)
+    batches = train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    common = ["--full-config",
+              "--n-layers", str(SHARD_LAYERS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    sgd_argv = common + ["--arch", SHARD_ARCH, "--optimizer", "sgd", "--lr", str(SHARD_LR),
+                         "--steps", str(SHARD_STEPS), "--ckpt-every", str(SHARD_STEPS)]
+    moe_argv = common + [
+        "--arch", SHARD_MOE_ARCH, "--steps", str(SHARD_MOE_STEPS),
+        "--ckpt-every", str(SHARD_MOE_CKPT), "--inject-fault-at", str(SHARD_MOE_FAULT),
+        "--rescale-mesh", "2x1", "--rescale-step", str(SHARD_MOE_RESCALE)]
+
+    # The references on one device, in this process: olmo-1b's SGD run and
+    # the SMOKE config's.
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses1, p0, p1 = _sgd_reference(torch, cfg, batches, SHARD_LR, SHARD_STEPS)
+    rec["reference_1x1_s"] = time.perf_counter() - t0
+    smoke = get_smoke_config(SHARD_ARCH)
+    smoke_batches = [train.make_batches(smoke, 4, 32, 0)(i) for i in range(3)]
+    s_losses, _, s_params = _sgd_reference(torch, smoke, lambda i: smoke_batches[i], 0.5, 3)
+
+    # The world: olmo-1b 2x2 and granite-moe 1x2 (launch/train's rank body
+    # with its --mesh 2x2 / 1x2 arguments), the a2a layer, the planted runs.
+    t0 = time.perf_counter()
+    res = mesh_mod.launch(sharded_world, (2, 2), transport=SHARD_TRANSPORT, device="cuda",
+                          timeout=900, args=({
+                              "olmo": cli_rank_args(sgd_argv + ["--mesh", "2x2", "--transport",
+                                                                SHARD_TRANSPORT], root / "2x2"),
+                              "granite": cli_rank_args(moe_argv + ["--mesh", "1x2", "--transport",
+                                                                   SHARD_TRANSPORT], root / "moe"),
+                              "smoke_cfg": smoke, "smoke_batches": smoke_batches,
+                              "smoke_lr": 0.5, "a2a_widths": SHARD_A2A_WIDTHS,
+                              "a2a_tokens": SHARD_A2A_SHAPE},))
+    rec["world_s"] = time.perf_counter() - t0
+    out22, outm = res["olmo"], res["granite"]
+    print_sharded_run("olmo-1b 2x2", out22)
+    print_sharded_run("granite-moe 1x2", outm)
+
+    # (1) olmo-1b: 2x2 against 1x1, then 1x1 over nccl.
+    t0 = time.perf_counter()
+    p22 = _checkpoint_params(cfg, sgd(SHARD_LR), root / "2x2", SHARD_STEPS)
+    rec["checkpoint_read_s"] = time.perf_counter() - t0
+    loss_rel = abs(out22["losses"][0][1] - losses1[0]) / abs(losses1[0])
+    params_rel = _param_readings(p22, p1)
+    update_rel = _param_readings([a - b for a, b in zip(p22, p0)],
+                                 [a - b for a, b in zip(p1, p0)])
+    del p22
+    _k2_ranks("olmo-1b 2x2", out22, [2 * SHARD_LAYERS * SHARD_STEPS] * 4,
+              (TRAIN_BATCH // 2, 8, 8, TRAIN_SEQ, TRAIN_SEQ, 128, "bfloat16", "wgmma_tma"))
+    print(f"[sharded olmo-1b 2x2] {card}: first loss {out22['losses'][0][1]:.6f} vs 1x1 "
+          f"{losses1[0]:.6f} (rel {loss_rel:.3e}, gate {SHARD_LOSS_RTOL}); losses "
+          f"{[x for _, x in out22['losses']]} vs {losses1}; step-{SHARD_STEPS} params per leaf "
+          f"max|d|/max|p| max {max(params_rel):.3e} (gate {BF16_UNIT_ROUNDOFF}); updates "
+          f"max {max(update_rel):.3e} (gate {GRAD_BF16_TOL})")
+    if not (loss_rel <= SHARD_LOSS_RTOL and max(params_rel) <= BF16_UNIT_ROUNDOFF
+            and max(update_rel) <= GRAD_BF16_TOL):
+        raise AssertionError("olmo-1b at 2x2 parts from the 1x1 run")
+    out11 = sharded_cli(torch, "olmo-1b 1x1 nccl", sgd_argv + [
+        "--mesh", "1x1", "--transport", "nccl", "--ckpt-dir", str(root / "nccl")])
+    p11 = _checkpoint_params(cfg, sgd(SHARD_LR), root / "nccl", SHARD_STEPS)
+    nccl_bits = [x for _, x in out11["losses"]] == losses1 and all(
+        torch.equal(a, b) for a, b in zip(p11, p1))
+    del p11, p0, p1
+    _k2_ranks("olmo-1b 1x1 nccl", out11, [2 * SHARD_LAYERS * SHARD_STEPS],
+              (TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128, "bfloat16", "wgmma_tma"))
+    print(f"[sharded olmo-1b 1x1 nccl] every loss and param bit for bit the 1x1 run's "
+          f"without a mesh: {nccl_bits}")
+    if out11["transport"] != "nccl" or not nccl_bits:
+        raise AssertionError("the 1x1 step over nccl differs from the step without a mesh")
+    shutil.rmtree(root / "2x2", ignore_errors=True)
+    shutil.rmtree(root / "nccl", ignore_errors=True)
+
+    # (2) granite-moe at 1x2 (ranks 0-1; 2-3 idle): fault, replay, the
+    # reload at 2x1.
+    t0 = time.perf_counter()
+    one_loss = _one_device_loss(torch, moe_cfg, root / "moe", SHARD_MOE_RESCALE)
+    rec["one_device_loss_s"] = time.perf_counter() - t0
+    shutil.rmtree(root / "moe", ignore_errors=True)
+    run_steps = [s for s, _ in outm["losses"]]
+    replayed = SHARD_MOE_FAULT - SHARD_MOE_CKPT
+    first = dict(outm["losses"][:SHARD_MOE_FAULT])
+    replay = outm["losses"][SHARD_MOE_FAULT:SHARD_MOE_FAULT + replayed]
+    saved_rel = abs(outm["rescaled_loss"] - first[SHARD_MOE_RESCALE]) / \
+        abs(first[SHARD_MOE_RESCALE])
+    one_rel = abs(outm["rescaled_loss"] - one_loss) / abs(one_loss)
+    n_run = SHARD_MOE_STEPS + replayed
+    _k2_ranks("granite-moe 1x2", outm, [2 * SHARD_LAYERS * n_run] * 2 + [0, 0],
+              (TRAIN_BATCH, 8, 4, TRAIN_SEQ, TRAIN_SEQ, 64, "bfloat16", "wgmma_tma"))
+    rescale_k2 = {"k2_launches": [n for n, _ in outm["k2_rescale"]],
+                  "k2_shapes": [s for _, s in outm["k2_rescale"]]}
+    _k2_ranks("granite-moe 2x1 reload", rescale_k2, [2 * SHARD_LAYERS] * 2 + [0, 0],
+              (TRAIN_BATCH // 2, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 64, "bfloat16", "wgmma_tma"))
+    print(f"[sharded granite-moe 1x2] replay from step {SHARD_MOE_CKPT}: first pass "
+          f"{[first[s] for s, _ in replay]}, replayed {[x for _, x in replay]} (bit for bit); "
+          f"2x1 reload of step {SHARD_MOE_RESCALE}: loss {outm['rescaled_loss']:.6f}, the same "
+          f"checkpoint on one device {one_loss:.6f} (rel {one_rel:.3e}, gate {SHARD_LOSS_RTOL}), "
+          f"the saved 1x2 run's {first[SHARD_MOE_RESCALE]:.6f} (rel {saved_rel:.3e}, gate "
+          f"{SHARD_LOSS_RTOL}: 1x2 dispatches all-to-all, "
+          f"2x1 by capacity, and the two drop different tokens)")
+    if outm["faults"] != 1 or run_steps != sorted(run_steps) or len(run_steps) != n_run or \
+            any(x != first[s] for s, x in replay) or outm["rescaled_step"] != SHARD_MOE_RESCALE \
+            or not one_rel <= SHARD_LOSS_RTOL or not saved_rel <= SHARD_LOSS_RTOL:
+        raise AssertionError(f"granite-moe at 1x2: faults {outm['faults']}, steps {run_steps}, "
+                             f"replay {replay}, reload {outm['rescaled_step']} rel {one_rel}, "
+                             f"{saved_rel}")
+
+    # (3) the a2a layer against moe_ref, and the planted faults at SMOKE.
+    a2a = res["a2a"]
+    print(f"[sharded a2a layer] granite widths, 1x2, capacity {SHARD_A2A_CF}, fp32, "
+          f"{SHARD_A2A_SHAPE} tokens: out vs moe_ref {a2a['out']:.3e}, gradients (router, wg, wi, "
+          f"wo, x) {[f'{r:.3e}' for r in a2a['grads']]} (gate {SHARD_A2A_RTOL})")
+    if not (a2a["out"] <= SHARD_A2A_RTOL and max(a2a["grads"]) <= SHARD_A2A_RTOL):
+        raise AssertionError("the a2a layer parts from moe_ref")
+    planted = {}
+    for name in ("clean", "row-parallel output without its psum",
+                 "data-parallel gradients unaveraged"):
+        run = res[name]
+        planted[name] = max([abs(a - b) / abs(b) for a, b in zip(run["losses"], s_losses)]
+                            + _param_readings(run["params"], s_params))
+    print(f"[sharded planted] olmo SMOKE 2x2 vs 1x1 on the card, 3 SGD steps, max of loss "
+          f"and per-leaf param readings (gate {SHARD_SMOKE_RTOL}): {planted}")
+    if not planted["clean"] <= SHARD_SMOKE_RTOL or \
+            not all(v > SHARD_SMOKE_RTOL for k, v in planted.items() if k != "clean"):
+        raise AssertionError(f"the 2x2-against-1x1 check: {planted}")
+
+    def run_record(out):
+        return {"losses": out["losses"], "step_ms": [t * 1e3 for t in out["step_times"]],
+                "step_traffic_rank0": out["step_traffic"], "k2_launches": out["k2_launches"],
+                "k2_shapes": out["k2_shapes"], "peak_mem_gb_rank0": out.get("peak_mem_gb"),
+                "wall_s": out["wall_s"], "rank0_seconds": out["rank0_seconds"]}
+
+    rec.update({
+        "olmo_2x2": {**run_record(out22), "losses_1x1": losses1, "loss_rel": loss_rel,
+                     "params_rel": params_rel, "update_rel": update_rel},
+        "olmo_1x1_nccl": {**run_record(out11), "bits_equal": nccl_bits},
+        "granite_1x2": {**run_record(outm), "rescaled_loss": outm["rescaled_loss"],
+                        "reload_vs_one_device": one_rel, "reload_vs_saved_run": saved_rel,
+                        "k2_rescale": rescale_k2},
+        "a2a_layer": a2a, "planted": planted,
+    })
+    rec["launches"] = {"olmo-1b 2x2 train": sum(out22["k2_launches"]),
+                       "olmo-1b 1x1 nccl train": sum(out11["k2_launches"]),
+                       "granite-moe 1x2 train": sum(outm["k2_launches"]),
+                       "granite-moe 2x1 reload step": sum(rescale_k2["k2_launches"])}
+    print("SHARDED " + json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a "
@@ -5055,19 +5517,55 @@ def main() -> int:
 
     # Every serve_dict run codes the same planted stream (serve_dict's
     # sparse_stream call at M, K and seed 1), whose 262144 planted atoms take
-    # the host 40-70 s to draw: drawn once, memoized, in a thread beside the
-    # build (which waits on nvcc), and joined before the first timed phase.
+    # the host 40-70 s to draw: drawn once, memoized, on a host thread beside
+    # the build (which waits on nvcc).  A second thread draws the fleet's
+    # publish dictionary (fleet_w0) meanwhile.  Both are awaited before the
+    # first timed kernel phase, so no draw shares the host with a timing.
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.data.synthetic import sparse_stream
+    from repro_torch.launch import serve_dict
 
     stream = functools.lru_cache(maxsize=1)(sparse_stream)
-    draw = threading.Thread(target=stream, args=(SAMPLES,), kwargs=dict(
-        m=M, k_true=ATOMS_PER_AGENT * N_AGENTS, nonneg=False, seed=1))
-    draw.start()
-    wgmma_build, slstm_build = timed("build", phase_build)
+    W0_fleet = timed("fleet's W0 to the host", fleet_w0, torch)
+    drawer = ThreadPoolExecutor(2)
+    drawn = drawer.submit(stream, SAMPLES, m=M, k_true=ATOMS_PER_AGENT * N_AGENTS,
+                          nonneg=False, seed=1)
+    publish = (W0_fleet, drawer.submit(serve_dict.perturbed, W0_fleet, FLEET_SEED + 3, False))
+    drawer.shutdown(wait=False)
+    build_lines = []
+
+    def build():
+        t = time.perf_counter()
+        return phase_build(build_lines.append), time.perf_counter() - t
+
+    builder = ThreadPoolExecutor(1)
+    built = builder.submit(build)
+    builder.shutdown(wait=False)
+    # The learner and the experiments are plain PyTorch (no kernel of the
+    # port is on their path, as in the JAX package): none may launch one.
+    # They run on the card while nvcc builds the kernels on the host.
+    reset_launch_counts()
+    timed("learner", phase_learner, torch, card)
+    timed("experiments", phase_experiments, torch, card)
+    from repro_torch.kernels.dict_dual_step import ops as dd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.slstm_step import ops as sl_ops
+
+    stray = dd_ops.dict_dual_step.launches + fa_ops.flash_attention.launches \
+        + sl_ops.slstm_seq.launches
+    if stray:
+        raise AssertionError(f"the learner or experiments launched {stray} kernels")
     t = time.perf_counter()
-    draw.join()
-    print(f"[phase] planted stream (drawn beside the build): {time.perf_counter() - t:.1f}s "
-          f"more; {stream.cache_info()}")
+    (wgmma_build, slstm_build), build_s = built.result()
+    print("\n".join(build_lines))
+    print(f"[phase] build: {build_s:.1f}s (beside the learner and the experiments), "
+          f"{time.perf_counter() - t:.1f}s more after them")
+    t = time.perf_counter()
+    drawn.result()
+    publish[1].result()
+    print(f"[phase] planted stream and the fleet's publish dictionary (drawn beside the "
+          f"build): {time.perf_counter() - t:.1f}s more; {stream.cache_info()}")
     rec = timed("dict_dual_step", phase_kernels, torch)
     fa_rec = timed("flash_attention", phase_flash_attention, torch)
     fa_rec["wgmma_build"] = wgmma_build  # HGMMA in the SASS, ptxas registers and spills
@@ -5093,6 +5591,7 @@ def main() -> int:
     moe_train = timed("granite-moe train", phase_moe_train, torch, card)
     kimi = timed("kimi-k2 cut serve", phase_kimi, torch, card)
     moe_cpu = timed("MoE card vs cpu", phase_moe_card_vs_cpu, torch)
+    sharded = timed("sharded training", phase_sharded, torch, card)
     vlm_serve = timed("phi-3-vision serve", phase_vlm_serve, torch, card)
     vlm_train = timed("phi-3-vision train", phase_train, torch, card, "vlm train", VLM_ARCH,
                       VLM_TRAIN_LAYERS, VLM_STEPS, VLM_CKPT_EVERY, VLM_FAULT_AT,
@@ -5124,13 +5623,22 @@ def main() -> int:
                                   "hubert-xlarge encode": audio,
                                   "hubert-xlarge train": audio_train["launches"],
                                   "zamba2 serve": hybrid_serve,
-                                  "zamba2 train": hybrid_train["launches"]}
+                                  "zamba2 train": hybrid_train["launches"],
+                                  **sharded["launches"]}
     fa_rec["launches"] = sum(fa_rec["launches_by_path"].values())
     fa_rec["train_launches_per_step"] = train["launches_per_step"]
     fa_rec["moe_train_launches_per_step"] = moe_train["launches_per_step"]
     fa_rec["vlm_train_launches_per_step"] = vlm_train["launches_per_step"]
     fa_rec["audio_train_launches_per_step"] = audio_train["launches_per_step"]
     fa_rec["hybrid_train_launches_per_step"] = hybrid_train["launches_per_step"]
+    fa_rec["sharded"] = {"launches_per_rank": {
+        "olmo-1b 2x2 train": sharded["olmo_2x2"]["k2_launches"],
+        "olmo-1b 1x1 nccl train": sharded["olmo_1x1_nccl"]["k2_launches"],
+        "granite-moe 1x2 train": sharded["granite_1x2"]["k2_launches"],
+        "granite-moe 2x1 reload step": sharded["granite_1x2"]["k2_rescale"]["k2_launches"]},
+        "shapes_per_rank": {"olmo-1b 2x2 train": sharded["olmo_2x2"]["k2_shapes"],
+                            "granite-moe 1x2 train": sharded["granite_1x2"]["k2_shapes"]},
+        "transport": SHARD_TRANSPORT}
     print("MOE_CHECKS " + json.dumps({"layer": moe_layer, "card_vs_cpu": moe_cpu}))
     print("VLM_AUDIO_CHECKS " + json.dumps({"card_vs_cpu": va_cpu}))
     print("HYBRID_CHECKS " + json.dumps({"card_vs_cpu": hybrid_cpu}))
@@ -5156,24 +5664,12 @@ def main() -> int:
     for mode, flags, grow, drain, resolve in DRILLS:
         launches[f"drill {mode}"] = timed(f"drill {mode}", phase_drill, torch, mode, card,
                                           stream, flags, grow, drain, resolve)
-    launches["fleet"] = timed("fleet", phase_fleet, torch, card, stream)
+    launches["fleet"] = timed("fleet", phase_fleet, torch, card, stream, publish)
+    publish = W0_fleet = None  # the 17 GB of the host they held
     launches["kill drill"] = timed("kill drill", phase_kill_drill, torch, card, stream)
     launches.update(gossip)
     rec["launches"] = sum(launches.values())
     rec["launches_by_mode"] = launches
-    # The learner and the experiments are plain PyTorch (no kernel of the
-    # port is on their path, as in the JAX package): none may launch one.
-    reset_launch_counts()
-    timed("learner", phase_learner, torch, card)
-    timed("experiments", phase_experiments, torch, card)
-    from repro_torch.kernels.dict_dual_step import ops as dd_ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.slstm_step import ops as sl_ops
-
-    stray = dd_ops.dict_dual_step.launches + fa_ops.flash_attention.launches \
-        + sl_ops.slstm_seq.launches
-    if stray:
-        raise AssertionError(f"the learner or experiments launched {stray} kernels")
     twins = timed("twins", phase_twins, torch, card)
     fa_rec["launches_by_path"]["train_lm twin"] = twins["train_lm"]["flash_attention"]
     rec["twin_launches"] = {name: twins[name]["dict_dual_step"]

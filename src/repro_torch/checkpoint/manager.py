@@ -26,6 +26,21 @@ Guarantees, as the JAX manager's:
   * `restore(like, step, device=...)` places the leaves on `device` (the
     JAX manager takes shardings), which is how a run moves to another
     device.
+
+On a mesh (`CheckpointManager(root, mesh=..., specs=...)`, the specs of
+the state's leaves) the files stay in this format, the whole tensors: a
+save gathers every leaf to the whole (a collective: every rank of the
+mesh calls it), rank 0 copies it to the host and writes it as above, and
+the other ranks wait at a barrier for that copy (for the write too when
+the save blocks); a restore (collective too) waits for rank 0's write,
+takes the step rank 0 names, reads the whole tensors and keeps the rank's
+shard for the current mesh, whatever mesh wrote them.  `wait` is
+collective on a mesh: every rank waits there for rank 0's write.  Each of
+these waits on disk I/O is `mesh.barrier(io=True)`, whose timeout is the
+world's: the mesh's other groups time out in minutes, and a write takes
+as long as its bytes do.  So a checkpoint written at 2x2 loads at 1x2, 2x1 and
+1x1 and one written at 1x1 loads at 2x2 (elastic rescale), and the JAX
+manager reads either.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.pytree import describe, leaves, tree_map, unflatten
+from repro_torch.runtime.sharding import shard_tree, unshard_tree
 
 DONE = "DONE"
 
@@ -153,15 +169,24 @@ def load_pytree(path: pathlib.Path, like: Any, device: DeviceLike = None) -> Any
 
 
 class CheckpointManager:
-    """Step-indexed checkpoints with keep-k GC and an async writer thread."""
+    """Step-indexed checkpoints with keep-k GC and an async writer thread;
+    on a mesh, rank 0 writes the whole tensors and every rank restores its
+    shard."""
 
-    def __init__(self, root, keep: int = 3):
+    def __init__(self, root, keep: int = 3, *, mesh=None, specs=None):
         self.root = pathlib.Path(root)
-        self.root.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        self.specs = specs
+        self.writer = self.mesh is None or self.mesh.rank == 0
+        if self.writer:
+            self.root.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        self._recover_interrupted_overwrites()
+        if self.writer:
+            self._recover_interrupted_overwrites()
+        if self.mesh is not None:
+            self.mesh.barrier(io=True)
 
     def _recover_interrupted_overwrites(self) -> None:
         """A crash inside save_pytree's overwrite window can leave a step
@@ -203,10 +228,19 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree: Any, blocking: bool = True) -> None:
-        self.wait()  # one outstanding async save at a time
+        # One outstanding async save at a time; on a mesh every rank waits
+        # here for rank 0's last write before the gathers below.
+        self.wait()
+        if self.mesh is not None:
+            tree = unshard_tree(tree, self.specs, self.mesh)
+            if not self.writer:
+                del tree
+                self.mesh.barrier(io=True)  # rank 0's host copy is taken (blocking: written)
+                return
         # Device -> host copy here, synchronously: the caller may change its
         # tensors in place as soon as this returns.
         host_tree = tree_map(_host_copy, tree)
+        del tree
 
         def work():
             try:
@@ -217,15 +251,22 @@ class CheckpointManager:
 
         if blocking:
             work()
-            self._raise_if_failed()
         else:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
+        if self.mesh is not None:
+            self.mesh.barrier(io=True)
+        if blocking:
+            self._raise_if_failed()
 
     def wait(self) -> None:
+        """The outstanding async save is on disk (on a mesh, rank 0's: every
+        rank calls this)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None:
+            self.mesh.barrier(io=True)
         self._raise_if_failed()
 
     def _raise_if_failed(self):
@@ -236,10 +277,24 @@ class CheckpointManager:
     # -- restore --------------------------------------------------------------
 
     def restore(self, like: Any, step: Optional[int] = None, device: DeviceLike = None):
-        step = self.latest_step() if step is None else step
+        """(tree, step) of checkpoint `step` (the latest when None), or
+        (None, None) when there is none; on a mesh `like` is the whole
+        tree's and each rank gets its shard."""
+        if self.mesh is None:
+            step = self.latest_step() if step is None else step
+            if step is None:
+                return None, None
+            return load_pytree(self.path(step), like, device), step
+        self.wait()  # rank 0's writes are on disk
+        if step is None:
+            named = self.latest_step() if self.writer else None
+            step = self.mesh.all_gather_object(named)[0]
         if step is None:
             return None, None
-        return load_pytree(self.path(step), like, device), step
+        tree = shard_tree(load_pytree(self.path(step), like, None), self.specs, self.mesh)
+        tree = tree_map(lambda t: t.to(device) if device is not None else t, tree)
+        self.mesh.barrier(io=True)  # every rank has read its shard
+        return tree, step
 
     # -- gc ---------------------------------------------------------------------
 

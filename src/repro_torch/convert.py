@@ -136,6 +136,18 @@ def train_state_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict
     }
 
 
+def lm_params_shard_from_numpy(cfg, tree: dict, mesh, device: DeviceLike = "cuda") -> dict:
+    """This rank's shard of the LM params on `mesh` (runtime/mesh.Mesh) from
+    the JAX value tree mapped to numpy (as `lm_params_from_numpy`): each
+    leaf cut by the config's sharding rules over its logical axes
+    (`model.param_axes`)."""
+    from repro_torch.models.model import param_axes
+    from repro_torch.runtime.sharding import rules_for, shard_tree, tree_specs
+
+    params = lm_params_from_numpy(cfg, tree, device)
+    return shard_tree(params, tree_specs(mesh, param_axes(cfg), params, rules_for(cfg)), mesh)
+
+
 def train_state_to_numpy(state: dict) -> dict:
     """Inverse of train_state_from_numpy: every leaf a numpy array, the
     nesting kept (bf16 params widened to float32, numpy having no bf16),

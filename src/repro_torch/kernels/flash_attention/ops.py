@@ -24,7 +24,9 @@ on the card (its plain version on the CPU), backward
 `backward.attention_backward`, FlashAttention-2's backward in plain PyTorch
 with the softmax's D summed from P and dP, so the forward's output is not
 kept (the JAX package differentiates its XLA scan and has no backward
-kernel).
+kernel).  `launch_shapes` collects the (B, Hq, Hkv, S, T, D, dtype,
+variant) of the launches, so a sharded run shows the heads each rank
+attends over.
 Without grad the path is the bare forward.
 
 `flash_decode` is the single-token decode attention, plain PyTorch as the
@@ -45,6 +47,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128, 256)  # the kernel's instantiations
 WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128, 256)  # the bf16 head dims of the wgmma_tma kernel
+# (B, Hq, Hkv, S, T, D, dtype, variant) of every launch since it was cleared
+launch_shapes: set = set()
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 ]
@@ -122,6 +126,7 @@ def _launch(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({err})")
     flash_attention.launches += 1
+    launch_shapes.add((b, hq, hkv, s, t, d, str(q.dtype).replace("torch.", ""), kind))
     return out
 
 

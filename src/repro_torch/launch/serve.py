@@ -34,8 +34,9 @@ not fit one card; 2 keep its dense first layer and one MoE layer; a hybrid
 config keeps at least one group of attn_every Mamba2 layers) and keeps
 every width.  Weights are random, made from --seed on the device.  `--device cpu` runs
 on the CPU (the default is the card, and no card is an error).  One card
-holds the whole model, so `--mesh` takes only 1x1: sharded serving is a
-later slice.
+holds the whole model, so `--mesh` takes only 1x1: sharded serving (a
+decode over a KV cache sharded on its sequence) is ROADMAP section 1,
+item 1; launch/train --mesh trains sharded.
 
 Prints the JAX CLI's lines (config, prefill ms and decode ms/token, the
 first row's token ids); `--json` adds one `BENCH` line.
@@ -90,8 +91,9 @@ def run(args: argparse.Namespace) -> Dict:
     Mamba2 states are shared by the two the same way)}."""
     if args.mesh != "1x1":
         raise SystemExit(f"--mesh {args.mesh!r}: sharded serving is not ported yet "
-                         f"(ROADMAP section 1, the sharded-serving slice); one card "
-                         f"serves the whole model with --mesh 1x1")
+                         f"(ROADMAP section 1, item 1: sharded serving); one card serves "
+                         f"the whole model with --mesh 1x1 (launch/train --mesh trains "
+                         f"sharded)")
     try:
         cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
         if args.n_layers is not None:

@@ -1,4 +1,4 @@
-"""Training launcher, on one card.
+"""Training launcher, on one card or over a (data, model) mesh of ranks.
 
 Port of src/repro/launch/train.py for every family (dense, moe, vlm,
 audio, hybrid and xlstm): the smoke config of --arch (or with
@@ -32,22 +32,49 @@ n_layers // attn_every groups, each followed by the shared block, and a
 tail of the remainder; an xlstm config whole groups of slstm_every
 blocks, the last of each the sLSTM block).
 Weights are random, made from --seed on the device.  `--device cpu` runs on
-the CPU (the default is the card, and no card is an error).  One card
-holds the whole run, so --mesh and --rescale-mesh take only 1x1: a sharded
-run is ROADMAP section 1's sharded-training item.
+the CPU (the default is the card, and no card is an error).
 Checkpoints go to --ckpt-dir, by default a fresh directory under
 build/checkpoints/.
+
+`--mesh DxM` (and `--rescale-mesh D2xM2`) trains the dense and MoE
+families sharded over D x M ranks, spawned by runtime/mesh.launch (max(D
+M, D2 M2) of them; each mesh takes the first ranks): the parameters cut
+by the JAX package's sharding rules, tensor-parallel over `model`,
+data-parallel over `data`, the MoE FFN expert-parallel (models/moe_a2a),
+checkpoints of whole tensors written by rank 0, the injected fault raised
+on every rank at the same step, and after the run the reload of the
+latest checkpoint (or --rescale-step's) on the rescale mesh with one step
+there.  `--transport auto` runs gloo on the CPU (`--device cpu`), nccl
+with a card a rank, and gloo_staged for several ranks on fewer cards (the
+ranks share the card; the collectives stage through host memory); the
+choice is printed and never switched on a failure.  `--transport` other
+than auto runs even a 1x1 mesh through the distributed path (its one rank
+is this process).  A rank that raises fails the run.  `--optimizer sgd` trains with plain SGD at the
+constant --lr (the default: AdamW on a cosine warmup, Adafactor for a
+bf16-param config).  The other families, an FSDP config (fsdp_embed) and
+a `pod` axis are refused on a mesh, naming the ROADMAP item that lifts
+each:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --mesh 2x2 --steps 8 \
+      --batch 4 --seq 32 --ckpt-every 4 --inject-fault-at 5 --rescale-mesh 1x2 --json
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite_moe_1b_a400m \
+      --full-config --n-layers 4 --mesh 1x2 --batch 4 --seq 2048 --steps 4 --ckpt-every 2 \
+      --inject-fault-at 3 --rescale-mesh 2x1 --rescale-step 2
 
 Prints the JAX CLI's lines: the loss every 10 steps, the final loss with
 the faults recovered, the checkpoint list, and "elastic rescale ...:
 resumed at step ..."; then, from the command line, the step time (the
 median after the first step) and, on the card, the process's peak device
-memory.
+memory (rank 0's on a mesh, beside the transport).  `--json` adds one JSON
+line: rank 0's result (mesh, transport, world, losses, faults,
+rescaled_step, rescaled_loss, each rank's K2 launches).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import math
 import pathlib
 import statistics
 import tempfile
@@ -58,7 +85,8 @@ from repro_torch.data import synthetic as data
 from repro_torch.device import resolve_device
 from repro_torch.models.model import require_ported
 from repro_torch.optim import optimizers as opt_mod
-from repro_torch.optim.schedules import cosine_warmup
+from repro_torch.optim.schedules import constant, cosine_warmup
+from repro_torch.runtime import mesh as mesh_mod
 from repro_torch.runtime.runner import RunnerConfig, TrainRunner, check_mesh
 
 CKPT_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "checkpoints"
@@ -100,44 +128,53 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", type=str, default="1x1",
-                    help="DATAxMODEL; one card trains the whole model: only 1x1")
+                    help="DATAxMODEL ranks (dense and moe families); 1x1 trains in process")
+    ap.add_argument("--transport", type=str, default="auto",
+                    choices=("auto",) + mesh_mod.TRANSPORTS,
+                    help="the mesh's collectives: auto = gloo on the CPU, nccl with a card "
+                         "a rank, gloo_staged for several ranks on one card")
+    ap.add_argument("--optimizer", type=str, default="auto", choices=("auto", "adamw", "sgd"),
+                    help="auto: AdamW on a cosine warmup (Adafactor for bf16 params); "
+                         "sgd: plain SGD at the constant --lr")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", type=str, default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--inject-fault-at", type=int, default=-1)
     ap.add_argument("--rescale-mesh", type=str, default=None,
-                    help="after training, reload the checkpoint on this mesh (only 1x1)")
+                    help="after training, reload the checkpoint on this mesh")
+    ap.add_argument("--rescale-step", type=int, default=None,
+                    help="the checkpoint step the rescale reloads (default: the latest)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--json", action="store_true", help="emit one JSON result line at the end")
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace) -> Dict:
-    """Train.  Returns {"cfg", "runner", "state", "history" (the runner's,
-    one metrics dict per step run, replays included), "losses" ([step,
-    loss] per step run, in order), "faults", "ckpt_dir", "ckpt_steps",
-    "rescaled_step" (None without --rescale-mesh)}."""
+def _config(args):
+    """The config of --arch (smoke or full, cut to --n-layers), checked
+    against both meshes; SystemExit naming what is refused."""
     try:
-        check_mesh(args.mesh)
-        if args.rescale_mesh:
-            check_mesh(args.rescale_mesh)
         cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
         if args.n_layers is not None:
             cfg = cut_depth(cfg, args.n_layers)
         require_ported(cfg)
+        check_mesh(args.mesh, cfg)
+        if args.rescale_mesh:
+            check_mesh(args.rescale_mesh, cfg)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
-    device = resolve_device(args.device)
-    opt = opt_mod.for_arch(cfg, lr=cosine_warmup(args.lr, warmup=20, total=args.steps))
-    if args.ckpt_dir:
-        ckpt_dir = args.ckpt_dir
-    else:
-        CKPT_ROOT.mkdir(parents=True, exist_ok=True)
-        ckpt_dir = tempfile.mkdtemp(prefix=f"ckpt_{args.arch}_", dir=CKPT_ROOT)
-    # Every step reports (log_every 1) so the run records each loss; the
-    # lines print every 10 steps, as the JAX CLI's.
-    run_cfg = RunnerConfig(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every, log_every=1)
+    return cfg
 
+
+def _optimizer(cfg, args):
+    if args.optimizer == "sgd":
+        return opt_mod.sgd(constant(args.lr))
+    schedule = cosine_warmup(args.lr, warmup=20, total=args.steps)
+    return opt_mod.adamw(schedule) if args.optimizer == "adamw" else \
+        opt_mod.for_arch(cfg, lr=schedule)
+
+
+def _fault_hook(args):
     injected = {"done": False}
 
     def fault_hook(step):
@@ -145,27 +182,52 @@ def run(args: argparse.Namespace) -> Dict:
             injected["done"] = True
             raise RuntimeError(f"injected node failure at step {step}")
 
+    return fault_hook if args.inject_fault_at >= 0 else None
+
+
+def _ckpt_dir(args) -> str:
+    if args.ckpt_dir:
+        return args.ckpt_dir
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"ckpt_{args.arch}_", dir=CKPT_ROOT)
+
+
+def _sharded(args) -> bool:
+    meshes = [args.mesh] + ([args.rescale_mesh] if args.rescale_mesh else [])
+    return args.transport != "auto" or any(
+        any(n != 1 for n in mesh_mod.parse_mesh(m)) for m in meshes)
+
+
+def run(args: argparse.Namespace) -> Dict:
+    """Train.  Returns {"cfg", "runner", "state", "history" (the runner's,
+    one metrics dict per step run, replays included), "losses" ([step,
+    loss] per step run, in order), "faults", "ckpt_dir", "ckpt_steps",
+    "rescaled_step" (None without --rescale-mesh)}.  On a mesh (see the
+    module's docstring) rank 0's result instead: no "runner" and "state",
+    but "mesh", "transport", "world", "step_times", "rescaled_loss" and
+    "k2_launches" (each rank's)."""
+    cfg = _config(args)
+    if _sharded(args):
+        return _run_sharded(args, cfg)
+    device = resolve_device(args.device)
+    opt = _optimizer(cfg, args)
+    ckpt_dir = _ckpt_dir(args)
+    # Every step reports (log_every 1) so the run records each loss; the
+    # lines print every 10 steps, as the JAX CLI's.
+    run_cfg = RunnerConfig(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every, log_every=1)
     runner = TrainRunner(cfg, args.mesh, opt, run_cfg, device=device,
-                         fault_hook=fault_hook if args.inject_fault_at >= 0 else None)
+                         fault_hook=_fault_hook(args))
     batches = make_batches(cfg, args.batch, args.seq, args.seed)
     losses = []
-
-    def log(step, metrics):
-        losses.append([step - 1, metrics["loss"]])
-        if step % 10 == 0:
-            print(f"step {step:5d}  loss {metrics['loss']:.4f}  ce {metrics['ce']:.4f}")
-
-    state, history = runner.run(batches, args.steps, seed=args.seed, metrics_cb=log)
-    faults = len([e for e in runner.events if e["kind"] == "fault"])
-    print(f"final loss {history[-1]['loss']:.4f} after {args.steps} steps "
-          f"({faults} faults recovered)")
-    print(f"checkpoints in {ckpt_dir}: steps {runner.ckpt.steps()}")
+    state, history = runner.run(batches, args.steps, seed=args.seed,
+                                metrics_cb=_logger(losses, True))
+    faults = _report(runner, history, args, ckpt_dir)
 
     rescaled_step = None
     if args.rescale_mesh:
         del state  # one train state on the device at a time
         runner2 = TrainRunner.rescale(cfg, args.rescale_mesh, opt, run_cfg, device=device)
-        state = runner2.restore_or_init(args.seed)
+        state = runner2.restore_or_init(args.seed, step=args.rescale_step)
         rescaled_step = int(state["step"])
         print(f"elastic rescale {args.mesh} -> {args.rescale_mesh}: resumed at step "
               f"{rescaled_step}")
@@ -174,20 +236,136 @@ def run(args: argparse.Namespace) -> Dict:
             "ckpt_steps": runner.ckpt.steps(), "rescaled_step": rescaled_step}
 
 
+def _logger(losses: list, lead: bool):
+    def log(step, metrics):
+        losses.append([step - 1, metrics["loss"]])
+        if lead and step % 10 == 0:
+            print(f"step {step:5d}  loss {metrics['loss']:.4f}  ce {metrics['ce']:.4f}")
+    return log
+
+
+def _report(runner, history, args, ckpt_dir) -> int:
+    faults = len([e for e in runner.events if e["kind"] == "fault"])
+    if runner.lead:
+        print(f"final loss {history[-1]['loss']:.4f} after {args.steps} steps "
+              f"({faults} faults recovered)")
+        print(f"checkpoints in {ckpt_dir}: steps {runner.ckpt.steps()}")
+    return faults
+
+
+def _run_sharded(args, cfg) -> Dict:
+    shape = mesh_mod.parse_mesh(args.mesh)
+    world = max(math.prod(mesh_mod.parse_mesh(m)) for m in (args.mesh, args.rescale_mesh) if m)
+    if args.device == "cuda":
+        resolve_device("cuda")  # no card: the error, before any rank is spawned
+    a = dict(vars(args), ckpt_dir=_ckpt_dir(args))
+    out = mesh_mod.launch(_train_ranks, shape, transport=args.transport, device=args.device,
+                          args=(a,), world=world)
+    out["cfg"] = cfg
+    return out
+
+
+def _train_ranks(mesh, a: dict) -> Optional[Dict]:
+    """One rank of a sharded run: train on `mesh` (None beyond it), then
+    the rescale on its mesh.  Rank 0 returns the result."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import ops
+
+    t0 = time.perf_counter()
+    seconds = {"startup": mesh_mod.startup_seconds()}  # then from this rank's start
+    args = argparse.Namespace(**a)
+    cfg = _config(args)
+    opt = _optimizer(cfg, args)
+    run_cfg = RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, log_every=1)
+    batches = make_batches(cfg, args.batch, args.seq, args.seed)
+    rank = dist.get_rank()
+    ops.flash_attention.launches = 0
+    ops.launch_shapes.clear()
+    if mesh is not None and mesh.device.type == "cuda":
+        # this run's peak (a world of one rank runs in its caller's process)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    out = None
+    if mesh is not None:
+        runner = TrainRunner(cfg, mesh, opt, run_cfg, fault_hook=_fault_hook(args))
+        seconds["runner_ready"] = time.perf_counter() - t0
+        losses = []
+        state, history = runner.run(batches, args.steps, seed=args.seed,
+                                    metrics_cb=_logger(losses, runner.lead))
+        seconds["run_done"] = time.perf_counter() - t0
+        del state
+        faults = _report(runner, history, args, args.ckpt_dir)
+        if runner.lead:
+            out = {"mesh": args.mesh, "transport": mesh.transport, "world": dist.get_world_size(),
+                   "step_traffic": mesh.step_traffic,
+                   "history": history, "losses": losses, "faults": faults,
+                   "ckpt_dir": args.ckpt_dir, "ckpt_steps": runner.ckpt.steps(),
+                   "step_times": runner.step_times, "events": runner.events}
+        del runner
+    k2 = _k2_counts(ops)
+    rescaled = {"rescaled_step": None, "rescaled_loss": None}
+    if args.rescale_mesh:
+        new = mesh_mod.make_mesh(mesh_mod.parse_mesh(args.rescale_mesh))
+        if new is not None:
+            runner2 = TrainRunner.rescale(cfg, new, opt, run_cfg)
+            state = runner2.restore_or_init(args.seed, step=args.rescale_step)
+            step = int(state["step"])
+            state, metrics = runner2.step_fn(state, batches(step))
+            rescaled = {"rescaled_step": step, "rescaled_loss": float(metrics["loss"])}
+            if new.rank == 0:
+                print(f"elastic rescale {args.mesh} -> {args.rescale_mesh}: resumed at step "
+                      f"{step}, loss there {rescaled['rescaled_loss']:.6f}")
+            del state, runner2
+        rescaled["k2_rescale"] = _k2_counts(ops)
+    if rank == 0:
+        seconds["rescale_done"] = time.perf_counter() - t0
+        out.update(rescaled, k2_launches=[n for n, _ in k2], k2_shapes=[s for _, s in k2],
+                   rank0_seconds=seconds)
+        if mesh.device.type == "cuda":
+            out["peak_mem_gb"] = torch.cuda.max_memory_allocated(mesh.device) / 1e9
+    return out
+
+
+def _k2_counts(ops) -> list:
+    """Every rank's K2 launches and their distinct shapes since the last
+    call (a collective over the world), the counts then set to 0."""
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (ops.flash_attention.launches, sorted(ops.launch_shapes)))
+    ops.flash_attention.launches = 0
+    ops.launch_shapes.clear()
+    return got
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
     out = run(args)
-    times = out["runner"].step_times
+    sharded = "step_times" in out
+    times = out["step_times"] if sharded else out["runner"].step_times
     line = (f"{out['cfg'].name}, {out['cfg'].n_layers} layers, {args.batch} x {args.seq} "
             f"positions: step {statistics.median(times[1:] or times) * 1e3:.1f} ms (median "
             f"of the {len(times) - 1} steps run after the first; first {times[0] * 1e3:.1f} ms)")
     device = resolve_device(args.device)
-    if device.type == "cuda":
+    if sharded:
+        line += f" on mesh {out['mesh']}, transport {out['transport']} (rank 0's clock)"
+        if "peak_mem_gb" in out:
+            line += f"; rank 0's peak device memory {out['peak_mem_gb']:.2f} GB"
+    elif device.type == "cuda":
         import torch
 
         line += f"; peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB"
     print(line)
-    return {k: out[k] for k in ("losses", "faults", "ckpt_dir", "ckpt_steps", "rescaled_step")}
+    keys = ("losses", "faults", "ckpt_dir", "ckpt_steps", "rescaled_step")
+    if sharded:
+        keys += ("mesh", "transport", "world", "rescaled_loss", "k2_launches", "k2_shapes")
+    result = {k: out[k] for k in keys}
+    if args.json:
+        print(json.dumps(result))
+    return result
 
 
 if __name__ == "__main__":

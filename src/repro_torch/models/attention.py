@@ -14,9 +14,22 @@ Port of src/repro/models/attention.py.  Paths, by `impl`:
   "dense"                materialized logits, plain PyTorch.
 
 Full-sequence attention runs over positions 0 .. S-1, so the positions'
-causal mask (q_pos >= k_pos) is K2's index mask.  Decode attends one new
-token to the cache with `flash_decode` (plain PyTorch, as the JAX side's is
-plain jnp), and writes the new K/V into the cache in place.
+causal mask (q_pos >= k_pos) is K2's index mask.
+
+On a mesh whose `model` axis shards the heads (models/sharding_hook), a
+rank attends over its H/tp query heads: q, k and v are column-parallel
+(the input enters through Megatron's f), K2 runs on the local (H/tp,
+Hkv/tp) heads, and the out-projection is row-parallel (its output leaves
+through g, the psum over `model`).  When the rules' divisibility fallback
+leaves kv_heads whole while heads are sharded, the rank keeps every kv
+head and gives each local query head the kv head of its global index (a
+narrowed view where the local heads share whole kv heads); wk, wv and the
+qk-norm scales then serve only part of the work on each rank, so they
+enter through f too, which sums their gradients over `model`.
+
+Decode attends one new token to the cache with `flash_decode` (plain
+PyTorch, as the JAX side's is plain jnp), and writes the new K/V into the
+cache in place.
 """
 
 from __future__ import annotations
@@ -26,10 +39,12 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.models import sharding_hook as hook
 from repro_torch.models.layers import (
     apply_rotary,
     dense_init,
     init_norm,
+    norm_axes,
     rmsnorm,
     rotary_angles,
 )
@@ -58,6 +73,16 @@ def init_attention(
     if qk_norm:
         p["q_norm"] = init_norm("rms", head_dim, dtype, gen.device, lead)
         p["k_norm"] = init_norm("rms", head_dim, dtype, gen.device, lead)
+    return p
+
+
+def attention_axes(qk_norm: bool = False) -> dict:
+    """The logical axes of init_attention's leaves (no layer dim)."""
+    p = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+         "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+    if qk_norm:
+        p["q_norm"] = norm_axes("rms")
+        p["k_norm"] = norm_axes("rms")
     return p
 
 
@@ -119,6 +144,22 @@ def _full_attention(q, k, v, positions, *, causal: bool, impl: str) -> torch.Ten
     raise KeyError(impl)
 
 
+def _local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, h_loc: int):
+    """Every kv head (B, S, Hkv, Dh) -> the kv heads of this rank's query
+    heads [r h_loc, (r + 1) h_loc): a narrowed view when the local heads
+    cover whole groups or share one kv head, else one kv head per query
+    head."""
+    n_kv = k.shape[2]
+    group = n_heads // n_kv
+    lo = hook.model_index() * h_loc
+    if h_loc % group == 0:
+        return k.narrow(2, lo // group, h_loc // group), v.narrow(2, lo // group, h_loc // group)
+    if group % h_loc == 0:
+        return k.narrow(2, lo // group, 1), v.narrow(2, lo // group, 1)
+    idx = (lo + torch.arange(h_loc, device=k.device)) // group
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attention(
     params: dict,
     x: torch.Tensor,  # (B, S, D)
@@ -129,10 +170,30 @@ def attention(
     rope: bool = True,
     rope_base: float = 10000.0,
     impl: str = "blockwise",
+    n_heads: int = 0,
+    n_kv: int = 0,
 ) -> torch.Tensor:
-    """Self-attention over the full sequence (training / prefill)."""
-    q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm, rope=rope, rope_base=rope_base)
-    return _out_proj(_full_attention(q, k, v, positions, causal=causal, impl=impl), params["wo"])
+    """Self-attention over the full sequence (training / prefill).  n_heads
+    and n_kv are the global head counts: with fewer query heads in wq (the
+    heads sharded over `model`), the tensor-parallel path."""
+    h_loc = params["wq"].shape[-2]
+    if not n_heads or h_loc == n_heads:
+        q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm, rope=rope,
+                               rope_base=rope_base)
+        return _out_proj(_full_attention(q, k, v, positions, causal=causal, impl=impl),
+                         params["wo"])
+    kv_whole = params["wk"].shape[-2] == n_kv
+    p = dict(params)
+    shared = (["wk", "wv"] if kv_whole else []) + (["q_norm", "k_norm"] if qk_norm else [])
+    for name in shared:  # replicated, but each rank uses part: sum their gradients
+        p[name] = (hook.enter_model(p[name]) if isinstance(p[name], torch.Tensor)
+                   else {"scale": hook.enter_model(p[name]["scale"])})
+    q, k, v = _project_qkv(p, hook.enter_model(x), positions, qk_norm=qk_norm, rope=rope,
+                           rope_base=rope_base)
+    if kv_whole:
+        k, v = _local_kv(k, v, n_heads, h_loc)
+    out = _full_attention(q, k, v, positions, causal=causal, impl=impl)
+    return hook.leave_model(_out_proj(out, params["wo"]))
 
 
 def prefill_attention(

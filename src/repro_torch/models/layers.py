@@ -2,12 +2,23 @@
 embedding and unembedding, and the parameter initialisers.
 
 Port of src/repro/models/layers.py.  Parameters are plain dicts of tensors
-in the JAX package's layouts (a matrix is (fan_in, fan_out)); the JAX
-side's `Param` leaves and their logical axes (sharding metadata) have no
-counterpart on one card.  Numerics follow the JAX functions: norms in fp32
-cast back to the input dtype, rotary angles in fp32, GeGLU with the tanh
-GELU (`jax.nn.gelu`'s default), the embedding scaled by sqrt(d) in the
-table's dtype, and fp32 logits from the unembedding.
+in the JAX package's layouts (a matrix is (fan_in, fan_out)).  The JAX
+side's `Param` leaves carry their logical axes (the names the sharding
+rules map to mesh axes); here the axes are a tree of their own, declared
+beside each init (`norm_axes`, `mlp_axes`, `embedding_axes`; the model's
+`param_axes` assembles them), and the leaves stay plain tensors.  Numerics
+follow the JAX functions: norms in fp32 cast back to the input dtype,
+rotary angles in fp32, GeGLU with the tanh GELU (`jax.nn.gelu`'s default),
+the embedding scaled by sqrt(d) in the table's dtype, and fp32 logits from
+the unembedding.
+
+On a mesh whose `model` axis shards the vocabulary (models/sharding_hook),
+the embedding is vocab-parallel: a rank holds rows [r V/tp, (r+1) V/tp) of
+the table, looks up only the tokens in its range and the psum over `model`
+completes the rows; the tied unembedding gives each rank the fp32 logits
+of its range, which the loss reduces without gathering them
+(model._ce_vocab_parallel).  A vocabulary the rules leave whole (one that
+does not divide the axis) keeps both replicated.
 """
 
 from __future__ import annotations
@@ -16,6 +27,8 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import sharding_hook as hook
 
 
 # ---------------------------------------------------------------------------
@@ -34,7 +47,7 @@ def dense_init(
     shape = tuple(shape)
     if dtype == torch.float32:
         w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-        return w * fan_in ** -0.5
+        return w if w.is_meta else w * fan_in ** -0.5  # meta: a shape (steps._OnMeta)
     out = torch.empty(shape, dtype=dtype, device=gen.device)
     rows = out.view(-1, shape[-1]) if shape else out.view(1, 1)
     step = max(1, (1 << 26) // rows.shape[1])
@@ -43,6 +56,18 @@ def dense_init(
         w = torch.randn(part.shape, generator=gen, device=gen.device, dtype=torch.float32)
         part.copy_(w * fan_in ** -0.5)
     return out
+
+
+def stack_axes(tree, n: int = 1):
+    """The axes of a stack: None (the layer dim, never sharded) prepended
+    n times to every leaf of a logical-axes tree."""
+    if isinstance(tree, dict):
+        return {k: stack_axes(v, n) for k, v in tree.items()}
+    return (None,) * n + tuple(tree)
+
+
+def norm_axes(kind: str) -> dict:
+    return {"scale": (None,)} if kind == "rms" else {}
 
 
 def init_norm(kind: str, d: int, dtype: torch.dtype, device, lead: Tuple[int, ...] = ()) -> dict:
@@ -128,6 +153,14 @@ def init_mlp(
     return p
 
 
+def mlp_axes(act: str) -> dict:
+    p = {"wi": ("embed", "ffn")}
+    if act in ("swiglu", "geglu"):
+        p["wg"] = ("embed", "ffn")
+    p["wo"] = ("ffn", "embed")
+    return p
+
+
 def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
         h = F.silu(x @ params["wg"]) * (x @ params["wi"])
@@ -149,18 +182,36 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype: torch.
     return {"table": dense_init(gen, (vocab, d_model), dtype, fan_in=d_model)}
 
 
-def embed(params: dict, tokens: torch.Tensor, scale_by_dim: bool = False) -> torch.Tensor:
+def embedding_axes() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
+def embed(params: dict, tokens: torch.Tensor, scale_by_dim: bool = False,
+          vocab: int = 0) -> torch.Tensor:
+    """table[tokens] (scaled by sqrt(d) for gemma).  With a table of fewer
+    rows than `vocab` (vocab-parallel over `model`), the rank's rows only,
+    completed by the psum."""
     table = params["table"]
-    out = table[tokens]
+    v_loc = table.shape[0]
+    if vocab and v_loc != vocab:
+        local = tokens - hook.model_index() * v_loc
+        inside = (local >= 0) & (local < v_loc)
+        out = table[torch.clamp(local, 0, v_loc - 1)].masked_fill(~inside[..., None], 0)
+        out = hook.leave_model(out)  # one nonzero term a row: exact in any dtype
+    else:
+        out = table[tokens]
     if scale_by_dim:  # gemma convention: the scale is rounded to the table's dtype
         out = out * torch.tensor(table.shape[1] ** 0.5, dtype=out.dtype, device=out.device)
     return out
 
 
-def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: logits = x @ table^T in fp32.
+def unembed(params: dict, x: torch.Tensor, vocab: int = 0) -> torch.Tensor:
+    """Tied unembedding: logits = x @ table^T in fp32 (with a vocab-parallel
+    table, the logits of the rank's range).
 
     The JAX side asks for an fp32 result of the (compute-dtype) product; a
     bf16 GEMM would round its output to bf16, so both operands are widened
     to fp32 first (exact for bf16 values) and the product runs in IEEE fp32."""
+    if vocab and params["table"].shape[0] != vocab:
+        x = hook.enter_model(x)
     return torch.matmul(x.float(), params["table"].float().t())

@@ -62,6 +62,25 @@ plus 0.01 x that aux: next-token over the text (vlm: the logits after the
 image tokens), masked prediction of the targets at the masked frames
 (audio).  The untied head (audio; any config without tie_embeddings) is
 h @ head.w with fp32 accumulation.
+
+`param_axes(cfg)` is the tree of the JAX package's logical axes for each
+leaf (what `split_tree(M.init(cfg, key))[1]` gives there), in the port's
+layouts; runtime/sharding.py maps it to mesh axes.
+
+On a mesh (`forward` / `loss_fn` with `mesh=`, or the mesh a train step
+installs through models/sharding_hook), the dense and MoE families run on
+the rank's shards: the batch is this data rank's rows, every leaf the
+rank's shard under the sharding rules; attention and the MLP are
+tensor-parallel over `model`, the MoE FFN expert-parallel
+(models/transformer.py), the embedding vocab-parallel, and the loss's
+cross-entropy reduces the vocab-sharded fp32 logits over `model` without
+gathering them (`_ce_vocab_parallel`: the row max by a pmax, the sum of
+exponentials and the target's logit by psums); `forward` then returns the
+logits of the rank's vocabulary range.  The loss is this data rank's mean;
+runtime/steps averages the losses and gradients over `data`.  Every other
+family, an FSDP config (`fsdp_embed`) and a `pod` axis raise
+NotImplementedError on a mesh other than 1x1 (`check_mesh_supported`),
+naming the ROADMAP item that lifts each.
 """
 
 from __future__ import annotations
@@ -75,11 +94,23 @@ from repro_torch.configs import PORTED_FAMILIES
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import sharding_hook as hook
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (apply_norm, dense_init, embed, init_embedding, init_norm,
+from repro_torch.models.layers import (apply_norm, dense_init, embed, embedding_axes,
+                                       init_embedding, init_norm, norm_axes, stack_axes,
                                        unembed)
+from repro_torch.runtime.mesh import MODEL_AXIS, POD_AXIS, axis_sizes
+
+# The ROADMAP items (section 1) that lift the refusals of a mesh.
+MESH_ITEMS = {
+    "serving": "ROADMAP section 1, item 1: sharded serving",
+    "fsdp": "ROADMAP section 1, item 2: FSDP of `embed`",
+    "families": "ROADMAP section 1, item 4: the vlm, audio, hybrid and xlstm families on a mesh",
+    "pod": "ROADMAP section 1, item 5: a `pod` axis",
+}
+MESH_FAMILIES = ("dense", "moe")
 
 
 def require_ported(cfg: ArchConfig) -> None:
@@ -93,6 +124,29 @@ def require_ported(cfg: ArchConfig) -> None:
         raise ValueError(f"{cfg.name}: xlstm expects n_layers % slstm_every == 0")
     if cfg.family == "hybrid" and (not cfg.attn_every or cfg.n_layers < cfg.attn_every):
         raise ValueError(f"{cfg.name}: hybrid expects n_layers >= attn_every (one group)")
+
+
+def check_mesh_supported(cfg: ArchConfig, mesh) -> None:
+    """Raise NotImplementedError for what the port does not run on a mesh
+    other than 1x1 (a Mesh, a {axis: size} dict, or None): a family other
+    than dense and moe, an FSDP config, a `pod` axis of more than one."""
+    sizes = axis_sizes(mesh)
+    if all(n == 1 for n in sizes.values()):
+        return
+    shape = "x".join(str(n) for n in sizes.values())
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {shape}: the port runs the {cfg.family} family on one "
+            f"device (mesh 1x1); the sharded-training path runs the "
+            f"{' and '.join(MESH_FAMILIES)} families ({MESH_ITEMS['families']})")
+    if cfg.fsdp_embed:
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {shape}: the config shards `embed` over `data` (fsdp_embed), "
+            f"which the sharded-training path does not ({MESH_ITEMS['fsdp']})")
+    if sizes.get(POD_AXIS, 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {shape}: the sharded-training path has no `pod` axis of more "
+            f"than one rank ({MESH_ITEMS['pod']})")
 
 
 def stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
@@ -112,6 +166,35 @@ def stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: dict) -> dict:
     """fn over every tensor of a nested dict."""
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, dict]:
+    """The logical axes of every leaf of init(cfg) (tuples, one name or None
+    a dim; a stack's layer dim None), as the JAX package's Param leaves."""
+    require_ported(cfg)
+    axes: Dict[str, dict] = {}
+    if cfg.family == "audio":
+        axes["frame_proj"] = tfm.frame_proj_axes()
+    else:
+        axes["embed"] = embedding_axes()
+    if cfg.family == "audio" or not cfg.tie_embeddings:
+        axes["head"] = {"w": ("embed", "vocab")}
+    if cfg.family == "vlm":
+        axes["projector"] = tfm.vlm_projector_axes()
+    norm = norm_axes(cfg.norm)
+    if cfg.family == "xlstm":
+        axes["mlstm"] = stack_axes({"norm": norm, "mixer": xlstm_mod.mlstm_axes()})
+        axes["slstm"] = stack_axes({"norm": norm, "mixer": xlstm_mod.slstm_axes()})
+    elif cfg.family == "hybrid":
+        for key in stack_sizes(cfg):
+            axes[key] = stack_axes({"norm": norm, "mixer": ssm_mod.mamba2_axes()})
+        axes["shared_attn"] = tfm.block_axes(cfg)
+    else:
+        if "dense_layers" in stack_sizes(cfg):
+            axes["dense_layers"] = stack_axes(tfm.dense_block_axes(cfg))
+        axes["layers"] = stack_axes(tfm.block_axes(cfg))
+    axes["final_norm"] = norm
+    return axes
 
 
 def cast_params(cfg: ArchConfig, params: dict) -> dict:
@@ -210,7 +293,8 @@ def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = "cuda") -> Dict[st
 def _embed_tokens(cfg: ArchConfig, params: dict, tokens) -> torch.Tensor:
     table = params["embed"]["table"]
     tokens = torch.as_tensor(tokens, device=table.device).long()
-    return embed(params["embed"], tokens, scale_by_dim=cfg.embed_scale).to(cfg.cdtype)
+    return embed(params["embed"], tokens, scale_by_dim=cfg.embed_scale,
+                 vocab=cfg.vocab).to(cfg.cdtype)
 
 
 def _embed_inputs(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -235,8 +319,11 @@ def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     JAX's fp32 accumulation of the compute-dtype product."""
     h = apply_norm(cfg.norm, params["final_norm"], h)
     if cfg.family == "audio" or not cfg.tie_embeddings:
-        return torch.matmul(h.float(), params["head"]["w"].float())
-    return unembed(params["embed"], h)
+        w = params["head"]["w"]
+        if w.shape[-1] != cfg.vocab:  # vocab-parallel head: the rank's logits
+            h = hook.enter_model(h)
+        return torch.matmul(h.float(), w.float())
+    return unembed(params["embed"], h, vocab=cfg.vocab)
 
 
 def _blocks(cfg: ArchConfig, params: dict):
@@ -294,9 +381,10 @@ def _mamba_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def _remat(cfg: ArchConfig, fn: Callable, *args):
     """fn(*args), under non-reentrant checkpoint when cfg.remat is set and
-    grad flows into any of the args."""
+    grad flows into any of the args (the recompute under the mesh
+    installed now)."""
     if cfg.remat and _needs_grad(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(hook.bind(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -305,9 +393,18 @@ def _remat(cfg: ArchConfig, fn: Callable, *args):
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V) fp32, moe_aux scalar: 0 without experts)."""
+def forward(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor],
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) fp32, moe_aux scalar: 0 without experts).
+    On a mesh (given, or installed): the rank's batch and shards, and the
+    logits of the rank's vocabulary range."""
     require_ported(cfg)
+    with hook.installed(mesh):
+        return _forward(cfg, params, batch)
+
+
+def _forward(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    check_mesh_supported(cfg, hook.current_mesh())
     params = cast_params(cfg, params)
     h = _embed_inputs(cfg, params, batch)
     if cfg.family == "xlstm":
@@ -348,25 +445,56 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor,
     return torch.sum(nll) / n, n
 
 
-def loss_fn(cfg: ArchConfig, params: dict,
-            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _ce_vocab_parallel(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                       mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """_ce over logits sharded on the vocabulary over `model` (the rank's
+    range [r V/tp, (r+1) V/tp)), never gathered: the row max by a pmax (a
+    constant of the gradient), the sum of exponentials and the target's
+    logit (from the rank that holds it) by psums."""
+    logits = logits.float()
+    v_loc = logits.shape[-1]
+    with torch.no_grad():
+        m = mesh.pmax(logits.max(dim=-1).values, MODEL_AXIS)
+    sumexp = hook.leave_model(torch.exp(logits - m[..., None]).sum(dim=-1))
+    lse = torch.log(sumexp) + m
+    local = targets.long() - mesh.index(MODEL_AXIS) * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    gold = torch.gather(logits, -1, torch.clamp(local, 0, v_loc - 1)[..., None])[..., 0]
+    gold = hook.leave_model(gold.masked_fill(~inside, 0))
+    nll = (lse - gold) * mask
+    n = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll) / n, n
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor],
+            mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy plus 0.01 x moe_aux (0 without experts): (total, {"ce",
     "moe_aux", "n_tokens"}).  Next-token (logits[:, :-1] against
     tokens[:, 1:], every position counting; dense, moe, xlstm and hybrid) over the
     text: for vlm the logits after the n_img_tokens image positions; audio:
-    the targets at the frames of batch["mask"]."""
+    the targets at the frames of batch["mask"].  On a mesh (given, or
+    installed): this data rank's loss over its rows."""
     require_ported(cfg)
-    logits, aux = forward(cfg, params, batch)
+    with hook.installed(mesh):
+        return _loss(cfg, params, batch)
+
+
+def _loss(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, aux = _forward(cfg, params, batch)
     dev = logits.device
+    mesh = hook.current_mesh()
+    ce = _ce
+    if mesh is not None and logits.shape[-1] != cfg.vocab:
+        ce = lambda lg, t, msk: _ce_vocab_parallel(lg, t, msk, mesh)  # noqa: E731
     if cfg.family == "audio":
         mask = torch.as_tensor(batch["mask"], device=dev).float()
-        loss, n = _ce(logits, torch.as_tensor(batch["targets"], device=dev).long(), mask)
+        loss, n = ce(logits, torch.as_tensor(batch["targets"], device=dev).long(), mask)
     else:
         if cfg.family == "vlm":
             logits = logits[:, cfg.n_img_tokens:, :]
         tokens = torch.as_tensor(batch["tokens"], device=dev).long()
         mask = torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=dev)
-        loss, n = _ce(logits[:, :-1, :], tokens[:, 1:], mask)
+        loss, n = ce(logits[:, :-1, :], tokens[:, 1:], mask)
     total = loss + 0.01 * aux
     return total, {"ce": loss, "moe_aux": aux, "n_tokens": n}
 

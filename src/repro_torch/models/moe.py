@@ -2,9 +2,9 @@
 
 Port of src/repro/models/moe.py (`init_moe`, `apply_moe`, `moe_ref`), the
 path the JAX block takes on one device, in every decode step and whenever
-no mesh with a model axis is installed.  The expert-parallel all-to-all
-path (`moe_a2a.py`) exchanges tokens between devices and has no meaning on
-one card.
+no mesh with a model axis is installed (on a mesh of one `model` rank, on
+each data shard's groups).  The expert-parallel all-to-all path over a
+`model` axis is models/moe_a2a.py.
 
 Semantics kept from the JAX function:
   * the T = B * S tokens split into g groups, g the largest divisor of T
@@ -70,6 +70,15 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int, *,
             "wg": dense_init(gen, (*lead, d_model, fs), dtype, fan_in=d_model),
             "wo": dense_init(gen, (*lead, fs, d_model), dtype, fan_in=fs),
         }
+    return p
+
+
+def moe_axes(n_shared: int = 0) -> dict:
+    """The logical axes of init_moe's leaves (no layer dim)."""
+    p = {"router": ("embed", None), "wi": ("experts", "embed", "expert_ffn"),
+         "wg": ("experts", "embed", "expert_ffn"), "wo": ("experts", "expert_ffn", "embed")}
+    if n_shared:
+        p["shared"] = {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"), "wo": ("ffn", "embed")}
     return p
 
 
@@ -233,10 +242,13 @@ def _shared(sp: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_moe(params: dict, x: torch.Tensor, *, top_k: int, n_groups: int,
-              capacity_factor: float = 1.25, return_tables: bool = False):
+              capacity_factor: float = 1.25, return_tables: bool = False, stat_mean=None):
     """x (B, S, D) -> (output (B, S, D), aux load-balance loss, fp32 0-d);
     with return_tables also the dispatch (`dispatch_tables`, plus "cap",
-    "expert_ids" (g, tg, k) and "gate_vals" (g, tg, k) fp32)."""
+    "expert_ids" (g, tg, k) and "gate_vals" (g, tg, k) fp32).  stat_mean
+    maps the per-expert mean probability and routed share of these groups
+    to the global ones (a data-sharded batch; default: these groups are the
+    batch)."""
     b, s, d = x.shape
     e = params["router"].shape[-1]
     xf = x.reshape(-1, d)
@@ -249,7 +261,10 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int, n_groups: int,
 
     # Switch load balance: E * sum_e(mean prob_e * share of assignments_e).
     share = tables["routed"].sum(0).float() / (g * tg) / top_k
-    aux = e * torch.sum(probs.mean(dim=(0, 1)) * share)
+    me = probs.mean(dim=(0, 1))
+    if stat_mean is not None:
+        me, share = stat_mean(me), stat_mean(share)
+    aux = e * torch.sum(me * share)
 
     gslot, assignment, token, filled = _expert_major(tables, cap, e, tg, top_k)
     xe = ToSlots.apply(xf, token, filled, gslot.view(t, top_k))

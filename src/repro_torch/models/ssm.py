@@ -33,6 +33,13 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import dense_init
 
 
+def mamba2_axes() -> dict:
+    """The logical axes of init_mamba2's leaves (no layer dim), as JAX's."""
+    return {"in_proj": ("embed", "ssm_inner"), "conv_w": (None, "ssm_inner"),
+            "conv_b": ("ssm_inner",), "dt_bias": ("ssm_heads",), "A_log": ("ssm_heads",),
+            "D": ("ssm_heads",), "norm_scale": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")}
+
+
 def init_mamba2(
     gen: torch.Generator, d_model: int, *, d_state: int = 64, head_dim: int = 64,
     expand: int = 2, conv_width: int = 4, dtype: torch.dtype = torch.float32,

@@ -11,11 +11,23 @@ precomputed frame features through one matrix).  A block with
 experts (`cfg.n_experts`) holds a "moe" subtree in place of "mlp"; kimi's
 leading dense layers are `init_dense_block`s (`dense_d_ff`).  Every block
 returns its MoE load-balance aux beside h (0 without experts), as JAX's
-does.  The FFN of an MoE block is `_moe_ffn`: on one card always the
-capacity dispatch of models/moe.py (the JAX side's all-to-all path needs a
-mesh whose model axis is larger than 1), with `cfg.moe_groups` groups over
-a full sequence and one group in a decode step.  The JAX side's
-activation-sharding hook has no counterpart on one card.
+does.
+
+With no mesh installed (models/sharding_hook) the FFN of an MoE block is
+the capacity dispatch of models/moe.py, with `cfg.moe_groups` groups over
+a full sequence and one group in a decode step.  On a mesh:
+  * attention runs on the rank's heads (models/attention.py) and the dense
+    MLP is column- then row-parallel over `model` (f before wi/wg, g after
+    wo) when its ffn is sharded;
+  * the MoE FFN takes the all-to-all path of models/moe_a2a.py exactly
+    when JAX's does: moe_impl "a2a", a `model` axis of tp > 1, n_experts %
+    tp == 0, S % tp == 0 and B % dp == 0; with tp == 1 it runs the
+    capacity dispatch on the rank's data shard, JAX's groups split over
+    `data` (their count must divide by dp), with the global aux; any other
+    MoE config on a mesh raises, naming the condition that fails.
+The residual stream stays replicated over `model`.  JAX's
+sequence-parallel residual ("seq" -> model, `shard(h, "residual")`) is a
+memory layout of the same arithmetic and is ROADMAP section 1's later item.
 """
 
 from __future__ import annotations
@@ -26,8 +38,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import apply_mlp, apply_norm, dense_init, init_mlp, init_norm
-from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models import sharding_hook as hook
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init, init_mlp, init_norm,
+                                       mlp_axes, norm_axes)
+from repro_torch.models.moe import apply_moe, init_moe, moe_axes, n_groups_for
+from repro_torch.models.moe_a2a import apply_moe_a2a
+from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, pmean_value
 
 
 def _init_attention_half(gen: torch.Generator, cfg, lead) -> dict:
@@ -39,6 +55,25 @@ def _init_attention_half(gen: torch.Generator, cfg, lead) -> dict:
         ),
         "norm2": init_norm(cfg.norm, cfg.d_model, cfg.dtype, gen.device, lead),
     }
+
+
+def _attention_half_axes(cfg) -> dict:
+    return {"norm1": norm_axes(cfg.norm), "attn": attn_mod.attention_axes(cfg.qk_norm),
+            "norm2": norm_axes(cfg.norm)}
+
+
+def block_axes(cfg) -> dict:
+    """The logical axes of one init_block (no layer dim)."""
+    p = _attention_half_axes(cfg)
+    if cfg.n_experts:
+        p["moe"] = moe_axes(cfg.n_shared_experts)
+    else:
+        p["mlp"] = mlp_axes(cfg.act)
+    return p
+
+
+def dense_block_axes(cfg) -> dict:
+    return {**_attention_half_axes(cfg), "mlp": mlp_axes(cfg.act)}
 
 
 def init_block(gen: torch.Generator, cfg, n: Optional[int]) -> dict:
@@ -64,8 +99,44 @@ def init_dense_block(gen: torch.Generator, cfg, n: int = 1) -> dict:
 
 
 def _moe_ffn(moe_params: dict, f_in: torch.Tensor, cfg, n_groups: int):
-    return apply_moe(moe_params, f_in, top_k=cfg.top_k, n_groups=n_groups,
-                     capacity_factor=cfg.capacity_factor)
+    mesh = hook.current_mesh()
+    if mesh is None:
+        return apply_moe(moe_params, f_in, top_k=cfg.top_k, n_groups=n_groups,
+                         capacity_factor=cfg.capacity_factor)
+    tp = mesh.size(MODEL_AXIS)
+    dp = mesh.size(POD_AXIS) * mesh.size(DATA_AXIS)
+    b, s, _ = f_in.shape  # this data rank's rows: the global batch is b * dp
+    conds = {"moe_impl == 'a2a'": cfg.moe_impl == "a2a",
+             f"n_experts % tp == 0 ({cfg.n_experts} % {tp})": cfg.n_experts % tp == 0,
+             f"S % tp == 0 ({s} % {tp})": s % tp == 0}  # B % dp: the step's batch split
+    if tp > 1:
+        failed = [c for c, ok in conds.items() if not ok]
+        if failed:
+            raise NotImplementedError(
+                f"{cfg.name} on mesh {mesh.describe()}: the MoE FFN over a model axis of "
+                f"{tp} runs the all-to-all path only, which needs {', '.join(failed)}")
+        d_ff = cfg.moe_d_ff or cfg.d_ff
+        return apply_moe_a2a(mesh, moe_params, f_in, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                             capacity_factor=cfg.capacity_factor,
+                             wire_dtype=cfg.moe_wire_dtype,
+                             shared_ffn=cfg.n_shared_experts * d_ff or None,
+                             d_model=cfg.d_model)
+    groups = n_groups_for(b * s * dp, n_groups)
+    if groups % dp:
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {mesh.describe()}: the capacity dispatch splits its "
+            f"{groups} groups over the data axis, which needs groups % dp == 0 ({dp})")
+    # the aux's statistics are the batch's: their mean over the data ranks
+    return apply_moe(moe_params, f_in, top_k=cfg.top_k, n_groups=groups // dp,
+                     capacity_factor=cfg.capacity_factor,
+                     stat_mean=lambda x: pmean_value(x, mesh, (POD_AXIS, DATA_AXIS)))
+
+
+def _mlp(mlp_params: dict, f_in: torch.Tensor, cfg, d_ff: int) -> torch.Tensor:
+    """The dense MLP; column- then row-parallel when its ffn is sharded."""
+    if mlp_params["wo"].shape[-2] != d_ff:
+        return hook.leave_model(apply_mlp(mlp_params, hook.enter_model(f_in), cfg.act))
+    return apply_mlp(mlp_params, f_in, cfg.act)
 
 
 def _ffn(params: dict, h: torch.Tensor, cfg, n_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -73,7 +144,8 @@ def _ffn(params: dict, h: torch.Tensor, cfg, n_groups: int) -> Tuple[torch.Tenso
     if "moe" in params:
         f_out, aux = _moe_ffn(params["moe"], f_in, cfg, n_groups)
     else:
-        f_out = apply_mlp(params["mlp"], f_in, cfg.act)
+        d_ff = (cfg.dense_d_ff or cfg.d_ff) if cfg.n_experts else cfg.d_ff
+        f_out = _mlp(params["mlp"], f_in, cfg, d_ff)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + f_out, aux
 
@@ -86,7 +158,7 @@ def apply_block(params: dict, h: torch.Tensor, positions: torch.Tensor, cfg, *,
     h = h + attn_mod.attention(
         params["attn"], a_in, positions,
         causal=causal, qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
-        impl=cfg.attn_impl,
+        impl=cfg.attn_impl, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
     )
     return _ffn(params, h, cfg, cfg.moe_groups)
 
@@ -123,6 +195,10 @@ def decode_block(params: dict, h: torch.Tensor, cache: dict, pos: int,
 # ---------------------------------------------------------------------------
 
 
+def vlm_projector_axes() -> dict:
+    return {"w1": (None, "embed"), "w2": ("embed", "embed_out")}
+
+
 def init_vlm_projector(gen: torch.Generator, vision_dim: int, d_model: int,
                        dtype: torch.dtype) -> dict:
     return {
@@ -141,6 +217,10 @@ def apply_vlm_projector(params: dict, img_embeds: torch.Tensor, dtype: torch.dty
 # ---------------------------------------------------------------------------
 # Audio frame projection (hubert stub front end)
 # ---------------------------------------------------------------------------
+
+
+def frame_proj_axes() -> dict:
+    return {"w": (None, "embed")}
 
 
 def init_frame_proj(gen: torch.Generator, frame_dim: int, d_model: int,

@@ -47,6 +47,24 @@ NEG = -1e30
 # ---------------------------------------------------------------------------
 
 
+def mlstm_axes() -> dict:
+    """The logical axes of init_mlstm's leaves (no layer dim), as JAX's."""
+    return {"up": ("embed", "ffn"), "gate": ("embed", "ffn"), "conv_w": (None, "ffn"),
+            "conv_b": ("ffn",), "wq": ("ssm_heads", None, None), "wk": ("ssm_heads", None, None),
+            "wv": ("ssm_heads", None, None), "wi": ("ffn", None), "wf": ("ffn", None),
+            "f_bias": (None,), "norm_scale": ("ffn",), "down": ("ffn", "embed")}
+
+
+def slstm_axes() -> dict:
+    """The logical axes of init_slstm's leaves (no layer dim), as JAX's."""
+    out = {}
+    for name in ("i", "f", "z", "o"):
+        out[f"w_{name}"] = ("embed", "embed_out")
+        out[f"r_{name}"] = (None, None, None)
+        out[f"b_{name}"] = (None,)
+    return out
+
+
 def init_mlstm(
     gen: torch.Generator, d_model: int, n_heads: int, *, proj_factor: int = 2,
     conv_width: int = 4, dtype: torch.dtype = torch.float32, lead: Tuple[int, ...] = (),

@@ -43,11 +43,14 @@ def error_feedback_q8(opt: Optimizer) -> Optimizer:
         }
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         corrected = tree_map(lambda g, e: g.float() + e, grads, state["ef"])
         sent = tree_map(compress_decompress, corrected)
         tree_map(lambda e, c, s: e.copy_(c - s), state["ef"], corrected, sent)
-        opt.update(sent, state["inner"], params, step)
+        opt.update(sent, state["inner"], params, step, shards)
         return params, state
 
-    return Optimizer(init, update, name=f"{opt.name}+efq8")
+    def state_axes(param_axes):
+        return {"inner": opt.state_axes(param_axes), "ef": param_axes}
+
+    return Optimizer(init, update, state_axes, name=f"{opt.name}+efq8")

@@ -1,9 +1,14 @@
 """Fused optimizers over nested dicts of tensors.
 
-Port of src/repro/optim/optimizers.py.  Optimizer = (init, update, name):
+Port of src/repro/optim/optimizers.py.  Optimizer = (init, update,
+state_axes, name):
 
   init(params) -> state, trees of fp32 tensors that mirror the params;
-  update(grads, state, params, step) -> (params, state).
+  update(grads, state, params, step, shards=None) -> (params, state);
+  state_axes(param_axes) -> the logical axes of the state's leaves, from
+    the params' (`model.param_axes`), as JAX's: the runtime shards the
+    state by them (Adafactor's factored moments drop the factored dim's
+    axis).
 
 All moments are fp32 whatever the param dtype; the update is computed in
 fp32 and cast back to the param dtype (the bf16-param + fp32-state regime
@@ -11,15 +16,21 @@ of the 1T-class config).  Where the JAX update returns new trees, this one
 writes the new values into `params` and `state` in place, under
 torch.no_grad, and returns the same objects; clipping scales `grads` in
 place.  `step` is the step count (int or 0-d tensor) before the update,
-and `lr` a float or a schedule of it.  The JAX Optimizer's `state_axes`
-(the sharding of the state for NamedSharding) has no counterpart on one
-card: sharded training is a later item (ROADMAP section 1).
+and `lr` a float or a schedule of it.
+
+On a mesh the params, gradients and state are the rank's shards, and
+`shards` (a `Shards`) says how: the clipping norm is then the global norm
+of the whole gradient (each sharded leaf's sum of squares summed over the
+axes it is sharded on, a leaf replicated over them counted once).  AdamW
+and SGD are elementwise, so they run on the shard as they are.
+Adafactor's row and column means and its RMS update clip span a whole
+leaf: on a sharded leaf it raises (no config of the sharded path runs it).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -29,8 +40,22 @@ from repro_torch.pytree import leaves, tree_map
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, Any], tuple]
+    update: Callable[..., tuple]
+    state_axes: Callable[[Any], Any]
     name: str = "opt"
+
+
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """How a sharded run's params are cut (runtime/steps builds it):
+    `norm(grads)` is the global norm of the whole gradient, `sharded` says
+    for each leaf (in the params' leaf order) whether it is a shard."""
+    norm: Callable[[Any], torch.Tensor]
+    sharded: Tuple[bool, ...]
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple)
 
 
 def _tree_f32(params):
@@ -46,11 +71,13 @@ def _global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _clipped(grads, clip_norm: Optional[float]):
-    """grads scaled in place by min(1, clip_norm / (|grads| + 1e-9))."""
+def _clipped(grads, clip_norm: Optional[float], shards: Optional[Shards] = None):
+    """grads scaled in place by min(1, clip_norm / (|grads| + 1e-9)), the
+    norm of the whole gradient across shards."""
     if clip_norm is None:
         return grads
-    scale = torch.clamp(clip_norm / (_global_norm(grads) + 1e-9), max=1.0)
+    norm = _global_norm(grads) if shards is None else shards.norm(grads)
+    scale = torch.clamp(clip_norm / (norm + 1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale.to(g.dtype))
     return grads
@@ -75,8 +102,8 @@ def sgd(lr, momentum: float = 0.0, clip_norm: Optional[float] = None) -> Optimiz
         return {}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads = _clipped(grads, clip_norm)
+    def update(grads, state, params, step, shards=None):
+        grads = _clipped(grads, clip_norm, shards)
         lr_t = lr_fn(int(step))
         if momentum:
             for p, g, m in zip(leaves(params), leaves(grads), leaves(state["mu"])):
@@ -87,7 +114,10 @@ def sgd(lr, momentum: float = 0.0, clip_norm: Optional[float] = None) -> Optimiz
             _store(p, p.float() - lr_t * g.float())
         return params, state
 
-    return Optimizer(init, update, name="sgd")
+    def state_axes(param_axes):
+        return {"mu": param_axes} if momentum else {}
+
+    return Optimizer(init, update, state_axes, name="sgd")
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +139,8 @@ def adamw(
         return {"m": _tree_f32(params), "v": _tree_f32(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads = _clipped(grads, clip_norm)
+    def update(grads, state, params, step, shards=None):
+        grads = _clipped(grads, clip_norm, shards)
         t = int(step) + 1
         lr_t = lr_fn(int(step))
         bc1 = 1.0 - b1 ** t
@@ -126,7 +156,10 @@ def adamw(
             del g, pf, upd
         return params, state
 
-    return Optimizer(init, update, name="adamw")
+    def state_axes(param_axes):
+        return {"m": param_axes, "v": param_axes}
+
+    return Optimizer(init, update, state_axes, name="adamw")
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +196,12 @@ def adafactor(
         return {"f": tree_map(one, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads = _clipped(grads, clip_norm)
+    def update(grads, state, params, step, shards=None):
+        if shards is not None and any(shards.sharded):
+            raise NotImplementedError(
+                "adafactor on sharded params: its row and column means and its RMS update "
+                "clip span the whole leaf; shard it whole, or use adamw or sgd on a mesh")
+        grads = _clipped(grads, clip_norm, shards)
         t = float(int(step) + 1)
         beta2t = 1.0 - t ** (-decay_pow)
         lr_t = lr_fn(int(step))
@@ -190,7 +227,16 @@ def adafactor(
             _store(p, pf - lr_t * u)
         return params, state
 
-    return Optimizer(init, update, name="adafactor")
+    def state_axes(param_axes):
+        def one(axes):
+            axes = tuple(axes)
+            if len(axes) >= 2:  # mirror _factored on the axes tuple
+                return {"vr": axes[:-1], "vc": axes[:-2] + axes[-1:]}
+            return {"v": axes}
+
+        return {"f": tree_map(one, param_axes, is_leaf=_is_axes)}
+
+    return Optimizer(init, update, state_axes, name="adafactor")
 
 
 def _param_states(f, params) -> list:

@@ -14,55 +14,60 @@ gradients, alive until the cyclic garbage collector runs.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 
-def leaves(tree) -> List[Any]:
-    """The leaves of `tree`, dict entries in sorted-key order."""
+def leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None) -> List[Any]:
+    """The leaves of `tree`, dict entries in sorted-key order; a node for
+    which is_leaf is true is a leaf (a tree of logical-axes tuples)."""
     out: List[Any] = []
-    _collect(tree, out)
+    _collect(tree, out, is_leaf)
     return out
 
 
-def _collect(t, out: List[Any]) -> None:
+def _collect(t, out: List[Any], is_leaf) -> None:
     if t is None:
         return
-    if isinstance(t, dict):
+    if is_leaf is not None and is_leaf(t):
+        out.append(t)
+    elif isinstance(t, dict):
         for k in sorted(t):
-            _collect(t[k], out)
+            _collect(t[k], out, is_leaf)
     elif isinstance(t, (list, tuple)):
         for v in t:
-            _collect(v, out)
+            _collect(v, out, is_leaf)
     else:
         out.append(t)
 
 
-def unflatten(like, values) -> Any:
+def unflatten(like, values, is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """A tree of `like`'s structure holding `values` in leaf order."""
     it = iter(values)
-    out = _build(like, it)
+    out = _build(like, it, is_leaf)
     if next(it, None) is not None:
         raise ValueError("more values than the tree has leaves")
     return out
 
 
-def _build(t, it) -> Any:
+def _build(t, it, is_leaf) -> Any:
     if t is None:
         return None
+    if is_leaf is not None and is_leaf(t):
+        return next(it)
     if isinstance(t, dict):
-        return {k: _build(t[k], it) for k in sorted(t)}
+        return {k: _build(t[k], it, is_leaf) for k in sorted(t)}
     if isinstance(t, (list, tuple)):
-        return type(t)(_build(v, it) for v in t)
+        return type(t)(_build(v, it, is_leaf) for v in t)
     return next(it)
 
 
-def tree_map(fn: Callable, tree, *rest) -> Any:
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """fn over the leaves of `tree` and the matching leaves of `rest` (trees
     of the same structure)."""
-    flat = [leaves(tree)] + [leaves(r) for r in rest]
+    flat = [leaves(tree, is_leaf)] + [leaves(r, is_leaf) for r in rest]
     if any(len(f) != len(flat[0]) for f in flat):
         raise ValueError(f"trees of different sizes: {[len(f) for f in flat]}")
-    return unflatten(tree, [fn(*xs) for xs in zip(*flat)])
+    return unflatten(tree, [fn(*xs) for xs in zip(*flat)], is_leaf)
 
 
 def describe(tree) -> str:

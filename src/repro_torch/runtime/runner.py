@@ -14,10 +14,18 @@ Port of src/repro/runtime/runner.py.  The runner wraps the train step
   * elastic rescale: `TrainRunner.rescale(...)` builds a new runner whose
     `restore_or_init` reloads the latest checkpoint onto its device.
 
-Where the JAX runner takes a mesh, this one takes a `device`; its `mesh`
-argument accepts only one device (None, "1x1" or (1, 1)): a sharded
-run is ROADMAP section 1's sharded-training item.  A recoverable fault is
-an exception raised in Python, like the injected one.  A CUDA error that
+The `mesh` argument is one device (None, "1x1" or (1, 1)), the runner
+then running on `device`, or a runtime/mesh.Mesh, whose ranks each run
+this runner over their shards (launch/train spawns them through
+mesh.launch): the state is sharded by the config's rules, the step is
+the sharded one of runtime/steps, the checkpoints hold the whole tensors
+(rank 0 writes them, every rank restores its shard, so a run resumes on
+another mesh), the fault hook runs on every rank before the step (an
+injected fault raises on all ranks at the same step), restore and replay
+are collective, and the straggler events are rank 0's.  A mesh takes the
+dense and MoE families without FSDP and without a `pod` axis; the others
+raise, naming the ROADMAP item that lifts each (`check_mesh`).  A
+recoverable fault is an exception raised in Python, like the injected one.  A CUDA error that
 poisons the context (an illegal address, a device-side assert) is not
 recoverable in the same process: every later call on the card fails too,
 and the restart is the process's, from the checkpoint.
@@ -33,9 +41,10 @@ from typing import Any, Callable, Dict, List, Optional
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import require_ported
+from repro_torch.models.model import check_mesh_supported, require_ported
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.runtime import steps as S
+from repro_torch.runtime.mesh import Mesh, default_axes, parse_mesh
 
 
 @dataclasses.dataclass
@@ -49,16 +58,19 @@ class RunnerConfig:
     log_every: int = 10
 
 
-def check_mesh(mesh) -> None:
-    """Accept one device (None, "1x1" or (1, 1)); refuse any other mesh."""
+def check_mesh(mesh, cfg: Optional[ArchConfig] = None) -> None:
+    """Accept one device (None, "1x1" or (1, 1)), and for the dense and MoE
+    families (without FSDP, without a `pod` axis) a "DxM" shape or a Mesh;
+    raise NotImplementedError for any other, naming the ROADMAP item that
+    lifts it (model.MESH_ITEMS)."""
     if mesh is None:
         return
-    shape = tuple(int(x) for x in mesh.split("x")) if isinstance(mesh, str) else tuple(mesh)
-    if any(n != 1 for n in shape):
-        raise NotImplementedError(
-            f"mesh {mesh!r}: the port trains on one device (mesh 1x1); a sharded run is "
-            f"not ported yet (ROADMAP section 1, the sharded-training item)"
-        )
+    sizes = mesh.shape if isinstance(mesh, Mesh) else dict(zip(
+        default_axes(parse_mesh(mesh)), parse_mesh(mesh)))
+    if all(n == 1 for n in sizes.values()):
+        return
+    if cfg is not None:
+        check_mesh_supported(cfg, sizes)
 
 
 class TrainRunner:
@@ -72,27 +84,35 @@ class TrainRunner:
         device: DeviceLike = "cuda",
         fault_hook: Optional[Callable[[int], None]] = None,
     ):
-        check_mesh(mesh)
+        check_mesh(mesh, cfg)
         require_ported(cfg)
         self.cfg = cfg
-        self.mesh = mesh
-        self.device = resolve_device(device)
+        self.mesh = mesh if isinstance(mesh, Mesh) else None
+        if self.mesh is None and mesh is not None and any(n != 1 for n in parse_mesh(mesh)):
+            raise ValueError(f"mesh {mesh!r}: a sharded runner runs on each rank of a Mesh "
+                             f"(runtime.mesh.launch spawns them; launch/train --mesh)")
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
+        self.lead = self.mesh is None or self.mesh.rank == 0
         self.opt = opt
         self.run_cfg = run_cfg
-        self.ckpt = CheckpointManager(run_cfg.ckpt_dir, keep=run_cfg.keep)
+        specs = S.state_shardings(cfg, opt, self.mesh) if self.mesh is not None else None
+        self.ckpt = CheckpointManager(run_cfg.ckpt_dir, keep=run_cfg.keep, mesh=self.mesh,
+                                      specs=specs)
         self.fault_hook = fault_hook
         self.step_times: List[float] = []
         self.events: List[Dict[str, Any]] = []
         self._like = S.abstract_train_state(cfg, opt)
-        self._step = S.make_train_step(cfg, opt)
+        self.step_fn = S.make_train_step(cfg, opt, self.mesh)  # (state, batch) -> (state, metrics)
 
     # -- state ------------------------------------------------------------
 
     def init_state(self, seed: int = 0):
-        return S.init_train_state(self.cfg, self.opt, seed, self.device)
+        return S.init_train_state(self.cfg, self.opt, seed, self.device, self.mesh)
 
-    def restore_or_init(self, seed: int = 0):
-        restored, step = self.ckpt.restore(self._like, device=self.device)
+    def restore_or_init(self, seed: int = 0, step: Optional[int] = None):
+        """The checkpoint of `step` (the latest when None) on this runner's
+        device or mesh, else a fresh state from `seed`."""
+        restored, step = self.ckpt.restore(self._like, step, device=self.device)
         if restored is None:
             self.events.append({"kind": "init", "step": 0})
             return self.init_state(seed)
@@ -123,7 +143,7 @@ class TrainRunner:
             try:
                 if self.fault_hook is not None:
                     self.fault_hook(step)  # may raise (injected failure)
-                state, metrics = self._step(state, batches(step))
+                state, metrics = self.step_fn(state, batches(step))
                 metrics = {k: float(v) for k, v in metrics.items()}
             except Exception as e:  # noqa: BLE001 -- any fault => restore path
                 restarts += 1
@@ -141,7 +161,7 @@ class TrainRunner:
             dt = time.perf_counter() - t0
             self.step_times.append(dt)
             med = statistics.median(self.step_times[-20:])
-            if len(self.step_times) > 5 and dt > rc.deadline_factor * med:
+            if self.lead and len(self.step_times) > 5 and dt > rc.deadline_factor * med:
                 self.events.append({"kind": "straggler", "step": step, "dt": dt, "median": med})
 
             step += 1
@@ -165,7 +185,7 @@ class TrainRunner:
         *,
         device: DeviceLike = "cuda",
     ) -> "TrainRunner":
-        """A new runner over the same checkpoints, on `device`:
-        restore_or_init() places the latest (device-agnostic) checkpoint
-        there."""
+        """A new runner over the same checkpoints, on `device` or on the
+        ranks of `new_mesh` (a Mesh): restore_or_init() places the latest
+        checkpoint (whole tensors, whatever mesh wrote it) there."""
         return cls(cfg, new_mesh, opt, run_cfg, device=device)

@@ -1,0 +1,192 @@
+"""Logical-axis -> mesh-axis sharding rules, and cutting tensors to shards.
+
+Port of src/repro/runtime/sharding.py.  Parameters carry logical axis
+names (`model.param_axes(cfg)`); the rules map them to mesh axes, with the
+same divisibility fallback (a dimension shards only if it divides the mesh
+axis, else a shorter prefix of a tuple assignment, else not at all) and the
+same first-come guard (no mesh axis twice in one spec).  A spec here is a
+tuple with one entry per dim: None, a mesh axis name, or a tuple of them
+(what `tuple(PartitionSpec)` gives on the JAX side).
+
+Default rules (as the JAX package's):
+  TP over `model`: heads / kv_heads / ffn / vocab / experts / ssm dims;
+  FSDP over `data`: the `embed` axis when cfg.fsdp_embed;
+  DP over `pod` + `data`: the batch axis of activations and caches;
+  SP over `model`: the seq axis of the residual (training) and of KV
+  caches (decode).  The port keeps the residual replicated over `model`
+  (the sequence-parallel layout is ROADMAP section 1's later item), so
+  `seq` and `kv_seq` name no parameter here.
+
+`shard_tensor` / `shard_tree` cut a global tensor or tree to this rank's
+shard (a copy of the slice); `unshard_tensor` / `unshard_tree` gather the
+shards back to the whole (a collective over the spec's axes: every rank of
+the mesh calls it).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.pytree import leaves, unflatten
+from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, Mesh, axis_sizes
+
+AxisAssign = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[AxisAssign, ...]
+
+
+def default_rules(fsdp_embed: bool = False) -> Dict[str, AxisAssign]:
+    return {
+        # parameters
+        "vocab": MODEL_AXIS,
+        "heads": MODEL_AXIS,
+        "kv_heads": MODEL_AXIS,
+        "ffn": MODEL_AXIS,
+        "ffn_out": None,
+        "experts": MODEL_AXIS,
+        "expert_ffn": None,
+        "embed": DATA_AXIS if fsdp_embed else None,
+        "embed_out": None,
+        "ssm_inner": MODEL_AXIS,
+        "ssm_heads": MODEL_AXIS,
+        # activations / caches
+        "batch": (POD_AXIS, DATA_AXIS),
+        "kv_seq": MODEL_AXIS,
+        "seq": MODEL_AXIS,
+    }
+
+
+def rules_for(cfg, overrides: Optional[Dict[str, AxisAssign]] = None) -> Dict[str, AxisAssign]:
+    r = default_rules(getattr(cfg, "fsdp_embed", False))
+    if overrides:
+        r.update(overrides)
+    return r
+
+
+def _prod(sizes: Dict[str, int], axes: Sequence[str]) -> int:
+    out = 1
+    for a in axes:
+        out *= sizes[a]
+    return out
+
+
+def spec_for_axes(mesh, axes: Sequence[Optional[str]], shape: Optional[Sequence[int]],
+                  rules: Dict[str, AxisAssign]) -> Spec:
+    """The spec of one tensor from its logical axes (and its global shape
+    for the divisibility checks; None skips them).  `mesh` is a Mesh or a
+    {axis: size} dict."""
+    sizes = axis_sizes(mesh)
+    used = set()
+    parts = []
+    for i, name in enumerate(axes):
+        assign = rules.get(name) if name is not None else None
+        if assign is None:
+            parts.append(None)
+            continue
+        cand = (assign,) if isinstance(assign, str) else tuple(assign)
+        cand = tuple(a for a in cand if a in sizes and a not in used)
+        if not cand:
+            parts.append(None)
+            continue
+        if shape is not None and shape[i] % _prod(sizes, cand) != 0:
+            # try progressively shorter prefixes of the tuple
+            ok = None
+            for j in range(len(cand) - 1, 0, -1):
+                if shape[i] % _prod(sizes, cand[:j]) == 0:
+                    ok = cand[:j]
+                    break
+            if ok is None:
+                parts.append(None)
+                continue
+            cand = ok
+        used.update(cand)
+        parts.append(cand if len(cand) > 1 else cand[0])
+    return tuple(parts)
+
+
+def batch_spec(mesh, rules: Dict[str, AxisAssign]) -> Spec:
+    """The spec of (B, ...) model inputs' leading dim: the DP axes."""
+    assign = rules.get("batch", (POD_AXIS, DATA_AXIS))
+    cand = (assign,) if isinstance(assign, str) else tuple(assign)
+    sizes = axis_sizes(mesh)
+    cand = tuple(a for a in cand if a in sizes)
+    return (cand if len(cand) > 1 else (cand[0] if cand else None),)
+
+
+def replicated() -> Spec:
+    """The spec of a tensor every rank holds whole (JAX's P())."""
+    return ()
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a spec shards over, in order."""
+    out = []
+    for part in spec:
+        if part is not None:
+            out.extend((part,) if isinstance(part, str) else part)
+    return tuple(out)
+
+
+def tree_specs(mesh, axes_tree, shape_tree, rules: Dict[str, AxisAssign]):
+    """The spec of every leaf, from the logical-axes tree and a tree of the
+    same structure whose leaves have the global `.shape`."""
+    axes = leaves(axes_tree, is_leaf=lambda x: isinstance(x, tuple))
+    shapes = leaves(shape_tree)
+    if len(axes) != len(shapes):
+        raise ValueError(f"axes tree has {len(axes)} leaves, the tensors {len(shapes)}")
+    return unflatten(shape_tree, [spec_for_axes(mesh, a, tuple(t.shape), rules)
+                                  for a, t in zip(axes, shapes)])
+
+
+def _chunk(mesh: Mesh, part: AxisAssign) -> Tuple[int, int]:
+    """(this rank's index, number of chunks) along a dim assigned `part`:
+    the index is row-major over the part's axes, the first outermost."""
+    axes = (part,) if isinstance(part, str) else tuple(part)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * mesh.size(a) + mesh.index(a)
+        n *= mesh.size(a)
+    return idx, n
+
+
+def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Optional[Mesh]) -> torch.Tensor:
+    """This rank's shard of the global tensor t (a copy, so the whole may be
+    freed)."""
+    if mesh is None or not spec_axes(spec):
+        return t
+    out = t
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        idx, n = _chunk(mesh, part)
+        c = t.shape[dim] // n
+        out = out.narrow(dim, idx * c, c)
+    return out.clone()
+
+
+def unshard_tensor(t: torch.Tensor, spec: Spec, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The global tensor from this rank's shard: gathers over the spec's
+    axes (the innermost axis of a tuple first)."""
+    if mesh is None or not spec_axes(spec):
+        return t
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        for a in reversed((part,) if isinstance(part, str) else tuple(part)):
+            t = mesh.all_gather_tiled(t, a, dim)
+    return t
+
+
+def shard_tree(tree, specs, mesh: Optional[Mesh]):
+    return unflatten(tree, [shard_tensor(t, s, mesh) for t, s in
+                            zip(leaves(tree), leaves(specs, is_leaf=_is_spec))])
+
+
+def unshard_tree(tree, specs, mesh: Optional[Mesh]):
+    return unflatten(tree, [unshard_tensor(t, s, mesh) for t, s in
+                            zip(leaves(tree), leaves(specs, is_leaf=_is_spec))])
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple)

@@ -1,12 +1,22 @@
 """Train, prefill and decode steps of the LM substrate.
 
-Port of the single-device parts of src/repro/runtime/steps.py:
+Port of src/repro/runtime/steps.py:
 
-  init_train_state(cfg, opt, seed, device) -> {"params", "opt", "step"}
-  abstract_train_state(cfg, opt)   the same tree on the meta device (shapes
-                                   and dtypes, no storage; jax.eval_shape's
-                                   role), the `like` of a restore
-  make_train_step(cfg, opt)        (state, batch) -> (state, metrics): the
+  init_train_state(cfg, opt, seed, device, mesh=None)
+                                   -> {"params", "opt", "step"}; on a mesh
+                                   the global params are built from the
+                                   seed exactly as on one device, then the
+                                   rank keeps its shard
+  abstract_train_state(cfg, opt)   the global tree on the meta device
+                                   (shapes and dtypes, no storage;
+                                   jax.eval_shape's role), the `like` of a
+                                   restore
+  state_shardings(cfg, opt, mesh)  the spec of every leaf of the state
+                                   (params by model.param_axes, the
+                                   optimizer's by its state_axes, the step
+                                   replicated), under the config's rules
+  make_train_step(cfg, opt, mesh=None)
+                                   (state, batch) -> (state, metrics): the
                                    batch onto the params' device
                                    (`batch_to_device`), the loss and its
                                    gradient, `opt.update`, step + 1; the
@@ -14,14 +24,23 @@ Port of the single-device parts of src/repro/runtime/steps.py:
   make_prefill_step, make_decode_step  the serve steps over model.prefill
                                    and model.decode_step
 
-The step counter is a 0-d int32 tensor, as JAX's.  The sharding hooks,
-`jit_train_step` and the `lower_*` functions are XLA's (ROADMAP section 1,
-the XLA-only tooling and the sharded-training items).
+The step counter is a 0-d int32 tensor, as JAX's.
+
+On a mesh (runtime/mesh.Mesh) the step installs the mesh for the model
+code (models/sharding_hook), takes this data rank's rows of the batch
+(B % dp == 0), and computes its loss and the gradient of its shards; the
+gradients are then averaged over `data` (each data rank's loss is a mean
+over the same number of tokens, as JAX's global mean), the clipping norm
+is the whole gradient's (optim.Shards), and `opt.update` runs on the
+shard.  The metrics are the means over `data` (n_tokens the sum); the
+step's collectives and wire bytes per axis go to `mesh.step_traffic`.  JAX's
+GSPMD places the same collectives; `jit_train_step` and the `lower_*`
+functions are XLA's (ROADMAP section 1, the XLA-only tooling).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -29,29 +48,57 @@ from torch.overrides import TorchFunctionMode
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
-from repro_torch.optim.optimizers import Optimizer
+from repro_torch.models import sharding_hook as hook
+from repro_torch.optim.optimizers import Optimizer, Shards
 from repro_torch.pytree import leaves, unflatten
+from repro_torch.runtime.mesh import DATA_AXIS, POD_AXIS, Mesh
+from repro_torch.runtime.sharding import rules_for, shard_tree, spec_axes, tree_specs
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple)
+
+
+def state_shardings(cfg: ArchConfig, opt: Optimizer, mesh) -> Dict[str, Any]:
+    """The spec of every leaf of the train state on `mesh` (a Mesh or a
+    {axis: size} dict) under the config's rules: {"params", "opt" (trees
+    of specs), "step": ()}."""
+    axes = M.param_axes(cfg)
+    like = abstract_train_state(cfg, opt)
+    rules = rules_for(cfg)
+    return {"params": tree_specs(mesh, axes, like["params"], rules),
+            "opt": tree_specs(mesh, opt.state_axes(axes), like["opt"], rules),
+            "step": ()}
 
 
 def init_train_state(cfg: ArchConfig, opt: Optimizer, seed: int = 0,
-                     device: DeviceLike = "cuda") -> Dict[str, Any]:
+                     device: DeviceLike = "cuda", mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """Random params from `seed` (model.init), the optimizer's state and a
-    step of 0, on `device`."""
+    step of 0, on `device`; on a mesh, the rank's shard of each (the global
+    params drawn first, as on one device)."""
     M.require_ported(cfg)
     dev = resolve_device(device)
     params = M.init(cfg, seed, dev)
+    if mesh is not None:
+        M.check_mesh_supported(cfg, mesh)
+        params = shard_tree(params, state_shardings(cfg, opt, mesh)["params"], mesh)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 class _OnMeta(TorchFunctionMode):
     """Every factory call that names a device makes its tensor on the meta
-    device instead (no storage, no random draws)."""
+    device instead (no storage, no random draws: a draw becomes
+    `torch.empty`, whose meta form does not load torch's compiler stack as
+    the meta `randn` does, once in each process of a sharded run)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = dict(kwargs or {})
         if "device" in kwargs:
             kwargs["device"] = "meta"
+            if func is torch.randn:
+                kwargs.pop("generator", None)
+                func = torch.empty
         return func(*args, **kwargs)
 
 
@@ -71,11 +118,79 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def make_train_step(cfg: ArchConfig, opt: Optimizer) -> Callable:
+def _dp_axes(mesh: Mesh):
+    return tuple(a for a in (POD_AXIS, DATA_AXIS) if mesh.size(a) > 1)
+
+
+def data_shard(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This data rank's rows of every batch entry (the leading dim split
+    over `pod` x `data`, row-major)."""
+    idx, dp = 0, 1
+    for a in (POD_AXIS, DATA_AXIS):
+        idx, dp = idx * mesh.size(a) + mesh.index(a), dp * mesh.size(a)
+    if dp == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        b = v.shape[0]
+        if b % dp:
+            raise ValueError(f"batch entry {k!r}: B % dp == 0 is needed to split the batch "
+                             f"over the data axis ({b} % {dp})")
+        out[k] = v[idx * (b // dp):(idx + 1) * (b // dp)]
+    return out
+
+
+def _mesh_axes(spec, mesh: Mesh):
+    return tuple(a for a in spec_axes(spec) if mesh.size(a) > 1)
+
+
+def _mesh_norm(mesh: Mesh, flat_specs):
+    """The global norm of a sharded gradient: each leaf's sum of squares,
+    summed over the axes the leaf is sharded on (a replicated leaf once)."""
+    def norm(grads) -> torch.Tensor:
+        groups: Dict[Tuple[str, ...], list] = {}
+        for g, spec in zip(leaves(grads), flat_specs):
+            groups.setdefault(_mesh_axes(spec, mesh), []).append(g)
+        total = 0
+        for axes, gs in groups.items():
+            part = sum(torch.sum(g.float() ** 2) for g in gs)
+            for a in axes:
+                part = mesh.psum(part, a)
+            total = total + part
+        return torch.sqrt(total)
+    return norm
+
+
+def _average_over_data(mesh: Mesh, grads, flat_specs) -> list:
+    """The gradients' mean over the data axes, one psum for all the leaves;
+    a gradient whose leaf is sharded over a data axis (FSDP) already holds
+    the sum there (its gather's transpose) and is divided only."""
+    dp_axes = _dp_axes(mesh)
+    if not dp_axes:
+        return list(grads)
+    out = list(grads)
+    for a in dp_axes:
+        summed = [i for i, s in enumerate(flat_specs) if a not in spec_axes(s)]
+        if summed:
+            flat = torch.cat([out[i].reshape(-1).float() for i in summed])
+            flat = mesh.psum(flat, a)
+            at = 0
+            for i in summed:
+                n = out[i].numel()
+                out[i] = flat[at:at + n].view_as(out[i]).to(out[i].dtype)
+                at += n
+        out = [g / mesh.size(a) for g in out]
+    return out
+
+
+def make_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Optional[Mesh] = None) -> Callable:
     """One step: loss and gradient (model.loss_fn), `opt.update` in place,
     step + 1.  Returns (state, {"loss", "ce", "moe_aux", "n_tokens"}), the
-    metrics 0-d tensors without grad."""
+    metrics 0-d tensors without grad.  On a mesh, the rank's step of a
+    sharded run (see the module's docstring)."""
     M.require_ported(cfg)
+    if mesh is not None:
+        return _make_sharded_train_step(cfg, opt, mesh)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
@@ -91,6 +206,41 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer) -> Callable:
         with torch.no_grad():
             state["step"] += 1
         out = {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+        return state, out
+
+    return train_step
+
+
+def _make_sharded_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Mesh) -> Callable:
+    M.check_mesh_supported(cfg, mesh)
+    flat_specs = leaves(state_shardings(cfg, opt, mesh)["params"], is_leaf=_is_spec)
+    shards = Shards(norm=_mesh_norm(mesh, flat_specs),
+                    sharded=tuple(bool(_mesh_axes(s, mesh)) for s in flat_specs))
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        before = {a: list(c) for a, c in mesh.traffic.items()}
+        params = state["params"]
+        flat = leaves(params)
+        batch = batch_to_device(data_shard(batch, mesh), flat[0].device)
+        with torch.enable_grad(), hook.installed(mesh):
+            for p in flat:
+                p.requires_grad_(True)
+            loss, metrics = M.loss_fn(cfg, params, batch)
+            grads = torch.autograd.grad(loss, flat)
+        grads = _average_over_data(mesh, grads, flat_specs)
+        opt.update(unflatten(params, grads), state["opt"], params, state["step"], shards)
+        del grads
+        with torch.no_grad():
+            state["step"] += 1
+            means = torch.stack([loss.detach(), metrics["ce"].detach(),
+                                 metrics["moe_aux"].detach().float()])
+            n_tokens = metrics["n_tokens"].detach()
+            for a in _dp_axes(mesh):
+                means = mesh.psum(means, a) / mesh.size(a)
+                n_tokens = mesh.psum(n_tokens, a)
+        out = {"loss": means[0], "ce": means[1], "moe_aux": means[2], "n_tokens": n_tokens}
+        mesh.step_traffic = {a: [n - before.get(a, [0, 0])[0], b - before.get(a, [0, 0])[1]]
+                             for a, (n, b) in mesh.traffic.items()}
         return state, out
 
     return train_step

@@ -129,7 +129,9 @@ for lm in ("repro_torch.configs.gemma_2b", "repro_torch.models.model",
            "repro_torch.models.moe", "repro_torch.configs.granite_moe_1b_a400m",
            "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.phi3_vision_4p2b",
            "repro_torch.configs.hubert_xlarge", "repro_torch.configs.zamba2_1p2b",
-           "repro_torch.models.ssm"):
+           "repro_torch.models.ssm", "repro_torch.runtime.mesh",
+           "repro_torch.runtime.sharding", "repro_torch.models.sharding_hook",
+           "repro_torch.models.moe_a2a"):
     assert lm in names, lm
 assert not bad, bad
 """

@@ -437,9 +437,11 @@ def test_max_restarts_and_refusals(tmp_path):
     assert len([e for e in r.events if e["kind"] == "fault"]) == 3
     rc = RunnerConfig(str(tmp_path / "x"))
     cfg = get_smoke_config("olmo_1b")
-    for mesh in ("2x4", (1, 8)):
+    for mesh in ("2x4", (1, 8)):  # a family the sharded path does not run
         with pytest.raises(NotImplementedError, match="sharded-training"):
-            TrainRunner(cfg, mesh, adamw(1e-3), rc, device="cpu")
+            TrainRunner(get_smoke_config("xlstm_1p3b"), mesh, adamw(1e-3), rc, device="cpu")
+    with pytest.raises(ValueError, match="Mesh"):  # a dense run: on the ranks of a Mesh
+        TrainRunner(cfg, "2x4", adamw(1e-3), rc, device="cpu")
     xl = TrainRunner(get_smoke_config("xlstm_1p3b"), None, adamw(1e-3), rc, device="cpu")
     assert xl.init_state()["params"]["slstm"]["mixer"]["r_i"].shape[0] == 2
     with pytest.raises(ValueError, match="slstm_every"):
@@ -514,8 +516,8 @@ def test_cli_trains_xlstm_with_a_fault_and_replay_on_cpu(tmp_path, capsys):
     (["--arch", "xlstm_1p3b", "--n-layers", "3"], "--n-layers"),  # slstm_every is 2
     (["--arch", "zamba2_1p2b", "--n-layers", "1"], "--n-layers"),  # below attn_every
     (["--arch", "hubert_xlarge", "--n-layers", "3"], "--n-layers"),  # its smoke config has 2
-    (["--mesh", "2x4"], "sharded-training"),
-    (["--rescale-mesh", "4x2"], "sharded-training"),
+    (["--arch", "xlstm_1p3b", "--mesh", "2x4"], "sharded-training"),
+    (["--arch", "hubert_xlarge", "--rescale-mesh", "4x2"], "sharded-training"),
     (["--n-layers", "3"], "--n-layers"),  # the olmo smoke config has 2
 ])
 def test_cli_refusals(argv, match):

@@ -1,0 +1,366 @@
+"""Rank functions of the port's multi-rank tests (tests/test_torch_mesh.py,
+tests/test_torch_sharded_train.py, tests/test_torch_moe_a2a.py).
+
+Each runs on every rank of a world that runtime/mesh.launch spawns (gloo,
+CPU tensors), builds the meshes it needs over the world's first ranks,
+and returns rank 0's results as numpy arrays and floats.  This module
+imports torch and the port only: the ranks never load jax or the JAX
+package (`hygiene` checks that from inside a rank).
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.runtime import mesh as mesh_mod
+
+MESHES = ((1, 2), (2, 1), (2, 2))
+
+
+def inputs(seed: int, rank: int, shape) -> np.ndarray:
+    """The float64 input of `rank` (numpy, from a seed)."""
+    return np.random.default_rng([seed, rank]).standard_normal(shape)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().float().numpy() if t.dtype == torch.bfloat16 else \
+        t.detach().cpu().numpy()
+
+
+def _on_rank0(mesh, value):
+    """Every mesh rank's value, gathered on mesh rank 0 (None elsewhere)."""
+    got = mesh.all_gather_object(value)
+    return got if mesh.rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# The mesh's collectives (tests/test_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _collectives(mesh, axis: str) -> dict:
+    r = mesh.rank
+    x = _t(inputs(1, r, (4, 6)))
+    out = {
+        "psum": mesh.psum(x, axis), "pmax": mesh.pmax(x, axis),
+        "all_gather0": mesh.all_gather_tiled(x, axis, 0),
+        "all_gather1": mesh.all_gather_tiled(x, axis, 1),
+        "psum_scatter0": mesh.psum_scatter_tiled(x, axis, 0),
+        "psum_scatter1": mesh.psum_scatter_tiled(x, axis, 1),
+        "all_to_all": mesh.all_to_all_tiled(x, axis),
+        "psum_bf16": mesh.psum(x.to(torch.bfloat16), axis),
+        "broadcast": mesh.broadcast(x),
+    }
+    n = mesh.size(axis)
+    rep = _t(inputs(3, 0, (4, 6)))  # replicated over the mesh
+
+    def grad_of(fn, x0, c):
+        x0 = x0.clone().requires_grad_(True)
+        y = fn(x0)
+        (y * c).sum().backward()
+        return x0.grad
+
+    grads = {
+        "all_gather": grad_of(lambda v: mesh_mod.all_gather(v, mesh, axis, 0), x,
+                              _t(inputs(2, r, (4 * n, 6)))),
+        "psum_scatter": grad_of(lambda v: mesh_mod.psum_scatter(v, mesh, axis, 0), x,
+                                _t(inputs(2, r, (4 // n, 6)))),
+        "all_to_all": grad_of(lambda v: mesh_mod.all_to_all(v, mesh, axis), x,
+                              _t(inputs(2, r, (4, 6)))),
+        "f": grad_of(lambda v: mesh_mod.f(v, mesh, axis), rep, _t(inputs(2, r, (4, 6)))),
+        "g": grad_of(lambda v: mesh_mod.g(v, mesh, axis), x, _t(inputs(4, 0, (4, 6)))),
+        "split": grad_of(lambda v: mesh_mod.split(v, mesh, axis, 1), rep,
+                         _t(inputs(2, r, (4, 6 // n)))),
+        "gather": grad_of(lambda v: mesh_mod.gather(v, mesh, axis, 1), x,
+                          _t(inputs(4, 0, (4, 6 * n)))),
+    }
+    w = _t(inputs(5, r, (3,)))
+    x3 = _t(inputs(6, 0, (3,))).requires_grad_(True)
+    w4 = _t(inputs(5, r, (4,)))
+    x4 = _t(inputs(6, 0, (4,))).requires_grad_(True)
+    checks = {
+        "f_g": torch.autograd.gradcheck(
+            lambda v: mesh_mod.g(mesh_mod.f(v, mesh, axis) * w, mesh, axis), (x3,)),
+        "split_gather": torch.autograd.gradcheck(
+            lambda v: mesh_mod.gather(mesh_mod.split(v, mesh, axis, 0)
+                                      * mesh_mod.split(w4, mesh, axis, 0), mesh, axis, 0),
+            (x4,)),
+    }
+    return {"out": {k: _np(v) for k, v in out.items()},
+            "grad": {k: _np(v) for k, v in grads.items()}, "gradcheck": checks,
+            "coords": mesh.coords}
+
+
+def collectives(mesh0) -> dict:
+    """For each of MESHES and each axis: every rank's outputs, gradients
+    and gradchecks (the references are computed by the test)."""
+    results = {}
+    for shape in MESHES:
+        mesh = mesh_mod.make_mesh(shape)
+        if mesh is None:
+            continue
+        per_axis = {a: _collectives(mesh, a) for a in ("data", "model")}
+        got = _on_rank0(mesh, per_axis)
+        if got is not None:
+            results[shape] = got
+    return results
+
+
+def hygiene(mesh0) -> list:
+    """Import every module of the sharded path in this rank; the jax and
+    JAX-package modules then loaded."""
+    import importlib
+
+    for name in ("repro_torch.runtime.mesh", "repro_torch.runtime.sharding",
+                 "repro_torch.models.sharding_hook", "repro_torch.models.moe_a2a",
+                 "repro_torch.runtime.steps", "repro_torch.runtime.runner",
+                 "repro_torch.launch.train", "repro_torch.checkpoint.manager"):
+        importlib.import_module(name)
+    return sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
+
+
+# ---------------------------------------------------------------------------
+# Sharded training (tests/test_torch_sharded_train.py)
+# ---------------------------------------------------------------------------
+
+
+def _sharded_params(cfg, tree, mesh, opt):
+    from repro_torch.convert import lm_params_shard_from_numpy
+    from repro_torch.runtime import steps
+
+    specs = steps.state_shardings(cfg, opt, mesh)["params"]
+    return lm_params_shard_from_numpy(cfg, tree, mesh, "cpu"), specs
+
+
+def _full(tree, specs, mesh):
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import sharding
+
+    return [_np(t) for t in leaves(sharding.unshard_tree(tree, specs, mesh))]
+
+
+def _loss_and_grads(cfg, tree, batch, mesh) -> dict:
+    from repro_torch.models import model as M
+    from repro_torch.optim import sgd
+    from repro_torch.pytree import leaves, unflatten
+    from repro_torch.runtime import steps
+
+    params, specs = _sharded_params(cfg, tree, mesh, sgd(0.0))
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    local = steps.batch_to_device(steps.data_shard(batch, mesh), "cpu")
+    loss, metrics = M.loss_fn(cfg, params, local, mesh=mesh)
+    grads = torch.autograd.grad(loss, flat)
+    flat_specs = leaves(specs, is_leaf=lambda s: isinstance(s, tuple))
+    grads = steps._average_over_data(mesh, grads, flat_specs)
+    vals = torch.stack([loss.detach(), metrics["ce"].detach(), metrics["moe_aux"].detach()])
+    for a in ("data",):
+        vals = mesh.psum(vals, a) / mesh.size(a)
+    full = _full(unflatten(params, grads), specs, mesh)
+    return {"loss": float(vals[0]), "ce": float(vals[1]), "moe_aux": float(vals[2]),
+            "grads": full}
+
+
+def _steps(cfg, tree, batches, mesh, opt) -> dict:
+    from repro_torch.runtime import steps
+
+    params, specs = _sharded_params(cfg, tree, mesh, opt)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    step = steps.make_train_step(cfg, opt, mesh)
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "params": _full(state["params"], specs, mesh)}
+
+
+def sharded_train(mesh0, job: dict) -> dict:
+    """Per arch and mesh of job["cases"]: the loss and gradient of one
+    batch and three SGD steps (losses, params), at 2x2 also three AdamW
+    steps (losses), from the same numpy params; then the runner's fault and replay at 2x2,
+    checkpoints across meshes (job["ckpt"])."""
+    from repro_torch.optim import adamw, sgd
+
+    out = {}
+    for name, case in job["cases"].items():
+        cfg, tree, batches = case["cfg"], case["params"], case["batches"]
+        for shape in case["meshes"]:
+            mesh = mesh_mod.make_mesh(shape)
+            if mesh is None:
+                continue
+            res = {"grad": _loss_and_grads(cfg, tree, batches[0], mesh),
+                   "sgd": _steps(cfg, tree, batches, mesh, sgd(job["sgd_lr"]))}
+            if shape == (2, 2):
+                res["adamw"] = _steps(cfg, tree, batches, mesh, adamw(job["adamw_lr"]))
+            if mesh.rank == 0:
+                out[(name, shape)] = res
+    out["ckpt"] = _checkpoints(job["ckpt"])
+    out["slow_write"] = _slow_write(job["slow_write"])
+    return out
+
+
+def _runner(cfg, mesh, ckpt_dir, opt, fault_at=-1):
+    from repro_torch.runtime.runner import RunnerConfig, TrainRunner
+
+    hit = {"done": False}
+
+    def hook(step):
+        if step == fault_at and not hit["done"]:
+            hit["done"] = True
+            raise RuntimeError(f"injected node failure at step {step}")
+
+    return TrainRunner(cfg, mesh, opt, RunnerConfig(ckpt_dir, ckpt_every=2, log_every=1),
+                       fault_hook=hook if fault_at >= 0 else None)
+
+
+def _checkpoints(job: dict) -> dict:
+    """At 2x2: 4 steps, a checkpoint every 2, a fault at 3 (restore 2,
+    replay); the checkpoint of step 4 restored at 1x2, 2x1 and 1x1, each
+    rank's shard against the file's whole tensors; the 1x1 checkpoint in
+    job["from_1x1"] restored at 2x2 likewise."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import sharding, steps
+
+    cfg, batches = job["cfg"], job["batches"]
+    opt = adamw(1e-3)
+    like = steps.abstract_train_state(cfg, opt)
+    res = {}
+    mesh = mesh_mod.make_mesh((2, 2))
+    runner = _runner(cfg, mesh, job["dir"], opt, fault_at=3)
+    losses = []
+    runner.run(lambda s: batches[s % len(batches)], 4,
+               metrics_cb=lambda s, m: losses.append([s - 1, m["loss"]]))
+    if mesh.rank == 0:
+        res["losses"] = losses
+        res["faults"] = len([e for e in runner.events if e["kind"] == "fault"])
+        res["ckpt_steps"] = runner.ckpt.steps()
+
+    def held(mesh, directory, step):
+        """Every rank's restored shard equals its cut of the file's tree."""
+        r = _runner(cfg, mesh, directory, opt)
+        state = r.restore_or_init(step=step)
+        whole = load_pytree(r.ckpt.path(step), like)
+        specs = steps.state_shardings(cfg, opt, mesh)
+        want = sharding.shard_tree(whole, specs, mesh)
+        ok = all(torch.equal(a, b) for a, b in zip(leaves(state), leaves(want)))
+        ok = ok and int(state["step"]) == step
+        got = mesh.all_gather_object(bool(ok))
+        return all(got)
+
+    for shape in ((1, 2), (2, 1), (1, 1), (2, 2)):
+        m = mesh_mod.make_mesh(shape)
+        if m is not None:
+            ok = held(m, job["dir"], 4)
+            if m.rank == 0:
+                res[("from_2x2", shape)] = ok
+    m = mesh_mod.make_mesh((2, 2))
+    ok = held(m, job["from_1x1"], job["from_1x1_step"])
+    if m.rank == 0:
+        res[("from_1x1", (2, 2))] = ok
+    return res
+
+
+def _slow_write(job: dict) -> bool:
+    """Checkpoint writes slower than the mesh groups' timeout (a 2x2 mesh
+    whose groups time out after job["timeout_s"] seconds, rank 0's every
+    write sleeping job["sleep_s"] first): an async save, a blocking save
+    (which waits for the first write, then writes) and a restore.  True
+    when every rank got its shard of step 2 back (a rank whose collective
+    timed out raises instead)."""
+    import datetime
+    import time
+    from unittest import mock
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.runtime import sharding
+
+    with mock.patch.object(mesh_mod, "GROUP_TIMEOUT",
+                           datetime.timedelta(seconds=job["timeout_s"])):
+        mesh = mesh_mod.make_mesh((2, 2))
+    specs = {"b": (None,), "w": ("model", "data")}
+    whole = {"b": torch.arange(3.0), "w": torch.arange(16.0).reshape(4, 4)}
+    tree = sharding.shard_tree(whole, specs, mesh)
+    write = manager.save_pytree
+
+    def slow(path, t):
+        time.sleep(job["sleep_s"])
+        write(path, t)
+
+    with mock.patch.object(manager, "save_pytree", slow):
+        ck = manager.CheckpointManager(job["dir"], mesh=mesh, specs=specs)
+        ck.save(1, tree, blocking=False)
+        ck.save(2, tree, blocking=True)
+        got, step = ck.restore(whole)
+    ok = step == 2 and all(torch.equal(got[k], tree[k]) for k in whole)
+    return all(mesh.all_gather_object(bool(ok)))
+
+
+def pid(mesh0) -> tuple:
+    """This rank's process id and its mesh."""
+    import os
+
+    return os.getpid(), mesh0.describe()
+
+
+# ---------------------------------------------------------------------------
+# The all-to-all MoE layer (tests/test_torch_moe_a2a.py)
+# ---------------------------------------------------------------------------
+
+
+def _moe_case(mesh, params_np, x_np, *, top_k, cf, wire, grads: bool) -> dict:
+    from repro_torch.models.moe_a2a import apply_moe_a2a
+    from repro_torch.pytree import leaves, unflatten
+    from repro_torch.runtime import sharding, steps
+
+    e = params_np["router"].shape[1]
+    specs = {"router": (None, None), "wi": ("model", None, None), "wg": ("model", None, None),
+             "wo": ("model", None, None)}
+    if "shared" in params_np:
+        specs["shared"] = {"wi": (None, None), "wg": (None, None), "wo": (None, None)}
+    full = {k: ({kk: _t(vv).float() for kk, vv in v.items()} if isinstance(v, dict)
+                else _t(v).float()) for k, v in params_np.items()}
+    params = sharding.shard_tree(full, specs, mesh)
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(grads)
+    x = steps.data_shard({"x": _t(x_np).float()}, mesh)["x"]
+    with torch.enable_grad():
+        out, aux = apply_moe_a2a(mesh, params, x, top_k=top_k, n_experts=e,
+                                 capacity_factor=cf, wire_dtype=wire)
+    res = {"out": _np(mesh.all_gather_tiled(out.detach(), "data", 0)), "aux": float(aux.detach())}
+    if grads:
+        dp = mesh.size("data")
+        loss = dp * torch.sum(out ** 2) + 0.01 * aux
+        g = torch.autograd.grad(loss, flat)
+        g = steps._average_over_data(mesh, g, leaves(specs, is_leaf=lambda s: isinstance(s, tuple)))
+        res["grads"] = _full(unflatten(params, g), specs, mesh)
+    return res
+
+
+def moe_a2a(mesh0, job: dict) -> dict:
+    """Per mesh of job["meshes"] and case of job["cases"]: the layer's
+    output (gathered over data), aux and (with grads) the parameters'
+    gradients of sum(out^2) + 0.01 aux, whole."""
+    out = {}
+    for shape in job["meshes"]:
+        mesh = mesh_mod.make_mesh(shape)
+        if mesh is None:
+            continue
+        for name, c in job["cases"].items():
+            res = _moe_case(mesh, job["params"], job["x"], top_k=job["top_k"], cf=c["cf"],
+                            wire=c["wire"], grads=c["grads"])
+            if mesh.rank == 0:
+                out[(name, shape)] = res
+    return out
