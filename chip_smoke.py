@@ -143,7 +143,7 @@ and fails (non-zero exit, no result line) if any of them fails:
    - MoE training: launch/train at granite-moe's full width, depth cut to
      MOE_TRAIN_LAYERS, MOE_STEPS steps of 4 x 2048 tokens (AdamW, cosine
      warmup), checkpoints every MOE_CKPT_EVERY, a fault at MOE_FAULT_AT,
-     the rescale reload: 2 K2 launches a layer a step (12 at 6 layers),
+     the rescale reload: 2 K2 launches a layer a step (8 at 4 layers),
      the first replayed loss exactly the first pass's,
      the first step's loss against its plain-attention twin
      (MOE_LOSS_RTOL; its gradients and routes printed), one step
@@ -175,6 +175,23 @@ and fails (non-zero exit, no result line) if any of them fails:
      row-parallel output without its psum and the data-parallel
      gradients unaveraged each rejected (SHARDED line; step times beside
      the transport, which they measure);
+   - the paper's engine one agent a rank, in the same world (DICT_MESH,
+     dict_mesh_world / phase_dict_mesh): `graph` at 1x4 with each rank's
+     block (1, 8192, 16384), B 16, 150 iterations, `exact_fista` at 2x2
+     (the samples over two data ranks) and `hier` at 2x1x2 (pod x model),
+     each against the one-process coder on the card in this process (nu,
+     y and W after fit_batch at DM_RTOL; at 2x2 W's update beside its
+     fp32 rounding), K1 launched (iters + 1) times a solve on every rank,
+     every rank's wire bytes a solve equal to wire_bytes_per_iter, and two
+     planted faults rejected (a dropped graph round; fit_batch without its
+     data sum); serve_dict's rank body at 1x4 over gloo_staged, 32
+     samples, learning on: every code finite, some nonzero, the final
+     dictionary a one-process replay of rank 0's fits, K1 per rank (iters
+     + 1) x engine calls; serve_dict on a 1x1 mesh over nccl (its rank
+     this process) bit for bit the run without a mesh (codes; the learned
+     dictionary against its replay).  Times of the mesh beside the one
+     process measure the transport and four contexts time-slicing the
+     card;
    - VLM serving: the port's serve at phi-3-vision-4.2b's full width and
      depth (3.73e9 params, bf16), 4 prompts of 2048 tokens after 576
      image positions, VLM_GEN greedy tokens, a cache of 576 + 2048 +
@@ -290,7 +307,7 @@ and fails (non-zero exit, no result line) if any of them fails:
      PSNR finite and each denoised PSNR above the noisy one.
    - the twins of examples/, at the JAX scripts' sizes but for the depth
      TWIN_CUTS sets (quickstart 2 epochs, denoise_image 1000 patches,
-     novel_docs 2 steps, train_lm 4 of 12 layers): quickstart,
+     novel_docs 2 steps, train_lm 2 of 12 layers): quickstart,
      denoise_image and novel_docs launch no kernel; graph_gossip and
      multi_pod run the port's coder, exactly iters + 1 K1 calls a solve;
      train_lm (LM_100M, fp32, 300 steps) exactly 2 K2 launches a layer a
@@ -310,6 +327,7 @@ import itertools
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -475,7 +493,7 @@ KILL_SEED = 0
 # with a planted dictionary of LEARN_K_TRUE atoms (its width does not change
 # the samples' statistics, and drawing 262144 planted atoms costs the host
 # some 40 s).
-LEARN_MU_W, LEARN_STEPS, LEARN_DIFFUSION_STEPS, LEARN_K_TRUE = 0.1, 4, 2, 4096
+LEARN_MU_W, LEARN_STEPS, LEARN_DIFFUSION_STEPS, LEARN_K_TRUE = 0.1, 2, 2, 4096
 # Card against CPU: one fit_batch per engine from one numpy state at the
 # production Kb/M = 2 (M 512, K 16384, N 16).  Both run the same fp32
 # arithmetic with sums in another order (cuBLAS against the CPU's BLAS):
@@ -539,13 +557,14 @@ ADAMW_SHARE, ADAMW_FLIP = 1e-3, 0.5
 # MOE_FAULT_AT, the rescale reload, with the depth cut to MOE_TRAIN_LAYERS
 # (full depth until xLSTM training needed the room: 100.2 s of the script,
 # its 16.0 GB state written twice and read twice; 12 layers until the
-# sharded phase needed it: its gates do not scale with depth).  Its attention: one K2
+# sharded phase needed it, 6 until DICT_MESH did: its gates do not scale
+# with depth).  Its attention: one K2
 # launch a layer a prefill, two a layer a step; FA_MOE, bf16, causal, on
 # wgmma_tma.  It
 # dispatches 16 groups of 512 tokens, 160 places an expert a group; a
 # decode step one group of 4 tokens, 1 place.
 MOE_ARCH = "granite_moe_1b_a400m"
-MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT, MOE_TRAIN_LAYERS = 8, 4, 6, 6
+MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT, MOE_TRAIN_LAYERS = 8, 4, 6, 4
 FA_MOE = (LM_BATCH, 16, 8, LM_PROMPT, LM_PROMPT, 64)
 # kimi-k2-1t-a32b at full width (d 7168, 64 query heads over 8 KV heads of
 # 112, 384 experts top-8 of d_ff 2048 and one shared expert, a dense first
@@ -612,8 +631,9 @@ FA_VLM_TRAIN = (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 96)
 # AUDIO_FAULT_AT, with the depth cut from 48 layers to AUDIO_TRAIN_LAYERS
 # to keep the whole script well inside its time limit (at 48 layers the
 # phase took 75.9 s and the script 1094.2 s of its 1200; at 24, 38.9 s and
-# 1162.0 with xLSTM training; 12 until the sharded phase needed the room).
-AUDIO_ARCH, AUDIO_TRAIN_LAYERS = "hubert_xlarge", 6
+# 1162.0 with xLSTM training; 12 until the sharded phase needed the room,
+# 6 until DICT_MESH did).
+AUDIO_ARCH, AUDIO_TRAIN_LAYERS = "hubert_xlarge", 4
 AUDIO_STEPS, AUDIO_CKPT_EVERY, AUDIO_FAULT_AT = 4, 2, 3
 FA_AUDIO = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 80)
 # The first training step's gradient against its plain-attention twin,
@@ -634,10 +654,11 @@ TWIN_GRAD_FLOOR = GRAD_BF16_TOL
 # script inside its limit on a slow host.  Every check is kept.  train_lm
 # keeps the script's 300 steps (at 100 its loss fell only 7.41 -> 6.79,
 # short of the twin's gate, a fall of more than 1.0: the cosine schedule
-# is set by the steps) and is cut to 4 of LM_100M's 12 layers instead.
+# is set by the steps) and is cut to 2 of LM_100M's 12 layers instead (4
+# until DICT_MESH needed the room).
 TWIN_CUTS = {"quickstart": {"epochs": 2}, "denoise_image": {"n_patches": 1000},
              "novel_docs": {"n_steps": 2}, "graph_gossip": {}, "multi_pod": {},
-             "train_lm": {"n_layers": 4}}
+             "train_lm": {"n_layers": 2}}
 TWIN_LM_STEPS = 300  # train_lm.run's default
 EXPERIMENT_CUTS = {"table3_auc": {"n_steps": 1}, "fig5_denoise": {"n_patches": 300}}
 
@@ -1010,7 +1031,54 @@ def phase_kernels(torch):
         raise AssertionError(f"dict_dual_step launches {rec['grid']} CTAs per pass, < 128")
     del W, nu
     torch.cuda.empty_cache()
+    rec["per_rank"] = k1_per_rank(torch)
     return rec
+
+
+def k1_per_rank(torch) -> dict:
+    """K1 at the block one rank of a mesh holds (DICT_MESH: one agent a
+    rank, (1, M, ATOMS_PER_AGENT), B = MICRO_BATCH) against its plain
+    version on the same inputs (the main shape's gates), timed, with its
+    CTAs per pass and its bound; printed, and not held to the 128-CTA
+    floor of the main shape (one agent launches 1/16 of its CTAs)."""
+    from repro_torch.kernels.dict_dual_step import ops, ref
+
+    shape = (1, M, ATOMS_PER_AGENT, MICRO_BATCH)
+    n, m, kb, b = shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    W = torch.randn(n, m, kb, device="cuda", generator=gen)
+    W /= torch.linalg.vector_norm(W, dim=1, keepdim=True)
+    nu = torch.randn(n, b, m, device="cuda", generator=gen)
+    y, g = ops.dict_dual_step(W, nu, gamma=GAMMA, delta=DELTA)
+    yr, gr = ref.dict_dual_step_ref(W, nu, gamma=GAMMA, delta=DELTA)
+    y_tol = 1e-4 * float(torch.matmul(nu, W).abs().max()) / DELTA
+    y_err, g_rel = max_err(y, yr), max_err(g, gr) / float(gr.abs().max())
+    if not (y_err <= y_tol and g_rel <= 1e-4):
+        raise AssertionError(f"dict_dual_step at a rank's block {shape}: max|dY| {y_err}, "
+                             f"max|dG|/max|G| {g_rel}")
+    del y, g, yr, gr
+
+    def kernel():
+        return ops.dict_dual_step(W, nu, gamma=GAMMA, delta=DELTA)
+
+    def plain():
+        return ref.dict_dual_step_ref(W, nu, gamma=GAMMA, delta=DELTA)
+
+    k1, p1, p2, k2 = (time_ms(torch, kernel, 20), time_ms(torch, plain, 5),
+                      time_ms(torch, plain, 5), time_ms(torch, kernel, 20))
+    nbytes = 4 * (n * m * kb + 2 * n * b * m + n * b * kb)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = 4 * n * b * m * kb / FP32_FLOPS_PER_S * 1e3
+    out = {"shape": list(shape), "grid": list(ops.ctas(*shape)), "ms": (k1 + k2) / 2,
+           "plain_ms": (p1 + p2) / 2, "bound_ms": max(bytes_ms, flops_ms),
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+           "max_abs_err": y_err}
+    print(f"[kernels] dict_dual_step at a rank's block {shape} (DICT_MESH): CTAs per pass "
+          f"{out['grid']}, kernel_ms {k1:.4f} {k2:.4f}  plain_ms {p1:.4f} {p2:.4f}  bound_ms "
+          f"{out['bound_ms']:.4f} ({out['bound_by']})")
+    del W, nu
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_flash_attention(torch):
@@ -5238,8 +5306,9 @@ def sharded_world(mesh, job: dict) -> dict:
     this 2x2 mesh and for granite-moe on the 1x2 mesh of ranks 0-1 (the
     others idle) with its 2x1 reload; then the a2a layer at granite's
     widths on that 1x2 mesh against moe_ref; then the olmo SMOKE config's
-    three SGD steps at 2x2, clean and with each planted fault.  Rank 0
-    returns the runs and the readings."""
+    three SGD steps at 2x2, clean and with each planted fault; then the
+    paper's engine one agent a rank (dict_mesh_world).  Rank 0 returns the
+    runs and the readings."""
     import torch
 
     from repro_torch.launch import train
@@ -5317,6 +5386,8 @@ def sharded_world(mesh, job: dict) -> dict:
                  leaves(sharding.unshard_tree(state["params"], specs, mesh))]
         if mesh.rank == 0:
             out[name] = {"losses": losses, "params": whole}
+    del state
+    out["dict_mesh"] = dict_mesh_world(mesh, job["dict_mesh"])
     return out
 
 
@@ -5325,12 +5396,13 @@ def _param_readings(got, want) -> list:
     return [rel_err(g, w) for g, w in zip(got, want)]
 
 
-def phase_sharded(torch, card: str) -> dict:
+def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     """The SHARDED gates (see SHARD_ARCH's comment): one gloo_staged world
-    of 4 ranks (sharded_world) and launch/train on a 1x1 mesh over nccl,
-    held against runs on one device without a mesh.  Prints "[sharded ...]" lines and one
-    SHARDED JSON line; returns the record (K2 launches per rank and
-    path)."""
+    of 4 ranks (sharded_world, then dict_mesh_world on `dm_job`) and
+    launch/train on a 1x1 mesh over nccl, held against runs on one device
+    without a mesh.  Prints "[sharded ...]" lines and one SHARDED JSON line;
+    returns the record (K2 launches per rank and path) with the world's
+    DICT_MESH results under "dict_mesh_world" (for phase_dict_mesh)."""
     import shutil
 
     from repro_torch.configs import cut_depth, get_config, get_smoke_config
@@ -5342,6 +5414,8 @@ def phase_sharded(torch, card: str) -> dict:
     root = ROOT / "build" / "chip_smoke_sharded"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
+    shutil.rmtree(dm_job["dir"], ignore_errors=True)
+    pathlib.Path(dm_job["dir"]).mkdir(parents=True)
     cfg = cut_depth(get_config(SHARD_ARCH), SHARD_LAYERS)
     moe_cfg = cut_depth(get_config(SHARD_MOE_ARCH), SHARD_LAYERS)
     batches = train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
@@ -5368,14 +5442,14 @@ def phase_sharded(torch, card: str) -> dict:
     # with its --mesh 2x2 / 1x2 arguments), the a2a layer, the planted runs.
     t0 = time.perf_counter()
     res = mesh_mod.launch(sharded_world, (2, 2), transport=SHARD_TRANSPORT, device="cuda",
-                          timeout=900, args=({
+                          timeout=900, kernels=("flash_attention", "dict_dual_step"), args=({
                               "olmo": cli_rank_args(sgd_argv + ["--mesh", "2x2", "--transport",
                                                                 SHARD_TRANSPORT], root / "2x2"),
                               "granite": cli_rank_args(moe_argv + ["--mesh", "1x2", "--transport",
                                                                    SHARD_TRANSPORT], root / "moe"),
                               "smoke_cfg": smoke, "smoke_batches": smoke_batches,
                               "smoke_lr": 0.5, "a2a_widths": SHARD_A2A_WIDTHS,
-                              "a2a_tokens": SHARD_A2A_SHAPE},))
+                              "a2a_tokens": SHARD_A2A_SHAPE, "dict_mesh": dm_job},))
     rec["world_s"] = time.perf_counter() - t0
     out22, outm = res["olmo"], res["granite"]
     print_sharded_run("olmo-1b 2x2", out22)
@@ -5488,7 +5562,365 @@ def phase_sharded(torch, card: str) -> dict:
                        "granite-moe 1x2 train": sum(outm["k2_launches"]),
                        "granite-moe 2x1 reload step": sum(rescale_k2["k2_launches"])}
     print("SHARDED " + json.dumps(rec))
+    rec["dict_mesh_world"] = res["dict_mesh"]
     return rec
+
+
+# DICT_MESH: the paper's engine one agent a rank (runtime/mesh.py,
+# runtime/comm.py's mesh wire), in the SHARDED phase's world (4 ranks
+# sharing the card over gloo_staged): each case (tag, mesh, agents, config,
+# with a fit, planted fault) against the one-process coder in this process.
+DM_AGENTS, DM_MU_W, DM_SAMPLES = 4, 0.1, 32
+DM_RTOL = 1e-5  # nu, y, W: max |mesh - one process| / max |one process|
+# 2x2: W's update (W2 - W) within DM_UPDATE_RTOL of the one process's
+# beyond 4 fp32 half-ulps of W (W2 is stored in fp32: an update of a few
+# 1e-6 against |W| ~ 0.05 is not known finer than that)
+DM_UPDATE_RTOL = 1e-4
+DM_CASES = (
+    ("graph 1x4", "1x4", DM_AGENTS, {"mode": "graph", "topology": "ring_metropolis"}, True,
+     "a dropped graph round"),
+    ("exact_fista 2x2", "2x2", 2, {"mode": "exact_fista"}, True,
+     "fit_batch without its data sum"),
+    ("hier 2x1x2", "2x1x2", (2, 2), {"mode": "hier", "topology": "ring_metropolis",
+                                     "pod_topology": "ring_metropolis",
+                                     "pod_gossip_every": 2}, False, None),
+)
+DM_DIR = ROOT / "build" / "chip_smoke_dict_mesh"
+
+
+def dict_mesh_streams(submit) -> dict:
+    """DICT_MESH's serve_dict streams (serve_dict's draws at K = 4 x and 1 x
+    the agent width, seed 1), each a future of `submit(fn, *args, **kw)`."""
+    from repro_torch.data.synthetic import sparse_stream
+
+    return {key: submit(sparse_stream, DM_SAMPLES, m=M, k_true=n * ATOMS_PER_AGENT,
+                        nonneg=False, seed=1) for key, n in (("X14", DM_AGENTS), ("X11", 1))}
+
+
+def dict_mesh_job(streams: dict) -> dict:
+    """What the DICT_MESH phase takes: its directory, the coder cases' rows
+    (the gossip phase's planted stream), the drawn serve streams."""
+    from repro_torch.data.synthetic import sparse_stream
+
+    return {"dir": str(DM_DIR), "x": sparse_stream(MICRO_BATCH, m=M, k_true=LEARN_K_TRUE, seed=1),
+            **{key: f.result() for key, f in streams.items()}}
+
+
+def dm_serve_argv(mesh: str, transport=None, learn: bool = True):
+    """serve_dict's flags of the DICT_MESH runs (exact_fista: it codes at
+    this width, graph does not)."""
+    return ["--mode", "exact_fista", "--m", str(M), "--atoms-per-agent", str(ATOMS_PER_AGENT),
+            "--mesh", mesh, "--samples", str(DM_SAMPLES), "--micro-batch", str(MICRO_BATCH),
+            "--iters", str(ITERS), "--gamma", str(GAMMA), "--delta", str(DELTA),
+            "--device", "cuda", "--json"] + (["--transport", transport] if transport else []) \
+        + ([] if learn else ["--no-learn"])
+
+
+def given_stream(X):
+    """A stand-in for serve_dict's `sparse_stream` that returns the rows X
+    drawn ahead (the same call's)."""
+    def stream(n, **kw):
+        return X[:n]
+    return stream
+
+
+def drop_last_round(real):
+    """comm.graph_shift with the schedule's last round lost (the planted
+    fault: a destination gets zeros for it)."""
+    def shift(*a, **kw):
+        got = real(*a, **kw)
+        return got[:-1] + tuple(r * 0 for r in got[-1:])
+    return shift
+
+
+def update_reading(W2, W2_ref, W) -> float:
+    """max |(W2 - W) - (W2_ref - W)| over its allowance: DM_UPDATE_RTOL of
+    max |W2_ref - W| plus 4 x 2^-24 x max |W2_ref| (<= 1 passes)."""
+    allowed = DM_UPDATE_RTOL * float((W2_ref - W).abs().max()) + 4 * 2.0 ** -24 * float(
+        W2_ref.abs().max())
+    return max_err(W2 - W, W2_ref - W) / allowed
+
+
+def dict_mesh_world(mesh, job: dict) -> dict:
+    """The DICT_MESH part of the SHARDED world (every rank; the 2x2 mesh
+    and the 1x4 and 2x1x2 meshes over the same 4 ranks): each DM_CASES
+    coder on its mesh (one agent a rank) on the rows job["x"] and the
+    first columns of serve_dict's W0 draw: solve_per_agent gathered, one
+    timed solve (and its wire bytes), a fit_batch whose
+    blocks go to files under job["dir"], the planted fault; then
+    serve_dict's rank body at 1x4 over gloo_staged (learning on) on the
+    stream job["X14"], its final dictionary to a file.  Rank 0 returns
+    what each rank counted (K1 launches, engine calls, peak memory, wire
+    bytes, seconds) and the gathered results."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.conjugates import make_task
+    from repro_torch.core.dictionary import init_dictionary
+    from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+    from repro_torch.kernels.dict_dual_step import ops
+    from repro_torch.launch import serve_dict
+    from repro_torch.runtime import comm, mesh as mesh_mod
+
+    dev = mesh.device
+    root = pathlib.Path(job["dir"])
+    torch.cuda.empty_cache()
+    meshes = {"2x2": mesh, "1x4": mesh_mod.make_mesh((1, 4)),
+              "2x1x2": mesh_mod.make_mesh((2, 1, 2), ("pod", "data", "model"))}
+    res, reg = make_task("sparse_svd", gamma=GAMMA, delta=DELTA)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    W_full = init_dictionary(gen, M, DM_AGENTS * ATOMS_PER_AGENT, device=dev)
+    x = torch.as_tensor(job["x"], device=dev)
+    out = {"world_s": {}}
+    for tag, key, agents, cfg, fit, fault in DM_CASES:
+        t_case = time.perf_counter()
+        m = meshes[key]
+        coder = DistributedSparseCoder(agents, res, reg, DistConfig(iters=ITERS, **cfg),
+                                       device=dev, mesh=m)
+        W, xl = coder.shard(W_full[:, :coder.n_agents * ATOMS_PER_AGENT], x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches0 = ops.dict_dual_step.launches
+        nu, y = coder.solve_per_agent(W, xl)  # gathered; also the timed solve's warmup
+        torch.cuda.synchronize()
+        before = {a: list(c) for a, c in m.traffic.items()}
+        t = time.perf_counter()
+        coder.solve(W, xl)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        traffic = {a: [c[0] - before.get(a, [0, 0])[0], c[1] - before.get(a, [0, 0])[1]]
+                   for a, c in m.traffic.items() if c != before.get(a)}
+        solves = 2
+        if fit:
+            W2 = coder.fit_batch(W, xl, DM_MU_W)
+            solves += 1
+            if m.index("data") == 0:
+                torch.save(W2.cpu(), root / f"{tag} {coder.agent_index}.pt")
+            del W2
+        torch.cuda.synchronize()
+        launches = ops.dict_dual_step.launches - launches0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        nu_fault = None
+        if fault == "a dropped graph round":
+            with mock.patch.object(comm, "graph_shift", drop_last_round(comm.graph_shift)):
+                nu_fault, _ = coder.solve_per_agent(W, xl)
+        elif fault == "fit_batch without its data sum":
+            with mock.patch.object(coder, "_data_sum", lambda t: t):
+                W2 = coder.fit_batch(W, xl, DM_MU_W)
+            if m.index("data") == 0:
+                torch.save(W2.cpu(), root / f"{tag} fault {coder.agent_index}.pt")
+            del W2
+        ranks = m.all_gather_object({
+            "agent": coder.agent_index, "coords": m.coords, "solve_s": secs,
+            "k1_launches": launches, "solves": solves, "peak_gb": peak_gb,
+            "traffic": traffic})
+        if m.rank == 0:
+            out[tag] = {"ranks": ranks, "nu": nu.cpu().numpy(), "y": y.cpu().numpy(),
+                        "nu_fault": None if nu_fault is None else nu_fault.cpu().numpy(),
+                        "wire": coder.wire_bytes_per_iter(xl.shape[0], M)}
+        del coder, W, xl, nu, y, nu_fault
+        out["world_s"][tag] = time.perf_counter() - t_case
+    del W_full
+    torch.cuda.empty_cache()
+
+    m14 = meshes["1x4"]
+    args = serve_dict.parse_args(dm_serve_argv("1x4", "gloo_staged"))
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with mock.patch.object(serve_dict, "sparse_stream", given_stream(job["X14"])):
+        got = serve_dict._serve_ranks(m14, args)
+    wall = time.perf_counter() - t
+    peaks = m14.all_gather_object(torch.cuda.max_memory_allocated() / 1e9)
+    if m14.rank == 0:
+        np.save(root / "serve 1x4.npy", got.pop("dictionary"))
+        got["rank_peak_gb"], got["world_wall_s"] = peaks, wall
+        out["serve 1x4"] = got
+        out["world_s"]["serve 1x4"] = time.perf_counter() - t
+    return out if mesh.rank == 0 else None
+
+
+def phase_dict_mesh(torch, card: str, raw: dict, job: dict) -> dict:
+    """The DICT_MESH gates, on what `dict_mesh_world` returned: each case
+    against the one-process coder on the card in this process (nu, y and W
+    after fit_batch at DM_RTOL; at 2x2 W's update at DM_UPDATE_RTOL), each
+    planted fault rejected by the same check, K1 launches per rank = (iters
+    + 1) x solves, each rank's wire bytes over a solve = iters x
+    wire_bytes_per_iter (the exact modes' psum counted once there, twice in
+    the accounting, plus the adaptive step's 4-byte reduction per agent
+    axis); the serve_dict run at 1x4 (every sample coded and finite, some
+    nonzero, its final dictionary a one-process replay of the micro-batches
+    rank 0 fitted); then serve_dict on a 1x1 mesh over nccl (its rank this
+    process) bit for bit the run without a mesh (codes without learning;
+    the learned dictionary against its replay).  Prints one DICT_MESH line;
+    returns {path: K1 launches} (summed over the ranks)."""
+    import numpy as np
+
+    from repro_torch.core.conjugates import make_task
+    from repro_torch.core.dictionary import full_from_blocks, init_dictionary
+    from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+    from repro_torch.kernels.dict_dual_step import ops
+    from repro_torch.launch import serve_dict
+
+    root = pathlib.Path(job["dir"])
+    res, reg = make_task("sparse_svd", gamma=GAMMA, delta=DELTA)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    W_full = init_dictionary(gen, M, DM_AGENTS * ATOMS_PER_AGENT, device="cuda")
+    x = torch.as_tensor(job["x"], device="cuda")
+    rec = {"card": card, "transport": SHARD_TRANSPORT, "M": M, "atoms_per_agent": ATOMS_PER_AGENT,
+           "B": MICRO_BATCH, "iters": ITERS, "cases": {}}
+    launches = {}
+    for tag, key, agents, cfg, fit, fault in DM_CASES:
+        got = raw[tag]
+        coder = DistributedSparseCoder(agents, res, reg, DistConfig(iters=ITERS, **cfg),
+                                       device="cuda")
+        W, xt = coder.shard(W_full[:, :coder.n_agents * ATOMS_PER_AGENT], x)
+        coder.solve(W, xt)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        coder.solve(W, xt)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t
+        nu, y = coder.solve_per_agent(W, xt)
+        row = {"mesh": key, "agents": coder.n_agents, "config": cfg,
+               "nu": rel_err(torch.as_tensor(got["nu"], device="cuda"), nu),
+               "y": rel_err(torch.as_tensor(got["y"], device="cuda"), y),
+               "one_process_solve_s": one_s}
+        ok = row["nu"] <= DM_RTOL and row["y"] <= DM_RTOL
+        if fault == "a dropped graph round":
+            row["fault"] = {fault: rel_err(torch.as_tensor(got["nu_fault"], device="cuda"), nu)}
+        if fit:
+            W2 = coder.fit_batch(W, xt, DM_MU_W)
+
+            def blocks(name):
+                return torch.cat([torch.load(root / f"{name} {k}.pt") for k in
+                                  range(coder.n_agents)]).to("cuda")
+
+            W2m = blocks(tag)
+            row["W"] = rel_err(W2m, W2)
+            ok = ok and row["W"] <= DM_RTOL
+            if fault == "fit_batch without its data sum":
+                row["max_update"] = float((W2 - W).abs().max())
+                row["update"] = update_reading(W2m, W2, W)
+                row["fault"] = {fault: update_reading(blocks(f"{tag} fault"), W2, W)}
+                ok = ok and row["update"] <= 1.0
+            del W2, W2m
+        ranks = got["ranks"]
+        want_launches = [(ITERS + 1) * r["solves"] for r in ranks]
+        row["k1_launches_per_rank"] = [r["k1_launches"] for r in ranks]
+        row["solve_s_per_rank"] = [r["solve_s"] for r in ranks]
+        row["solve_s"] = ranks[0]["solve_s"]
+        row["peak_gb_per_rank"] = [r["peak_gb"] for r in ranks]
+        exact = cfg["mode"].startswith("exact")
+        row["wire_bytes_per_iter"] = {a: b for a, b in got["wire"]}
+        row["traffic_per_rank"] = [r["traffic"] for r in ranks]
+        wire_ok = all(r["traffic"].get(a, [0, 0])[1] == ITERS * b / (2 if exact else 1) + 4
+                      for r in ranks for a, b in got["wire"])
+        print(f"[dict mesh {tag}] {card}: nu {row['nu']:.3e}, y {row['y']:.3e}"
+              + (f", W {row['W']:.3e}" if fit else "")
+              + f" of the one process's (gate {DM_RTOL})"
+              + (f"; update {row['update']:.3e} of its allowance (max |dW| "
+                 f"{row['max_update']:.3e})" if "update" in row else "")
+              + f"; planted {row.get('fault')}; solve "
+              f"{row['solve_s']:.3f} s on rank 0 (one process {one_s:.3f} s); K1 launches per "
+              f"rank {row['k1_launches_per_rank']} (expected {want_launches}); wire per rank "
+              f"{row['traffic_per_rank']} for {row['wire_bytes_per_iter']} an iteration; peak "
+              f"GB per rank {[round(v, 3) for v in row['peak_gb_per_rank']]}")
+        if not ok:
+            raise AssertionError(f"dict mesh {tag}: the mesh parts from the one process")
+        for name, reading in row.get("fault", {}).items():
+            gate = 1.0 if "update" in row else DM_RTOL
+            if not reading > gate:
+                raise AssertionError(f"dict mesh {tag}: the gate passes a planted fault: {name}")
+        if row["k1_launches_per_rank"] != want_launches:
+            raise AssertionError(f"dict mesh {tag}: K1 launches per rank "
+                                 f"{row['k1_launches_per_rank']}, expected {want_launches}")
+        if not wire_ok:
+            raise AssertionError(f"dict mesh {tag}: wire bytes per rank {row['traffic_per_rank']}"
+                                 f" against {row['wire_bytes_per_iter']} an iteration")
+        launches[f"dict mesh {tag}"] = sum(row["k1_launches_per_rank"])
+        rec["cases"][tag] = row
+        del coder, W, xt, nu, y
+    del W_full
+    torch.cuda.empty_cache()
+
+    # serve_dict at 1x4 over gloo_staged, learning on: the codes, and the
+    # final dictionary against a one-process replay of rank 0's fits.
+    got = raw["serve 1x4"]
+    pay, results, log = got["payload"], got["results"], got["fit_log"]
+    codes = np.stack([y for _, y in results])
+    finite = all(np.isfinite(nu).all() and np.isfinite(y).all() for nu, y in results)
+    coder = DistributedSparseCoder(DM_AGENTS, res, reg,
+                                   DistConfig(mode="exact_fista", iters=ITERS), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Wb = coder.snapshot(init_dictionary(gen, M, DM_AGENTS * ATOMS_PER_AGENT, device="cuda"))
+    for xb, mu_w, t0 in log:
+        Wb = coder.fit_batch(Wb, xb, mu_w, t0)
+    W_mesh = torch.as_tensor(np.load(root / "serve 1x4.npy", mmap_mode="r"), device="cuda")
+    replay = rel_err(W_mesh, full_from_blocks(Wb))
+    del W_mesh, Wb, coder
+    torch.cuda.empty_cache()
+    calls = got["engine_calls"]
+    want = [(ITERS + 1) * c for c in calls]
+    lat = pay["latency_ms"]
+    serve = {"samples_per_s": pay["samples_per_s"], "latency_ms": lat, "wall_s": pay["wall_s"],
+             "world_wall_s": got["world_wall_s"], "fit_steps": len(log),
+             "k1_launches_per_rank": got["k1_launches"], "engine_calls_per_rank": calls,
+             "rank_peak_gb": got["rank_peak_gb"], "replay_rel": replay,
+             "nonzero_code_share": float(np.count_nonzero(codes)) / codes.size,
+             "mesh": got["mesh"], "transport": got["transport"]}
+    print(f"[dict mesh serve 1x4] {card}: {pay['samples_per_s']:.4f} samples/s, p50 "
+          f"{lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms, wall {pay['wall_s']:.2f} s; "
+          f"{len(log)} fits, final dictionary vs the one-process replay {replay:.3e} (gate "
+          f"{DM_RTOL}); K1 launches per rank {got['k1_launches']} ({calls} engine calls); "
+          f"nonzero code share {serve['nonzero_code_share']:.3e}; peak GB per rank "
+          f"{[round(v, 3) for v in got['rank_peak_gb']]}")
+    if len(results) != DM_SAMPLES or not finite or serve["nonzero_code_share"] == 0.0:
+        raise AssertionError("dict mesh serve 1x4: codes missing, not finite or all zero")
+    if not replay <= DM_RTOL or not log:
+        raise AssertionError(f"dict mesh serve 1x4: the dictionary parts from its replay "
+                             f"({replay}, {len(log)} fits)")
+    if len(set(calls)) != 1 or got["k1_launches"] != want:
+        raise AssertionError(f"dict mesh serve 1x4: K1 launches {got['k1_launches']}, "
+                             f"engine calls {calls}")
+    launches["dict mesh serve 1x4"] = sum(got["k1_launches"])
+    rec["serve_1x4"] = serve
+
+    # serve_dict on a 1x1 mesh over nccl against the run without a mesh.
+    def cli(argv):
+        reset_launch_counts()
+        with mock.patch.object(serve_dict, "sparse_stream", given_stream(job["X11"])):
+            return serve_dict.run(serve_dict.parse_args(argv))
+
+    plain = cli(dm_serve_argv("1x1", learn=False))
+    nccl = cli(dm_serve_argv("1x1", "nccl", learn=False))
+    codes_bits = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                     for a, b in zip(plain["results"], nccl["results"]))
+    learned = cli(dm_serve_argv("1x1", "nccl", learn=True))
+    launches["dict mesh serve 1x1 nccl"] = sum(nccl["k1_launches"]) + sum(learned["k1_launches"])
+    coder = DistributedSparseCoder(1, res, reg, DistConfig(mode="exact_fista", iters=ITERS),
+                                   device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Wb = coder.snapshot(init_dictionary(gen, M, ATOMS_PER_AGENT, device="cuda"))
+    for xb, mu_w, t0 in learned["fit_log"]:
+        Wb = coder.fit_batch(Wb, xb, mu_w, t0)
+    dict_bits = bool(np.array_equal(full_from_blocks(Wb).cpu().numpy(), learned["dictionary"]))
+    del Wb, coder
+    rec["nccl_1x1"] = {"codes_bit_for_bit": codes_bits, "dictionary_bit_for_bit": dict_bits,
+                       "fits": len(learned["fit_log"]), "transport": nccl["transport"],
+                       "samples_per_s": nccl["payload"]["samples_per_s"],
+                       "plain_samples_per_s": plain["payload"]["samples_per_s"]}
+    print(f"[dict mesh serve 1x1 nccl] every code bit for bit the run without a mesh: "
+          f"{codes_bits}; the learned dictionary bit for bit its one-process replay "
+          f"({len(learned['fit_log'])} fits): {dict_bits}")
+    if nccl["transport"] != "nccl" or not codes_bits or not dict_bits or \
+            not learned["fit_log"]:
+        raise AssertionError("serve_dict on a 1x1 mesh over nccl differs from the run "
+                             "without a mesh")
+    rec["launches"] = launches
+    rec["world_s"] = raw["world_s"]
+    print("DICT_MESH " + json.dumps(rec))
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -5528,10 +5960,11 @@ def main() -> int:
 
     stream = functools.lru_cache(maxsize=1)(sparse_stream)
     W0_fleet = timed("fleet's W0 to the host", fleet_w0, torch)
-    drawer = ThreadPoolExecutor(2)
+    drawer = ThreadPoolExecutor(3)
     drawn = drawer.submit(stream, SAMPLES, m=M, k_true=ATOMS_PER_AGENT * N_AGENTS,
                           nonneg=False, seed=1)
     publish = (W0_fleet, drawer.submit(serve_dict.perturbed, W0_fleet, FLEET_SEED + 3, False))
+    dm_streams = dict_mesh_streams(drawer.submit)
     drawer.shutdown(wait=False)
     build_lines = []
 
@@ -5591,7 +6024,11 @@ def main() -> int:
     moe_train = timed("granite-moe train", phase_moe_train, torch, card)
     kimi = timed("kimi-k2 cut serve", phase_kimi, torch, card)
     moe_cpu = timed("MoE card vs cpu", phase_moe_card_vs_cpu, torch)
-    sharded = timed("sharded training", phase_sharded, torch, card)
+    dm_job = dict_mesh_job(dm_streams)
+    sharded = timed("sharded training", phase_sharded, torch, card, dm_job)
+    dict_mesh = timed("dictionary engine on a mesh", phase_dict_mesh, torch, card,
+                      sharded.pop("dict_mesh_world"), dm_job)
+    shutil.rmtree(DM_DIR, ignore_errors=True)
     vlm_serve = timed("phi-3-vision serve", phase_vlm_serve, torch, card)
     vlm_train = timed("phi-3-vision train", phase_train, torch, card, "vlm train", VLM_ARCH,
                       VLM_TRAIN_LAYERS, VLM_STEPS, VLM_CKPT_EVERY, VLM_FAULT_AT,
@@ -5668,6 +6105,7 @@ def main() -> int:
     publish = W0_fleet = None  # the 17 GB of the host they held
     launches["kill drill"] = timed("kill drill", phase_kill_drill, torch, card, stream)
     launches.update(gossip)
+    launches.update(dict_mesh)
     rec["launches"] = sum(launches.values())
     rec["launches_by_mode"] = launches
     twins = timed("twins", phase_twins, torch, card)

@@ -57,15 +57,22 @@ def dict_update(
     *,
     nonneg: bool = False,
     prox: Optional[Callable[[Tensor], Tensor]] = None,
+    reduce: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Tensor:
     """One proximal-projected SGD step on the local atom block (Eq. 51).
 
     W_k + mu_w * (nu^T y_k / B), then the prox, then the projection, with
     the reference's arithmetic; the steps after the product run in place on
     its fresh result, so the update holds one W-sized temporary (at the
-    production dictionary a W is 8.6 GB)."""
+    production dictionary a W is 8.6 GB).  `reduce` (a data-parallel sum
+    over ranks that each hold part of the batch) is applied to nu^T y_k and
+    to the row count B before the division."""
     W_new = nu.transpose(-1, -2) @ y_k  # (.., M, Kb)
-    W_new.div_(nu.shape[-2]).mul_(mu_w).add_(W_k)
+    b = nu.shape[-2]
+    if reduce is not None:
+        W_new = reduce(W_new)
+        b = reduce(torch.full((1,), float(b), dtype=W_new.dtype, device=W_new.device))
+    W_new.div_(b).mul_(mu_w).add_(W_k)
     if prox is not None:
         W_new = prox(W_new)
     if nonneg:

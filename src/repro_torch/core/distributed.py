@@ -1,10 +1,24 @@
-"""Production engine for model-distributed dictionary learning, on one device.
+"""Production engine for model-distributed dictionary learning.
 
 Port of `DistributedSparseCoder` in src/repro/core/distributed.py, every
-gossip mode.  The JAX engine puts agent k on device k of a mesh axis; here
-all N agents live on one device as the leading axis of every tensor: the
-dictionary is (N, M, Kb), the per-agent duals (N, B, M), the codes
-(N, B, Kb).  Gossip goes through the single seam `repro_torch.runtime.comm`.
+gossip mode, in two layouts:
+
+  * one process (no `mesh`): all N agents live on one device as the
+    leading axis of every tensor: the dictionary is (N, M, Kb), the
+    per-agent duals (N, B, M), the codes (N, B, Kb);
+  * on a mesh (`mesh=`, runtime/mesh.py), as the JAX engine: agent k is
+    rank k of the `model` axis (the hierarchical modes: the flat
+    outermost-major rank of the level axes, `pod` x `model` for hier, one
+    `pod<i>` axis more per outer chain level), and holds only its block W_k
+    as (1, M, Kb); the sample batch is split over `data`, each data rank
+    coding its rows.  The step size is pmax'd (psum'd, exact modes) over
+    the agent axes, `fit_batch` sums nu^T y and the row count over `data`,
+    `score` sums h* over the agent axes.
+
+Gossip goes through the single seam `repro_torch.runtime.comm`: its local
+wire (a roll of the agent axis) in one process, its mesh wire
+(`Mesh.ppermute` rounds, one `psum`) on a mesh; the solver body is the
+same code in both layouts.
 
 Every iteration of every mode spends its time in one per-agent product,
 S = nu W_k, Y = T_gamma(S)/delta, G = Y W_k^T.  It always goes through
@@ -69,7 +83,7 @@ import torch
 
 from repro_torch.core import topology as topo
 from repro_torch.core.conjugates import Regularizer, Residual
-from repro_torch.core.dictionary import dict_update, init_dictionary
+from repro_torch.core.dictionary import dict_update, full_from_blocks, init_dictionary
 from repro_torch.core.inference import power_sigma2
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dict_dual_step import ops
@@ -78,8 +92,11 @@ from repro_torch.runtime import comm
 Tensor = torch.Tensor
 
 # The JAX engine's mesh axis names, which name the levels in stats and byte
-# accounting (level 0 "model", level 1 "pod", level i >= 2 "pod<i>").
-MODEL_AXIS, POD_AXIS = "model", "pod"
+# accounting (level 0 "model", level 1 "pod", level i >= 2 "pod<i>") and,
+# on a mesh, the axes the levels run on; samples split over "data".
+MODEL_AXIS, POD_AXIS, DATA_AXIS = "model", "pod", "data"
+# ROADMAP section 1's items for what a mesh does not run yet.
+MESH_GROWTH_ITEM = "ROADMAP section 1, item 8 (growth and drain on a mesh)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,35 +295,47 @@ def _c_f(res: Residual, like: Tensor) -> Tensor:
     return res.grad_fstar(torch.ones((1,), dtype=like.dtype, device=like.device))[0]
 
 
-def _safe_mu_local(res: Residual, reg: Regularizer, W: Tensor) -> Tensor:
+def _safe_mu_local(res: Residual, reg: Regularizer, W: Tensor, n_agents: int,
+                   wire: comm.LocalWire) -> Tensor:
     """Globally safe diffusion step 0.9 / (c_f/N + max_k sigma_max(W_k)^2/delta):
-    every agent steps with the one mu that is safe for the worst block."""
-    sig2_max = torch.max(power_sigma2(W))
-    return 0.9 / (_c_f(res, W) / W.shape[0] + sig2_max / reg.delta)
+    every agent steps with the one mu that is safe for the worst block (the
+    max over the blocks W holds, pmax'd over the agent axes on a mesh)."""
+    sig2_max = wire.agent_max(power_sigma2(W))
+    return 0.9 / (_c_f(res, W) / n_agents + sig2_max / reg.delta)
 
 
-def _safe_mu_exact(res: Residual, reg: Regularizer, W: Tensor) -> Tensor:
+def _safe_mu_exact(res: Residual, reg: Regularizer, W: Tensor,
+                   wire: comm.LocalWire) -> Tensor:
     """1/L for the summed dual with the loose bound
     sigma_max(W)^2 <= sum_k sigma_max(W_k)^2 (as the JAX engine: not
-    estimate_dual_curvature)."""
-    sig2_sum = torch.sum(power_sigma2(W))
+    estimate_dual_curvature); one psum over the agent axes on a mesh."""
+    sig2_sum = wire.agent_sum(power_sigma2(W))
     return 1.0 / (_c_f(res, W) + sig2_sum / reg.delta)
 
 
 class DistributedSparseCoder:
-    """Dual-domain sparse coder over an atom-sharded dictionary, N agents
-    on one device.
+    """Dual-domain sparse coder over an atom-sharded dictionary: N agents
+    on one device, or one agent a rank of `mesh`.
 
     `agents` is the number of agents N for the flat modes, and for the
     hierarchical modes (hier, hier_q8, chain) the agents of each level,
     innermost first, in the order of `cfg.chain_levels()` (N is their
-    product).
+    product).  On a mesh each level's mesh axis (`cfg.level_axis(i)`:
+    `model`, `pod`, `pod<i>`) has that many ranks, and the `data` axis
+    splits the samples; the coder's device is the mesh's.
 
     Usage:
         coder = DistributedSparseCoder(n_agents, res, reg, cfg, device="cuda")
         W, x = coder.shard(W_full, x)         # (N, M, Kb) blocks, (B, M)
         nu, y = coder.solve(W, x, t0=0)
         W2 = coder.fit_batch(W, x, mu_w)      # one dictionary step
+
+    On a mesh (every rank runs the same calls, in the same order):
+        coder = DistributedSparseCoder(n_agents, res, reg, cfg, mesh=mesh)
+        W, x = coder.shard(W_full, x)         # this rank's (1, M, Kb), rows
+        nu, y = coder.solve(W, x)             # this rank's (nu_k, y_k)
+        W2 = coder.fit_batch(W, x, mu_w)      # this rank's new block
+        W_full = coder.gather(W2)             # (M, K) on mesh rank 0
     """
 
     def __init__(
@@ -318,6 +347,7 @@ class DistributedSparseCoder:
         device: DeviceLike = "cuda",
         grown_from: Optional["DistributedSparseCoder"] = None,
         shrunk_from: Optional[Tuple["DistributedSparseCoder", Tuple[int, ...]]] = None,
+        mesh=None,
     ):
         """`grown_from` and `shrunk_from` are the hooks of `grown` and
         `shrunk`: an erdos combiner (the static kind, every erdos step of a
@@ -325,7 +355,8 @@ class DistributedSparseCoder:
         coder's adjacency (`erdos_renyi_grow`, existing edges kept) or is
         restricted to the survivors (`shrink_adjacency`) instead of being
         drawn afresh; structured kinds re-derive at the new size, and a
-        chain carries its outer levels verbatim."""
+        chain carries its outer levels verbatim.  `mesh` (a
+        runtime/mesh.Mesh) puts one agent on each of its ranks."""
         if grown_from is not None and shrunk_from is not None:
             raise ValueError("grown_from and shrunk_from are mutually exclusive "
                              "construction hooks")
@@ -347,9 +378,35 @@ class DistributedSparseCoder:
         self.res = res
         self.reg = reg
         self.cfg = cfg
-        self.device = resolve_device(device)
         self._caps = caps
         n = self.n_agents
+        self.mesh = mesh
+        level_axes = tuple(cfg.level_axis(i) for i in range(len(sizes))) \
+            if caps.hierarchical else (MODEL_AXIS,)
+        self._agent_axes = tuple(reversed(level_axes))  # outermost first, as JAX's
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._wire: comm.LocalWire = comm.LOCAL
+            self._n_local = n  # agents this process holds
+        else:
+            self.device = mesh.device
+            if torch.device(device).type != self.device.type:
+                raise ValueError(f"device {device!r} but the mesh's ranks run on "
+                                 f"{self.device.type}")
+            if grown_from is not None or shrunk_from is not None:
+                raise NotImplementedError(f"a grown or drained coder on a mesh: "
+                                          f"{MESH_GROWTH_ITEM}")
+            want = dict(zip(level_axes, sizes))
+            got = {a: mesh.size(a) for a in level_axes}
+            stray = [a for a in mesh.axis_names
+                     if a not in level_axes and a != DATA_AXIS and mesh.size(a) > 1]
+            if got != want or stray:
+                raise ValueError(
+                    f"mode={cfg.mode!r} with agents {sizes} (innermost first) needs the "
+                    f"mesh axes {want} (one agent a rank) and {DATA_AXIS!r} for the "
+                    f"samples; the mesh is {mesh.shape}")
+            self._wire = comm.MeshWire(mesh, level_axes)
+            self._n_local = 1
         self._A: Optional[np.ndarray] = None
         self._adj: Optional[np.ndarray] = None  # static erdos adjacency
         self._gsched: Optional[comm.GraphSchedule] = None
@@ -386,7 +443,8 @@ class DistributedSparseCoder:
                 self._gsched = comm.torus_schedule(*topo.torus_dims(n), self._A)
             else:
                 self._gsched = comm.graph_schedule(self._A)
-            self._gweights = (comm.schedule_weights(self._gsched, f32, self.device),)
+            self._gweights = (comm.schedule_weights(self._gsched, f32, self.device,
+                                                    index=self._wire.index(0)),)
         elif caps.family == "tv":
             if grown_from is not None and grown_from._tsched is not None:
                 # a LinkFailureSchedule re-applies its dropout over the grown base
@@ -409,7 +467,8 @@ class DistributedSparseCoder:
             self._gscheds = comm.graph_schedule_sequence(
                 self._tsched.combiners, self._tsched.kinds
             )
-            self._gweights = tuple(comm.schedule_weights(s, f32, self.device)
+            self._gweights = tuple(comm.schedule_weights(s, f32, self.device,
+                                                         index=self._wire.index(0))
                                    for s in self._gscheds)
         elif caps.hierarchical:
             # growth and drain touch the model level only: outer levels verbatim
@@ -425,7 +484,7 @@ class DistributedSparseCoder:
             self._csched = comm.chain_schedule(
                 self._chain, tuple(cfg.level_axis(i) for i in range(len(sizes)))
             )
-            self._cweights = comm.chain_weights(self._csched, f32, self.device)
+            self._cweights = comm.chain_weights(self._csched, f32, self.device, self._wire)
             if cfg.mode in HIER_MODES:
                 self._htopo = topo.HierarchicalTopology(
                     pod_kind=cfg.pod_topology, model_kind=cfg.topology,
@@ -441,13 +500,14 @@ class DistributedSparseCoder:
                 )
         # Informed-agent weighting (theta, |N_I|) of paper Eq. 29; "one" is
         # flat agent 0 (pod-major rank 0 in the hierarchical modes).
+        held = torch.arange(n) if mesh is None else torch.tensor([self.agent_index])
         if cfg.informed == "all":
-            theta = torch.ones(n, dtype=torch.float32)
+            theta = torch.ones(len(held), dtype=torch.float32)
             n_inf = float(n)
         else:
-            theta = (torch.arange(n) == 0).to(torch.float32)
+            theta = (held == 0).to(torch.float32)
             n_inf = 1.0
-        self._theta = theta.reshape(n, 1, 1).to(self.device)
+        self._theta = theta.reshape(len(held), 1, 1).to(self.device)
         self._n_inf = torch.tensor(n_inf, dtype=torch.float32, device=self.device)
 
     # -- the per-agent hot loop --------------------------------------------
@@ -474,20 +534,21 @@ class DistributedSparseCoder:
         if self.cfg.mu > 0:
             return torch.tensor(self.cfg.mu, dtype=W.dtype, device=W.device)
         if self._caps.family == "exact":
-            return _safe_mu_exact(self.res, self.reg, W)
-        return _safe_mu_local(self.res, self.reg, W)
+            return _safe_mu_exact(self.res, self.reg, W, self._wire)
+        return _safe_mu_local(self.res, self.reg, W, self.n_agents, self._wire)
 
     def _solve_body(self, W: Tensor, x: Tensor, t0: int = 0) -> Tuple[Tensor, Tensor]:
         """cfg.iters iterations from nu = 0, the combiner sequence starting
-        at iteration t0; returns the per-agent (nu (N, B, M), y (N, B, Kb))."""
-        res, cfg, caps = self.res, self.cfg, self._caps
-        n = self.n_agents
+        at iteration t0; returns the per-agent (nu (N, B, M), y (N, B, Kb))
+        of the agents held here (N = 1 on a mesh)."""
+        res, cfg, caps, wire = self.res, self.cfg, self._caps, self._wire
+        n = self._n_local
         mu = self._mu_for(W)
 
         if caps.family == "exact":
             def total_grad(nu):  # nu (B, M), shared by every agent
                 _, back = self._code_and_back(W, nu)
-                return res.grad_fstar(nu) - x + comm.gossip_psum(back)
+                return res.grad_fstar(nu) - x + comm.gossip_psum(back, wire)
 
             nu = torch.zeros_like(x)
             if cfg.mode == "exact":
@@ -520,40 +581,40 @@ class DistributedSparseCoder:
             if cfg.mode == "ring":
                 for _ in range(cfg.iters):
                     psi = psi_of(nu)
-                    nu = combine(psi, *comm.ring_shift(psi))
+                    nu = combine(psi, *comm.ring_shift(psi, wire))
             elif cfg.mode == "ring_q8":
                 err = zero
                 for _ in range(cfg.iters):
                     psi = psi_of(nu)
                     # only the message is quantized; psi stays full precision
                     q, s, err = comm.quantize_with_feedback(psi, err)
-                    (ql, qr), (sl, sr) = comm.ring_shift(q), comm.ring_shift(s)
+                    (ql, qr), (sl, sr) = comm.ring_shift(q, wire), comm.ring_shift(s, wire)
                     nu = combine(psi, comm.dequantize_q8(ql, sl), comm.dequantize_q8(qr, sr))
             else:  # ring_async: the neighbors' messages of the previous iteration
                 left, right = zero, zero
                 for _ in range(cfg.iters):
                     psi = psi_of(nu)
                     nu = combine(psi, left, right)
-                    left, right = comm.ring_shift(psi)
+                    left, right = comm.ring_shift(psi, wire)
 
         elif caps.family == "graph":
             sched, weights = self._gsched, self._gweights[0]
             if cfg.mode == "graph":
                 for _ in range(cfg.iters):
-                    nu = res.project_dual(comm.graph_combine(psi_of(nu), sched, weights))
+                    nu = res.project_dual(comm.graph_combine(psi_of(nu), sched, weights, wire))
             elif cfg.mode == "graph_q8":
                 err = zero
                 for _ in range(cfg.iters):
                     psi = psi_of(nu)
                     q, s, err = comm.quantize_with_feedback(psi, err)
                     nu = res.project_dual(
-                        comm.graph_combine_quantized(psi, q, s, sched, weights))
+                        comm.graph_combine_quantized(psi, q, s, sched, weights, wire))
             else:  # graph_async: the previous iteration's round messages
                 recv = tuple(zero for _ in sched.steps)
                 for _ in range(cfg.iters):
                     psi = psi_of(nu)
                     nu = res.project_dual(comm.graph_accumulate(psi, recv, weights))
-                    recv = comm.graph_shift(psi, sched)
+                    recv = comm.graph_shift(psi, sched, wire=wire)
 
         elif caps.family == "tv":
             period = len(self._gscheds)
@@ -563,9 +624,9 @@ class DistributedSparseCoder:
                 sched, weights = self._gscheds[t % period], self._gweights[t % period]
                 if caps.quantized:
                     q, s, err = comm.quantize_with_feedback(psi, err)
-                    comb = comm.graph_combine_quantized(psi, q, s, sched, weights)
+                    comb = comm.graph_combine_quantized(psi, q, s, sched, weights, wire)
                 else:
-                    comb = comm.graph_combine(psi, sched, weights)
+                    comb = comm.graph_combine(psi, sched, weights, wire)
                 nu = res.project_dual(comb)
 
         elif caps.family == "push":
@@ -578,16 +639,16 @@ class DistributedSparseCoder:
                     # error feedback on the weighted message v = w psi
                     v = w * psi
                     q, s, err = comm.quantize_with_feedback(v, err)
-                    v, w = comm.push_graph_combine_quantized(v, q, s, w, sched, weights)
+                    v, w = comm.push_graph_combine_quantized(v, q, s, w, sched, weights, wire)
                 else:
-                    v, w = comm.push_graph_combine(psi, w, sched, weights)
+                    v, w = comm.push_graph_combine(psi, w, sched, weights, wire)
                 nu = res.project_dual(v / w)
 
         else:  # the chain family: hier, hier_q8, chain
             cs = self._csched
             state = comm.chain_state_init(nu, cs)
             for t in range(t0, t0 + cfg.iters):
-                comb, state = comm.chain_combine(psi_of(nu), cs, t, state, self._cweights)
+                comb, state = comm.chain_combine(psi_of(nu), cs, t, state, self._cweights, wire)
                 nu = res.project_dual(comb)
 
         y, _ = self._code_and_back(W, nu)
@@ -595,10 +656,22 @@ class DistributedSparseCoder:
 
     # -- public API ----------------------------------------------------------
 
+    @property
+    def agent_index(self) -> int:
+        """This rank's flat agent index on a mesh: outermost-major over the
+        agent axes (pod-major for hier), as the JAX engine's `_iter_setup`;
+        0 in one process."""
+        if self.mesh is None:
+            return 0
+        k = 0
+        for axis in self._agent_axes:
+            k = k * self.mesh.size(axis) + self.mesh.index(axis)
+        return k
+
     def _check_blocks(self, W: Tensor) -> Tensor:
-        if W.dim() != 3 or W.shape[0] != self.n_agents or W.device != self.device:
+        if W.dim() != 3 or W.shape[0] != self._n_local or W.device != self.device:
             raise ValueError(
-                f"W must be the ({self.n_agents}, M, Kb) blocks on {self.device} "
+                f"W must be the ({self._n_local}, M, Kb) blocks on {self.device} "
                 f"(see shard/snapshot), got {tuple(W.shape)} on {W.device}"
             )
         return W
@@ -610,6 +683,32 @@ class DistributedSparseCoder:
             raise ValueError(f"x must be (B, {W.shape[1]}), got {tuple(x.shape)}")
         return W, x
 
+    def _gather_agents(self, t: Tensor, dim: int) -> Tensor:
+        """Every agent's t, concatenated along `dim` outermost-major (a mesh
+        gathers over the agent axes; one process holds them all)."""
+        if self.mesh is None:
+            return t
+        for axis in reversed(self._agent_axes):  # innermost first
+            t = self.mesh.all_gather_tiled(t, axis, dim)
+        return t
+
+    def _gather_rows(self, t: Tensor, dim: int = 0) -> Tensor:
+        """Every data rank's rows of t, in data order (a no-op off a mesh)."""
+        return t if self.mesh is None else self.mesh.all_gather_tiled(t, DATA_AXIS, dim)
+
+    def _data_sum(self, t: Tensor) -> Tensor:
+        """The sum of t over the data ranks (`fit_batch`'s Eq. 51 gradient)."""
+        return self.mesh.psum(t, DATA_AXIS)
+
+    def _of_agent0(self, t: Tensor) -> Tensor:
+        """Flat agent 0's t (leading agent axis) on every agent: t[0] in one
+        process, a psum of t masked to agent 0 on a mesh (exact: the other
+        ranks add zeros)."""
+        if self.mesh is None:
+            return t[0]
+        keep = t if self.agent_index == 0 else torch.zeros_like(t)
+        return self._wire.agent_sum(keep)
+
     @torch.no_grad()
     def solve(self, W: Tensor, x, t0: int = 0) -> Tuple[Tensor, Tensor]:
         """Dual inference on blocks W (N, M, Kb) for a batch x (B, M).
@@ -620,18 +719,32 @@ class DistributedSparseCoder:
         by side, agent-major, in the column order of blocks_from_full.
         `t0` is the combiner-schedule offset: iteration i of this solve runs
         the network of iteration t0 + i (time-varying modes; the strides'
-        phase in the hierarchical modes).  Static modes ignore it."""
+        phase in the hierarchical modes).  Static modes ignore it.  On a
+        mesh W is this rank's (1, M, Kb) block and x its data rank's rows,
+        and the result is this rank's (nu_k (B_loc, M), y_k (B_loc, Kb));
+        `gather_solution` assembles the one-process result from them."""
         W, x = self._check(W, x)
         nu, y = self._solve_body(W, x, int(t0))
         return nu[0], y.permute(1, 0, 2).reshape(x.shape[0], -1)
 
     @torch.no_grad()
+    def gather_solution(self, nu: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
+        """On a mesh, `solve`'s per-rank (nu_k, y_k) -> what one process's
+        solve returns over every data rank's rows, on every rank: agent 0's
+        nu (B, M) and y (B, K) agent-major.  Collective."""
+        return (self._gather_rows(self._of_agent0(nu[None])),
+                self._gather_rows(self._gather_agents(y, 1)))
+
+    @torch.no_grad()
     def solve_per_agent(self, W: Tensor, x, t0: int = 0) -> Tuple[Tensor, Tensor]:
         """Dual inference with per-agent outputs: nu (N, B, M) and
-        y (N, B, Kb), the reference engine's layout."""
+        y (N, B, Kb), the reference engine's layout.  On a mesh every rank
+        gets every agent's over every data rank's rows (gathered, for the
+        checks)."""
         W, x = self._check(W, x)
         nu, y = self._solve_body(W, x, int(t0))
-        return nu.contiguous(), y
+        nu = self._gather_agents(self._gather_rows(nu.contiguous(), 1), 0)
+        return nu, self._gather_agents(self._gather_rows(y, 1), 0)
 
     @torch.no_grad()
     def fit_batch(self, W: Tensor, x, mu_w: float, t0: int = 0) -> Tensor:
@@ -639,53 +752,101 @@ class DistributedSparseCoder:
         schedule offset t0; returns a NEW (N, M, Kb) buffer and never writes
         W.  Each agent updates its block with its own nu_k:
         W_k + mu_w * nu_k^T y_k / B, clamped at 0 for a nonneg task, then
-        each column divided by max(||column||, 1)."""
+        each column divided by max(||column||, 1).  On a mesh nu_k^T y_k and
+        the row count B are summed over the data ranks first (JAX's psum
+        over the data axes), so the step is the whole batch's."""
         W, x = self._check(W, x)
         nu, y = self._solve_body(W, x, int(t0))
-        return dict_update(W, nu, y, mu_w, nonneg=self.reg.nonneg)
+        spread = self.mesh is not None and self.mesh.size(DATA_AXIS) > 1
+        return dict_update(W, nu, y, mu_w, nonneg=self.reg.nonneg,
+                           reduce=self._data_sum if spread else None)
 
     @torch.no_grad()
     def score(self, W: Tensor, h, t0: int = 0) -> Tensor:
         """Novelty scores (B,) for a test batch h (paper Eq. 63-66), the
         dual value of the fit aggregated exactly over all agents:
         -(f*(nu) - nu^T h + sum_k h*(W_k^T nu_k)), nu agent 0's estimate
-        (each agent's own in its h* term)."""
+        (each agent's own in its h* term).  On a mesh: the scores of this
+        data rank's rows, h* psum'd over the agent axes with agent 0's
+        first two terms (one psum)."""
         W, h = self._check(W, h)
         nu, _ = self._solve_body(W, h, int(t0))
-        hstar_sum = self.reg.hstar(torch.matmul(nu, W)).sum(dim=0)
-        val = self.res.fstar(nu[0]) - torch.sum(nu[0] * h, dim=-1) + hstar_sum
-        return -val
+        hstar = self.reg.hstar(torch.matmul(nu, W))  # (agents held, B)
+        own = self.res.fstar(nu[0]) - torch.sum(nu[0] * h, dim=-1)
+        if self.mesh is None:
+            return -(own + hstar.sum(dim=0))
+        keep = own if self.agent_index == 0 else torch.zeros_like(own)
+        own0, hstar_sum = self._wire.agent_sum(torch.stack([keep, hstar[0]])[None])
+        return -(own0 + hstar_sum)
 
     @torch.no_grad()
     def adaptive_mu(self, W: Tensor) -> Tensor:
-        """The step size every agent's solve uses, as (N,); all equal."""
-        return self._mu_for(self._check_blocks(W)).expand(self.n_agents).clone()
+        """The step size every agent's solve uses, as (N,); all equal (on a
+        mesh each rank's own, gathered)."""
+        mu = self._mu_for(self._check_blocks(W))
+        if self.mesh is None:
+            return mu.expand(self.n_agents).clone()
+        return self._gather_agents(mu.reshape(1), 0)
 
     def snapshot(self, W) -> Tensor:
         """The (N, M, Kb) blocks of W on this coder's device: W is either
         (M, K) (split as blocks_from_full does, into one allocation on the
         device, block by block, wherever W lives) or already (N, M, Kb).
         Does not copy blocks that are already contiguous there; `fit_batch`
-        never writes its input, so readers may share the buffer."""
+        never writes its input, so readers may share the buffer.  On a mesh
+        the (1, M, Kb) block of this rank's agent, from (M, K), from every
+        agent's (N, M, Kb) blocks, or from that one block."""
         W = torch.as_tensor(W)
+        n = self.n_agents
         if W.dim() == 2:
             m, k = W.shape
-            n = self.n_agents
             if k % n:
                 raise ValueError(f"K={k} not divisible by N={n}")
             kb = k // n
-            blocks = torch.empty((n, m, kb), dtype=W.dtype, device=self.device)
-            for i in range(n):
-                blocks[i].copy_(W[:, i * kb:(i + 1) * kb])
+            held = range(n) if self.mesh is None else (self.agent_index,)
+            blocks = torch.empty((len(held), m, kb), dtype=W.dtype, device=self.device)
+            for j, i in enumerate(held):
+                blocks[j].copy_(W[:, i * kb:(i + 1) * kb])
             return blocks
-        if W.dim() != 3 or W.shape[0] != self.n_agents:
-            raise ValueError(f"cannot place W {tuple(W.shape)} on {self.n_agents} agents")
+        if W.dim() == 3 and self.mesh is not None and W.shape[0] == n:
+            W = W[self.agent_index:self.agent_index + 1]
+        if W.dim() != 3 or W.shape[0] != self._n_local:
+            raise ValueError(f"cannot place W {tuple(W.shape)} on {self._n_local} agents")
         return W.to(self.device).contiguous()
 
+    def local_rows(self, x) -> Tensor:
+        """This data rank's rows of x (B, M) on this coder's device (all of
+        them off a mesh); B must divide by the data ranks."""
+        x = torch.as_tensor(x)
+        if self.mesh is not None:
+            d, i = self.mesh.size(DATA_AXIS), self.mesh.index(DATA_AXIS)
+            if x.shape[0] % d:
+                raise ValueError(f"{x.shape[0]} rows do not split over {d} data ranks")
+            b = x.shape[0] // d
+            x = x[i * b:(i + 1) * b]
+        return x.to(self.device)
+
     def shard(self, W, x) -> Tuple[Tensor, Tensor]:
-        """(blocks (N, M, Kb), x (B, M)) on this coder's device."""
+        """(blocks (N, M, Kb), x (B, M)) on this coder's device; on a mesh
+        this rank's block and its data rank's rows of x."""
         W = self.snapshot(W)
-        return W, torch.as_tensor(x, dtype=W.dtype, device=self.device)
+        return W, self.local_rows(x).to(W.dtype)
+
+    @torch.no_grad()
+    def gather(self, W: Tensor) -> Optional[Tensor]:
+        """The whole (M, K) dictionary from every rank's block, on mesh rank
+        0 (None on the others; collective: each block of data rank 0's
+        ranks crosses the wire once); `full_from_blocks` in one process."""
+        W = self._check_blocks(W)
+        if self.mesh is None:
+            return full_from_blocks(W)
+        if self.mesh.index(DATA_AXIS):
+            return None  # every data rank holds the same blocks
+        for axis in reversed(self._agent_axes):  # innermost first, onto index 0
+            W = self.mesh.gather_first(W, axis)
+            if W is None:
+                return None
+        return full_from_blocks(W)
 
     # -- elastic growth and agent drain --------------------------------------
 
@@ -709,6 +870,8 @@ class DistributedSparseCoder:
         every outer group grows and no old agent changes rank within its
         group.  The combiners grow as `__init__`'s `grown_from` says.  W2
         is one allocation on this coder's device, filled there."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"growth on a mesh: {MESH_GROWTH_ITEM}")
         if extra_model <= 0:
             raise ValueError(f"extra_model must be positive, got {extra_model}")
         W = self._check_blocks(W)
@@ -735,6 +898,8 @@ class DistributedSparseCoder:
         re-initialisation, no renormalisation): one `index_select` on this
         coder's device.  The combiners shrink as `__init__`'s `shrunk_from`
         says."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"agent drain on a mesh: {MESH_GROWTH_ITEM}")
         W = self._check_blocks(W)
         n_old = self.level_sizes[0]
         departing = sorted(set(int(r) for r in departing_ranks))

@@ -1,17 +1,26 @@
-"""Online streaming dictionary service launcher, on one card.
+"""Online streaming dictionary service launcher.
 
 Port of src/repro/launch/serve_dict.py: streams synthetic samples through
 the continuously-learning dictionary service (repro_torch.runtime.service)
 with micro-batched coding against a double-buffered snapshot, online
 `fit_batch` on the live copy, one optional mid-stream elastic growth of the
-model level (`--grow-at`, `--grow-model`) and one optional mid-stream agent
-drain (`--drain-at`, `--drain`: the ranks leave, survivors keep their
-atoms).  One device holds every agent, so the data extent D of `--mesh`
-must be 1: '1xN' is N agents of a flat mode, '2x1x8' the 2 pods of 8
-agents of a hier mode, and a chain takes one leading dim per outer level,
-outermost first ('2x2x1x4' for three levels).  The dictionary has
-`--atoms-per-agent` atoms per agent.  At the repository's production
-dictionary (M = 8192, K = 262144, 16 agents, the paper's diffusion):
+model level (`--grow-at`, `--grow-model`; at sample 300 by default) and one
+optional mid-stream agent drain (`--drain-at`, `--drain`: the ranks leave,
+survivors keep their atoms).  `--mesh` names the agents: '1xN' is N agents
+of a flat mode, '2x1x8' the 2 pods of 8 agents of a hier mode, and a chain
+takes one leading dim per outer level, outermost first ('2x2x1x4' for
+three levels).  Without `--transport` one process on one device holds
+every agent, so the data extent D of `--mesh` must be 1.  With
+`--transport` (gloo on the CPU; nccl, a card a rank; gloo_staged, ranks
+sharing a card; auto) `runtime/mesh.launch` spawns one rank per mesh
+coordinate: one agent per (outer levels, model) coordinate, as the JAX
+engine's devices, the samples split over D.  Mesh rank 0 runs the service
+and prints; every other rank follows its engine calls
+(`runtime.service.follow`).  On a mesh the growth drill is off by default
+and growth, drain and the fleet are refused (ROADMAP section 1, items 8
+and 9).  The dictionary has `--atoms-per-agent` atoms per agent.  At the
+repository's production dictionary (M = 8192, K = 262144, 16 agents, the
+paper's diffusion):
 
   PYTHONPATH=src python -m repro_torch.launch.serve_dict \\
       --mode graph --m 8192 --atoms-per-agent 16384 --mesh 1x16 --samples 64 \\
@@ -32,6 +41,13 @@ perturbed dictionary out to them, one replica at a time, mid-stream.
 Replicas serve a published snapshot, so fleet mode implies --no-learn and
 disables the grow/drain drills, as in the JAX CLI.
 
+Four ranks, one agent each, on the card(s) (gloo_staged where they share
+one):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_dict \\
+      --mode graph --m 8192 --atoms-per-agent 16384 --mesh 1x4 --samples 64 \\
+      --transport auto
+
 `--device cpu` runs on the CPU (the default is the card, and no card is an
 error).  Prints throughput (samples/s), per-sample latency percentiles,
 learner progress and the grow and drain events; `--json` adds one `BENCH`
@@ -43,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import sys
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
@@ -52,11 +69,14 @@ import torch
 
 from repro_torch.core.conjugates import make_task
 from repro_torch.core.dictionary import blocks_from_full, init_dictionary
-from repro_torch.core.distributed import HIER_MODES, MODES, DistConfig, DistributedSparseCoder
+from repro_torch.core.distributed import (
+    HIER_MODES, MESH_GROWTH_ITEM, MODES, DistConfig, DistributedSparseCoder,
+)
 from repro_torch.core.topology import DIRECTED_KINDS, GRAPH_KINDS
 from repro_torch.data.synthetic import sparse_stream
 from repro_torch.device import resolve_device
-from repro_torch.runtime.service import DictionaryService, ServiceConfig
+from repro_torch.runtime import mesh as mesh_mod
+from repro_torch.runtime.service import MESH_FLEET_ITEM, DictionaryService, ServiceConfig, follow
 from repro_torch.runtime.serving import (
     ReplicaSet, Router, RouterConfig, device_pools, replica_bytes,
 )
@@ -102,13 +122,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--atoms-per-agent", type=int, default=8)
     ap.add_argument("--mesh", type=str, default="1x2",
                     help="'DxM' (flat modes), 'PxDxM' (hier modes) or one leading dim "
-                         "per outer chain level, outermost first; D must be 1")
+                         "per outer chain level, outermost first; D must be 1 "
+                         "without --transport")
     ap.add_argument("--samples", type=int, default=600)
     ap.add_argument("--micro-batch", type=int, default=16)
     ap.add_argument("--max-wait-ms", type=float, default=20.0)
     ap.add_argument("--mu-w", type=float, default=0.1)
     ap.add_argument("--grow-at", type=int, default=300,
-                    help="sample index of the elastic growth event (0 = never)")
+                    help="sample index of the elastic growth event (0 = never; off "
+                         "on a mesh unless given, and then refused)")
     ap.add_argument("--grow-model", type=int, default=2,
                     help="extra model-axis agents added at --grow-at")
     ap.add_argument("--drain-at", type=int, default=0,
@@ -133,9 +155,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--no-learn", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--transport", type=str, default=None,
+                    choices=list(mesh_mod.TRANSPORTS) + ["auto"],
+                    help="run on a mesh of ranks, one agent each, samples over D "
+                         "(runtime/mesh.launch); without it one process holds every agent")
     ap.add_argument("--json", action="store_true",
                     help="emit a single BENCH json line at the end")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    given = sys.argv[1:] if argv is None else list(argv)
+    if args.transport is not None and not any(a.split("=")[0] == "--grow-at" for a in given):
+        args.grow_at = 0  # the default drill is off on a mesh (growth there: refused)
+    return args
 
 
 _PERTURB_CHUNK = 1 << 26  # values per draw of `perturbed`
@@ -169,15 +199,10 @@ def host_full(W_blocks: torch.Tensor) -> np.ndarray:
     return out
 
 
-def run(args: argparse.Namespace) -> Dict:
-    """Serve args.samples samples.  Returns {"payload": the BENCH dict,
-    "results": [(nu, y), ...], "X": the stream, and "service" (the stopped
-    service; its final snapshot and coder stay readable) with "swap_s"
-    ({"grow": s, "drain": s}, None where no swap ran), or in fleet mode
-    "fleet" (the stopped ReplicaSet) with "router" (its final stats) and
-    "publish_s" ({"draw_wait": s, "install": s}: the wait at --publish-at
-    for the host's draw of the new dictionary, then the rolling install;
-    None without a publish)}."""
+def _setup(args: argparse.Namespace) -> Dict:
+    """Check the arguments and build what every process (every rank of a
+    mesh) needs: the mesh dims, the agents per level, the configs and the
+    task."""
     dims = [int(v) for v in args.mesh.split("x")]
     # Agent levels the mesh carries: the --levels spec's for chain, 2 for
     # the hier modes, 1 for the flat ones (as the JAX CLI).
@@ -194,9 +219,11 @@ def run(args: argparse.Namespace) -> Dict:
                      f"then data x model)")
         raise SystemExit(f"--mode {args.mode} needs a --mesh of {want}, got {args.mesh!r}")
     *outer_dims, d, m_axis = dims
-    if d != 1:
-        raise SystemExit(f"--mesh {args.mesh!r}: one device holds every agent, so the "
-                         f"data extent D must be 1")
+    on_mesh = args.transport is not None
+    if d != 1 and not on_mesh:
+        raise SystemExit(f"--mesh {args.mesh!r}: one process holds every agent, so the "
+                         f"data extent D must be 1; D > 1 needs --transport (a mesh of "
+                         f"ranks, the samples split over D)")
     if args.grow_at >= args.samples:
         args.grow_at = 0  # growth point past the stream: never fires
     drain_ranks = [int(v) for v in args.drain.split(",") if v.strip()]
@@ -210,6 +237,10 @@ def run(args: argparse.Namespace) -> Dict:
     if args.replicas < 1:
         raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
     fleet_mode = args.replicas > 1 or args.router
+    if on_mesh and fleet_mode:
+        raise SystemExit(f"--replicas / --router on a mesh: {MESH_FLEET_ITEM}")
+    if on_mesh and (args.grow_at or args.drain_at):
+        raise SystemExit(f"--grow-at / --drain-at on a mesh: {MESH_GROWTH_ITEM}")
     if fleet_mode:
         # Replicas serve a published snapshot (new dictionaries arrive by
         # the rolling publish, not per-replica learning), and the grow/drain
@@ -227,7 +258,6 @@ def run(args: argparse.Namespace) -> Dict:
             args.publish_at = 0  # publish point past the stream: never fires
     level_sizes = (m_axis, *reversed(outer_dims))  # innermost first
     n_agents = math.prod(level_sizes)
-    device = resolve_device(args.device)
     try:
         dist_cfg = DistConfig(
             mode=args.mode, iters=args.iters, topology=args.topology,
@@ -241,29 +271,23 @@ def run(args: argparse.Namespace) -> Dict:
         )
     except (KeyError, ValueError) as e:
         raise SystemExit(f"serve_dict: {e}")
-
     res, reg = make_task(args.task, gamma=args.gamma, delta=args.delta)
-    k0 = args.atoms_per_agent * n_agents
     svc_cfg = ServiceConfig(
         micro_batch=args.micro_batch,
         max_wait_s=args.max_wait_ms / 1e3,
         learn=not args.no_learn,
         mu_w=args.mu_w,
     )
-    agents = level_sizes if dist_cfg.chain_levels() else n_agents
-    pools = None
-    if fleet_mode:  # before W0 exists, so the check sees the card's free memory
-        pools = device_pools(args.replicas, replica_bytes(
-            n_agents, args.m, args.atoms_per_agent, learn=False), device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    W0 = blocks_from_full(
-        init_dictionary(gen, args.m, k0, nonneg=reg.nonneg, device=device), n_agents
-    )
-    X = sparse_stream(args.samples, m=args.m, k_true=k0, nonneg=reg.nonneg,
-                      seed=args.seed + 1)
-    if fleet_mode:
-        return _run_fleet(args, res, reg, dist_cfg, svc_cfg, agents, device, pools, W0, X)
-    coder = DistributedSparseCoder(agents, res, reg, dist_cfg, device=device)
+    # the mesh's axes, outermost first: one per outer level, data, model
+    axes = tuple(dist_cfg.level_axis(i) for i in reversed(range(1, n_agent_levels))) + (
+        "data", dist_cfg.level_axis(0))
+    return {"dims": dims, "axes": axes, "n_agents": n_agents, "drain_ranks": drain_ranks,
+            "agents": level_sizes if dist_cfg.chain_levels() else n_agents,
+            "dist_cfg": dist_cfg, "res": res, "reg": reg, "svc_cfg": svc_cfg,
+            "k0": args.atoms_per_agent * n_agents, "fleet_mode": fleet_mode}
+
+
+def _print_coder(args, coder, device, k0) -> None:
     comb = coder.combiner_info()
     print(f"serve_dict: task={args.task} mode={args.mode} mesh={args.mesh} "
           f"device={device} M={args.m} K={k0} micro_batch={args.micro_batch} "
@@ -275,7 +299,86 @@ def run(args: argparse.Namespace) -> Dict:
         print(f"  level axis={lv['axis']} kind={lv['kind']} n={lv['n']} "
               f"stride={lv['gossip_every']} wire={lv['wire']} stale={lv['stale']}")
 
-    svc = DictionaryService(coder, W0, svc_cfg)
+
+def run(args: argparse.Namespace) -> Dict:
+    """Serve args.samples samples.  Returns {"payload": the BENCH dict,
+    "results": [(nu, y), ...], "X": the stream, and "service" (the stopped
+    service; its final snapshot and coder stay readable) with "swap_s"
+    ({"grow": s, "drain": s}, None where no swap ran), or in fleet mode
+    "fleet" (the stopped ReplicaSet) with "router" (its final stats) and
+    "publish_s" ({"draw_wait": s, "install": s}: the wait at --publish-at
+    for the host's draw of the new dictionary, then the rolling install;
+    None without a publish)}.  On a mesh (`--transport`) rank 0's result
+    of `_serve_ranks` instead."""
+    st = _setup(args)
+    if args.transport is not None:
+        return mesh_mod.launch(_serve_ranks, st["dims"], axes=st["axes"],
+                               transport=args.transport, device=args.device, args=(args,),
+                               kernels=("dict_dual_step",))
+    device = resolve_device(args.device)
+    res, reg, k0, n_agents = st["res"], st["reg"], st["k0"], st["n_agents"]
+    pools = None
+    if st["fleet_mode"]:  # before W0 exists, so the check sees the card's free memory
+        pools = device_pools(args.replicas, replica_bytes(
+            n_agents, args.m, args.atoms_per_agent, learn=False), device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    W0 = blocks_from_full(
+        init_dictionary(gen, args.m, k0, nonneg=reg.nonneg, device=device), n_agents
+    )
+    X = sparse_stream(args.samples, m=args.m, k_true=k0, nonneg=reg.nonneg,
+                      seed=args.seed + 1)
+    if st["fleet_mode"]:
+        return _run_fleet(args, res, reg, st["dist_cfg"], st["svc_cfg"], st["agents"], device,
+                          pools, W0, X)
+    coder = DistributedSparseCoder(st["agents"], res, reg, st["dist_cfg"], device=device)
+    _print_coder(args, coder, device, k0)
+    return _serve(args, coder, W0, X, st["svc_cfg"], st["drain_ranks"])
+
+
+def _serve_ranks(mesh, args: argparse.Namespace) -> Optional[Dict]:
+    """Every rank of a `--transport` run: the coder on `mesh` (one agent a
+    rank), W0 drawn as one process draws it (every rank the same draw, on
+    its device) and cut to this rank's block.  Mesh rank 0 runs the service
+    over the stream and returns `run`'s dict with the fit steps it made
+    ("fit_log": (padded batch, mu_w, t0) each), the final live dictionary
+    gathered whole ("dictionary", host (M, K)), and per rank the K1
+    launches and engine calls; the other ranks follow and return None."""
+    from repro_torch.kernels.dict_dual_step import ops
+    from repro_torch.runtime import service
+
+    st = _setup(args)
+    res, reg, k0 = st["res"], st["reg"], st["k0"]
+    coder = DistributedSparseCoder(st["agents"], res, reg, st["dist_cfg"], device=mesh.device,
+                                   mesh=mesh)
+    gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
+    W0 = coder.snapshot(init_dictionary(gen, args.m, k0, nonneg=reg.nonneg, device=mesh.device))
+    launches0, calls0 = ops.dict_dual_step.launches, service._engine.calls
+    if mesh.rank == 0:
+        X = sparse_stream(args.samples, m=args.m, k_true=k0, nonneg=reg.nonneg,
+                          seed=args.seed + 1)
+        _print_coder(args, coder, f"{mesh.device} x {mesh.world} ranks ({mesh.transport})", k0)
+        out = _serve(args, coder, W0, X, st["svc_cfg"], [], record_fits=True)
+        live = out["service"].live()
+        out["fit_log"] = out["service"].fit_log
+        del out["service"]
+    else:
+        live = follow(coder, W0)
+    del W0
+    counts = mesh.all_gather_object((ops.dict_dual_step.launches - launches0,
+                                     service._engine.calls - calls0))
+    full = coder.gather(live)
+    if mesh.rank != 0:
+        return None
+    out["dictionary"] = full.cpu().numpy()
+    out["k1_launches"] = [c[0] for c in counts]
+    out["engine_calls"] = [c[1] for c in counts]
+    out["mesh"], out["transport"] = mesh.describe(), mesh.transport
+    return out
+
+
+def _serve(args, coder, W0, X, svc_cfg, drain_ranks, record_fits: bool = False) -> Dict:
+    """The single service over the stream X (rank 0's part on a mesh)."""
+    svc = DictionaryService(coder, W0, svc_cfg, record_fits=record_fits)
     del W0  # the service holds the only reference: no second copy
     futures: List[Future] = []
     grow_fut = drain_fut = None

@@ -1,30 +1,45 @@
 """The port's single communication seam: gossip between the agents.
 
-Port of the gossip part of src/repro/runtime/dist.py.  On one device all N
-agents are the leading axis of a tensor, so a collective round is a shift
-of that axis:
+Port of the gossip part of src/repro/runtime/dist.py.  Every function goes
+through a *wire* with two operations: `shift(x, d, dim, level)`, what each
+agent receives when every agent i of a level sends to (i + d) % n, and
+`agent_sum(x)`, the sum over every agent.  Two wires realize them:
 
-  * `gossip_psum` (the exact modes' all-reduce) sums over the agent axis;
+  * `LOCAL` (`LocalWire`): all N agents on one device, the leading axis of
+    a tensor, so a round is `torch.roll(x, d, dim)` and the sum `.sum(0)`;
+  * `MeshWire(mesh, level_axes)`: one agent on each rank of a mesh
+    (runtime/mesh.py), the agent axis of every tensor of size 1, so a
+    round is a `Mesh.ppermute` over the level's mesh axis (`model` for
+    level 0, `pod` for level 1, `pod<i>` beyond) and the sum a `psum` of
+    the local term over the agent axes.  A round skips the pairs whose
+    destination weight is zero, so a rank sends one message per
+    out-neighbour: for ring, torus and complete combiners that is the JAX
+    schedule's count (`wire_bytes_per_iter`), for an irregular graph
+    (erdos) fewer than its rounds.
+
+On either wire:
+
+  * `gossip_psum` (the exact modes' all-reduce) sums over the agents;
   * `ring_shift` returns what each agent receives from its two ring
-    neighbors: `left = roll(+1)` (agent k gets psi[k-1]) and
-    `right = roll(-1)` (agent k gets psi[k+1]);
+    neighbors: `left = shift(+1)` (agent k gets psi[k-1]) and
+    `right = shift(-1)` (agent k gets psi[k+1]);
   * a `GraphSchedule` compiles a combiner A into the same edge-offset
     rounds as the JAX package: round d sends i -> (i+d) % n, so
-    destination k receives psi[(k-d) % n], which is `roll(psi, d, 0)`,
-    and scales it by its per-destination weight A[(k-d) % n, k].
+    destination k receives psi[(k-d) % n] and scales it by its
+    per-destination weight A[(k-d) % n, k] (`schedule_weights` gives the
+    whole table on the local wire, this rank's entry on a mesh).
     `graph_accumulate` adds the rounds in the order of dist.py:388-403.
 
-The JAX torus combiner's 4-link schedule is a mesh-wiring matter with no
-meaning on one device: a torus A compiles through the offset decomposition
-(`torus_schedule`), which realizes the same A, and reports the JAX
-schedule's round count as `messages_per_iter` so the byte accounting
-agrees.  The int8 ("q8") wire: the sender quantizes once per iteration,
-the rolls move the int8 payload and its per-row scales, and each
-destination dequantizes what it receives.  Push-sum's scalar weight rides
-the same rounds as its payload, in fp32.  A Kronecker chain views the agent
-axis outermost-first as (n_{L-1}, ..., n_0) and runs each level's rounds
-along its own dim.  A torch.distributed realization (one process per
-agent) can slot in behind these functions later.
+The JAX torus combiner's 4-link schedule is a mesh-wiring matter: a torus
+A compiles through the offset decomposition (`torus_schedule`), which
+realizes the same A, and reports the JAX schedule's round count as
+`messages_per_iter` so the byte accounting agrees.  The int8 ("q8") wire:
+the sender quantizes once per iteration, the rounds move the int8 payload
+and its fp32 per-row scales, and each destination dequantizes what it
+receives.  Push-sum's scalar weight rides the same rounds as its payload,
+in fp32.  A Kronecker chain views the agent axis outermost-first as
+(n_{L-1}, ..., n_0) (on a mesh every level holds one agent) and runs each
+level's rounds along its own dim.
 """
 
 from __future__ import annotations
@@ -40,6 +55,75 @@ from repro_torch.core.topology import is_doubly_stochastic, is_row_stochastic, t
 
 Tensor = torch.Tensor
 Weights = Tuple[Tensor, Tuple[Tensor, ...]]  # (diag, one table per round)
+
+
+class LocalWire:
+    """Every agent on this device, the agent axis a dim of each tensor."""
+
+    def held(self, ns: Sequence[int]) -> Tuple[int, ...]:
+        """The agents of each level that one tensor holds: all of them."""
+        return tuple(ns)
+
+    def index(self, level: int = 0) -> Optional[int]:
+        """This rank's agent index on `level` (None: the tensor holds every
+        agent, so weight tables keep every entry)."""
+        return None
+
+    def shift(self, x: Tensor, d: int, dim: int = 0, level: int = 0,
+              weights: Optional[Sequence[float]] = None) -> Tensor:
+        """Every agent i of the level sends x to (i + d) % n; what each
+        receives (agent k: x[k - d])."""
+        return torch.roll(x, d, dims=dim)
+
+    def agent_sum(self, x: Tensor) -> Tensor:
+        """The sum over every agent of x (agents leading)."""
+        return x.sum(dim=0)
+
+    def agent_max(self, x: Tensor) -> Tensor:
+        """The max over every agent of x (agents leading)."""
+        return torch.max(x)
+
+
+LOCAL = LocalWire()
+
+
+class MeshWire(LocalWire):
+    """One agent a rank: level i of the agent grid is the mesh axis
+    `level_axes[i]` (innermost first); each tensor holds this rank's agent
+    on a leading axis of size 1."""
+
+    def __init__(self, mesh, level_axes: Sequence[str]):
+        self.mesh = mesh
+        self.level_axes = tuple(level_axes)
+
+    def held(self, ns: Sequence[int]) -> Tuple[int, ...]:
+        return (1,) * len(ns)
+
+    def index(self, level: int = 0) -> Optional[int]:
+        return self.mesh.index(self.level_axes[level])
+
+    def shift(self, x: Tensor, d: int, dim: int = 0, level: int = 0,
+              weights: Optional[Sequence[float]] = None) -> Tensor:
+        """`Mesh.ppermute` with pairs i -> (i + d) % n on the level's axis,
+        skipping destinations whose entry of `weights` is zero (they
+        receive zeros, which their zero weight would have made of any
+        message)."""
+        axis = self.level_axes[level]
+        n = self.mesh.size(axis)
+        pairs = [(i, (i + d) % n) for i in range(n)
+                 if weights is None or weights[(i + d) % n] != 0.0]
+        return self.mesh.ppermute(x, axis, pairs)
+
+    def _over_agents(self, x: Tensor, op) -> Tensor:
+        for axis in reversed(self.level_axes):  # outermost first
+            x = op(x, axis)
+        return x
+
+    def agent_sum(self, x: Tensor) -> Tensor:
+        return self._over_agents(x.sum(dim=0), self.mesh.psum)
+
+    def agent_max(self, x: Tensor) -> Tensor:
+        return self._over_agents(torch.max(x), self.mesh.pmax)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,35 +233,38 @@ def graph_schedule_sequence(
     return tuple(out)
 
 
-def gossip_psum(x: Tensor) -> Tensor:
+def gossip_psum(x: Tensor, wire: LocalWire = LOCAL) -> Tensor:
     """Exact-mode gossip: the fully-connected combine, a sum over agents."""
-    return x.sum(dim=0)
+    return wire.agent_sum(x)
 
 
-def ring_shift(x: Tensor) -> Tuple[Tensor, Tensor]:
+def ring_shift(x: Tensor, wire: LocalWire = LOCAL) -> Tuple[Tensor, Tensor]:
     """(from_left, from_right): what each agent receives from its ring
     neighbors k-1 and k+1."""
-    return torch.roll(x, 1, dims=0), torch.roll(x, -1, dims=0)
+    return wire.shift(x, 1), wire.shift(x, -1)
 
 
 def schedule_weights(sched: GraphSchedule, dtype, device, dim: int = 0,
-                     ndim: int = 3) -> Weights:
+                     ndim: int = 3, index: Optional[int] = None) -> Weights:
     """The schedule's per-destination weight tables (diag, one per round),
-    shaped to broadcast along `dim` of an `ndim`-dimensional tensor.
+    shaped to broadcast along `dim` of an `ndim`-dimensional tensor; with
+    `index` (a mesh wire's `index(level)`) only that destination's entry.
     Tables are built in fp32, as in the JAX package, then cast to `dtype`;
     build them once per coder."""
     shape = [1] * ndim
-    shape[dim] = sched.n
+    shape[dim] = sched.n if index is None else 1
 
     def col(w):
+        w = w if index is None else (w[index],)
         return torch.tensor(w, dtype=torch.float32, device=device).to(dtype).reshape(shape)
 
     return col(sched.diag), tuple(col(w) for _, w in sched.steps)
 
 
-def graph_shift(x: Tensor, sched: GraphSchedule, dim: int = 0) -> Tuple[Tensor, ...]:
+def graph_shift(x: Tensor, sched: GraphSchedule, dim: int = 0, wire: LocalWire = LOCAL,
+                level: int = 0) -> Tuple[Tensor, ...]:
     """Data movement only: one received message per round of the schedule."""
-    return tuple(torch.roll(x, d, dims=dim) for d, _ in sched.steps)
+    return tuple(wire.shift(x, d, dim, level, w) for d, w in sched.steps)
 
 
 def graph_accumulate(x_self: Tensor, received: Sequence[Tensor], weights: Weights) -> Tensor:
@@ -190,9 +277,10 @@ def graph_accumulate(x_self: Tensor, received: Sequence[Tensor], weights: Weight
     return out
 
 
-def graph_combine(x: Tensor, sched: GraphSchedule, weights: Weights) -> Tensor:
+def graph_combine(x: Tensor, sched: GraphSchedule, weights: Weights,
+                  wire: LocalWire = LOCAL) -> Tensor:
     """Synchronous graph gossip nu_k = sum_l A[l, k] psi_l."""
-    return graph_accumulate(x, graph_shift(x, sched), weights)
+    return graph_accumulate(x, graph_shift(x, sched, wire=wire), weights)
 
 
 # -- the int8 wire format ----------------------------------------------------
@@ -223,43 +311,45 @@ def quantize_with_feedback(x: Tensor, err: Tensor) -> Tuple[Tensor, Tensor, Tens
 
 
 def graph_shift_quantized(q: Tensor, s: Tensor, sched: GraphSchedule, dtype,
-                          dim: int = 0) -> Tuple[Tensor, ...]:
+                          dim: int = 0, wire: LocalWire = LOCAL,
+                          level: int = 0) -> Tuple[Tensor, ...]:
     """Each round moves the int8 payload and its scales; the destination
     dequantizes what it receives."""
     return tuple(
-        dequantize_q8(torch.roll(q, d, dims=dim), torch.roll(s, d, dims=dim), dtype)
-        for d, _ in sched.steps
+        dequantize_q8(wire.shift(q, d, dim, level, w), wire.shift(s, d, dim, level, w), dtype)
+        for d, w in sched.steps
     )
 
 
 def graph_combine_quantized(x_self: Tensor, q: Tensor, s: Tensor, sched: GraphSchedule,
-                            weights: Weights) -> Tensor:
+                            weights: Weights, wire: LocalWire = LOCAL) -> Tensor:
     """`graph_combine` over the int8 wire: the self term uses the
     full-precision x_self, each round ships (q, s) from the sender's one
     quantization (error feedback stays with the caller)."""
-    return graph_accumulate(x_self, graph_shift_quantized(q, s, sched, x_self.dtype), weights)
+    return graph_accumulate(
+        x_self, graph_shift_quantized(q, s, sched, x_self.dtype, wire=wire), weights)
 
 
 # -- push-sum (ratio consensus): a weight channel beside the payload -------
 
 
 def push_graph_combine(x: Tensor, w: Tensor, sched: GraphSchedule,
-                       weights: Weights) -> Tuple[Tensor, Tensor]:
+                       weights: Weights, wire: LocalWire = LOCAL) -> Tuple[Tensor, Tensor]:
     """One push-sum round: ship (w * x, w) through the schedule; returns
     (v_new, w_new) = (A^T (w x), A^T w), w of shape (N, 1, 1).  The caller's
     estimate is v_new / w_new; on a doubly-stochastic A, w stays 1."""
     v = w.to(x.dtype) * x
-    return graph_combine(v, sched, weights), graph_combine(w, sched, weights)
+    return graph_combine(v, sched, weights, wire), graph_combine(w, sched, weights, wire)
 
 
 def push_graph_combine_quantized(v_self: Tensor, q: Tensor, s: Tensor, w: Tensor,
-                                 sched: GraphSchedule, weights: Weights
-                                 ) -> Tuple[Tensor, Tensor]:
+                                 sched: GraphSchedule, weights: Weights,
+                                 wire: LocalWire = LOCAL) -> Tuple[Tensor, Tensor]:
     """`push_graph_combine` over the int8 wire: the caller quantizes
     v = w * psi once (with error feedback) and passes the full-precision v
     as `v_self`; the weight channel ships in fp32 on the same rounds."""
-    return (graph_combine_quantized(v_self, q, s, sched, weights),
-            graph_combine(w, sched, weights))
+    return (graph_combine_quantized(v_self, q, s, sched, weights, wire),
+            graph_combine(w, sched, weights, wire))
 
 
 # -- the N-level Kronecker chain ---------------------------------------------
@@ -338,11 +428,12 @@ def wire_bytes_per_level(cs: ChainSchedule, b_loc: int, m: int) -> Tuple[float, 
     )
 
 
-def chain_weights(cs: ChainSchedule, dtype, device) -> Tuple[Weights, ...]:
+def chain_weights(cs: ChainSchedule, dtype, device,
+                  wire: LocalWire = LOCAL) -> Tuple[Weights, ...]:
     """Each level's weight tables, shaped for the (outer, n_i, inner, B, M)
     view `chain_combine` gossips level i in."""
-    return tuple(schedule_weights(lvl.sched, dtype, device, dim=1, ndim=5)
-                 for lvl in cs.levels)
+    return tuple(schedule_weights(lvl.sched, dtype, device, dim=1, ndim=5, index=wire.index(i))
+                 for i, lvl in enumerate(cs.levels))
 
 
 def chain_state_init(x: Tensor, cs: ChainSchedule) -> Tuple:
@@ -358,12 +449,13 @@ def chain_state_init(x: Tensor, cs: ChainSchedule) -> Tuple:
 
 
 def _level_view(x: Tensor, ns: Tuple[int, ...], i: int) -> Tensor:
-    """x (N, B, M), agents outermost-major, as (outer, n_i, inner, B, M)."""
+    """x (N, B, M), agents outermost-major, as (outer, n_i, inner, B, M);
+    `ns` the agents of each level x holds (all ones on a mesh wire)."""
     return x.reshape(math.prod(ns[i + 1:]), ns[i], math.prod(ns[:i]), *x.shape[1:])
 
 
 def _level_apply(v: Tensor, lvl: LevelPlan, i: int, ns, t: int, err, recv_prev,
-                 weights: Weights):
+                 weights: Weights, wire: LocalWire):
     """One level's gated hop on v (N, B, M): ship v's messages (fp32, or q8
     with error feedback), combine with them (or, stale, with the previous
     firing's), return (combined, new_err, new_recv).  An iteration with
@@ -374,27 +466,27 @@ def _level_apply(v: Tensor, lvl: LevelPlan, i: int, ns, t: int, err, recv_prev,
     if lvl.quantized:
         q, s, e_next = quantize_with_feedback(u, _level_view(err, ns, i))
         e_next = e_next.reshape(v.shape)
-        recv = graph_shift_quantized(q, s, lvl.sched, u.dtype, dim=1)
+        recv = graph_shift_quantized(q, s, lvl.sched, u.dtype, dim=1, wire=wire, level=i)
     else:
         e_next = err
-        recv = graph_shift(u, lvl.sched, dim=1)
+        recv = graph_shift(u, lvl.sched, dim=1, wire=wire, level=i)
     use = tuple(_level_view(r, ns, i) for r in recv_prev) if lvl.stale else recv
     out = graph_accumulate(u, use, weights).reshape(v.shape)
     return out, e_next, (tuple(r.reshape(v.shape) for r in recv) if lvl.stale else ())
 
 
 def chain_combine(x: Tensor, cs: ChainSchedule, t: int, state: Tuple,
-                  weights: Sequence[Weights]) -> Tuple[Tensor, Tuple]:
+                  weights: Sequence[Weights], wire: LocalWire = LOCAL) -> Tuple[Tensor, Tuple]:
     """N-level gossip of x (N, B, M): every level innermost-first, each
     gated on its own stride by the iteration index t; returns (combined,
     new_state).  q8 levels update their error feedback only when they fire;
     stale levels combine with the previous firing's messages and keep this
     round's in the state."""
-    ns = cs.ns
+    ns = wire.held(cs.ns)
     out = x
     new_state = []
     for i, (lvl, (err, recv_prev), w) in enumerate(zip(cs.levels, state, weights)):
-        out, err_next, recv_next = _level_apply(out, lvl, i, ns, t, err, recv_prev, w)
+        out, err_next, recv_next = _level_apply(out, lvl, i, ns, t, err, recv_prev, w, wire)
         new_state.append((err_next, recv_next))
     return out, tuple(new_state)
 

@@ -18,8 +18,11 @@ larger world (the others hold None), so one spawned world can run meshes
 of several shapes one after the other (a rescale from 2x2 to 1x2).
 
 Collectives over an axis (`psum`, `pmax`, `all_gather_tiled`,
-`psum_scatter_tiled`, `all_to_all_tiled`) have dist.py's tiled semantics;
-on an axis of size 1 each returns its input and calls no backend.  A psum
+`psum_scatter_tiled`, `all_to_all_tiled`) have dist.py's tiled semantics,
+and `ppermute` `lax.ppermute`'s over static (src, dst) pairs (the gossip
+rounds of runtime/comm.py's mesh wire); `gather_first` concatenates onto
+the axis's first rank only; on an axis of size 1 each returns its input
+and calls no backend.  A psum
 of a float tensor narrower than fp32 sums in fp32 and rounds once.
 `broadcast`, `barrier` and `all_gather_object` span the whole mesh.
 `traffic` counts, per axis, the collectives this rank ran and the bytes it
@@ -46,7 +49,9 @@ that raised turns into a failure of the run, not a hang (and `launch`
 stops the other ranks as soon as one fails).  The one exception is the
 wait for checkpoint I/O (`barrier(io=True)`): rank 0 alone writes the
 whole tensors, for as long as their bytes take, so the other ranks wait
-for it on a group with the world's timeout.
+for it on a group with the world's timeout; so is a follower's wait for
+the dictionary service's next request (`broadcast(io=True)`), which lasts
+as long as the stream is idle.
 """
 
 from __future__ import annotations
@@ -236,6 +241,67 @@ class Mesh:
         return torch.empty(shape, dtype=like.dtype, device=like.device,
                            pin_memory=self.transport == "gloo_staged")
 
+    def ppermute(self, x: torch.Tensor, axis: str, pairs) -> torch.Tensor:
+        """`lax.ppermute` over `axis`: for each static (src, dst) of `pairs`
+        (indices along the axis, no src and no dst twice) rank dst receives
+        rank src's x; a rank that is no pair's destination receives zeros.
+        Only a message to another rank crosses the wire (and is counted in
+        `traffic`); a self-pair keeps x."""
+        n, me = self.size(axis), self.index(axis)
+        pairs = [(int(s), int(d)) for s, d in pairs]
+        srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+        if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts) or \
+                any(not 0 <= v < n for v in srcs + dsts):
+            raise ValueError(f"ppermute over {axis!r} ({n} ranks): pairs {pairs} must name "
+                             f"each source and each destination at most once")
+        dst = next((d for s, d in pairs if s == me and d != me), None)
+        src = next((s for s, d in pairs if d == me), None)
+        if dst is None and src in (None, me):  # nothing crosses (always on a size-1 axis)
+            return x if src == me else torch.zeros_like(x)
+        w = self._to_wire(x)
+        ops = []
+        if dst is not None:
+            self._count(axis, w)
+            ops.append((dist.isend, w, dst))
+        if src not in (None, me):
+            out = self._wire_buffer(w.shape, w)
+            ops.append((dist.irecv, out, src))
+        self._p2p(axis, ops)
+        if src is None:
+            return torch.zeros_like(x)
+        return x if src == me else self._from_wire(out, x)
+
+    def gather_first(self, x: torch.Tensor, axis: str) -> Optional[torch.Tensor]:
+        """Every rank's x along `axis`, concatenated on dim 0 in the axis's
+        order, on the axis's first rank (None on the others): each other
+        rank sends its x there once (a gather, where all_gather_tiled
+        would send it to every rank)."""
+        n, me = self.size(axis), self.index(axis)
+        if n == 1:
+            return x
+        w = self._to_wire(x)
+        if me:
+            self._count(axis, w)
+            self._p2p(axis, [(dist.isend, w, 0)])
+            return None
+        out = self._wire_buffer((n * w.shape[0], *w.shape[1:]), w)
+        chunks = out.chunk(n)
+        chunks[0].copy_(w)
+        self._p2p(axis, [(dist.irecv, chunks[j], j) for j in range(1, n)])
+        return self._from_wire(out, x)
+
+    def _p2p(self, axis: str, ops) -> None:
+        """Post every (isend or irecv, tensor, index along `axis`) at once
+        and wait for all (nccl: one batch_isend_irecv)."""
+        group, members = self.groups[axis], self.members[axis]
+        if self.transport == "nccl":
+            reqs = dist.batch_isend_irecv([dist.P2POp(op, t, members[j], group=group)
+                                           for op, t, j in ops])
+        else:
+            reqs = [op(t, members[j], group=group) for op, t, j in ops]
+        for r in reqs:
+            r.wait()
+
     def _exchange(self, axis: str, sends, recvs) -> None:
         """gloo: sends[j] to the j-th rank of `axis` and its message into
         recvs[j], for every j but this rank's, all posted at once (gloo's
@@ -252,9 +318,11 @@ class Mesh:
 
     # -- over the whole mesh --------------------------------------------------------
 
-    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+    def broadcast(self, x: torch.Tensor, src: int = 0, io: bool = False) -> torch.Tensor:
+        """x of mesh rank `src` on every rank; with io, on the group whose
+        timeout is the world's (a wait that may last, as barrier's)."""
         w = self._to_wire(x, copy=True)
-        dist.broadcast(w, src=src, group=self.group)
+        dist.broadcast(w, src=src, group=self.io_group if io else self.group)
         return self._from_wire(w, x)
 
     def barrier(self, io: bool = False) -> None:
@@ -553,7 +621,7 @@ def _entry(rank, fn, shape, axes, world, port, transport, device, args, out_path
 def launch(fn: Callable, shape: Sequence[int], *, axes: Optional[Sequence[str]] = None,
            transport: str = "auto", device="cuda", args: tuple = (),
            world: Optional[int] = None, threads: Optional[int] = None, quiet: bool = False,
-           timeout: Optional[float] = None):
+           timeout: Optional[float] = None, kernels: Sequence[str] = ("flash_attention",)):
     """Spawn `world` ranks (default prod(shape)), each running
     fn(mesh, *args) with the mesh of `shape` over its first ranks (None on
     the others); returns rank 0's result.  fn and args must pickle (a
@@ -562,7 +630,9 @@ def launch(fn: Callable, shape: Sequence[int], *, axes: Optional[Sequence[str]] 
     `timeout` seconds (TimeoutError).  On the CPU each rank runs `threads`
     threads (default: the cores over the ranks).  A world of one rank is
     this process: fn runs here (no timeout), and the process leaves the
-    world, its torch threads as they were, when fn returns or raises."""
+    world, its torch threads as they were, when fn returns or raises.  On
+    the card the `kernels` the ranks launch are built here first (one nvcc
+    each, in parallel), so that no rank runs nvcc."""
     import torch.multiprocessing as mp
 
     shape = parse_mesh(shape)
@@ -571,10 +641,10 @@ def launch(fn: Callable, shape: Sequence[int], *, axes: Optional[Sequence[str]] 
     if not quiet:
         print(f"[mesh] {'x'.join(map(str, shape))} over {world} ranks, transport {transport}",
               flush=True)
-    if transport != "gloo":
+    if transport != "gloo" and kernels:
         from repro_torch.kernels import build
 
-        build.build(["flash_attention"])  # once here, not once a rank
+        build.build(list(kernels))  # once here, not once a rank
     if threads is None and torch.device(device).type == "cpu":
         threads = max(1, (os.cpu_count() or 1) // world)
     if world == 1:

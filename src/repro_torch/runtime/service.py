@@ -1,7 +1,8 @@
 """Online streaming dictionary service: the serving path of the engine.
 
 Port of src/repro/runtime/service.py over the port's
-`DistributedSparseCoder` (N agents on one device):
+`DistributedSparseCoder` (N agents on one device, or one agent a rank of
+a mesh):
 
   * micro-batching: requests are queued and flushed as micro-batches of
     `micro_batch` rows (zero-padded to that size; zero rows code to nu = 0
@@ -46,7 +47,21 @@ Port of src/repro/runtime/service.py over the port's
     `install_snapshot` all run on it (a thread starts on the default
     stream, so each enters the service's), and waiting for a result waits
     for that stream only, so replicas sharing the card do not wait for
-    each other's work.  On the CPU there is no stream.
+    each other's work.  On the CPU there is no stream;
+  * on a mesh (a coder built with `mesh=`), SPMD with mesh rank 0 as the
+    controller: rank 0 runs the service above (its batcher and learner
+    threads, micro-batching, snapshots); under `_exec_lock`, before each
+    engine call, it broadcasts a small header (op: solve / fit / warm fit
+    / stop; the snapshot version or the version a fit publishes as; t0;
+    mu_w; rows) and then the micro-batch, zero-padded to a multiple of the
+    data extent as the JAX service pads it.  Every other rank runs
+    `follow`, which makes the same coder call on its block and its data
+    rows, so every rank issues one collective order whatever rank 0's
+    thread timing; the codes are gathered to every rank, rank 0 resolves
+    the futures.  A follower waits for the next header on the mesh's
+    `io_group` (the world's timeout): an idle stream may last longer than
+    the axis groups' 2 minutes.  Growth, drain and `install_snapshot`
+    (the fleet's publish) raise on a mesh (ROADMAP section 1, items 8, 9).
 """
 
 from __future__ import annotations
@@ -57,14 +72,20 @@ import dataclasses
 import queue
 import threading
 import time
+import weakref
 from concurrent.futures import Future
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.distributed import DistributedSparseCoder
+from repro_torch.core.distributed import MESH_GROWTH_ITEM, DistributedSparseCoder
 from repro_torch.core.dictionary import full_from_blocks
+
+# The mesh protocol: the header rank 0 broadcasts before each engine call
+# (op, version, t0, mu_w, rows), and its ops.
+OP_STOP, OP_SOLVE, OP_FIT, OP_WARM_FIT = 0, 1, 2, 3
+MESH_FLEET_ITEM = "ROADMAP section 1, item 9 (the fleet on disjoint meshes)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +217,9 @@ class DictionaryService:
     """
 
     def __init__(self, coder: DistributedSparseCoder, W0, cfg: ServiceConfig = ServiceConfig(),
-                 stream: Optional["torch.cuda.Stream"] = None):
+                 stream: Optional["torch.cuda.Stream"] = None, record_fits: bool = False):
+        """`record_fits` keeps every fit step's (padded batch, mu_w, t0) in
+        `fit_log`, in execution order (for a replay of the run)."""
         self.cfg = cfg
         self._lock = threading.Lock()  # guards the counters and (coder, live, snapshot)
         self._exec_lock = threading.Lock()  # one engine execution at a time
@@ -215,7 +238,16 @@ class DictionaryService:
             self._live = coder.snapshot(W0)
         self._snap = self._live
         self._m = int(self._live.shape[1])
-        self._pad = cfg.micro_batch  # one device: the data extent is 1
+        self._mesh = coder.mesh
+        d = 1 if self._mesh is None else self._mesh.size("data")
+        # padded to a multiple of the data extent, so the rows split evenly
+        self._pad = max(cfg.micro_batch, d) + (-max(cfg.micro_batch, d)) % d
+        self.fit_log: Optional[List[Tuple[np.ndarray, float, int]]] = [] if record_fits else None
+        self._released = False  # the followers were sent OP_STOP
+        # On a mesh, the published snapshots still referenced, by version
+        # (a solve names its snapshot's version to the followers).
+        self._snap_refs: "weakref.WeakValueDictionary[int, torch.Tensor]" = \
+            weakref.WeakValueDictionary()
         self._queue: "queue.Queue[_Item]" = queue.Queue(maxsize=cfg.queue_capacity)
         self._learn_q = _LearnReservoir(cfg.learn_queue_cap, cfg.learn_seed)
         self._grow_q: "queue.Queue[Tuple[int, torch.Generator, Future]]" = queue.Queue()
@@ -242,6 +274,7 @@ class DictionaryService:
         # completed solve coded against.
         self._snap_version = 0
         self._serving_version = 0
+        self._remember_snapshot()
 
     # -- helpers ----------------------------------------------------------
 
@@ -287,13 +320,57 @@ class DictionaryService:
         with self._lock:
             self._sched_t -= coder.cfg.iters
 
+    def _announce(self, op: int, ver: int = 0, t0: int = 0, mu_w: float = 0.0,
+                  xb: Optional[np.ndarray] = None) -> None:
+        """On a mesh, rank 0 tells the followers the next engine call (hold
+        `_exec_lock`, or run before the workers exist): the header, then
+        the padded batch."""
+        if self._mesh is None:
+            return
+        rows = 0 if xb is None else xb.shape[0]
+        header = torch.tensor([op, ver, t0, mu_w, rows], dtype=torch.float64,
+                              device=self._mesh.device)
+        self._mesh.broadcast(header, 0, io=True)
+        if xb is not None:
+            self._mesh.broadcast(torch.as_tensor(xb, device=self._mesh.device))
+
+    def _release_followers(self) -> None:
+        """Send the followers OP_STOP, once (after the workers joined)."""
+        if self._mesh is not None and not self._released:
+            self._released = True
+            with self._exec_lock, self._on_stream():
+                self._announce(OP_STOP)
+
+    def _remember_snapshot(self) -> None:
+        """On a mesh, file the published snapshot under its version (hold
+        `_lock`, or run before the workers exist)."""
+        if self._mesh is not None:
+            self._snap_refs[self._snap_version] = self._snap
+
+    def _version_of(self, snap: torch.Tensor) -> int:
+        """The version a published snapshot was filed under (on a mesh)."""
+        if self._mesh is None:
+            return 0
+        with self._lock:
+            for ver, s in self._snap_refs.items():
+                if s is snap:
+                    return ver
+        raise RuntimeError("a solve against a snapshot that was never published")
+
+    def _code(self, coder: DistributedSparseCoder, W: torch.Tensor, xb: np.ndarray,
+              t0: Optional[int]):
+        """One solve of a padded batch on every rank; (nu, y) over all its
+        rows.  t0 None: a warmup, which claims no window of the clock."""
+        self._announce(OP_SOLVE, self._version_of(W), t0 or 0, xb=xb)
+        return _engine(coder, OP_SOLVE, W, xb, t0)
+
     def _solve_padded(self, coder: DistributedSparseCoder, snap: torch.Tensor, xb: np.ndarray):
         """Code a real batch of b rows against `snap` with `coder`, the pair
         read together; host numpy results."""
         b = xb.shape[0]
         with self._exec_lock:
             t0 = self._advance_schedule(coder)
-            nu, y = coder.solve(snap, self._pad_rows(xb), t0)
+            nu, y = self._code(coder, snap, self._pad_rows(xb), t0)
             nu, y = nu[:b].cpu().numpy(), y[:b].cpu().numpy()
         return nu, y
 
@@ -306,9 +383,10 @@ class DictionaryService:
         itself: start() runs it before the workers exist, the swaps under
         `_exec_lock`."""
         z = np.zeros((self._pad, self._m), np.float32)
-        coder.solve(W, z)
+        self._code(coder, W, z, None)
         if self.cfg.learn:
-            coder.fit_batch(W, z, 0.0)
+            self._announce(OP_WARM_FIT, xb=z)
+            _engine(coder, OP_WARM_FIT, W, z, None, 0.0)
         self._wait()
 
     def start(self) -> "DictionaryService":
@@ -344,6 +422,7 @@ class DictionaryService:
         self._stop.set()
         for t in self._threads:
             t.join()
+        self._release_followers()
         with self._submit_lock:
             self._threads = []
             self._fail_pending(RuntimeError("service stopped before this request was processed"))
@@ -364,6 +443,7 @@ class DictionaryService:
         self._learn_q.clear()
         for t in self._threads[1:]:
             t.join()
+        self._release_followers()
         with self._submit_lock:
             self._threads = []
             self._fail_pending(err)
@@ -403,7 +483,10 @@ class DictionaryService:
         """Request elastic growth by `extra_model` model-level agents, fresh
         atoms from `generator` (`DistributedSparseCoder.grown`).  Applied by
         the learner at its next step boundary; the Future resolves to the
-        grow event (an info dict) once the new coder and snapshot are live."""
+        grow event (an info dict) once the new coder and snapshot are live.
+        Raises on a mesh."""
+        if self._mesh is not None:
+            raise NotImplementedError(f"growth on a mesh: {MESH_GROWTH_ITEM}")
         fut: Future = Future()
         self._enqueue(self._grow_q, (int(extra_model), generator, fut), "grow()")
         return fut
@@ -413,7 +496,9 @@ class DictionaryService:
         of grow()).  Applied by the learner at its next step boundary; the
         Future resolves to the drain event once the shrunk coder and
         snapshot are live.  Survivors keep their blocks bit for bit, and the
-        schedule clock carries over."""
+        schedule clock carries over.  Raises on a mesh."""
+        if self._mesh is not None:
+            raise NotImplementedError(f"agent drain on a mesh: {MESH_GROWTH_ITEM}")
         departing = tuple(sorted(set(int(r) for r in departing_ranks)))
         if not departing:
             raise ValueError("departing_ranks is empty: nothing to drain")
@@ -426,8 +511,18 @@ class DictionaryService:
         with self._lock:
             return self._snap
 
+    def live(self) -> torch.Tensor:
+        """The live blocks the learner advances (the snapshot lags it by up
+        to publish_every - 1 fit steps; never written)."""
+        with self._lock:
+            return self._live
+
     def dictionary(self) -> np.ndarray:
-        """Host (M, K) copy of the currently published snapshot."""
+        """Host (M, K) copy of the currently published snapshot (one
+        process; on a mesh every rank holds one block: `coder.gather`)."""
+        if self._mesh is not None:
+            raise RuntimeError("on a mesh each rank holds one block; gather the dictionary "
+                               "with the coder's collective `gather` on every rank")
         return full_from_blocks(self.snapshot()).cpu().numpy()
 
     @property
@@ -447,7 +542,9 @@ class DictionaryService:
         snapshot version.  Batches in flight finish on the old snapshot;
         the next one codes against `W`.  Refused when W's shape is not the
         live dictionary's, or when a grow or drain changed the coder while
-        W was being placed."""
+        W was being placed.  Raises on a mesh."""
+        if self._mesh is not None:
+            raise NotImplementedError(f"install_snapshot on a mesh: {MESH_FLEET_ITEM}")
         with self._submit_lock:
             if self._stop.is_set() or not self._threads:
                 raise RuntimeError("service is not running; cannot install a snapshot")
@@ -618,8 +715,14 @@ class DictionaryService:
                 with self._exec_lock:
                     t0 = self._advance_schedule(coder)
                     try:
-                        live2 = coder.fit_batch(live, xb, mu_w_eff, t0)
+                        # the version this fit publishes as (0: not published)
+                        publish_as = self._snap_version + 1 \
+                            if (self.fit_steps + 1) % self.cfg.publish_every == 0 else 0
+                        self._announce(OP_FIT, publish_as, t0, mu_w_eff, xb)
+                        live2 = _engine(coder, OP_FIT, live, xb, t0, mu_w_eff)
                         self._wait()
+                        if self.fit_log is not None:
+                            self.fit_log.append((xb, mu_w_eff, t0))
                     except Exception:
                         self._rollback_schedule(coder)  # the window never ran
                         raise
@@ -640,6 +743,7 @@ class DictionaryService:
                         self._snap = live2
                         self.published += 1
                         self._snap_version += 1
+                        self._remember_snapshot()
 
     def _maybe_grow(self) -> None:
         self._maybe_swap(self._grow_q, lambda c, W, req: c.grown(W, req[0], req[1]))
@@ -698,3 +802,54 @@ class DictionaryService:
             _resolve(fut, info)
         except Exception as e:
             _resolve(fut, exc=e)
+
+
+def _engine(coder: DistributedSparseCoder, op: int, W: torch.Tensor, xb, t0: Optional[int],
+            mu_w: float = 0.0):
+    """The coder call of one op, the same on every rank: a solve (its
+    result gathered over a mesh) or a fit step on this rank's rows; t0 None
+    (a warmup) leaves the coder's default offset."""
+    x = coder.local_rows(xb)
+    _engine.calls += 1
+    at = () if t0 is None else (t0,)
+    if op == OP_SOLVE:
+        nu, y = coder.solve(W, x, *at)
+        return (nu, y) if coder.mesh is None else coder.gather_solution(nu, y)
+    return coder.fit_batch(W, x, mu_w, *at)
+
+
+_engine.calls = 0  # engine calls in this process (each one solve: iters + 1 K1 launches)
+
+
+@torch.no_grad()
+def follow(coder: DistributedSparseCoder, W0) -> torch.Tensor:
+    """A follower rank's side of a `DictionaryService` that mesh rank 0
+    runs with the same coder (its own mesh rank): take each header, make
+    the coder call rank 0 makes, on this rank's block and data rows, until
+    OP_STOP; returns this rank's live block.  Each fit that rank 0 publishes
+    becomes the snapshot of that version; a solve codes against the
+    version rank 0 names (versions only grow, so older ones are dropped)."""
+    mesh = coder.mesh
+    live = coder.snapshot(W0)
+    snaps = {0: live}
+    m = live.shape[1]
+    while True:
+        header = mesh.broadcast(torch.zeros(5, dtype=torch.float64, device=mesh.device), 0,
+                                io=True)
+        op, ver, t0, mu_w, rows = header.tolist()
+        op, ver, t0, rows = int(op), int(ver), int(t0), int(rows)
+        if op == OP_STOP:
+            return live
+        xb = mesh.broadcast(torch.empty((rows, m), dtype=live.dtype, device=mesh.device))
+        if op == OP_SOLVE:
+            _engine(coder, op, snaps[ver], xb, t0)
+            for v in [v for v in snaps if v < ver]:
+                del snaps[v]
+        elif op == OP_FIT:
+            live = _engine(coder, op, live, xb, t0, mu_w)
+            if ver:
+                snaps[ver] = live
+        elif op == OP_WARM_FIT:
+            _engine(coder, op, live, xb, t0, mu_w)
+        else:
+            raise RuntimeError(f"unknown service op {op} from mesh rank 0")

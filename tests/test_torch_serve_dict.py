@@ -81,7 +81,7 @@ def test_cli_flags_and_defaults_are_the_jax_clis():
             default = ast.literal_eval(kw["default"]) if "default" in kw else False
             jax_defaults[flag.lstrip("-").replace("-", "_")] = default
     ours = vars(serve_dict.parse_args([]))
-    assert set(ours) - set(jax_defaults) == {"device"}
+    assert set(ours) - set(jax_defaults) == {"device", "transport"}
     assert {k: ours[k] for k in jax_defaults} == jax_defaults
     assert ours["grow_at"] == 300 and ours["grow_model"] == 2
 

@@ -1,5 +1,6 @@
 """Rank functions of the port's multi-rank tests (tests/test_torch_mesh.py,
-tests/test_torch_sharded_train.py, tests/test_torch_moe_a2a.py).
+tests/test_torch_sharded_train.py, tests/test_torch_moe_a2a.py,
+tests/test_torch_mesh_coder.py, tests/test_torch_mesh_serve_dict.py).
 
 Each runs on every rank of a world that runtime/mesh.launch spawns (gloo,
 CPU tensors), builds the meshes it needs over the world's first ranks,
@@ -11,6 +12,7 @@ package (`hygiene` checks that from inside a rank).
 from __future__ import annotations
 
 import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -121,7 +123,9 @@ def hygiene(mesh0) -> list:
     for name in ("repro_torch.runtime.mesh", "repro_torch.runtime.sharding",
                  "repro_torch.models.sharding_hook", "repro_torch.models.moe_a2a",
                  "repro_torch.runtime.steps", "repro_torch.runtime.runner",
-                 "repro_torch.launch.train", "repro_torch.checkpoint.manager"):
+                 "repro_torch.launch.train", "repro_torch.checkpoint.manager",
+                 "repro_torch.runtime.comm", "repro_torch.core.distributed",
+                 "repro_torch.runtime.service", "repro_torch.launch.serve_dict"):
         importlib.import_module(name)
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
@@ -363,4 +367,159 @@ def moe_a2a(mesh0, job: dict) -> dict:
                             wire=c["wire"], grads=c["grads"])
             if mesh.rank == 0:
                 out[(name, shape)] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The paper's engine across ranks (tests/test_torch_mesh_coder.py)
+# ---------------------------------------------------------------------------
+
+
+def _traffic(mesh) -> dict:
+    return {a: list(c) for a, c in mesh.traffic.items()}
+
+
+def _since(mesh, before: dict) -> dict:
+    """Per axis [calls, bytes] this rank put on the wire since `before`."""
+    return {a: [c[0] - before.get(a, [0, 0])[0], c[1] - before.get(a, [0, 0])[1]]
+            for a, c in mesh.traffic.items() if c != before.get(a)}
+
+
+def _ppermute_cases(mesh) -> dict:
+    """Mesh.ppermute over `model` (4 ranks): a shift, a partial permutation
+    with a self-pair, no pair at all; over `data` (1 rank) a self-pair and
+    no pair; each rank's result and its traffic."""
+    x = _t(inputs(7, mesh.rank, (3, 5)))
+    cases = {"shift": ("model", [(i, (i + 1) % 4) for i in range(4)]),
+             "partial": ("model", [(0, 2), (2, 0), (3, 3)]),
+             "none": ("model", []),
+             "self on a size-1 axis": ("data", [(0, 0)]),
+             "none on a size-1 axis": ("data", [])}
+    out = {}
+    for name, (axis, pairs) in cases.items():
+        before = _traffic(mesh)
+        out[name] = (_np(mesh.ppermute(x, axis, pairs)), _since(mesh, before))
+    return out
+
+
+def flat_agent(coords: dict, axes, shape) -> int:
+    """The flat agent index of mesh coordinates: outermost-major over every
+    axis but `data`."""
+    k = 0
+    for a, n in zip(axes, shape):
+        if a != "data":
+            k = k * n + coords[a]
+    return k
+
+
+def mesh_coder(mesh0, job: dict) -> dict:
+    """Every case of job["cases"] on its mesh over the world's first ranks:
+    the coder on the mesh (one agent a rank) at job's inputs; each case's
+    per-rank solve traffic, then the gathered per-agent solve, the
+    gathered `solve`, `fit_batch` gathered whole, the scores and the step
+    sizes.  Also the ppermute semantics on the (1, 4) mesh.  Rank 0's
+    results, as numpy."""
+    from repro_torch.core.conjugates import make_task
+    from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+
+    out = {}
+    meshes = {}
+    for case in job["cases"].values():
+        key = (tuple(case["shape"]), tuple(case["axes"]))
+        if key not in meshes:
+            meshes[key] = mesh_mod.make_mesh(*key)
+    m14 = meshes.get(((1, 4), ("data", "model"))) or mesh_mod.make_mesh((1, 4))
+    if m14 is not None:
+        got = _on_rank0(m14, _ppermute_cases(m14))
+        if got is not None:
+            out["ppermute"] = got
+    res, reg = make_task(job["task"], gamma=job["gamma"], delta=job["delta"])
+    for name, case in job["cases"].items():
+        mesh = meshes[(tuple(case["shape"]), tuple(case["axes"]))]
+        if mesh is None:
+            continue
+        coder = DistributedSparseCoder(case["agents"], res, reg, DistConfig(**case["cfg"]),
+                                       device="cpu", mesh=mesh)
+        W, x = coder.shard(case["W"], job["x"])
+        _, h = coder.shard(case["W"], job["h"])
+        t0 = case.get("t0", 0)
+        before = _traffic(mesh)
+        nu_k, y_k = coder.solve(W, x, t0)
+        traffic = _since(mesh, before)
+        nu_g, y_g = coder.gather_solution(nu_k, y_k)
+        nu_a, y_a = coder.solve_per_agent(W, x, t0)
+        W2 = coder.gather(coder.fit_batch(W, x, job["mu_w"], t0))
+        score = mesh.all_gather_tiled(coder.score(W, h, t0), "data", 0)
+        mu = coder.adaptive_mu(W)
+        halves = None
+        if mesh.size("data") > 1:  # the planted fault: fit_batch without its data sum
+            with mock.patch.object(coder, "_data_sum", lambda t: t):
+                halves = coder.gather(coder.fit_batch(W, x, job["mu_w"], t0))
+        per_rank = mesh.all_gather_object({"traffic": traffic, "agent": coder.agent_index,
+                                           "coords": mesh.coords})
+        if mesh.rank == 0:
+            out[name] = {"nu": _np(nu_a), "y": _np(y_a), "nu0": _np(nu_g), "y_flat": _np(y_g),
+                         "W": _np(W2), "score": _np(score), "mu": _np(mu),
+                         "wire": coder.wire_bytes_per_iter(x.shape[0], x.shape[1]),
+                         "ranks": per_rank}
+            if halves is not None:
+                out[name]["W_no_data_sum"] = _np(halves)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The dictionary service on a mesh (tests/test_torch_mesh_serve_dict.py)
+# ---------------------------------------------------------------------------
+
+
+def _idle_stream(job: dict) -> bool:
+    """A service on a 1x2 mesh whose groups time out after job["timeout_s"]
+    seconds, its stream idle for job["sleep_s"] seconds between two bursts:
+    True when every rank got through (a follower whose wait for the next
+    request timed out raises instead)."""
+    import datetime
+    import time
+
+    from repro_torch.core.conjugates import make_task
+    from repro_torch.core.distributed import DistConfig, DistributedSparseCoder
+    from repro_torch.runtime.service import DictionaryService, ServiceConfig, follow
+
+    with mock.patch.object(mesh_mod, "GROUP_TIMEOUT",
+                           datetime.timedelta(seconds=job["timeout_s"])):
+        mesh = mesh_mod.make_mesh((1, 2))
+    if mesh is None:
+        return True
+    res, reg = make_task("sparse_svd", gamma=0.05, delta=0.1)
+    coder = DistributedSparseCoder(2, res, reg, DistConfig(mode="graph", iters=10),
+                                   device="cpu", mesh=mesh)
+    W0 = coder.snapshot(job["W"])
+    ok = True
+    if mesh.rank == 0:
+        with DictionaryService(coder, W0, ServiceConfig(micro_batch=4, max_wait_s=0.01)) as svc:
+            first = [f.result(timeout=60) for f in svc.submit_many(job["x"][:4])]
+            time.sleep(job["sleep_s"])
+            second = [f.result(timeout=60) for f in svc.submit_many(job["x"][4:])]
+        ok = len(first) + len(second) == len(job["x"]) and svc.stats()["fit_steps"] >= 1
+    else:
+        follow(coder, W0)
+    return all(mesh.all_gather_object(bool(ok)))
+
+
+def serve_dict_runs(mesh0, job: dict) -> dict:
+    """launch/serve_dict's rank body (`_serve_ranks`, what `--transport`
+    runs on each rank) for each argv of job["runs"] on its mesh over the
+    world's first ranks, then the idle stream (job["idle"]); rank 0's
+    results."""
+    from repro_torch.launch import serve_dict
+
+    out = {}
+    for name, argv in job["runs"].items():
+        args = serve_dict.parse_args(argv)
+        st = serve_dict._setup(args)
+        mesh = mesh_mod.make_mesh(st["dims"], st["axes"])
+        if mesh is not None:
+            got = serve_dict._serve_ranks(mesh, args)
+            if mesh.rank == 0:
+                out[name] = got
+    out["idle"] = _idle_stream(job["idle"])
     return out

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Run one phase of chip_smoke.py alone on the card, after its kernel build:
+"""Run phases of chip_smoke.py alone on the card, after its kernel build:
 
-    python3 tools/chip_smoke_phase.py sharded
+    python3 tools/chip_smoke_phase.py kernels sharded
 
-calls chip_smoke.phase_<name>(torch, card) for a phase that takes (torch,
-card) (sharded, lm, xlstm, moe_serve, moe_train, ...) and prints its lines
-and its seconds.  A quicker look at one phase than the whole script; the
-gates are the script's own.
+calls chip_smoke.phase_<name>(torch, card), or (torch) for a phase that
+takes only torch (kernels, small_coder, ...), for each name in turn
+(sharded, lm, xlstm, moe_serve, moe_train, ...; `sharded` runs the
+SHARDED world with its DICT_MESH part, then phase_dict_mesh) and prints
+its lines and its seconds.  A quicker look at a phase than the whole
+script; the gates are the script's own.
 """
 
+import inspect
 import pathlib
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -27,12 +31,22 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = sys.argv[1]
     card = chip_smoke.card_line()
     chip_smoke.phase_build()
-    t0 = time.perf_counter()
-    getattr(chip_smoke, f"phase_{name}")(torch, card)
-    print(f"[phase] {name}: {time.perf_counter() - t0:.1f}s on {card}")
+    for name in sys.argv[1:]:
+        t0 = time.perf_counter()
+        if name == "sharded":
+            with ThreadPoolExecutor(2) as pool:
+                job = chip_smoke.dict_mesh_job(chip_smoke.dict_mesh_streams(pool.submit))
+            rec = chip_smoke.phase_sharded(torch, card, job)
+            print(f"[phase] sharded: {time.perf_counter() - t0:.1f}s on {card}")
+            t0 = time.perf_counter()
+            chip_smoke.phase_dict_mesh(torch, card, rec.pop("dict_mesh_world"), job)
+            name = "dict_mesh"
+        else:
+            fn = getattr(chip_smoke, f"phase_{name}")
+            fn(*(torch, card)[:len(inspect.signature(fn).parameters)])
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f}s on {card}")
     return 0
 
 
