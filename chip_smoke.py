@@ -72,6 +72,11 @@ and fails (non-zero exit, no result line) if any of them fails:
    K2 at zamba2-1.2b's shared-block shape FA_HYBRID (D 64, 32 over 32
    heads, causal) on wgmma_tma against plain, timed beside SDPA with its
    bound (K2's `hybrid_shape`), a planted wrong causal mask rejected.
+   K2 at the per-rank shapes of the sharded serves (FA_SERVE_MESH:
+   gemma-2b's (2, 4 / 1, 2048, 256) at 2x2, granite-moe's (4, 8 / 4,
+   2048, 64) at 1x2) on wgmma_tma against plain, timed beside SDPA with
+   their bounds (K2's `serve_mesh_shapes`), a planted causal limit one key
+   late rejected.
    The MoE layer (models/moe.apply_moe): against moe_ref at granite-moe's
    width on 4 x 2048 tokens with nothing dropped (fp32 at MOE_FP32_RTOL,
    bf16 at MOE_ROW_ULPS); two launches bit-identical, forward and
@@ -192,6 +197,28 @@ and fails (non-zero exit, no result line) if any of them fails:
      dictionary against its replay).  Times of the mesh beside the one
      process measure the transport and four contexts time-slicing the
      card;
+   - sharded serving, in the same world (SERVE_MESH, serve_mesh_world /
+     phase_serve_mesh): launch/serve's rank body (what --mesh runs) for
+     gemma-2b at full width and depth on 2x2 and granite-moe-1b-a400m at
+     full width and depth on 1x2 (ranks 0-1), the LM traffic, each held
+     against its 1x1 serve above (the same argv and seed, saved by
+     serve_mesh_reference): K2 launched once a layer on every rank, only
+     at FA_SERVE_MESH on wgmma_tma; layer 0's prefill K/V and the cache
+     laid from it bit for bit the 1x1's on every rank; each layer's decode
+     attention (the cache sharded on its sequence, the parts combined by
+     their log-sum-exp) and granite's MoE decode FFN (the experts sharded
+     over `model`) on the 1x1 run's inputs within BF16_ROW_ULPS of its
+     outputs, the cache after that step changed only in the owner's slot;
+     the tokens and each teacher-forced step's greedy pick identical on
+     every model rank; four planted faults rejected (the combine without
+     its l e^(m_r - m) weights, the new K/V written on every rank, the
+     argmax over the rank's own vocabulary shard, the MoE combine without
+     its psum); the teacher-forced logits against the 1x1 steps, the
+     greedy tokens' agreement, prefill ms, decode ms/token, a decode
+     step's wire per axis and each rank's peak memory printed; then gemma
+     cut to SERVE_MESH_NCCL_LAYERS on a 1x1 mesh over nccl (its rank this
+     process) bit for bit the serve without a mesh (tokens, logits,
+     cache);
    - VLM serving: the port's serve at phi-3-vision-4.2b's full width and
      depth (3.73e9 params, bf16), 4 prompts of 2048 tokens after 576
      image positions, VLM_GEN greedy tokens, a cache of 576 + 2048 +
@@ -303,11 +330,11 @@ and fails (non-zero exit, no result line) if any of them fails:
      and the four metrics within 1e-4 relative, while a planted fault (each
      agent's codes taken from the next agent) must fail the W check;
    - the experiment twins at EXPERIMENT_CUTS (table3_auc n_steps 1,
-     fig5_denoise n_patches 300) on the card: every AUC in [0, 1], every
+     fig5_denoise n_patches 150) on the card: every AUC in [0, 1], every
      PSNR finite and each denoised PSNR above the noisy one.
    - the twins of examples/, at the JAX scripts' sizes but for the depth
      TWIN_CUTS sets (quickstart 2 epochs, denoise_image 1000 patches,
-     novel_docs 2 steps, train_lm 2 of 12 layers): quickstart,
+     novel_docs 1 step, train_lm 2 of 12 layers): quickstart,
      denoise_image and novel_docs launch no kernel; graph_gossip and
      multi_pod run the port's coder, exactly iters + 1 K1 calls a solve;
      train_lm (LM_100M, fp32, 300 steps) exactly 2 K2 launches a layer a
@@ -655,12 +682,13 @@ TWIN_GRAD_FLOOR = GRAD_BF16_TOL
 # keeps the script's 300 steps (at 100 its loss fell only 7.41 -> 6.79,
 # short of the twin's gate, a fall of more than 1.0: the cosine schedule
 # is set by the steps) and is cut to 2 of LM_100M's 12 layers instead (4
-# until DICT_MESH needed the room).
+# until DICT_MESH needed the room).  novel_docs 2 -> 1 step and fig5_denoise
+# 300 -> 150 patches paid for SERVE_MESH.
 TWIN_CUTS = {"quickstart": {"epochs": 2}, "denoise_image": {"n_patches": 1000},
-             "novel_docs": {"n_steps": 2}, "graph_gossip": {}, "multi_pod": {},
+             "novel_docs": {"n_steps": 1}, "graph_gossip": {}, "multi_pod": {},
              "train_lm": {"n_layers": 2}}
 TWIN_LM_STEPS = 300  # train_lm.run's default
-EXPERIMENT_CUTS = {"table3_auc": {"n_steps": 1}, "fig5_denoise": {"n_patches": 300}}
+EXPERIMENT_CUTS = {"table3_auc": {"n_steps": 1}, "fig5_denoise": {"n_patches": 150}}
 
 # The hybrid family: zamba2-1.2b at full width (38 Mamba2 blocks of d 2048,
 # d_inner 4096, 64 SSM heads of 64, state 64, chunk 128: 6 groups of 6,
@@ -2668,6 +2696,67 @@ def step_categories(rows) -> dict:
     return {k: round(v, 3) for k, v in out.items()}
 
 
+# SERVE_MESH (serve_mesh_world, phase_serve_mesh): launch/serve's rank body
+# (`serve._serve_ranks`, what --mesh runs) in the SHARDED phase's world of 4
+# ranks sharing the card over gloo_staged, the LM traffic: gemma-2b at full
+# width and depth on 2x2 (the world's mesh) and granite-moe-1b-a400m at
+# full width and depth on 1x2 (ranks 0-1), each held against its 1x1 serve
+# in this process (phase_lm's and phase_moe_serve's runs, the same argv and
+# seed), which serve_mesh_reference saves under SERVE_MESH_DIR; then gemma
+# cut to SERVE_MESH_NCCL_LAYERS on a 1x1 mesh over nccl (its rank this
+# process) against the serve without a mesh, bit for bit.  K2 on each rank
+# at FA_SERVE_MESH: (B / D, Hq / M, Hkv (whole for gemma's one kv head, / M
+# for granite's eight), S, T, D).
+SERVE_MESH_DIR = ROOT / "build" / "chip_smoke_serve_mesh"
+SERVE_MESH_CASES = {"gemma": (LM_ARCH, (2, 2)), "granite": ("granite_moe_1b_a400m", (1, 2))}
+SERVE_MESH_NCCL_LAYERS = 2
+# Teacher-forced decode steps past the first whose greedy input differs
+# from the 1x1 run's (before it, the greedy steps are the forced ones).
+SERVE_MESH_FORCED = 8
+FA_SERVE_MESH = {"gemma": (LM_BATCH // 2, 4, 1, LM_PROMPT, LM_PROMPT, 256),
+                 "granite": (LM_BATCH, 8, 4, LM_PROMPT, LM_PROMPT, 64)}
+
+
+def serve_mesh_reference(torch, tag: str, out: dict) -> None:
+    """Save what SERVE_MESH holds a mesh's serve against, from the 1x1
+    serve's run `out` (serve.run's dict): its tokens, prefill and step
+    logits, layer 0's prefill K/V, and one more decode step (the last
+    token, at position LM_PROMPT + LM_GEN - 1) with every layer's
+    decode-attention input and output, every MoE FFN's input and output,
+    and every layer's cache after that step's write."""
+    from repro_torch.models import attention, model, transformer
+
+    cfg, cache = out["cfg"], out["cache"]
+    pos = LM_PROMPT + LM_GEN - 1
+    rec = {"attn_in": [], "attn_out": [], "moe_in": [], "moe_out": []}
+    real_attn, real_moe = attention.decode_attention, transformer._moe_ffn
+
+    def attn(params, x, layer_cache, at, **kw):
+        y, c = real_attn(params, x, layer_cache, at, **kw)
+        rec["attn_in"].append(x.cpu())
+        rec["attn_out"].append(y.cpu())
+        return y, c
+
+    def moe(params, f_in, c, n_groups):
+        y, aux = real_moe(params, f_in, c, n_groups)
+        rec["moe_in"].append(f_in.cpu())
+        rec["moe_out"].append(y.cpu())
+        return y, aux
+
+    tok = out["tokens"][:, -1:].to(out["prompts"].device)
+    with torch.no_grad(), mock.patch.object(attention, "decode_attention", attn), \
+            mock.patch.object(transformer, "_moe_ffn", moe):
+        model.decode_step(cfg, out["params"], cache, tok, pos)
+    pre = out["prefill_cache"]["layers"]
+    ref = {"pos": pos, "tokens": out["tokens"], "last_logits": out["last_logits"].cpu(),
+           "step_logits": torch.stack(out["step_logits"]).cpu(),
+           "prefill_k0": pre["k"][0].cpu(), "prefill_v0": pre["v"][0].cpu(),
+           "cache_k": cache["layers"]["k"].cpu(), "cache_v": cache["layers"]["v"].cpu(),
+           **{k: torch.stack(v) for k, v in rec.items() if v}}
+    SERVE_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(ref, SERVE_MESH_DIR / f"{tag}.pt")
+
+
 def phase_lm(torch, card: str):
     """The port's dense-LM serve at gemma-2b's full width; returns K2's
     launch count over the run."""
@@ -2776,6 +2865,7 @@ def phase_lm(torch, card: str):
         "argmax_agree": argmax_agree,
         "first_row": tokens[0].tolist(), "profile": prof,
     }))
+    serve_mesh_reference(torch, "gemma", out)
     del out, plain_cache, last, plain_last, params, prompts, cache
     torch.cuda.empty_cache()
     return launches
@@ -3753,6 +3843,7 @@ def phase_moe_serve(torch, card: str):
         **pay, "card": card, "launches": launches, "peak_mem_gb": peak_gb,
         "layer_readings": layers, "planted_layer0": planted, "end_to_end": e2e,
         "first_row": tokens[0].tolist(), "profile": prof}))
+    serve_mesh_reference(torch, "granite", out)
     del out, params, prompts, cache, last, last_k, last_p
     torch.cuda.empty_cache()
     return launches
@@ -4161,6 +4252,25 @@ def phase_flash_attention_vlm_audio(torch):
     del q, k, v, do
     torch.cuda.empty_cache()
     return recs
+
+
+def phase_flash_attention_serve_mesh(torch):
+    """K2 at the per-rank shapes of SERVE_MESH's prefills (FA_SERVE_MESH:
+    gemma-2b's 2 rows and 4 of 8 query heads over its one kv head at 2x2,
+    granite-moe's 8 of 16 query heads over 4 of 8 kv heads at 1x2), causal,
+    on wgmma_tma: against plain, a planted causal limit one key late
+    rejected, timed beside the plain version and SDPA with their bounds.
+    Returns the records for K2's `serve_mesh_shapes`."""
+    gen = torch.Generator(device="cpu").manual_seed(9)
+
+    def faults(q, k, v, want):
+        wrong = causal_visible(torch, q.shape[2], k.shape[2], q.device, 1)
+        return {"causal limit one key late": masked_attention(torch, q, k, v, wrong)}
+
+    return [k2_at_shape(torch, gen, f"{tag} per rank, {'x'.join(map(str, mesh))}", shape, True,
+                        faults)
+            for (tag, (_, mesh)), shape in zip(SERVE_MESH_CASES.items(),
+                                               FA_SERVE_MESH.values())]
 
 
 def profile_split(torch, fn, run_ms: float) -> dict:
@@ -5299,6 +5409,20 @@ def _k2_ranks(tag, out, per_rank, shape, key="k2_launches", shapes_key="k2_shape
                              f"{per_rank} at {shape}")
 
 
+class NoModelPsum:
+    """The sharding hook (models/sharding_hook) with g, the psum over
+    `model`, the identity: a planted fault's view of it."""
+
+    def __getattr__(self, name):
+        from repro_torch.models import sharding_hook
+
+        return getattr(sharding_hook, name)
+
+    @staticmethod
+    def leave_model(x):
+        return x
+
+
 def sharded_world(mesh, job: dict) -> dict:
     """Rank function (mesh.launch, 2x2 over gloo_staged; one world, since
     starting one costs each rank seconds): launch/train's own rank body
@@ -5356,20 +5480,10 @@ def sharded_world(mesh, job: dict) -> dict:
                 "grads": [rel_err(g, w) for g, w in zip(gfull + [gx], rgrads)],
                 "wall_s": wall,
             }
-    from repro_torch.models import sharding_hook
-
-    class NoRowPsum:  # the attention's view of the hook, its g the identity
-        def __getattr__(self, name):
-            return getattr(sharding_hook, name)
-
-        @staticmethod
-        def leave_model(x):
-            return x
-
     cfg = job["smoke_cfg"]
     faults = {"clean": contextlib.nullcontext(),
               "row-parallel output without its psum": mock.patch.object(
-                  attention, "hook", NoRowPsum()),
+                  attention, "hook", NoModelPsum()),
               "data-parallel gradients unaveraged": mock.patch.object(
                   steps, "_average_over_data", lambda m, grads, specs: list(grads))}
     opt = sgd(job["smoke_lr"])
@@ -5387,8 +5501,180 @@ def sharded_world(mesh, job: dict) -> dict:
         if mesh.rank == 0:
             out[name] = {"losses": losses, "params": whole}
     del state
+    out["serve_mesh"] = serve_mesh_world(mesh, sub, job["serve_mesh"])
     out["dict_mesh"] = dict_mesh_world(mesh, job["dict_mesh"])
     return out
+
+
+def serve_mesh_world(mesh, sub, job: dict) -> dict:
+    """SERVE_MESH's rank part (in sharded_world): gemma on the world's 2x2
+    mesh, then granite-moe on its 1x2 sub-mesh (`sub`, None on ranks 2-3,
+    which only join the world's collectives).  Rank 0 returns each case's
+    run and every rank's readings."""
+    import torch
+
+    out = {}
+    for tag, m in (("gemma", mesh), ("granite", sub)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = serve_mesh_case(torch, m, job[tag])
+        if mesh.rank == 0:
+            out[tag] = {**got, "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def serve_mesh_case(torch, mesh, case: dict):
+    """One SERVE_MESH case on this rank of `mesh` (None: idle, only the
+    world's collectives): launch/serve's rank body (greedy, the CLI's
+    payload), then against the 1x1 run saved at case["ref"]: layer 0's
+    prefill K/V and the cache laid from it (bit for bit); each layer's
+    decode attention and (MoE) decode FFN on the 1x1 run's inputs at its
+    last position, the cache after that step (only the owner's slot of the
+    position changed); a teacher-forced decode of the 1x1 tokens (each
+    step's logits against the 1x1 step's, each step's greedy pick agreeing
+    over `model`); each of the four planted faults.  Rank 0 returns the
+    payload and every rank's readings."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, model, transformer
+    from repro_torch.models import sharding_hook as hook
+    from repro_torch.runtime import steps
+
+    args = serve.parse_args(case["argv"])
+    run = serve._serve_ranks(mesh, vars(args), keep=True)
+    if mesh is None:
+        return None
+    t0 = time.perf_counter()
+    cfg = serve._config(args)
+    payload, tokens = run.get("payload"), run["tokens"]
+    ref = torch.load(case["ref"], map_location="cpu")
+    dev = mesh.device
+    d_i, m_i, m_n = mesh.index("data"), mesh.index("model"), mesh.size("model")
+    b = LM_BATCH // mesh.size("data")
+    rows = slice(d_i * b, (d_i + 1) * b)
+    params, max_len, pos = run["params"], run["max_len"], ref["pos"]
+    seq = model.seq_sharded(cfg, mesh, max_len)
+    n_kv = cfg.n_kv_heads
+
+    def heads(h):  # this rank's kv heads of a tensor of h of them
+        return slice(None) if h == n_kv else slice(m_i * h, (m_i + 1) * h)
+
+    # (1) Layer 0: the prefill's K/V (the rank's kv heads) and the cache laid
+    # from it (the rank's positions of the prompt), bit for bit the 1x1's.
+    pre = run["prefill_cache"]["layers"]
+    laid = run["cache"]["layers"]
+    t_loc, h_c = laid["k"].shape[2], laid["k"].shape[3]
+    lo = m_i * t_loc if seq else 0
+    n_laid = max(0, min(LM_PROMPT - lo, t_loc))
+    bits = {"prefill": all(torch.equal(pre[n][0].cpu(),
+                                       ref[f"prefill_{n}0"][rows][:, :, heads(pre[n].shape[3])])
+                           for n in ("k", "v")),
+            "laid": all(torch.equal(laid[n][0][:, :n_laid].cpu(),
+                                    ref[f"prefill_{n}0"][rows][:, lo:lo + n_laid][:, :, heads(h_c)])
+                        for n in ("k", "v"))}
+
+    # (2) Each layer's decode attention on the 1x1 run's inputs and cache
+    # (this rank's slice of it), and the cache after the step's write.
+    def cache_slice(full):  # (B, T, Hkv, Dh) -> this rank's part
+        x = full[rows]
+        return x[:, m_i * t_loc:(m_i + 1) * t_loc] if seq else x[:, :, heads(h_c)]
+
+    slot = attention._slot_of(pos, t_loc, m_i) if seq else pos  # where this rank writes pos
+
+    def attention_readings():
+        readings, slot_readings, untouched = [], [], True
+        for layer, lp in enumerate(params["layers"]):
+            c = {n: cache_slice(ref[f"cache_{n}"][layer]).to(dev) for n in ("k", "v")}
+            kept = {n: t.clone() for n, t in c.items()}
+            with torch.no_grad(), hook.installed(mesh):
+                y, _ = attention.decode_attention(
+                    lp["attn"], ref["attn_in"][layer][rows].to(dev), c, pos,
+                    qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
+                    n_heads=cfg.n_heads, n_kv=n_kv, seq_sharded=seq)
+            readings.append(bf16_reading(y, ref["attn_out"][layer][rows].to(dev)))
+            for n in ("k", "v"):
+                same = c[n] == kept[n]
+                if slot is not None:  # the 1x1 step wrote its slot: within rounding of it
+                    slot_readings.append(bf16_reading(c[n][:, slot], kept[n][:, slot]))
+                    same[:, slot] = True
+                untouched = untouched and bool(same.all())
+        return readings, slot_readings, untouched
+
+    def moe_readings():
+        out = []
+        for layer, lp in enumerate(params["layers"]):
+            with torch.no_grad(), hook.installed(mesh):
+                y, _ = transformer._moe_ffn(lp["moe"], ref["moe_in"][layer][rows].to(dev), cfg, 1)
+            out.append(bf16_reading(y, ref["moe_out"][layer][rows].to(dev)))
+        return out
+
+    attn, slots, untouched = attention_readings()
+    moe = moe_readings() if "moe_in" in ref else []
+
+    # (3) Teacher-forced: each decode step's logits against the 1x1 step's
+    # on the same input tokens (this rank's rows and vocabulary range), and
+    # each step's greedy pick over `model`.  While every row's greedy token
+    # equals the 1x1 run's, the greedy run's own steps are teacher-forced;
+    # from the first that differs, up to SERVE_MESH_FORCED steps feed the
+    # 1x1 tokens (on the greedy run's cache: each step rewrites its
+    # position and masks the later ones).
+    v_loc = run["last_logits"].shape[-1]
+    cols = slice(None) if v_loc == cfg.vocab else slice(m_i * v_loc, (m_i + 1) * v_loc)
+
+    def own_shard(c, logits, m):  # planted: the argmax of the rank's own shard
+        return torch.argmax(logits, dim=-1) + m.index("model") * logits.shape[-1]
+
+    def picks_agree(pick, logits):
+        tok = pick(cfg, logits, mesh)
+        every = mesh.all_gather_tiled(tok[None], "model", 0)
+        return bool((every == tok[None]).all())
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / float(want.abs().max())
+
+    same = (torch.as_tensor(tokens) == ref["tokens"]).all(0).long().cumprod(0)
+    first_diff = int(same.sum())  # step i reads token i: greedy steps before it are forced
+    stepped = list(enumerate(run["step_logits"][:first_diff]))
+    forced = ref["tokens"][rows].to(dev)
+    cache = run["cache"]
+    with torch.no_grad():
+        for i in range(first_diff, min(LM_GEN - 1, first_diff + SERVE_MESH_FORCED)):
+            lg, cache = model.decode_step(cfg, params, cache, forced[:, i:i + 1], LM_PROMPT + i,
+                                          mesh, max_len)
+            stepped.append((i, lg[:, -1, :]))
+    tf, agree, agree_planted = {}, True, True
+    for i, lg in stepped:
+        tf[i] = rel(lg, ref["step_logits"][i][rows][:, cols].to(dev))
+        agree = agree and picks_agree(steps.greedy_tokens, lg)
+        if v_loc != cfg.vocab:
+            agree_planted = agree_planted and picks_agree(own_shard, lg)
+    prefill_rel = rel(run["last_logits"], ref["last_logits"][rows][:, cols].to(dev))
+
+    # (4) The planted faults, each through the gate it must fail.
+    planted = {}
+    with mock.patch.object(ops, "combine_decode_parts", lambda o, m, l_sum: o.mean(0)):
+        planted["combine without the l e^(m_r - m) weights"] = max(attention_readings()[0])
+    with mock.patch.object(attention, "_slot_of", lambda at, t, r: at % t):
+        planted["new K/V written on every rank: cache untouched"] = attention_readings()[2]
+    if v_loc != cfg.vocab:
+        planted["argmax over the rank's own vocab shard: picks agree"] = agree_planted
+    if moe:
+        with mock.patch.object(transformer, "hook", NoModelPsum()):
+            planted["MoE combine without its psum"] = max(moe_readings())
+    mine = {"rank": mesh.rank, "bits": bits, "attn": attn, "slots": slots,
+            "untouched": untouched, "moe": moe, "teacher_forced": tf,
+            "prefill_logits_rel": prefill_rel, "picks_agree": agree, "planted": planted,
+            "tokens_agree_over_model": run["tokens_agree_over_model"],
+            "checks_s": time.perf_counter() - t0, "seq_sharded": seq,
+            "local_cache": list(laid["k"].shape)}
+    every = mesh.all_gather_object(mine)
+    del run, cache, params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank:
+        return None
+    return {"payload": payload, "tokens": tokens, "ranks": every}
 
 
 def _param_readings(got, want) -> list:
@@ -5398,11 +5684,13 @@ def _param_readings(got, want) -> list:
 
 def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     """The SHARDED gates (see SHARD_ARCH's comment): one gloo_staged world
-    of 4 ranks (sharded_world, then dict_mesh_world on `dm_job`) and
-    launch/train on a 1x1 mesh over nccl, held against runs on one device
-    without a mesh.  Prints "[sharded ...]" lines and one SHARDED JSON line;
-    returns the record (K2 launches per rank and path) with the world's
-    DICT_MESH results under "dict_mesh_world" (for phase_dict_mesh)."""
+    of 4 ranks (sharded_world, then serve_mesh_world and dict_mesh_world on
+    `dm_job`) and launch/train on a 1x1 mesh over nccl, held against runs
+    on one device without a mesh.  Prints "[sharded ...]" lines and one
+    SHARDED JSON line; returns the record (K2 launches per rank and path)
+    with the world's SERVE_MESH and DICT_MESH results under
+    "serve_mesh_world" and "dict_mesh_world" (for phase_serve_mesh and
+    phase_dict_mesh)."""
     import shutil
 
     from repro_torch.configs import cut_depth, get_config, get_smoke_config
@@ -5449,7 +5737,8 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                                                                    SHARD_TRANSPORT], root / "moe"),
                               "smoke_cfg": smoke, "smoke_batches": smoke_batches,
                               "smoke_lr": 0.5, "a2a_widths": SHARD_A2A_WIDTHS,
-                              "a2a_tokens": SHARD_A2A_SHAPE, "dict_mesh": dm_job},))
+                              "a2a_tokens": SHARD_A2A_SHAPE, "dict_mesh": dm_job,
+                              "serve_mesh": serve_mesh_job()},))
     rec["world_s"] = time.perf_counter() - t0
     out22, outm = res["olmo"], res["granite"]
     print_sharded_run("olmo-1b 2x2", out22)
@@ -5563,7 +5852,154 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                        "granite-moe 2x1 reload step": sum(rescale_k2["k2_launches"])}
     print("SHARDED " + json.dumps(rec))
     rec["dict_mesh_world"] = res["dict_mesh"]
+    rec["serve_mesh_world"] = res["serve_mesh"]
     return rec
+
+
+def serve_mesh_argv(tag: str, mesh: str, transport: str, n_layers=None) -> list:
+    """launch/serve's argv for a SERVE_MESH case: the LM traffic at full
+    width (and depth, unless n_layers)."""
+    arch = SERVE_MESH_CASES[tag][0]
+    return (["--arch", arch, "--full-config", "--batch", str(LM_BATCH), "--prompt-len",
+             str(LM_PROMPT), "--gen", str(LM_GEN), "--device", "cuda", "--mesh", mesh,
+             "--transport", transport, "--json"]
+            + (["--n-layers", str(n_layers)] if n_layers else []))
+
+
+def serve_mesh_job() -> dict:
+    """The world's SERVE_MESH part: each case's argv and its 1x1 reference
+    (saved by phase_lm and phase_moe_serve)."""
+    job = {}
+    for tag, (_, shape) in SERVE_MESH_CASES.items():
+        ref = SERVE_MESH_DIR / f"{tag}.pt"
+        if not ref.is_file():
+            raise AssertionError(f"SERVE_MESH: no 1x1 reference {ref}; phase_lm and "
+                                 f"phase_moe_serve save it (run them first)")
+        job[tag] = {"argv": serve_mesh_argv(tag, "x".join(map(str, shape)), SHARD_TRANSPORT),
+                    "ref": str(ref)}
+    return job
+
+
+def phase_serve_mesh(torch, card: str, world: dict) -> dict:
+    """The SERVE_MESH gates on the world's runs (serve_mesh_world), then
+    gemma cut to SERVE_MESH_NCCL_LAYERS on a 1x1 mesh over nccl (its rank
+    this process) against the serve without a mesh.  Gated: K2 on every
+    rank only at FA_SERVE_MESH on wgmma_tma, one launch a layer; layer 0's
+    prefill K/V and laid cache bit for bit the 1x1's on every rank; each
+    layer's decode attention and MoE decode FFN on the 1x1 run's inputs
+    within BF16_ROW_ULPS of its output, the cache after that step changed
+    only in the owner's slot (and there within BF16_ROW_ULPS); the tokens,
+    and every teacher-forced step's greedy pick, identical on every model
+    rank; each planted fault rejected by its gate; the nccl run bit for
+    bit.  Printed, not gated: the teacher-forced logits against the 1x1
+    step's, the greedy tokens' agreement with the 1x1 run's, prefill ms,
+    decode ms/token, a decode step's wire per axis and each rank's peak
+    memory (SERVE_MESH line).  Returns K2's launches by path."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime import mesh as mesh_mod
+
+    rec, launches = {"card": card, "transport": SHARD_TRANSPORT}, {}
+    for tag, (arch, shape) in SERVE_MESH_CASES.items():
+        got = world[tag]
+        pay, ranks = got["payload"], got["ranks"]
+        ref = torch.load(SERVE_MESH_DIR / f"{tag}.pt", map_location="cpu")
+        world_n = pay["world"]
+        n_mesh = shape[0] * shape[1]
+        n_layers = len(ranks[0]["attn"])
+        want_shape = (*FA_SERVE_MESH[tag], "bfloat16", "wgmma_tma")
+        _k2_ranks(f"SERVE_MESH {tag}", pay, [n_layers] * n_mesh + [0] * (world_n - n_mesh),
+                  want_shape)
+        worst = {
+            "attn": max(max(r["attn"]) for r in ranks),
+            "cache_slot": max((max(r["slots"]) for r in ranks if r["slots"]), default=0.0),
+            "moe": max((max(r["moe"]) for r in ranks if r["moe"]), default=None),
+        }
+        gates = {
+            "layer-0 prefill K/V bit for bit": all(r["bits"]["prefill"] for r in ranks),
+            "layer-0 laid cache bit for bit": all(r["bits"]["laid"] for r in ranks),
+            f"decode attention per layer <= {BF16_ROW_ULPS}": worst["attn"] <= BF16_ROW_ULPS,
+            f"the step's cache slot <= {BF16_ROW_ULPS}": worst["cache_slot"] <= BF16_ROW_ULPS,
+            "only the owner's slot written": all(r["untouched"] for r in ranks),
+            "tokens identical on every model rank": pay["tokens_agree_over_model"] and all(
+                r["tokens_agree_over_model"] and r["picks_agree"] for r in ranks),
+            "cache sharded on its sequence": all(r["seq_sharded"] for r in ranks),
+        }
+        if worst["moe"] is not None:
+            gates[f"MoE decode FFN per layer <= {BF16_ROW_ULPS}"] = worst["moe"] <= BF16_ROW_ULPS
+        planted = {}
+        for name in ranks[0]["planted"]:
+            vals = [r["planted"][name] for r in ranks]
+            if isinstance(vals[0], bool):  # a gate's flag: rejected if any rank fails it
+                planted[name] = {"rejected": not all(vals), "per_rank": vals}
+            else:
+                planted[name] = {"rejected": max(vals) > BF16_ROW_ULPS, "reading": max(vals)}
+        tokens = torch.as_tensor(got["tokens"])
+        greedy_agree = float((tokens == ref["tokens"]).float().mean())
+        same_prefix = int((tokens == ref["tokens"]).all(0).long().cumprod(0).sum())
+        tf = {i: max(r["teacher_forced"][i] for r in ranks) for i in ranks[0]["teacher_forced"]}
+        case = {"mesh": pay["mesh"], "transport": pay["transport"], "world": world_n,
+                "prefill_ms": pay["prefill_ms"], "decode_ms_per_token": pay["decode_ms_per_token"],
+                "decode_step_traffic_rank0": pay["decode_step_traffic"],
+                "peak_mem_gb": pay["peak_mem_gb"], "k2_launches": pay["k2_launches"],
+                "k2_shapes": pay["k2_shapes"], "cache_layout": pay["cache_layout"],
+                "local_cache": ranks[0]["local_cache"], "gates": gates, "worst": worst,
+                "planted": planted, "teacher_forced_logits_rel": tf,
+                "prefill_logits_rel": max(r["prefill_logits_rel"] for r in ranks),
+                "greedy_tokens_agree_with_1x1": greedy_agree,
+                "greedy_steps_equal_1x1": same_prefix, "wall_s": got["wall_s"],
+                "checks_s": max(r["checks_s"] for r in ranks)}
+        print(f"[serve_mesh {tag} {pay['mesh']}] {card}, transport {pay['transport']}, world "
+              f"{world_n}: prefill {pay['prefill_ms']:.1f} ms, decode "
+              f"{pay['decode_ms_per_token']:.2f} ms/token (rank 0's clock: the transport's "
+              f"time); cache {pay['cache_layout']} {ranks[0]['local_cache']} a rank; K2 "
+              f"{pay['k2_launches']} at {pay['k2_shapes']}; a decode step's wire, rank 0 "
+              f"{pay['decode_step_traffic']}; peak GB per rank {pay['peak_mem_gb']}")
+        print(f"[serve_mesh {tag}] gates {gates}; worst readings {worst}; planted {planted}")
+        print(f"[serve_mesh {tag}] printed, not gated: teacher-forced step logits max|d|/max|1x1| "
+              f"(step: reading) {[f'{i}: {x:.3e}' for i, x in tf.items()]}; prefill logits "
+              f"{case['prefill_logits_rel']:.3e}; "
+              f"greedy tokens equal to the 1x1 run's {greedy_agree:.3f} (all rows equal for the "
+              f"first {same_prefix} of {LM_GEN})")
+        if not all(gates.values()):
+            raise AssertionError(f"SERVE_MESH {tag}: {[k for k, v in gates.items() if not v]}")
+        if not all(p["rejected"] for p in planted.values()):
+            raise AssertionError(f"SERVE_MESH {tag}: a planted fault passes: {planted}")
+        rec[tag] = case
+        launches[f"{SERVE_MESH_CASES[tag][0]} {pay['mesh']} serve"] = sum(pay["k2_launches"])
+
+    # gemma cut in depth, on a 1x1 mesh over nccl, against the serve without one.
+    argv = serve_mesh_argv("gemma", "1x1", "nccl", SERVE_MESH_NCCL_LAYERS)
+    plain_argv = [a for a in argv if a not in ("--mesh", "1x1", "--transport", "nccl")]
+    one = serve.run(serve.parse_args(plain_argv))
+    reset_launch_counts()
+    nccl = mesh_mod.launch(serve._serve_ranks, (1, 1), transport="nccl", device="cuda",
+                           args=(vars(serve.parse_args(argv)), True))
+    bits = torch.equal(nccl["tokens"], one["tokens"]) and \
+        torch.equal(nccl["last_logits"], one["last_logits"]) and \
+        all(torch.equal(a, b) for a, b in zip(nccl["step_logits"], one["step_logits"])) and \
+        all(torch.equal(nccl["cache"]["layers"][n], one["cache"]["layers"][n]) for n in ("k", "v"))
+    pay = nccl["payload"]
+    _k2_ranks("SERVE_MESH gemma 1x1 nccl", pay, [SERVE_MESH_NCCL_LAYERS],
+              (LM_BATCH, 8, 1, LM_PROMPT, LM_PROMPT, 256, "bfloat16", "wgmma_tma"))
+    print(f"[serve_mesh gemma 1x1 nccl, {SERVE_MESH_NCCL_LAYERS} layers] transport "
+          f"{pay['transport']}: tokens, prefill and step logits and the cache bit for bit the "
+          f"serve without a mesh: {bits}; prefill {pay['prefill_ms']:.1f} ms, decode "
+          f"{pay['decode_ms_per_token']:.2f} ms/token (without a mesh "
+          f"{one['prefill_ms']:.1f}, {one['decode_ms_per_token']:.2f})")
+    if pay["transport"] != "nccl" or not bits:
+        raise AssertionError("the 1x1 serve over nccl differs from the serve without a mesh")
+    rec["gemma_1x1_nccl"] = {"bits_equal": bits, "layers": SERVE_MESH_NCCL_LAYERS,
+                             "prefill_ms": pay["prefill_ms"],
+                             "decode_ms_per_token": pay["decode_ms_per_token"],
+                             "no_mesh_prefill_ms": one["prefill_ms"],
+                             "no_mesh_decode_ms_per_token": one["decode_ms_per_token"],
+                             "k2_launches": pay["k2_launches"]}
+    launches["gemma-2b 1x1 nccl serve (2 layers)"] = sum(pay["k2_launches"])
+    del one, nccl
+    torch.cuda.empty_cache()
+    shutil.rmtree(SERVE_MESH_DIR, ignore_errors=True)
+    print("SERVE_MESH " + json.dumps(rec))
+    return launches
 
 
 # DICT_MESH: the paper's engine one agent a rank (runtime/mesh.py,
@@ -6008,6 +6444,8 @@ def main() -> int:
                                        phase_flash_attention_vlm_audio, torch)
     fa_rec["hybrid_shape"] = timed("flash_attention hybrid shape", phase_flash_attention_hybrid,
                                    torch)
+    fa_rec["serve_mesh_shapes"] = timed("flash_attention per-rank serve shapes",
+                                        phase_flash_attention_serve_mesh, torch)
     moe_layer = timed("MoE layer", phase_moe_layer, torch)
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     sl_rec["backward"] = timed("slstm_seq gradient", phase_slstm_grad, torch)
@@ -6026,6 +6464,8 @@ def main() -> int:
     moe_cpu = timed("MoE card vs cpu", phase_moe_card_vs_cpu, torch)
     dm_job = dict_mesh_job(dm_streams)
     sharded = timed("sharded training", phase_sharded, torch, card, dm_job)
+    serve_mesh = timed("serving on a mesh", phase_serve_mesh, torch, card,
+                       sharded.pop("serve_mesh_world"))
     dict_mesh = timed("dictionary engine on a mesh", phase_dict_mesh, torch, card,
                       sharded.pop("dict_mesh_world"), dm_job)
     shutil.rmtree(DM_DIR, ignore_errors=True)
@@ -6061,7 +6501,7 @@ def main() -> int:
                                   "hubert-xlarge train": audio_train["launches"],
                                   "zamba2 serve": hybrid_serve,
                                   "zamba2 train": hybrid_train["launches"],
-                                  **sharded["launches"]}
+                                  **sharded["launches"], **serve_mesh}
     fa_rec["launches"] = sum(fa_rec["launches_by_path"].values())
     fa_rec["train_launches_per_step"] = train["launches_per_step"]
     fa_rec["moe_train_launches_per_step"] = moe_train["launches_per_step"]

@@ -30,7 +30,11 @@ attends over.
 Without grad the path is the bare forward.
 
 `flash_decode` is the single-token decode attention, plain PyTorch as the
-JAX version is plain jnp.
+JAX version is plain jnp.  On a cache sharded on its sequence (JAX's
+"LSE-combine psum pattern", src/repro/models/attention.py:233-240), each
+part of the cache gives `flash_decode_part` (the same arithmetic over the
+part, its row max m and sum l kept) and `combine_decode_parts` weighs the
+parts' outputs by l e^(m - max m).
 """
 
 from __future__ import annotations
@@ -227,3 +231,43 @@ def flash_decode(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgt,bhtd->bhgd", probs.to(v.dtype).float(), v.float())
     return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def flash_decode_part(
+    q: torch.Tensor,  # (B, Hq, 1, D)
+    k: torch.Tensor,  # (B, Hkv, T_part, D): one part of the cache's positions
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    length: Optional[torch.Tensor] = None,  # (B,) valid positions of this part
+):
+    """flash_decode over one part of the cache, normalised within the part:
+    (out (B, Hq, D) fp32, row max m (B, Hq) fp32, row sum l (B, Hq) fp32).
+    Keys at or past `length` are masked with -1e30, as flash_decode's: a
+    part with no valid key has m = -1e30 and weighs exactly 0 in the
+    combine (never NaN, as -inf would give)."""
+    b, hq, _, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.reshape(b, hkv, group, d)
+    logits = torch.einsum("bhgd,bhtd->bhgt", qg.float(), k.float()) * scale
+    if length is not None:
+        pos = torch.arange(t, device=q.device)
+        valid = pos[None, :] < length.to(q.device)[:, None]  # (B, T_part)
+        logits = torch.where(valid[:, None, None, :], logits, logits.new_tensor(-1e30))
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    l_sum = p.sum(dim=-1)
+    probs = p / l_sum[..., None]
+    out = torch.einsum("bhgt,bhtd->bhgd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(b, hq, d), m.reshape(b, hq), l_sum.reshape(b, hq)
+
+
+def combine_decode_parts(out: torch.Tensor, m: torch.Tensor, l_sum: torch.Tensor) -> torch.Tensor:
+    """The parts of `flash_decode_part` stacked on a leading dim (R, B, Hq,
+    D), (R, B, Hq), (R, B, Hq) -> the attention over the whole cache (B,
+    Hq, D) fp32: sum_r w_r out_r / sum_r w_r with w_r = l_r e^(m_r - m), m
+    the largest m_r, summed over the parts in order."""
+    w = l_sum * torch.exp(m - m.amax(dim=0, keepdim=True))
+    return (w[..., None] * out).sum(dim=0) / w.sum(dim=0)[..., None]

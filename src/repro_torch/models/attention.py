@@ -27,9 +27,12 @@ narrowed view where the local heads share whole kv heads); wk, wv and the
 qk-norm scales then serve only part of the work on each rank, so they
 enter through f too, which sums their gradients over `model`.
 
-Decode attends one new token to the cache with `flash_decode` (plain
-PyTorch, as the JAX side's is plain jnp), and writes the new K/V into the
-cache in place.
+The prefill runs the same tensor-parallel path and keeps the K/V it
+attended over.  Decode attends one new token to the cache with
+`flash_decode` (plain PyTorch, as the JAX side's is plain jnp), and writes
+the new K/V into the cache in place; on a mesh over the cache's layout
+(`decode_attention`): heads-sharded, replicated, or sharded on its
+sequence with the parts combined by their log-sum-exp.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     rotary_angles,
 )
+from repro_torch.runtime.mesh import MODEL_AXIS
 
 
 def init_attention(
@@ -160,6 +164,30 @@ def _local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, h_loc: int):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _attend(params: dict, x: torch.Tensor, positions: torch.Tensor, *, causal: bool,
+            qk_norm: bool, rope: bool, rope_base: float, impl: str, n_heads: int, n_kv: int):
+    """(out (B, S, D), k, v): self-attention over the full sequence, and the
+    K/V it attended over (post-rope: the rank's kv heads, or every kv head
+    when kv is whole on a mesh)."""
+    h_loc = params["wq"].shape[-2]
+    if not n_heads or h_loc == n_heads:
+        q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm, rope=rope,
+                               rope_base=rope_base)
+        return (_out_proj(_full_attention(q, k, v, positions, causal=causal, impl=impl),
+                          params["wo"]), k, v)
+    kv_whole = params["wk"].shape[-2] == n_kv
+    p = dict(params)
+    shared = (["wk", "wv"] if kv_whole else []) + (["q_norm", "k_norm"] if qk_norm else [])
+    for name in shared:  # replicated, but each rank uses part: sum their gradients
+        p[name] = (hook.enter_model(p[name]) if isinstance(p[name], torch.Tensor)
+                   else {"scale": hook.enter_model(p[name]["scale"])})
+    q, k, v = _project_qkv(p, hook.enter_model(x), positions, qk_norm=qk_norm, rope=rope,
+                           rope_base=rope_base)
+    k_att, v_att = _local_kv(k, v, n_heads, h_loc) if kv_whole else (k, v)
+    out = _full_attention(q, k_att, v_att, positions, causal=causal, impl=impl)
+    return hook.leave_model(_out_proj(out, params["wo"])), k, v
+
+
 def attention(
     params: dict,
     x: torch.Tensor,  # (B, S, D)
@@ -176,24 +204,8 @@ def attention(
     """Self-attention over the full sequence (training / prefill).  n_heads
     and n_kv are the global head counts: with fewer query heads in wq (the
     heads sharded over `model`), the tensor-parallel path."""
-    h_loc = params["wq"].shape[-2]
-    if not n_heads or h_loc == n_heads:
-        q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm, rope=rope,
-                               rope_base=rope_base)
-        return _out_proj(_full_attention(q, k, v, positions, causal=causal, impl=impl),
-                         params["wo"])
-    kv_whole = params["wk"].shape[-2] == n_kv
-    p = dict(params)
-    shared = (["wk", "wv"] if kv_whole else []) + (["q_norm", "k_norm"] if qk_norm else [])
-    for name in shared:  # replicated, but each rank uses part: sum their gradients
-        p[name] = (hook.enter_model(p[name]) if isinstance(p[name], torch.Tensor)
-                   else {"scale": hook.enter_model(p[name]["scale"])})
-    q, k, v = _project_qkv(p, hook.enter_model(x), positions, qk_norm=qk_norm, rope=rope,
-                           rope_base=rope_base)
-    if kv_whole:
-        k, v = _local_kv(k, v, n_heads, h_loc)
-    out = _full_attention(q, k, v, positions, causal=causal, impl=impl)
-    return hook.leave_model(_out_proj(out, params["wo"]))
+    return _attend(params, x, positions, causal=causal, qk_norm=qk_norm, rope=rope,
+                   rope_base=rope_base, impl=impl, n_heads=n_heads, n_kv=n_kv)[0]
 
 
 def prefill_attention(
@@ -206,12 +218,16 @@ def prefill_attention(
     rope: bool = True,
     rope_base: float = 10000.0,
     impl: str = "blockwise",
+    n_heads: int = 0,
+    n_kv: int = 0,
 ) -> Tuple[torch.Tensor, dict]:
     """Full-sequence attention that also emits the KV cache (post-rope) so a
-    decode loop can continue from position S."""
-    q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm, rope=rope, rope_base=rope_base)
-    out = _full_attention(q, k, v, positions, causal=causal, impl=impl)
-    return _out_proj(out, params["wo"]), {"k": k, "v": v}
+    decode loop can continue from position S.  On a mesh (n_heads, n_kv the
+    global counts), the tensor-parallel path of `attention`, and the K/V of
+    the rank's kv heads (every kv head when kv is whole)."""
+    out, k, v = _attend(params, x, positions, causal=causal, qk_norm=qk_norm, rope=rope,
+                        rope_base=rope_base, impl=impl, n_heads=n_heads, n_kv=n_kv)
+    return out, {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +239,8 @@ def init_cache(
     batch: int, max_len: int, n_kv: int, head_dim: int, dtype: torch.dtype, device,
     lead: Tuple[int, ...] = (),
 ) -> dict:
-    """Zero KV cache, (*lead, B, max_len, Hkv, Dh) for k and v."""
+    """Zero KV cache, (*lead, B, max_len, Hkv, Dh) for k and v (on a mesh,
+    the rank's shard: its rows, positions and kv heads)."""
     shape = (*lead, batch, max_len, n_kv, head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -240,18 +257,77 @@ def decode_attention(
     qk_norm: bool = False,
     rope: bool = True,
     rope_base: float = 10000.0,
+    n_heads: int = 0,
+    n_kv: int = 0,
+    seq_sharded: bool = False,
 ) -> Tuple[torch.Tensor, dict]:
-    """One decode step: write K/V at `pos` (in place), attend to cache[:pos+1]."""
+    """One decode step: write K/V at `pos` (in place), attend to cache[:pos+1].
+
+    On a mesh (n_heads, n_kv the global head counts), by the cache's layout:
+      heads-sharded (the cache holds the rank's kv heads): the rank's query
+        heads over its kv heads, the out-projection row-parallel (g);
+      replicated (every kv head, every position): the rank's query heads
+        over the kv heads of their groups (`_local_kv`), then g;
+      seq_sharded (the rank's max_len / tp positions, every kv head): every
+        query head (an all_gather of the local heads over `model`) over the
+        rank's positions (`ops.flash_decode_part`), the parts combined by
+        their log-sum-exp (an all_gather of out, m and l,
+        `ops.combine_decode_parts`), then the rank's heads through its wo
+        shard and g.  The new K/V (every kv head: gathered over `model`
+        when wk is sharded) is written only by the rank that holds `pos`."""
     b = x.shape[0]
     pos = int(pos)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm, rope=rope, rope_base=rope_base)
+    h_loc = params["wq"].shape[-2]
+    tp = bool(n_heads) and h_loc != n_heads  # the query heads sharded over `model`
+    if seq_sharded:
+        return _decode_seq_sharded(params, q, k, v, cache, pos, tp, n_kv), cache
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
+    k_all, v_all = cache["k"], cache["v"]
+    if tp and k_all.shape[2] == n_kv:  # kv whole: the kv heads of the rank's query heads
+        k_all, v_all = _local_kv(k_all, v_all, n_heads, h_loc)
     out = ops.flash_decode(
         q.transpose(1, 2),  # (B, H, 1, D)
-        cache["k"].transpose(1, 2),
-        cache["v"].transpose(1, 2),
+        k_all.transpose(1, 2),
+        v_all.transpose(1, 2),
         length=torch.full((b,), pos + 1, dtype=torch.int64, device=x.device),
     ).transpose(1, 2)  # (B, 1, H, D)
-    return _out_proj(out, params["wo"]), cache
+    out = _out_proj(out, params["wo"])
+    return (hook.leave_model(out) if tp else out), cache
+
+
+def _slot_of(pos: int, t_loc: int, r: int):
+    """The index of position `pos` in rank r's part of a cache sharded on
+    its sequence in parts of t_loc positions (None where another rank holds
+    it)."""
+    return pos - r * t_loc if pos // t_loc == r else None
+
+
+def _decode_seq_sharded(params, q, k, v, cache, pos: int, tp: bool, n_kv: int) -> torch.Tensor:
+    """decode_attention on a cache sharded on its sequence over `model`."""
+    mesh = hook.current_mesh()
+    r = mesh.index(MODEL_AXIS)
+    b, t_loc = q.shape[0], cache["k"].shape[1]
+    if k.shape[2] != n_kv:  # wk sharded: the new token's every kv head
+        k = mesh.all_gather_tiled(k, MODEL_AXIS, 2)
+        v = mesh.all_gather_tiled(v, MODEL_AXIS, 2)
+    slot = _slot_of(pos, t_loc, r)
+    if slot is not None:
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+    q_all = mesh.all_gather_tiled(q, MODEL_AXIS, 2) if tp else q  # (B, 1, H, Dh)
+    valid = min(max(pos + 1 - r * t_loc, 0), t_loc)
+    part = ops.flash_decode_part(
+        q_all.transpose(1, 2), cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+        length=torch.full((b,), valid, dtype=torch.int64, device=q.device))
+    packed = torch.cat([part[0], part[1][..., None], part[2][..., None]], dim=-1)
+    parts = mesh.all_gather_tiled(packed[None], MODEL_AXIS, 0)  # (tp, B, H, Dh + 2)
+    dh = q.shape[-1]
+    out = ops.combine_decode_parts(parts[..., :dh], parts[..., dh], parts[..., dh + 1])
+    out = out.to(q.dtype)[:, None]  # (B, 1, H, Dh)
+    if not tp:
+        return _out_proj(out, params["wo"])
+    h_loc = q.shape[2]
+    return hook.leave_model(_out_proj(out.narrow(2, r * h_loc, h_loc), params["wo"]))

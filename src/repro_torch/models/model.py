@@ -77,15 +77,19 @@ cross-entropy reduces the vocab-sharded fp32 logits over `model` without
 gathering them (`_ce_vocab_parallel`: the row max by a pmax, the sum of
 exponentials and the target's logit by psums); `forward` then returns the
 logits of the rank's vocabulary range.  The loss is this data rank's mean;
-runtime/steps averages the losses and gradients over `data`.  Every other
-family, an FSDP config (`fsdp_embed`) and a `pod` axis raise
+runtime/steps averages the losses and gradients over `data`.  `prefill`,
+`init_cache` and `decode_step` run on a mesh too (launch/serve --mesh):
+the decode cache laid out by runtime/sharding.cache_spec (its sequence
+over `model` where max_len divides it, `seq_sharded`; else its kv heads;
+else replicated), the prefill's K/V laid into it by `merge_prefill_cache`.
+Every other family, an FSDP config (`fsdp_embed`) and a `pod` axis raise
 NotImplementedError on a mesh other than 1x1 (`check_mesh_supported`),
-naming the ROADMAP item that lifts each.
+in training and serving, naming the ROADMAP item that lifts each.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -101,11 +105,11 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, embed, embedding_axes,
                                        init_embedding, init_norm, norm_axes, stack_axes,
                                        unembed)
-from repro_torch.runtime.mesh import MODEL_AXIS, POD_AXIS, axis_sizes
+from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, axis_sizes
+from repro_torch.runtime.sharding import cache_spec
 
 # The ROADMAP items (section 1) that lift the refusals of a mesh.
 MESH_ITEMS = {
-    "serving": "ROADMAP section 1, item 1: sharded serving",
     "fsdp": "ROADMAP section 1, item 2: FSDP of `embed`",
     "families": "ROADMAP section 1, item 4: the vlm, audio, hybrid and xlstm families on a mesh",
     "pod": "ROADMAP section 1, item 5: a `pod` axis",
@@ -128,8 +132,9 @@ def require_ported(cfg: ArchConfig) -> None:
 
 def check_mesh_supported(cfg: ArchConfig, mesh) -> None:
     """Raise NotImplementedError for what the port does not run on a mesh
-    other than 1x1 (a Mesh, a {axis: size} dict, or None): a family other
-    than dense and moe, an FSDP config, a `pod` axis of more than one."""
+    other than 1x1 (a Mesh, a {axis: size} dict, or None), in training or
+    serving: a family other than dense and moe, an FSDP config, a `pod`
+    axis of more than one."""
     sizes = axis_sizes(mesh)
     if all(n == 1 for n in sizes.values()):
         return
@@ -137,16 +142,17 @@ def check_mesh_supported(cfg: ArchConfig, mesh) -> None:
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} on mesh {shape}: the port runs the {cfg.family} family on one "
-            f"device (mesh 1x1); the sharded-training path runs the "
+            f"device (mesh 1x1); the sharded-training and sharded-serving paths run the "
             f"{' and '.join(MESH_FAMILIES)} families ({MESH_ITEMS['families']})")
     if cfg.fsdp_embed:
         raise NotImplementedError(
             f"{cfg.name} on mesh {shape}: the config shards `embed` over `data` (fsdp_embed), "
-            f"which the sharded-training path does not ({MESH_ITEMS['fsdp']})")
+            f"which the sharded-training and sharded-serving paths do not "
+            f"({MESH_ITEMS['fsdp']})")
     if sizes.get(POD_AXIS, 1) > 1:
         raise NotImplementedError(
-            f"{cfg.name} on mesh {shape}: the sharded-training path has no `pod` axis of more "
-            f"than one rank ({MESH_ITEMS['pod']})")
+            f"{cfg.name} on mesh {shape}: the sharded-training and sharded-serving paths "
+            f"have no `pod` axis of more than one rank ({MESH_ITEMS['pod']})")
 
 
 def stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
@@ -503,12 +509,43 @@ def _loss(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, Dict[str,
 _CACHE_KEY = {"dense_layers": "dense", "layers": "layers"}
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "cuda") -> dict:
+def seq_sharded(cfg: ArchConfig, mesh, max_len: int) -> bool:
+    """Whether a decode cache of max_len positions is sharded on its
+    sequence over `model` on `mesh` (runtime/sharding.cache_spec: when
+    max_len divides the model axis of more than one rank)."""
+    sizes = axis_sizes(mesh)
+    if sizes.get(MODEL_AXIS, 1) == 1:
+        return False
+    dp = sizes.get(POD_AXIS, 1) * sizes.get(DATA_AXIS, 1)
+    return cache_spec(cfg, sizes, dp, max_len)[1] is not None
+
+
+def _local_cache_shape(cfg: ArchConfig, mesh, batch: int, max_len: int) -> Tuple[int, ...]:
+    """(B, T, Hkv, Dh) of one layer's K or V on this rank of `mesh`."""
+    shape = [batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim]
+    if mesh is None:
+        return tuple(shape)
+    dp = mesh.size(POD_AXIS) * mesh.size(DATA_AXIS)
+    if batch % dp:
+        raise ValueError(f"{cfg.name}: a batch of {batch} does not split over the {dp} data "
+                         f"ranks of mesh {mesh.describe()}")
+    for dim, part in enumerate(cache_spec(cfg, mesh, batch, max_len)):
+        for a in (() if part is None else (part,) if isinstance(part, str) else part):
+            shape[dim] //= mesh.size(a)
+    return tuple(shape)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "cuda",
+               mesh=None) -> dict:
     """The decode cache, zero but for the stabilizers m (-1e30).  Dense and
     moe: {"layers": {"k", "v": (L, B, max_len, Hkv, Dh)}} in the compute
     dtype; moe with first_dense: {"dense": the first_dense layers' cache,
     "layers": the rest's}; vlm as dense, max_len counting the image
-    positions; audio raises (encoder-only: no decode).
+    positions; audio raises (encoder-only: no decode).  On a mesh (dense
+    and moe; `batch` and `max_len` global), the rank's shard under
+    runtime/sharding.cache_spec: its B / dp rows, and its max_len / tp
+    positions (`seq_sharded`) or else its Hkv / tp kv heads where they
+    divide, else every kv head.
     xlstm (state caches; max_len unused): {"mlstm": {"conv_buf" (compute
     dtype), "C", "n", "m" (fp32)}, each (n_groups, slstm_every - 1, B, ...),
     "slstm": {"h", "c", "n", "m"}, each (n_groups, B, D) fp32}.
@@ -541,12 +578,53 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "
             "slstm": xlstm_mod.init_slstm_cache(batch, cfg.d_model, device=dev,
                                                 lead=(n_groups,)),
         }
-    return {_CACHE_KEY[key]: attn_mod.init_cache(
-        batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.cdtype, dev, lead=(n,),
-    ) for key, n in stack_sizes(cfg).items()}
+    if mesh is not None:
+        check_mesh_supported(cfg, mesh)
+    b, t, hkv, dh = _local_cache_shape(cfg, mesh, batch, max_len)
+    return {_CACHE_KEY[key]: attn_mod.init_cache(b, t, hkv, dh, cfg.cdtype, dev, lead=(n,))
+            for key, n in stack_sizes(cfg).items()}
 
 
-def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, dict]:
+def merge_prefill_cache(cfg: ArchConfig, cache: dict, pre_cache: dict, mesh=None,
+                        max_len: Optional[int] = None) -> dict:
+    """Lay the prefill's K/V into the decode cache, in place, for every
+    attention stack of `cache` ({stack: {"k", "v": (L, B, T, Hkv, Dh)}}):
+    the prompt's S positions first, the later ones left zero.  On a mesh
+    whose cache is sharded on its sequence (`seq_sharded`, max_len the
+    global length), each rank keeps the positions it holds: a slice of the
+    prefill's when kv is whole (no collective), or, when the prefill gave
+    the rank its kv heads only, one all_to_all over `model` that trades
+    (my heads, your positions) for (every head, my positions)."""
+    seq = mesh is not None and seq_sharded(cfg, mesh, max_len)
+    for stack, layers in cache.items():
+        part = pre_cache[stack]
+        s_len = part["k"].shape[2]
+        if not seq:
+            for name, full in layers.items():
+                full[:, :, :s_len] = part[name]
+            continue
+        r, n = mesh.index(MODEL_AXIS), mesh.size(MODEL_AXIS)
+        t_loc = layers["k"].shape[2]
+        if part["k"].shape[3] == layers["k"].shape[3]:  # every kv head: this rank's positions
+            lo, hi = r * t_loc, min(s_len, (r + 1) * t_loc)
+            for name, full in layers.items():
+                if hi > lo:
+                    full[:, :, :hi - lo] = part[name][:, :, lo:hi]
+            continue
+        both = torch.stack([part["k"], part["v"]])  # (2, L, B, S, Hkv / tp, Dh)
+        two, n_l, b, _, h_p, dh = both.shape
+        padded = both.new_zeros(two, n_l, b, n * t_loc, h_p, dh)
+        padded[:, :, :, :s_len] = both
+        send = padded.view(two, n_l, b, n, t_loc, h_p, dh).permute(3, 0, 1, 2, 4, 5, 6)
+        got = mesh.all_to_all_tiled(send.contiguous(), MODEL_AXIS)  # chunk j: rank j's heads
+        got = got.permute(1, 2, 3, 4, 0, 5, 6).reshape(two, n_l, b, t_loc, n * h_p, dh)
+        layers["k"].copy_(got[0])
+        layers["v"].copy_(got[1])
+    return cache
+
+
+def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor],
+            mesh=None) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward that also returns the decode cache of the
     prompt: (logits (B, S, V) fp32, cache).  Dense, moe and vlm: {"layers":
     {"k", "v": (L, B, S, Hkv, Dh)}} (vlm: S counts the image positions
@@ -555,10 +633,19 @@ def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> Tu
     xlstm and hybrid: the cache of `init_cache` (hybrid's K/V of S
     positions), each block's final state in its slot (a prompt shorter than
     the convolution leaves the older conv_buf rows zero, as the
-    convolution's padding)."""
+    convolution's padding).  On a mesh (given, or installed; dense and
+    moe): the rank's rows and shards, tensor-parallel as `forward`; the
+    logits of the rank's vocabulary range, and the K/V of its kv heads
+    (every kv head where kv_heads stay whole)."""
     if cfg.family == "audio":
-        return forward(cfg, params, batch)[0], None
+        return forward(cfg, params, batch, mesh)[0], None
     require_ported(cfg)
+    with hook.installed(mesh):
+        check_mesh_supported(cfg, hook.current_mesh())
+        return _prefill(cfg, params, batch)
+
+
+def _prefill(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, dict]:
     params = cast_params(cfg, params)
     h = _embed_inputs(cfg, params, batch)
     if cfg.family == "xlstm":
@@ -606,12 +693,29 @@ def decode_step(
     cache: dict,
     tokens: torch.Tensor,  # (B, 1)
     pos: int,  # current position (write index; the state caches need none)
+    mesh=None,
+    max_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """Returns (logits (B, 1, V) fp32, the cache, updated in place).  A vlm
-    step is a text token: pos counts the image positions of the prompt."""
+    step is a text token: pos counts the image positions of the prompt.  On
+    a mesh (given, or installed; dense and moe): the rank's rows, its
+    cache shard of a cache of `max_len` positions (`init_cache`'s layout,
+    which max_len fixes), the logits of its vocabulary range."""
     require_ported(cfg)
     if cfg.family == "audio":
         raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
+    with hook.installed(mesh):
+        mesh = hook.current_mesh()
+        check_mesh_supported(cfg, mesh)
+        if mesh is not None and mesh.size(MODEL_AXIS) > 1 and max_len is None:
+            raise ValueError("decode_step on a mesh with a model axis needs max_len, the "
+                             "cache's global length (its layout)")
+        seq = mesh is not None and seq_sharded(cfg, mesh, max_len)
+        return _decode_step(cfg, params, cache, tokens, pos, seq)
+
+
+def _decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, pos: int,
+                 seq: bool) -> Tuple[torch.Tensor, dict]:
     params = cast_params(cfg, params)
     h = _embed_tokens(cfg, params, tokens)
     if cfg.family == "xlstm":
@@ -642,5 +746,5 @@ def decode_step(
         layers = cache[_CACHE_KEY[key]]
         for i, lp in enumerate(params[key]):
             layer_cache = {"k": layers["k"][i], "v": layers["v"][i]}
-            h, _, _ = tfm.decode_block(lp, h, layer_cache, pos, cfg)
+            h, _, _ = tfm.decode_block(lp, h, layer_cache, pos, cfg, seq)
     return _logits(cfg, params, h), cache

@@ -2,9 +2,11 @@
 
 Port of src/repro/models/moe.py (`init_moe`, `apply_moe`, `moe_ref`), the
 path the JAX block takes on one device, in every decode step and whenever
-no mesh with a model axis is installed (on a mesh of one `model` rank, on
-each data shard's groups).  The expert-parallel all-to-all path over a
-`model` axis is models/moe_a2a.py.
+the all-to-all path's conditions fail.  On a mesh (models/transformer
+`_moe_ffn`) it runs on each data shard's groups, or on the step's whole
+batch gathered over `data`, and with the experts sharded over `model`
+each rank runs only its experts' slots (`expert_lo`).  The expert-parallel
+all-to-all path over a `model` axis is models/moe_a2a.py.
 
 Semantics kept from the JAX function:
   * the T = B * S tokens split into g groups, g the largest divisor of T
@@ -242,15 +244,26 @@ def _shared(sp: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_moe(params: dict, x: torch.Tensor, *, top_k: int, n_groups: int,
-              capacity_factor: float = 1.25, return_tables: bool = False, stat_mean=None):
+              capacity_factor: float = 1.25, return_tables: bool = False, stat_mean=None,
+              expert_lo: int = 0, enter=None):
     """x (B, S, D) -> (output (B, S, D), aux load-balance loss, fp32 0-d);
     with return_tables also the dispatch (`dispatch_tables`, plus "cap",
     "expert_ids" (g, tg, k) and "gate_vals" (g, tg, k) fp32).  stat_mean
     maps the per-expert mean probability and routed share of these groups
     to the global ones (a data-sharded batch; default: these groups are the
-    batch)."""
+    batch).
+
+    With fewer experts in wi / wg / wo than the router's E (the experts
+    sharded over `model`, the rank's E_loc from expert_lo on), the routing,
+    the tables and the aux are the whole layer's, and only the slots of
+    those experts run: the output is this rank's part of the routed sum
+    (the caller psums it over `model`).  Then `enter` (Megatron's f) takes
+    x and the gates into the rank's slots, so their gradients sum over the
+    ranks' parts; the aux's path does not pass through it.  The shared
+    experts are the caller's then."""
     b, s, d = x.shape
     e = params["router"].shape[-1]
+    e_loc = params["wi"].shape[-3]
     xf = x.reshape(-1, d)
     t = xf.shape[0]
     g = n_groups_for(t, n_groups)
@@ -267,12 +280,18 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int, n_groups: int,
     aux = e * torch.sum(me * share)
 
     gslot, assignment, token, filled = _expert_major(tables, cap, e, tg, top_k)
+    gates_in = gate_vals.to(x.dtype)
+    if e_loc != e:  # this rank's experts: a contiguous range of the expert-major slots
+        lo, hi = expert_lo * g * cap, (expert_lo + e_loc) * g * cap
+        assignment, token, filled = assignment[lo:hi], token[lo:hi], filled[lo:hi]
+        gslot = torch.where((gslot >= lo) & (gslot < hi), gslot - lo, hi - lo)
+        xf, gates_in = enter(xf), enter(gates_in)
     xe = ToSlots.apply(xf, token, filled, gslot.view(t, top_k))
-    gates = ToSlots.apply(gate_vals.to(x.dtype).reshape(t * top_k, 1), assignment, filled,
+    gates = ToSlots.apply(gates_in.reshape(t * top_k, 1), assignment, filled,
                           gslot.view(t * top_k, 1))
-    ye = _experts(params, xe.view(e, g * cap, d)).view(-1, d) * gates
+    ye = _experts(params, xe.view(e_loc, g * cap, d)).view(-1, d) * gates
     out = FromSlots.apply(ye, gslot.view(t, top_k), token, filled).view(b, s, d)
-    if "shared" in params:
+    if "shared" in params and e_loc == e:
         out = out + _shared(params["shared"], x)
     if return_tables:
         return out, aux, {**tables, "cap": cap, "expert_ids": expert_ids,

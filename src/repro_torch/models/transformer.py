@@ -21,10 +21,19 @@ a full sequence and one group in a decode step.  On a mesh:
     wo) when its ffn is sharded;
   * the MoE FFN takes the all-to-all path of models/moe_a2a.py exactly
     when JAX's does: moe_impl "a2a", a `model` axis of tp > 1, n_experts %
-    tp == 0, S % tp == 0 and B % dp == 0; with tp == 1 it runs the
-    capacity dispatch on the rank's data shard, JAX's groups split over
-    `data` (their count must divide by dp), with the global aux; any other
-    MoE config on a mesh raises, naming the condition that fails.
+    tp == 0, S % tp == 0 (and B % dp == 0, the step's batch split).
+    Otherwise (a decode step's S = 1, E or S not divisible by tp, tp == 1)
+    it runs JAX's capacity dispatch with the experts sharded over `model`
+    where the rules shard them: the router and the dispatch tables on
+    every model rank over the replicated tokens, as on one device, each
+    rank only its E/tp experts' slots, the parts psum'd through g (f on
+    the tokens and gates, so training has its gradient); the shared
+    experts column- and row-parallel as the MLP.  Its groups split over
+    `data` when their count divides by dp (the aux's statistics averaged
+    over the data ranks), else the tokens are gathered over `data` and
+    dispatched as the whole batch's groups (a decode step: one group, the
+    capacity of the step's B tokens, as JAX's), each rank keeping its
+    rows.
 The residual stream stays replicated over `model`.  JAX's
 sequence-parallel residual ("seq" -> model, `shard(h, "residual")`) is a
 memory layout of the same arithmetic and is ROADMAP section 1's later item.
@@ -41,8 +50,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import sharding_hook as hook
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init, init_mlp, init_norm,
                                        mlp_axes, norm_axes)
-from repro_torch.models.moe import apply_moe, init_moe, moe_axes, n_groups_for
+from repro_torch.models.moe import _shared, apply_moe, init_moe, moe_axes, n_groups_for
 from repro_torch.models.moe_a2a import apply_moe_a2a
+from repro_torch.runtime import mesh as mesh_mod
 from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, pmean_value
 
 
@@ -106,30 +116,38 @@ def _moe_ffn(moe_params: dict, f_in: torch.Tensor, cfg, n_groups: int):
     tp = mesh.size(MODEL_AXIS)
     dp = mesh.size(POD_AXIS) * mesh.size(DATA_AXIS)
     b, s, _ = f_in.shape  # this data rank's rows: the global batch is b * dp
-    conds = {"moe_impl == 'a2a'": cfg.moe_impl == "a2a",
-             f"n_experts % tp == 0 ({cfg.n_experts} % {tp})": cfg.n_experts % tp == 0,
-             f"S % tp == 0 ({s} % {tp})": s % tp == 0}  # B % dp: the step's batch split
-    if tp > 1:
-        failed = [c for c, ok in conds.items() if not ok]
-        if failed:
-            raise NotImplementedError(
-                f"{cfg.name} on mesh {mesh.describe()}: the MoE FFN over a model axis of "
-                f"{tp} runs the all-to-all path only, which needs {', '.join(failed)}")
-        d_ff = cfg.moe_d_ff or cfg.d_ff
+    d_ff = cfg.moe_d_ff or cfg.d_ff
+    if tp > 1 and cfg.moe_impl == "a2a" and cfg.n_experts % tp == 0 and s % tp == 0:
         return apply_moe_a2a(mesh, moe_params, f_in, top_k=cfg.top_k, n_experts=cfg.n_experts,
                              capacity_factor=cfg.capacity_factor,
                              wire_dtype=cfg.moe_wire_dtype,
                              shared_ffn=cfg.n_shared_experts * d_ff or None,
                              d_model=cfg.d_model)
+    # The capacity dispatch, with the experts the rules gave this rank (all
+    # of them where E does not divide tp): the routing over the replicated
+    # tokens, each rank its experts' slots, their parts psum'd over `model`.
+    routed = {k: v for k, v in moe_params.items() if k != "shared"}
+    e_loc = routed["wi"].shape[-3]
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+              expert_lo=hook.model_index() * e_loc, enter=hook.enter_model)
     groups = n_groups_for(b * s * dp, n_groups)
-    if groups % dp:
-        raise NotImplementedError(
-            f"{cfg.name} on mesh {mesh.describe()}: the capacity dispatch splits its "
-            f"{groups} groups over the data axis, which needs groups % dp == 0 ({dp})")
-    # the aux's statistics are the batch's: their mean over the data ranks
-    return apply_moe(moe_params, f_in, top_k=cfg.top_k, n_groups=groups // dp,
-                     capacity_factor=cfg.capacity_factor,
-                     stat_mean=lambda x: pmean_value(x, mesh, (POD_AXIS, DATA_AXIS)))
+    if groups % dp == 0:  # each data rank dispatches its own groups
+        # the aux's statistics are the batch's: their mean over the data ranks
+        out, aux = apply_moe(routed, f_in, n_groups=groups // dp, **kw,
+                             stat_mean=lambda x: pmean_value(x, mesh, (POD_AXIS, DATA_AXIS)))
+    else:  # one dispatch over the step's whole batch (a decode step: one group)
+        whole = mesh_mod.all_gather(f_in, mesh, DATA_AXIS, 0)
+        out, aux = apply_moe(routed, whole, n_groups=groups, **kw)
+        out = out.narrow(0, mesh.index(DATA_AXIS) * b, b)
+    if e_loc != cfg.n_experts:
+        out = hook.leave_model(out)
+    if "shared" in moe_params:
+        sp = moe_params["shared"]
+        if sp["wo"].shape[-2] != cfg.n_shared_experts * d_ff:  # column- and row-parallel
+            out = out + hook.leave_model(_shared(sp, hook.enter_model(f_in)))
+        else:
+            out = out + _shared(sp, f_in)
+    return out, aux
 
 
 def _mlp(mlp_params: dict, f_in: torch.Tensor, cfg, d_ff: int) -> torch.Tensor:
@@ -170,21 +188,24 @@ def prefill_block(params: dict, h: torch.Tensor, positions: torch.Tensor,
     a_out, kv = attn_mod.prefill_attention(
         params["attn"], a_in, positions,
         causal=cfg.causal, qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
-        impl=cfg.attn_impl,
+        impl=cfg.attn_impl, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
     )
     h, aux = _ffn(params, h + a_out, cfg, cfg.moe_groups)
     return h, kv, aux
 
 
 def decode_block(params: dict, h: torch.Tensor, cache: dict, pos: int,
-                 cfg) -> Tuple[torch.Tensor, dict, torch.Tensor]:
+                 cfg, seq_sharded: bool = False) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     """One decode step through a block, h (B, 1, D); the cache is updated
-    in place.  The MoE FFN dispatches the step's B tokens as one group.
-    Returns (h, cache, moe_aux)."""
+    in place (seq_sharded: the cache is sharded on its sequence over
+    `model`).  The MoE FFN dispatches the step's B tokens as one group (on
+    a mesh the whole step's, gathered over `data`).  Returns (h, cache,
+    moe_aux)."""
     a_in = apply_norm(cfg.norm, params["norm1"], h)
     a_out, cache = attn_mod.decode_attention(
         params["attn"], a_in, cache, pos,
         qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, seq_sharded=seq_sharded,
     )
     h, aux = _ffn(params, h + a_out, cfg, 1)
     return h, cache, aux

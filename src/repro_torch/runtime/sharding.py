@@ -17,6 +17,11 @@ Default rules (as the JAX package's):
   (the sequence-parallel layout is ROADMAP section 1's later item), so
   `seq` and `kv_seq` name no parameter here.
 
+A decode cache (B, max_len, Hkv, Dh) carries JAX's CACHE_AXES (batch,
+kv_seq, kv_heads, None): `cache_spec` resolves them with the same guards,
+so `model` goes to the sequence when max_len divides it, else to the kv
+heads when n_kv does, else to neither (the cache replicated over `model`).
+
 `shard_tensor` / `shard_tree` cut a global tensor or tree to this rank's
 shard (a copy of the slice); `unshard_tensor` / `unshard_tree` gather the
 shards back to the whole (a collective over the spec's axes: every rank of
@@ -103,6 +108,19 @@ def spec_for_axes(mesh, axes: Sequence[Optional[str]], shape: Optional[Sequence[
         used.update(cand)
         parts.append(cand if len(cand) > 1 else cand[0])
     return tuple(parts)
+
+
+# JAX's CACHE_AXES (src/repro/models/attention.py:233-240): kv_seq ahead
+# of kv_heads, so the first-come guard gives `model` to the sequence first.
+CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)
+
+
+def cache_spec(cfg, mesh, batch: int, max_len: int,
+               rules: Optional[Dict[str, AxisAssign]] = None) -> Spec:
+    """The spec of one layer's K or V cache (B, max_len, Hkv, Dh) on `mesh`
+    (a Mesh or a {axis: size} dict), from the global shape."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return spec_for_axes(mesh, CACHE_AXES, shape, rules or rules_for(cfg))
 
 
 def batch_spec(mesh, rules: Dict[str, AxisAssign]) -> Spec:

@@ -22,7 +22,9 @@ Port of src/repro/runtime/steps.py:
                                    gradient, `opt.update`, step + 1; the
                                    state is updated in place
   make_prefill_step, make_decode_step  the serve steps over model.prefill
-                                   and model.decode_step
+                                   and model.decode_step; on a mesh the
+                                   rank's rows and shards, the greedy
+                                   argmax vocab-parallel (`greedy_tokens`)
 
 The step counter is a 0-d int32 tensor, as JAX's.
 
@@ -51,7 +53,7 @@ from repro_torch.models import model as M
 from repro_torch.models import sharding_hook as hook
 from repro_torch.optim.optimizers import Optimizer, Shards
 from repro_torch.pytree import leaves, unflatten
-from repro_torch.runtime.mesh import DATA_AXIS, POD_AXIS, Mesh
+from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, Mesh
 from repro_torch.runtime.sharding import rules_for, shard_tree, spec_axes, tree_specs
 
 
@@ -246,18 +248,46 @@ def _make_sharded_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Mesh) -> Cal
     return train_step
 
 
-def make_decode_step(cfg: ArchConfig) -> Callable:
+def greedy_tokens(cfg: ArchConfig, logits: torch.Tensor,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The greedy next token of each row of the last position's fp32 logits
+    (B, V), int64 (B,).  Logits sharded on the vocabulary over `model` (the
+    rank's range [r V/tp, (r + 1) V/tp)): each rank's max and the first
+    index of it, gathered over `model`; the largest value wins, and of
+    equal values the lowest global index, which is torch.argmax's rule over
+    the whole row.  Where the vocabulary does not divide tp the logits are
+    whole on every rank, and the plain argmax runs."""
+    if mesh is None or logits.shape[-1] == cfg.vocab:
+        return torch.argmax(logits, dim=-1)
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[:, None])[:, 0]
+    idx = idx + mesh.index(MODEL_AXIS) * logits.shape[-1]
+    pairs = torch.stack([val.double(), idx.double()], dim=-1)[None]  # exact in fp64
+    pairs = mesh.all_gather_tiled(pairs, MODEL_AXIS, 0)  # (tp, B, 2), in rank order
+    best = torch.argmax(pairs[..., 0], dim=0)  # the first rank holding the max
+    return torch.gather(pairs[..., 1], 0, best[None])[0].long()
+
+
+def make_decode_step(cfg: ArchConfig, mesh: Optional[Mesh] = None,
+                     max_len: Optional[int] = None) -> Callable:
+    """(params, cache, tokens (B, 1), pos) -> (next tokens (B,) int32, the
+    cache updated in place).  On a mesh, the rank's rows and shards of a
+    cache of max_len positions, the argmax vocab-parallel
+    (`greedy_tokens`)."""
     def serve_step(params, cache, tokens, pos):
-        logits, new_cache = M.decode_step(cfg, params, cache, tokens, pos)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        logits, new_cache = M.decode_step(cfg, params, cache, tokens, pos, mesh, max_len)
+        next_tok = greedy_tokens(cfg, logits[:, -1, :], mesh).to(torch.int32)
         return next_tok, new_cache
 
     return serve_step
 
 
-def make_prefill_step(cfg: ArchConfig) -> Callable:
+def make_prefill_step(cfg: ArchConfig, mesh: Optional[Mesh] = None) -> Callable:
+    """(params, batch) -> (the last position's logits (B, 1, V), the
+    prefill's cache); on a mesh, the rank's rows, vocabulary range and
+    kv heads."""
     def prefill_step(params, batch) -> Tuple[torch.Tensor, dict]:
-        logits, cache = M.prefill(cfg, params, batch)
+        logits, cache = M.prefill(cfg, params, batch, mesh)
         return logits[:, -1:, :], cache
 
     return prefill_step

@@ -6,7 +6,7 @@ It prints the JAX CLI's lines (tests/test_serve.py checks the same two),
 its tokens are the greedy tokens of the teacher-forced forward (for the
 MoE configs on JAX's weights, the tokens of JAX's own loop), it runs on
 the card by default and raises without one, and it refuses what is not
-ported (a sharded mesh, the families of later slices).
+ported (a `pod` axis, the families of later slices).
 """
 
 import json
@@ -142,7 +142,7 @@ def test_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "2x4"],
+    ["--mesh", "2x2x2"],  # a `pod` axis (ROADMAP section 1, item 5)
     ["--arch", "zamba2_1p2b", "--n-layers", "1"],  # below attn_every: no shared block
     ["--arch", "hubert_xlarge"],  # encoder-only: no decode loop
     ["--gen", "0"],

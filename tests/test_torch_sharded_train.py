@@ -27,7 +27,8 @@ under different capacities (JAX's semantics), so only then are the two
 the same function (tests/test_torch_moe_a2a.py holds the path with drops
 against JAX's own apply_moe_a2a).  kimi runs its native wire here (the
 int8 wire is held in test_torch_moe_a2a.py).  Then the CLI: its
-refusals, and a rank that raises failing the run.
+refusals (and launch/serve's on a mesh), and a rank that raises failing
+the run.
 """
 
 import dataclasses
@@ -255,21 +256,30 @@ def test_cli_refuses_what_the_mesh_does_not_run(argv, match):
         train.main(argv + ["--device", "cpu", "--steps", "1"])
 
 
-def test_serve_refuses_a_mesh_naming_sharded_serving():
+@pytest.mark.parametrize("argv, match", [
+    (["--arch", "xlstm_1p3b", "--mesh", "2x2"], "item 4"),
+    (["--arch", "hubert_xlarge", "--mesh", "1x2"], "item 4"),
+    (["--arch", "phi3_vision_4p2b", "--mesh", "2x1"], "item 4"),
+    (["--arch", "zamba2_1p2b", "--mesh", "1x2"], "item 4"),
+    (["--arch", "granite_8b", "--full-config", "--mesh", "2x2"], "item 2"),
+    (["--mesh", "2x2x2"], "item 5"),
+])
+def test_serve_refuses_what_the_mesh_does_not_run(argv, match):
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit, match="item 1: sharded serving"):
-        serve.main(["--device", "cpu", "--mesh", "2x2"])
+    with pytest.raises(SystemExit, match=match):
+        serve.main(argv + ["--device", "cpu", "--gen", "2"])
 
 
 def test_a_rank_that_raises_fails_the_cli(tmp_path):
-    """granite-moe at S = 15 over a model axis of 2: the all-to-all path
-    needs S % tp == 0, and each rank raises in its first step."""
+    """granite-moe with a batch of 3 over two data ranks: each rank raises
+    splitting the batch in its first step."""
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite_moe_1b_a400m",
-         "--device", "cpu", "--mesh", "1x2", "--steps", "1", "--batch", "2", "--seq", "15",
+         "--device", "cpu", "--mesh", "2x1", "--steps", "1", "--batch", "3", "--seq", "15",
          "--ckpt-dir", str(tmp_path / "ckpt")],
         env={**__import__("os").environ, "PYTHONPATH": str(SRC)}, cwd=str(REPO),
         capture_output=True, text=True, timeout=WORLD_TIMEOUT)
     assert proc.returncode != 0
-    assert "S % tp == 0 (15 % 2)" in proc.stderr, proc.stderr[-3000:]
+    assert "B % dp == 0 is needed" in proc.stderr and "(3 % 2)" in proc.stderr, \
+        proc.stderr[-3000:]

@@ -523,3 +523,115 @@ def serve_dict_runs(mesh0, job: dict) -> dict:
                 out[name] = got
     out["idle"] = _idle_stream(job["idle"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving (tests/test_torch_sharded_serve.py)
+# ---------------------------------------------------------------------------
+
+
+def _whole_over(mesh, t, dims: dict):
+    """t gathered over each axis of `dims` ({axis: dim}) whose size is > 1."""
+    for axis, dim in dims.items():
+        t = mesh.all_gather_tiled(t, axis, dim)
+    return t
+
+
+def _serve_case(mesh, case: dict):
+    """launch/serve's rank body (`_serve_ranks`, what `--mesh` runs on each
+    rank) on `mesh` (None beyond it) for one case: its config and the JAX
+    params crossed by convert; on mesh rank 0 the tokens, every step's
+    logits and the cache, each gathered whole."""
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime import sharding
+
+    cfg = case["cfg"]
+    with mock.patch.object(serve, "_config", lambda args: cfg), \
+            mock.patch.object(serve.M, "init", lambda c, seed, device: lm_params_from_numpy(
+                c, case["params"], device=device)):
+        run = serve._serve_ranks(mesh, case["args"], keep=True)
+    if mesh is None:
+        return None
+    vocab = {"model": 1} if run["last_logits"].shape[-1] != cfg.vocab else {}
+    rows = {"data": 0}
+    logits = [_whole_over(mesh, lg, {**rows, **vocab})
+              for lg in [run["last_logits"]] + run["step_logits"]]
+    spec = (None,) + sharding.cache_spec(cfg, mesh, case["args"]["batch"], run["max_len"])
+    cache = {stack: {name: sharding.unshard_tensor(t, spec, mesh) for name, t in kv.items()}
+             for stack, kv in run["cache"].items()}
+    layer0 = {name: t[0].clone() for name, t in next(iter(run["cache"].values())).items()}
+    got = {"tokens": run["tokens"].numpy(), "logits": [_np(t) for t in logits],
+           "cache": {s: {n: _np(t) for n, t in kv.items()} for s, kv in cache.items()},
+           "layout": run["cache_layout"], "agree": run["tokens_agree_over_model"],
+           "seq": M.seq_sharded(cfg, mesh, run["max_len"]),
+           "local_cache_shape": tuple(layer0["k"].shape)}
+    return got if mesh.rank == 0 else None
+
+
+def _argmax_ties(mesh, logits_np) -> np.ndarray:
+    """steps.greedy_tokens over the rank's vocabulary range of the whole
+    (B, V) logits; every model rank's tokens (on rank 0)."""
+    from repro_torch.runtime import steps
+
+    class Cfg:
+        vocab = logits_np.shape[1]
+
+    v_loc = logits_np.shape[1] // mesh.size("model")
+    r = mesh.index("model")
+    mine = _t(logits_np[:, r * v_loc:(r + 1) * v_loc])
+    tok = steps.greedy_tokens(Cfg, mine, mesh)
+    return _on_rank0(mesh, tok.numpy())
+
+
+def _moe_decode_ffn(mesh, job: dict):
+    """The MoE FFN of a decode step (transformer._moe_ffn, one group) on
+    `mesh`: the rank's rows of job["x"] through layer 0's experts, the
+    outputs gathered over `data` (on mesh rank 0)."""
+    from repro_torch.convert import lm_params_shard_from_numpy
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding_hook as hook
+    from repro_torch.models import transformer
+
+    cfg = job["cfg"]
+    params = M.cast_params(cfg, lm_params_shard_from_numpy(cfg, job["params"], mesh, "cpu"))
+    x = _t(job["x"]).float()
+    b = x.shape[0] // mesh.size("data")
+    mine = x[mesh.index("data") * b:(mesh.index("data") + 1) * b]
+    with hook.installed(mesh):
+        out, aux = transformer._moe_ffn(params["layers"][0]["moe"], mine, cfg, 1)
+    out = mesh.all_gather_tiled(out, "data", 0)
+    return {"out": _np(out), "aux": float(aux)} if mesh.rank == 0 else None
+
+
+def sharded_serve(mesh0, job: dict) -> dict:
+    """Each serve case of job["serve"] on its mesh, the vocab-parallel
+    argmax on planted ties, the MoE decode FFN with drops, and the MoE
+    loss and gradient where S does not divide the model axis (job
+    ["train"]); rank 0's results."""
+    out = {}
+    for name, case in job["serve"].items():
+        mesh = mesh_mod.make_mesh(case["mesh"])
+        got = _serve_case(mesh, case)
+        if got is not None:
+            out[name] = got
+    for shape in job["ties_meshes"]:
+        mesh = mesh_mod.make_mesh(shape)
+        if mesh is not None:
+            got = _argmax_ties(mesh, job["ties"])
+            if got is not None:
+                out[("ties", shape)] = got
+    for shape in job["moe_meshes"]:
+        mesh = mesh_mod.make_mesh(shape)
+        if mesh is not None:
+            got = _moe_decode_ffn(mesh, job["moe"])
+            if got is not None:
+                out[("moe", shape)] = got
+    for name, case in job["train"].items():
+        mesh = mesh_mod.make_mesh(case["mesh"])
+        if mesh is not None:
+            got = _loss_and_grads(case["cfg"], case["params"], case["batch"], mesh)
+            if mesh.rank == 0:
+                out[("train", name)] = got
+    return out

@@ -6,9 +6,14 @@
 calls chip_smoke.phase_<name>(torch, card), or (torch) for a phase that
 takes only torch (kernels, small_coder, ...), for each name in turn
 (sharded, lm, xlstm, moe_serve, moe_train, ...; `sharded` runs the
-SHARDED world with its DICT_MESH part, then phase_dict_mesh) and prints
-its lines and its seconds.  A quicker look at a phase than the whole
-script; the gates are the script's own.
+SHARDED world with its SERVE_MESH and DICT_MESH parts, then
+phase_serve_mesh and phase_dict_mesh; SERVE_MESH holds the mesh's serves
+against lm's and moe_serve's runs, so those two go first:
+
+    python3 tools/chip_smoke_phase.py lm moe_serve sharded
+
+) and prints its lines and its seconds.  A quicker look at a phase than
+the whole script; the gates are the script's own.
 """
 
 import inspect
@@ -40,6 +45,9 @@ def main() -> int:
                 job = chip_smoke.dict_mesh_job(chip_smoke.dict_mesh_streams(pool.submit))
             rec = chip_smoke.phase_sharded(torch, card, job)
             print(f"[phase] sharded: {time.perf_counter() - t0:.1f}s on {card}")
+            t0 = time.perf_counter()
+            chip_smoke.phase_serve_mesh(torch, card, rec.pop("serve_mesh_world"))
+            print(f"[phase] serve_mesh: {time.perf_counter() - t0:.1f}s on {card}")
             t0 = time.perf_counter()
             chip_smoke.phase_dict_mesh(torch, card, rec.pop("dict_mesh_world"), job)
             name = "dict_mesh"
