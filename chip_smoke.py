@@ -77,6 +77,10 @@ and fails (non-zero exit, no result line) if any of them fails:
    2048, 64) at 1x2) on wgmma_tma against plain, timed beside SDPA with
    their bounds (K2's `serve_mesh_shapes`), a planted causal limit one key
    late rejected.
+   K2 at head dim 128 at granite-8b's FA_GRANITE8B, qwen3-32b's FA_QWEN32B
+   and the 2x2 FSDP runs' per-rank FA_FSDP_RANK on wgmma_tma against
+   plain, timed beside SDPA with their bounds (K2's `fsdp_shapes`), a
+   planted causal limit one key late rejected at granite-8b's.
    The MoE layer (models/moe.apply_moe): against moe_ref at granite-moe's
    width on 4 x 2048 tokens with nothing dropped (fp32 at MOE_FP32_RTOL,
    bf16 at MOE_ROW_ULPS); two launches bit-identical, forward and
@@ -162,6 +166,14 @@ and fails (non-zero exit, no result line) if any of them fails:
    - three SGD steps of the granite-moe smoke config on the card against
      the CPU: the first step's routes compared, params at 1e-4, a planted
      combine without renormalisation rejected (MOE_CHECKS line);
+   - granite-8b served at full width and depth (36 layers, 8.05e9 params)
+     and qwen3-32b at full width cut to QWEN_LAYERS (the first qk-norm
+     model on the card), the LM traffic with a few greedy tokens: one K2
+     launch a layer a prefill (gated), each layer's K2 against plain on its
+     own inputs (gated, a planted wrong attention rejected), tokens in the
+     vocabulary, logits and cache finite (GRANITE8B, QWEN32B lines); then
+     granite-8b cut to FSDP_LAYERS at 1x1, SERVE_MESH's reference for its
+     FSDP case;
    - sharded training over a (data, model) mesh, the ranks sharing the
      card over gloo_staged (runtime/mesh.py: NCCL takes one rank a card):
      one spawned world of 4 ranks runs launch/train's rank body (what
@@ -179,7 +191,19 @@ and fails (non-zero exit, no result line) if any of them fails:
      SMOKE config 2x2 against 1x1 on the card, with the attention's
      row-parallel output without its psum and the data-parallel
      gradients unaveraged each rejected (SHARDED line; step times beside
-     the transport, which they measure);
+     the transport, which they measure); granite-8b at full width cut to
+     FSDP_LAYERS on 2x2 with `embed` over `data` (FSDP: every weight
+     gathered before use), launch/train's rank body, AdamW, FSDP_STEPS
+     steps, against the same run on one device (the losses within
+     2^-7, the params within bf16 rounding, at most FSDP_ADAMW_SHARE of
+     a leaf's updates parting by more than ADAMW_FLIP x the summed lr),
+     K2 on every rank at FA_FSDP_RANK, each rank's peak and a step's wire
+     per axis printed; one Adafactor update on its FSDP-sharded embedding
+     table and a layer against the whole leaves' (FSDP_ADAFACTOR_RTOL),
+     the means left local rejected; one SGD step at SHARD_LR of the same
+     cut from seed 0 at 2x2, its update (lr x the gradient averaged over
+     `data`) against one device's leaf by leaf (GRAD_BF16_TOL), with the
+     FSDP leaves' gradient left unaveraged over `data` rejected;
    - the paper's engine one agent a rank, in the same world (DICT_MESH,
      dict_mesh_world / phase_dict_mesh): `graph` at 1x4 with each rank's
      block (1, 8192, 16384), B 16, 150 iterations, `exact_fista` at 2x2
@@ -218,7 +242,11 @@ and fails (non-zero exit, no result line) if any of them fails:
      step's wire per axis and each rank's peak memory printed; then gemma
      cut to SERVE_MESH_NCCL_LAYERS on a 1x1 mesh over nccl (its rank this
      process) bit for bit the serve without a mesh (tokens, logits,
-     cache);
+     cache); and granite-8b cut to FSDP_LAYERS on 2x2 with `embed` over
+     `data`, FSDP_GEN greedy tokens, with the same gates against its 1x1
+     serve (each layer's weights gathered before the per-layer checks),
+     and a fifth planted fault, a layer's weights used without their
+     gather (each shard zero-padded to the whole width), rejected;
    - VLM serving: the port's serve at phi-3-vision-4.2b's full width and
      depth (3.73e9 params, bf16), 4 prompts of 2048 tokens after 576
      image positions, VLM_GEN greedy tokens, a cache of 576 + 2048 +
@@ -2708,26 +2736,72 @@ def step_categories(rows) -> dict:
 # at FA_SERVE_MESH: (B / D, Hq / M, Hkv (whole for gemma's one kv head, / M
 # for granite's eight), S, T, D).
 SERVE_MESH_DIR = ROOT / "build" / "chip_smoke_serve_mesh"
-SERVE_MESH_CASES = {"gemma": (LM_ARCH, (2, 2)), "granite": ("granite_moe_1b_a400m", (1, 2))}
 SERVE_MESH_NCCL_LAYERS = 2
 # Teacher-forced decode steps past the first whose greedy input differs
 # from the 1x1 run's (before it, the greedy steps are the forced ones).
 SERVE_MESH_FORCED = 8
+
+# FSDP of `embed` over `data` (cfg.fsdp_embed), and the two dense archs at
+# head dim 128 that no other phase runs.  granite-8b (36 layers, d 4096, 32
+# query heads over 8 kv heads of 128, d_ff 14336, vocab 49152; 8.05e9
+# params: 32.2 GB fp32, 16.1 GB cast to bf16) is served at 1x1 at full
+# width and depth, GRANITE8B_GEN greedy tokens; qwen3-32b (64 layers, d
+# 5120, 64 query heads over 8 kv heads of 128, d_ff 25600, vocab 151936,
+# qk-norm; 3.20e10 params, 128 GB fp32, more than the card) at full width
+# cut to QWEN_LAYERS (8.58e9 params, 34.3 GB fp32), QWEN_GEN tokens.  Then
+# granite-8b at full width cut to FSDP_LAYERS on the SHARDED world's 2x2
+# mesh with `embed` over `data` (every rank draws the whole global tree
+# first, four copies on the card: hence the cut): launch/train's rank body
+# for FSDP_STEPS steps (AdamW, for_arch's choice) against the same run on
+# one device, one SGD step's update (its gradient) leaf by leaf against one
+# device's (fsdp_sgd_step: AdamW's updates hardly see the gradient's
+# scale), one Adafactor update on its FSDP-sharded embedding table and
+# a layer against the whole leaves' update, and launch/serve's rank body
+# (SERVE_MESH's "granite8b" case, FSDP_GEN greedy tokens; a decode step
+# gathers every layer's weights over `data`) against its 1x1 serve.  K2 at
+# FA_GRANITE8B, FA_QWEN32B and the 2x2 runs' per-rank FA_FSDP_RANK.
+# kimi-k2's FSDP path (a2a with its experts FSDP-sharded, the int8 wire,
+# Adafactor) runs on the CPU only: one of its MoE layers is 33.8 GB of
+# bf16, and four ranks' gathers of it do not fit the card.
+FSDP_ARCH, QWEN_ARCH = "granite_8b", "qwen3_32b"
+GRANITE8B_GEN, QWEN_LAYERS, QWEN_GEN = 4, 16, 4
+FSDP_LAYERS, FSDP_STEPS, FSDP_GEN = 2, 3, 2
+FA_GRANITE8B = (LM_BATCH, 32, 8, LM_PROMPT, LM_PROMPT, 128)
+FA_QWEN32B = (LM_BATCH, 64, 8, LM_PROMPT, LM_PROMPT, 128)
+FA_FSDP_RANK = (LM_BATCH // 2, 16, 4, LM_PROMPT, LM_PROMPT, 128)
+# AdamW at 2x2 against one device: m_hat / sqrt(v_hat) maps a gradient of
+# any size to about +-1, so an element whose gradient is rounding-sized
+# (the bf16 partial sums of TP and DP, summed in another order) may take
+# the other sign, and its update parts from the 1x1 run's by up to twice
+# the summed lr: the per-leaf max reading is order 1 whatever the path.
+# Gated instead: at most FSDP_ADAMW_SHARE of any leaf's elements part by
+# more than ADAMW_FLIP x the summed lr (a gradient summed over the wrong
+# ranks or cut to the wrong chunk parts half of them).
+FSDP_ADAMW_SHARE = 1e-2
+# Adafactor on the card, the sharded update against the whole leaves'
+# (fp32 means summed in another order), max |d| / max |whole| per leaf.
+FSDP_ADAFACTOR_RTOL = 1e-5
+
+# SERVE_MESH's cases: tag -> (arch, mesh, depth (None: the config's), greedy tokens).
+SERVE_MESH_CASES = {"gemma": (LM_ARCH, (2, 2), None, LM_GEN),
+                    "granite": ("granite_moe_1b_a400m", (1, 2), None, LM_GEN),
+                    "granite8b": (FSDP_ARCH, (2, 2), FSDP_LAYERS, FSDP_GEN)}
 FA_SERVE_MESH = {"gemma": (LM_BATCH // 2, 4, 1, LM_PROMPT, LM_PROMPT, 256),
-                 "granite": (LM_BATCH, 8, 4, LM_PROMPT, LM_PROMPT, 64)}
+                 "granite": (LM_BATCH, 8, 4, LM_PROMPT, LM_PROMPT, 64),
+                 "granite8b": FA_FSDP_RANK}
 
 
 def serve_mesh_reference(torch, tag: str, out: dict) -> None:
     """Save what SERVE_MESH holds a mesh's serve against, from the 1x1
     serve's run `out` (serve.run's dict): its tokens, prefill and step
     logits, layer 0's prefill K/V, and one more decode step (the last
-    token, at position LM_PROMPT + LM_GEN - 1) with every layer's
+    token, at position LM_PROMPT + gen - 1) with every layer's
     decode-attention input and output, every MoE FFN's input and output,
     and every layer's cache after that step's write."""
     from repro_torch.models import attention, model, transformer
 
     cfg, cache = out["cfg"], out["cache"]
-    pos = LM_PROMPT + LM_GEN - 1
+    pos = LM_PROMPT + out["tokens"].shape[1] - 1
     rec = {"attn_in": [], "attn_out": [], "moe_in": [], "moe_out": []}
     real_attn, real_moe = attention.decode_attention, transformer._moe_ffn
 
@@ -2737,8 +2811,8 @@ def serve_mesh_reference(torch, tag: str, out: dict) -> None:
         rec["attn_out"].append(y.cpu())
         return y, c
 
-    def moe(params, f_in, c, n_groups):
-        y, aux = real_moe(params, f_in, c, n_groups)
+    def moe(params, f_in, c, n_groups, **kw):
+        y, aux = real_moe(params, f_in, c, n_groups, **kw)
         rec["moe_in"].append(f_in.cpu())
         rec["moe_out"].append(y.cpu())
         return y, aux
@@ -4267,10 +4341,111 @@ def phase_flash_attention_serve_mesh(torch):
         wrong = causal_visible(torch, q.shape[2], k.shape[2], q.device, 1)
         return {"causal limit one key late": masked_attention(torch, q, k, v, wrong)}
 
-    return [k2_at_shape(torch, gen, f"{tag} per rank, {'x'.join(map(str, mesh))}", shape, True,
-                        faults)
-            for (tag, (_, mesh)), shape in zip(SERVE_MESH_CASES.items(),
-                                               FA_SERVE_MESH.values())]
+    return [k2_at_shape(torch, gen, f"{tag} per rank, {'x'.join(map(str, mesh))}",
+                        FA_SERVE_MESH[tag], True, faults)
+            for tag, (_, mesh, _, _) in SERVE_MESH_CASES.items() if tag in ("gemma", "granite")]
+
+
+def phase_flash_attention_fsdp(torch):
+    """K2 at granite-8b's FA_GRANITE8B and qwen3-32b's FA_QWEN32B prefill
+    shapes and at the per-rank shape of granite-8b's 2x2 FSDP runs
+    (FA_FSDP_RANK), causal bf16 at head dim 128 on wgmma_tma: against plain,
+    a planted causal limit one key late rejected at granite-8b's, timed
+    beside the plain version and SDPA with their bounds.  Returns the
+    records for K2's `fsdp_shapes`."""
+    gen = torch.Generator(device="cpu").manual_seed(13)
+
+    def faults(q, k, v, want):
+        wrong = causal_visible(torch, q.shape[2], k.shape[2], q.device, 1)
+        return {"causal limit one key late": masked_attention(torch, q, k, v, wrong)}
+
+    return [k2_at_shape(torch, gen, name, shape, True,
+                        faults if shape is FA_GRANITE8B else lambda *a: {})
+            for name, shape in (("granite-8b", FA_GRANITE8B), ("qwen3-32b", FA_QWEN32B),
+                                ("granite-8b per rank, 2x2 FSDP", FA_FSDP_RANK))]
+
+
+def phase_dense_serve(torch, card: str, tag: str, arch: str, n_layers, gen: int) -> int:
+    """The port's serve at `arch`'s full width, depth cut to n_layers (None:
+    the config's), the LM traffic with `gen` greedy tokens: one K2 launch a
+    layer a prefill (gated), each layer's K2 against plain on its own inputs
+    (gated, a planted wrong attention rejected), tokens in the vocabulary,
+    logits and cache finite; prefill ms, decode ms/token and peak memory
+    printed (the `tag` line).  Returns K2's launch count over the run."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+
+    argv = (["--arch", arch, "--full-config", "--batch", str(LM_BATCH), "--prompt-len",
+             str(LM_PROMPT), "--gen", str(gen), "--device", "cuda", "--json"]
+            + (["--n-layers", str(n_layers)] if n_layers else []))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = serve.run(serve.parse_args(argv))
+    launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, pay, tokens, last = out["cfg"], out["payload"], out["tokens"], out["last_logits"]
+    n_params = cfg.param_counts()["total"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{tag}: {launches} K2 launches, expected {cfg.n_layers}")
+    if tuple(tokens.shape) != (LM_BATCH, gen) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{tag}: tokens outside the vocabulary or logits not finite")
+    if not all(bool(torch.isfinite(t).all()) for t in out["cache"]["layers"].values()):
+        raise AssertionError(f"{tag}: the cache is not finite")
+    params, prompts = out["params"], out["prompts"]
+    del out
+    _, layers, planted, _ = prefill_checked(torch, cfg, params, {"tokens": prompts})
+    del params, prompts
+    torch.cuda.empty_cache()
+    if len(layers) != cfg.n_layers or not max(layers) <= BF16_ROW_ULPS \
+            or planted <= BF16_ROW_ULPS:
+        raise AssertionError(f"{tag}: K2 vs plain per layer {layers}, planted {planted}")
+    print(f"[{tag.lower()}] {card}: {cfg.name}, {cfg.n_layers} layers ({n_params:.4e} params, "
+          f"bf16) batch {LM_BATCH} prompt {LM_PROMPT} gen {gen}: prefill "
+          f"{pay['prefill_ms']:.1f} ms ({pay['prefill_tokens_per_s']:.1f} tokens/s)  decode "
+          f"{pay['decode_ms_per_token']:.3f} ms/token  K2 launches {launches}; K2 vs plain per "
+          f"layer max {max(layers):.3f} (gate {BF16_ROW_ULPS}; planted causal limit one key late "
+          f"{planted:.3f})  peak device memory {peak_gb:.2f} GB")
+    print(f"{tag} " + json.dumps({**pay, "card": card, "n_layers": cfg.n_layers,
+                                  "params": n_params, "launches": launches,
+                                  "peak_mem_gb": peak_gb, "layer_readings": layers,
+                                  "planted_layer0": planted, "first_row": tokens[0].tolist()}))
+    return launches
+
+
+def phase_granite8b(torch, card: str) -> int:
+    """granite-8b served at full width and depth (phase_dense_serve)."""
+    return phase_dense_serve(torch, card, "GRANITE8B", FSDP_ARCH, None, GRANITE8B_GEN)
+
+
+def phase_qwen32b(torch, card: str) -> int:
+    """qwen3-32b served at full width cut to QWEN_LAYERS (phase_dense_serve)."""
+    return phase_dense_serve(torch, card, "QWEN32B", QWEN_ARCH, QWEN_LAYERS, QWEN_GEN)
+
+
+def phase_fsdp_reference(torch) -> int:
+    """SERVE_MESH's granite8b case without a mesh: granite-8b cut to
+    FSDP_LAYERS served at 1x1 with the case's argv and seed, saved by
+    serve_mesh_reference (what the 2x2 FSDP serve is held against).
+    Returns K2's launches."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+
+    argv = serve_mesh_argv("granite8b", "1x1", "auto")
+    argv = [a for a in argv if a not in ("--mesh", "1x1", "--transport", "auto")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    out = serve.run(serve.parse_args(argv))
+    launches = ops.flash_attention.launches
+    if launches != FSDP_LAYERS:
+        raise AssertionError(f"granite-8b cut to {FSDP_LAYERS}: {launches} K2 launches")
+    serve_mesh_reference(torch, "granite8b", out)
+    del out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def profile_split(torch, fn, run_ms: float) -> dict:
@@ -5352,10 +5527,17 @@ def _sgd_reference(torch, cfg, batches, lr, n_steps):
     params after), the params as CPU tensors in leaf order."""
     from repro_torch.optim import sgd
     from repro_torch.optim.schedules import constant
+
+    return _reference_run(torch, cfg, sgd(constant(lr)), batches, n_steps)
+
+
+def _reference_run(torch, cfg, opt, batches, n_steps):
+    """n_steps of `opt` from seed 0 on one device without a mesh:
+    (losses, params before, params after), the params as CPU tensors in
+    leaf order."""
     from repro_torch.pytree import leaves
     from repro_torch.runtime import steps
 
-    opt = sgd(constant(lr))
     state = steps.init_train_state(cfg, opt, 0, "cuda")
     before = [t.detach().cpu().clone() for t in leaves(state["params"])]
     step = steps.make_train_step(cfg, opt)
@@ -5430,9 +5612,12 @@ def sharded_world(mesh, job: dict) -> dict:
     this 2x2 mesh and for granite-moe on the 1x2 mesh of ranks 0-1 (the
     others idle) with its 2x1 reload; then the a2a layer at granite's
     widths on that 1x2 mesh against moe_ref; then the olmo SMOKE config's
-    three SGD steps at 2x2, clean and with each planted fault; then the
-    paper's engine one agent a rank (dict_mesh_world).  Rank 0 returns the
-    runs and the readings."""
+    granite-8b cut to FSDP_LAYERS on this 2x2 mesh with `embed` over
+    `data` (launch/train's rank body, AdamW) and Adafactor on its shards
+    (fsdp_adafactor); then the olmo SMOKE config's three SGD steps at 2x2,
+    clean and with each planted fault; then SERVE_MESH (serve_mesh_world)
+    and the paper's engine one agent a rank (dict_mesh_world).  Rank 0
+    returns the runs and the readings."""
     import torch
 
     from repro_torch.launch import train
@@ -5480,6 +5665,17 @@ def sharded_world(mesh, job: dict) -> dict:
                 "grads": [rel_err(g, w) for g, w in zip(gfull + [gx], rgrads)],
                 "wall_s": wall,
             }
+    t0 = time.perf_counter()
+    run = train._train_ranks(mesh, job["granite8b"])
+    if mesh.rank == 0:
+        out["granite8b"] = {**run, "wall_s": time.perf_counter() - t0}
+    got = fsdp_adafactor(mesh)
+    if mesh.rank == 0:
+        out["fsdp_adafactor"] = got
+    t0 = time.perf_counter()
+    got = fsdp_sgd_step(mesh, job["granite8b_cfg"])
+    if mesh.rank == 0:
+        out["fsdp_gradient"] = {**got, "wall_s": time.perf_counter() - t0}
     cfg = job["smoke_cfg"]
     faults = {"clean": contextlib.nullcontext(),
               "row-parallel output without its psum": mock.patch.object(
@@ -5506,15 +5702,131 @@ def sharded_world(mesh, job: dict) -> dict:
     return out
 
 
+def fsdp_sgd_step(mesh, cfg):
+    """The FSDP gradient, leaf by leaf: one SGD step at SHARD_LR (its update
+    p0 - p1 is lr x the gradient averaged over `data`) of `cfg` (granite-8b
+    cut to FSDP_LAYERS, `embed` over `data`) from seed 0 on the first batch
+    of the AdamW run, at 2x2 through steps.make_train_step, against the same
+    step on one device.  Each rank takes the one-device step itself, one
+    rank at a time (a whole tree and its gradient on the card at once), and
+    keeps its shard of that update: no weight crosses the wire for the
+    check.  Readings per leaf: max |d| / max |one-device update| over the
+    world.  Then the same 2x2 step from the same params with the FSDP
+    leaves' gradient left unaveraged over `data` (their psum_scatter's sum
+    not divided by dp: a planted fault).  Rank 0 returns {"readings",
+    "planted"} (leaf path -> reading)."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+    from repro_torch.pytree import leaves, unflatten
+    from repro_torch.runtime import sharding, steps
+
+    opt = sgd(SHARD_LR)
+    specs = steps.state_shardings(cfg, opt, mesh)["params"]
+    flat_specs = leaves(specs, is_leaf=lambda x: isinstance(x, tuple))
+    batch = train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)(0)
+    one_step = steps.make_train_step(cfg, opt)
+    ref = None
+    for r in range(mesh.world):
+        if mesh.rank == r:
+            whole = steps.init_train_state(cfg, opt, 0, mesh.device)
+            names = [path for path, _ in named_leaves(whole["params"])]
+            p0 = [t.detach().clone() for t in leaves(whole["params"])]
+            whole, _ = one_step(whole, batch)
+            ref = [sharding.shard_tensor(a - b, s, mesh)
+                   for a, b, s in zip(p0, leaves(whole["params"]), flat_specs)]
+            params = sharding.shard_tree(unflatten(whole["params"], p0), specs, mesh)
+            state = {"params": params, "opt": opt.init(params),
+                     "step": torch.zeros_like(whole["step"])}
+            del whole, p0
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    start = [t.detach().clone() for t in leaves(state["params"])]
+    step = steps.make_train_step(cfg, opt, mesh)
+    averaged = steps._average_over_data
+
+    def unaveraged(m, grads, sp):  # planted: the FSDP leaves keep their sum over `data`
+        return [g * m.size("data") if "data" in sharding.spec_axes(s) else g
+                for g, s in zip(averaged(m, grads, sp), sp)]
+
+    out = {}
+    for name, patch in (("readings", contextlib.nullcontext()),
+                        ("planted", mock.patch.object(steps, "_average_over_data", unaveraged))):
+        with torch.no_grad():
+            for p, s in zip(leaves(state["params"]), start):
+                p.copy_(s)
+        with patch:
+            state, _ = step(state, batch)
+        with torch.no_grad():
+            d = torch.stack([(s - p - u).abs().max().float()
+                             for p, s, u in zip(leaves(state["params"]), start, ref)])
+            w = torch.stack([u.abs().max().float() for u in ref])
+            for axis in ("data", "model"):
+                d, w = mesh.pmax(d, axis), mesh.pmax(w, axis)
+        out[name] = dict(zip(names, (d / w.clamp_min(1e-30)).tolist()))
+    del state, start, ref
+    torch.cuda.empty_cache()
+    return out if mesh.rank == 0 else None
+
+
+def fsdp_adafactor(mesh):
+    """One Adafactor update (optimizers.adafactor: for_arch's choice for a
+    bf16-param config) on granite-8b's embedding table and first layer at
+    full width, cut on this 2x2 mesh by the FSDP config's specs (the table
+    vocabulary over `model` and `embed` over `data`; every weight of the
+    layer its `embed` dim over `data`), against the update of the whole
+    leaves on one device (rank 0, no mesh); and once more with the means
+    left local (a planted fault: Shards whose psum and sizes are those of
+    one rank).  The leaves start at 0 (the update does not read them), the
+    gradients are drawn from a seed, the same on every rank.  Rank 0
+    returns {"readings", "planted"}: per leaf max |d| / max |whole|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.models import model
+    from repro_torch.optim import adafactor
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import sharding, steps
+
+    cfg = cut_depth(get_config(FSDP_ARCH), 1)
+    names = ("embed", "layers")
+    specs = {k: model.param_specs(cfg, mesh)[k] for k in names}
+    like = model.abstract_params(cfg)
+    gen = torch.Generator(device=mesh.device).manual_seed(17)
+    grads = {k: model.tree_map(lambda t: torch.randn(t.shape, generator=gen, device=mesh.device),
+                               like[k]) for k in names}
+    opt = adafactor(1e-3)
+    real = steps.shards_for(mesh, leaves(specs, is_leaf=lambda x: isinstance(x, tuple)))
+    local = dataclasses.replace(real, psum=lambda x, axis: x, size=lambda axis: 1)
+
+    def sharded(shards):
+        params = sharding.shard_tree(model.tree_map(torch.zeros_like, grads), specs, mesh)
+        opt.update(sharding.shard_tree(grads, specs, mesh), opt.init(params), params, 0, shards)
+        return sharding.unshard_tree(params, specs, mesh)
+
+    got, bad = sharded(real), sharded(local)
+    if mesh.rank:
+        return None
+    want = model.tree_map(torch.zeros_like, grads)
+    opt.update(grads, opt.init(want), want, 0)
+    return {key: {path: rel_err(a, w) for (path, a), (_, w) in
+                  zip(named_leaves(tree), named_leaves(want))}
+            for key, tree in (("readings", got), ("planted", bad))}
+
+
 def serve_mesh_world(mesh, sub, job: dict) -> dict:
     """SERVE_MESH's rank part (in sharded_world): gemma on the world's 2x2
     mesh, then granite-moe on its 1x2 sub-mesh (`sub`, None on ranks 2-3,
-    which only join the world's collectives).  Rank 0 returns each case's
-    run and every rank's readings."""
+    which only join the world's collectives), then granite-8b cut to
+    FSDP_LAYERS with `embed` over `data` on the 2x2 mesh.  Rank 0 returns
+    each case's run and every rank's readings."""
     import torch
 
     out = {}
-    for tag, m in (("gemma", mesh), ("granite", sub)):
+    for tag, m in (("gemma", mesh), ("granite", sub), ("granite8b", mesh)):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -5533,11 +5845,14 @@ def serve_mesh_case(torch, mesh, case: dict):
     last position, the cache after that step (only the owner's slot of the
     position changed); a teacher-forced decode of the 1x1 tokens (each
     step's logits against the 1x1 step's, each step's greedy pick agreeing
-    over `model`); each of the four planted faults.  Rank 0 returns the
-    payload and every rank's readings."""
+    over `model`); each of the four planted faults, and for an FSDP config
+    (its weights' `embed` dim over `data`, gathered before the checks use
+    them) a fifth: a layer's weights used without their gather, each rank's
+    shard zero-padded to the whole width.  Rank 0 returns the payload and
+    every rank's readings."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import serve
-    from repro_torch.models import attention, model, transformer
+    from repro_torch.models import attention, fsdp, model, transformer
     from repro_torch.models import sharding_hook as hook
     from repro_torch.runtime import steps
 
@@ -5554,8 +5869,34 @@ def serve_mesh_case(torch, mesh, case: dict):
     b = LM_BATCH // mesh.size("data")
     rows = slice(d_i * b, (d_i + 1) * b)
     params, max_len, pos = run["params"], run["max_len"], ref["pos"]
+    gen = tokens.shape[1]
     seq = model.seq_sharded(cfg, mesh, max_len)
     n_kv = cfg.n_kv_heads
+    with hook.installed(mesh):
+        specs = model._gather_specs(cfg, "layers")  # None: nothing over `data`
+
+    with torch.no_grad(), hook.installed(mesh):  # each layer's weights as its block uses them
+        gathered = {id(lp): fsdp.gather_tree(lp, specs, mesh, skip=("moe",))
+                    for lp in params["layers"]}
+
+    def whole(lp):
+        return gathered[id(lp)]
+
+    def zero_padded(lp):  # planted: each shard zero-padded to the whole width
+        def pad(t, spec):
+            for dim in fsdp.data_dims(spec):
+                c, i = t.shape[dim], mesh.index("data")
+                shape = list(t.shape)
+                shape[dim] = c * mesh.size("data")
+                full = t.new_zeros(shape)
+                full.narrow(dim, i * c, c).copy_(t)
+                t = full
+            return t
+
+        def walk(tree, sp):
+            return {k: walk(v, sp[k]) if isinstance(v, dict) else pad(v, sp[k])
+                    for k, v in tree.items()}
+        return walk(lp, specs)
 
     def heads(h):  # this rank's kv heads of a tensor of h of them
         return slice(None) if h == n_kv else slice(m_i * h, (m_i + 1) * h)
@@ -5582,14 +5923,15 @@ def serve_mesh_case(torch, mesh, case: dict):
 
     slot = attention._slot_of(pos, t_loc, m_i) if seq else pos  # where this rank writes pos
 
-    def attention_readings():
+    def attention_readings(weights=whole):
         readings, slot_readings, untouched = [], [], True
         for layer, lp in enumerate(params["layers"]):
             c = {n: cache_slice(ref[f"cache_{n}"][layer]).to(dev) for n in ("k", "v")}
             kept = {n: t.clone() for n, t in c.items()}
+            attn = weights(lp)["attn"]
             with torch.no_grad(), hook.installed(mesh):
                 y, _ = attention.decode_attention(
-                    lp["attn"], ref["attn_in"][layer][rows].to(dev), c, pos,
+                    attn, ref["attn_in"][layer][rows].to(dev), c, pos,
                     qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
                     n_heads=cfg.n_heads, n_kv=n_kv, seq_sharded=seq)
             readings.append(bf16_reading(y, ref["attn_out"][layer][rows].to(dev)))
@@ -5605,7 +5947,8 @@ def serve_mesh_case(torch, mesh, case: dict):
         out = []
         for layer, lp in enumerate(params["layers"]):
             with torch.no_grad(), hook.installed(mesh):
-                y, _ = transformer._moe_ffn(lp["moe"], ref["moe_in"][layer][rows].to(dev), cfg, 1)
+                y, _ = transformer._moe_ffn(lp["moe"], ref["moe_in"][layer][rows].to(dev), cfg, 1,
+                                            specs=None if specs is None else specs["moe"])
             out.append(bf16_reading(y, ref["moe_out"][layer][rows].to(dev)))
         return out
 
@@ -5639,7 +5982,7 @@ def serve_mesh_case(torch, mesh, case: dict):
     forced = ref["tokens"][rows].to(dev)
     cache = run["cache"]
     with torch.no_grad():
-        for i in range(first_diff, min(LM_GEN - 1, first_diff + SERVE_MESH_FORCED)):
+        for i in range(first_diff, min(gen - 1, first_diff + SERVE_MESH_FORCED)):
             lg, cache = model.decode_step(cfg, params, cache, forced[:, i:i + 1], LM_PROMPT + i,
                                           mesh, max_len)
             stepped.append((i, lg[:, -1, :]))
@@ -5662,6 +6005,9 @@ def serve_mesh_case(torch, mesh, case: dict):
     if moe:
         with mock.patch.object(transformer, "hook", NoModelPsum()):
             planted["MoE combine without its psum"] = max(moe_readings())
+    if specs is not None:
+        planted["a layer's weights without their gather (shards zero-padded)"] = max(
+            attention_readings(zero_padded)[0])
     mine = {"rank": mesh.rank, "bits": bits, "attn": attn, "slots": slots,
             "untouched": untouched, "moe": moe, "teacher_forced": tf,
             "prefill_logits_rel": prefill_rel, "picks_agree": agree, "planted": planted,
@@ -5669,7 +6015,7 @@ def serve_mesh_case(torch, mesh, case: dict):
             "checks_s": time.perf_counter() - t0, "seq_sharded": seq,
             "local_cache": list(laid["k"].shape)}
     every = mesh.all_gather_object(mine)
-    del run, cache, params, ref
+    del run, cache, params, ref, gathered
     gc.collect()
     torch.cuda.empty_cache()
     if mesh.rank:
@@ -5696,6 +6042,7 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     from repro_torch.configs import cut_depth, get_config, get_smoke_config
     from repro_torch.launch import train
     from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine_warmup
     from repro_torch.runtime import mesh as mesh_mod
 
     rec = {"card": card, "transport": SHARD_TRANSPORT}
@@ -5715,6 +6062,11 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
         "--arch", SHARD_MOE_ARCH, "--steps", str(SHARD_MOE_STEPS),
         "--ckpt-every", str(SHARD_MOE_CKPT), "--inject-fault-at", str(SHARD_MOE_FAULT),
         "--rescale-mesh", "2x1", "--rescale-step", str(SHARD_MOE_RESCALE)]
+    fsdp_cfg = cut_depth(get_config(FSDP_ARCH), FSDP_LAYERS)
+    fsdp_argv = ["--full-config", "--n-layers", str(FSDP_LAYERS), "--batch", str(TRAIN_BATCH),
+                 "--seq", str(TRAIN_SEQ), "--arch", FSDP_ARCH, "--steps", str(FSDP_STEPS),
+                 "--ckpt-every", str(FSDP_STEPS)]
+    fsdp_args = train.parse_args(fsdp_argv + ["--device", "cuda"])
 
     # The references on one device, in this process: olmo-1b's SGD run and
     # the SMOKE config's.
@@ -5725,6 +6077,13 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     smoke = get_smoke_config(SHARD_ARCH)
     smoke_batches = [train.make_batches(smoke, 4, 32, 0)(i) for i in range(3)]
     s_losses, _, s_params = _sgd_reference(torch, smoke, lambda i: smoke_batches[i], 0.5, 3)
+    # granite-8b cut to FSDP_LAYERS, launch/train's optimizer (for_arch's
+    # AdamW on its cosine warmup) on one device.
+    t0 = time.perf_counter()
+    f_losses1, f_p0, f_p1 = _reference_run(
+        torch, fsdp_cfg, train._optimizer(fsdp_cfg, fsdp_args),
+        train.make_batches(fsdp_cfg, TRAIN_BATCH, TRAIN_SEQ, 0), FSDP_STEPS)
+    rec["fsdp_reference_1x1_s"] = time.perf_counter() - t0
 
     # The world: olmo-1b 2x2 and granite-moe 1x2 (launch/train's rank body
     # with its --mesh 2x2 / 1x2 arguments), the a2a layer, the planted runs.
@@ -5735,6 +6094,9 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                                                                 SHARD_TRANSPORT], root / "2x2"),
                               "granite": cli_rank_args(moe_argv + ["--mesh", "1x2", "--transport",
                                                                    SHARD_TRANSPORT], root / "moe"),
+                              "granite8b": cli_rank_args(fsdp_argv + [
+                                  "--mesh", "2x2", "--transport", SHARD_TRANSPORT], root / "fsdp"),
+                              "granite8b_cfg": fsdp_cfg,
                               "smoke_cfg": smoke, "smoke_batches": smoke_batches,
                               "smoke_lr": 0.5, "a2a_widths": SHARD_A2A_WIDTHS,
                               "a2a_tokens": SHARD_A2A_SHAPE, "dict_mesh": dm_job,
@@ -5812,7 +6174,60 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                              f"replay {replay}, reload {outm['rescaled_step']} rel {one_rel}, "
                              f"{saved_rel}")
 
-    # (3) the a2a layer against moe_ref, and the planted faults at SMOKE.
+    # (3) granite-8b 2x2 with `embed` over `data` against 1x1, and Adafactor
+    # on its shards.
+    outf = res["granite8b"]
+    print_sharded_run("granite-8b 2x2 FSDP", outf)
+    t0 = time.perf_counter()
+    pf = [t.cuda() for t in _checkpoint_params(fsdp_cfg, train._optimizer(fsdp_cfg, fsdp_args),
+                                               root / "fsdp", FSDP_STEPS)]
+    f_p0, f_p1 = [t.cuda() for t in f_p0], [t.cuda() for t in f_p1]  # the readings on the card
+    rec["fsdp_checkpoint_read_s"] = time.perf_counter() - t0
+    shutil.rmtree(root / "fsdp", ignore_errors=True)
+    schedule = cosine_warmup(fsdp_args.lr, warmup=20, total=FSDP_STEPS)
+    lr_sum = sum(schedule(i) for i in range(FSDP_STEPS))
+    f_losses = [x for _, x in outf["losses"]]
+    f_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(f_losses, f_losses1))
+    f_params_rel = _param_readings(pf, f_p1)
+    f_upd = [a - b for a, b in zip(pf, f_p0)]
+    f_upd1 = [a - b for a, b in zip(f_p1, f_p0)]
+    f_update_rel = _param_readings(f_upd, f_upd1)
+    f_flips = [float(((a - b).abs() > ADAMW_FLIP * lr_sum).float().mean())
+               for a, b in zip(f_upd, f_upd1)]
+    del pf, f_p0, f_p1, f_upd, f_upd1
+    torch.cuda.empty_cache()
+    _k2_ranks("granite-8b 2x2 FSDP", outf, [2 * FSDP_LAYERS * FSDP_STEPS] * 4,
+              (*FA_FSDP_RANK, "bfloat16", "wgmma_tma"))
+    ada = res["fsdp_adafactor"]
+    print(f"[sharded granite-8b 2x2 FSDP] {card}: losses {f_losses} vs 1x1 {f_losses1} (max rel "
+          f"{f_loss_rel:.3e}, gate {SHARD_LOSS_RTOL}); step-{FSDP_STEPS} params per leaf "
+          f"max|d|/max|p| max {max(f_params_rel):.3e} (gate {BF16_UNIT_ROUNDOFF}); updates "
+          f"(AdamW, summed lr {lr_sum:.3e}) per leaf max|d|/max|update| max "
+          f"{max(f_update_rel):.3e} (printed), share of elements parting by more than "
+          f"{ADAMW_FLIP} x summed lr max {max(f_flips):.3e} (gate {FSDP_ADAMW_SHARE}); peak GB "
+          f"per rank {outf.get('peak_mem_gb_ranks')}")
+    print(f"[sharded granite-8b Adafactor on shards] the embedding table and a layer at full "
+          f"width, 2x2, vs the whole leaves' update: max {max(ada['readings'].values()):.3e} "
+          f"(gate {FSDP_ADAFACTOR_RTOL}), per leaf {ada['readings']}; planted means left local: "
+          f"max {max(ada['planted'].values()):.3e}, per leaf {ada['planted']}")
+    if not (f_loss_rel <= SHARD_LOSS_RTOL and max(f_params_rel) <= BF16_UNIT_ROUNDOFF
+            and max(f_flips) <= FSDP_ADAMW_SHARE):
+        raise AssertionError("granite-8b at 2x2 with FSDP parts from the 1x1 run")
+    if not (max(ada["readings"].values()) <= FSDP_ADAFACTOR_RTOL
+            and max(ada["planted"].values()) > FSDP_ADAFACTOR_RTOL):
+        raise AssertionError(f"Adafactor on granite-8b's shards: {ada}")
+    fgrad = res["fsdp_gradient"]
+    print(f"[sharded granite-8b 2x2 FSDP gradient] {card}: one SGD step at lr {SHARD_LR} from "
+          f"seed 0, its update (lr x the gradient averaged over data) vs one device's, per leaf "
+          f"max|d|/max|update|: max {max(fgrad['readings'].values()):.3e} (gate "
+          f"{GRAD_BF16_TOL}), per leaf {fgrad['readings']}; planted FSDP gradient left "
+          f"unaveraged over data: max {max(fgrad['planted'].values()):.3e}; "
+          f"{fgrad['wall_s']:.1f} s")
+    if not (max(fgrad["readings"].values()) <= GRAD_BF16_TOL
+            and max(fgrad["planted"].values()) > GRAD_BF16_TOL):
+        raise AssertionError(f"granite-8b's FSDP gradient at 2x2 parts from one device's: {fgrad}")
+
+    # (4) the a2a layer against moe_ref, and the planted faults at SMOKE.
     a2a = res["a2a"]
     print(f"[sharded a2a layer] granite widths, 1x2, capacity {SHARD_A2A_CF}, fp32, "
           f"{SHARD_A2A_SHAPE} tokens: out vs moe_ref {a2a['out']:.3e}, gradients (router, wg, wi, "
@@ -5845,8 +6260,15 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                         "reload_vs_one_device": one_rel, "reload_vs_saved_run": saved_rel,
                         "k2_rescale": rescale_k2},
         "a2a_layer": a2a, "planted": planted,
+        "granite8b_2x2_fsdp": {**run_record(outf), "losses_1x1": f_losses1,
+                               "loss_rel": f_loss_rel, "params_rel": f_params_rel,
+                               "update_rel": f_update_rel, "update_flip_share": f_flips,
+                               "lr_sum": lr_sum,
+                               "peak_mem_gb_ranks": outf.get("peak_mem_gb_ranks")},
+        "fsdp_adafactor": ada, "fsdp_gradient": fgrad,
     })
     rec["launches"] = {"olmo-1b 2x2 train": sum(out22["k2_launches"]),
+                       "granite-8b 2x2 FSDP train": sum(outf["k2_launches"]),
                        "olmo-1b 1x1 nccl train": sum(out11["k2_launches"]),
                        "granite-moe 1x2 train": sum(outm["k2_launches"]),
                        "granite-moe 2x1 reload step": sum(rescale_k2["k2_launches"])}
@@ -5858,23 +6280,25 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
 
 def serve_mesh_argv(tag: str, mesh: str, transport: str, n_layers=None) -> list:
     """launch/serve's argv for a SERVE_MESH case: the LM traffic at full
-    width (and depth, unless n_layers)."""
-    arch = SERVE_MESH_CASES[tag][0]
+    width, the case's depth and greedy tokens (n_layers: cut to that)."""
+    arch, _, depth, gen = SERVE_MESH_CASES[tag]
+    n_layers = n_layers or depth
     return (["--arch", arch, "--full-config", "--batch", str(LM_BATCH), "--prompt-len",
-             str(LM_PROMPT), "--gen", str(LM_GEN), "--device", "cuda", "--mesh", mesh,
+             str(LM_PROMPT), "--gen", str(gen), "--device", "cuda", "--mesh", mesh,
              "--transport", transport, "--json"]
             + (["--n-layers", str(n_layers)] if n_layers else []))
 
 
 def serve_mesh_job() -> dict:
     """The world's SERVE_MESH part: each case's argv and its 1x1 reference
-    (saved by phase_lm and phase_moe_serve)."""
+    (saved by phase_lm, phase_moe_serve and phase_fsdp_reference)."""
     job = {}
-    for tag, (_, shape) in SERVE_MESH_CASES.items():
+    for tag, (_, shape, _, _) in SERVE_MESH_CASES.items():
         ref = SERVE_MESH_DIR / f"{tag}.pt"
         if not ref.is_file():
-            raise AssertionError(f"SERVE_MESH: no 1x1 reference {ref}; phase_lm and "
-                                 f"phase_moe_serve save it (run them first)")
+            raise AssertionError(f"SERVE_MESH: no 1x1 reference {ref}; phase_lm, "
+                                 f"phase_moe_serve and phase_fsdp_reference save it (run "
+                                 f"them first)")
         job[tag] = {"argv": serve_mesh_argv(tag, "x".join(map(str, shape)), SHARD_TRANSPORT),
                     "ref": str(ref)}
     return job
@@ -5899,7 +6323,7 @@ def phase_serve_mesh(torch, card: str, world: dict) -> dict:
     from repro_torch.runtime import mesh as mesh_mod
 
     rec, launches = {"card": card, "transport": SHARD_TRANSPORT}, {}
-    for tag, (arch, shape) in SERVE_MESH_CASES.items():
+    for tag, (arch, shape, _, gen) in SERVE_MESH_CASES.items():
         got = world[tag]
         pay, ranks = got["payload"], got["ranks"]
         ref = torch.load(SERVE_MESH_DIR / f"{tag}.pt", map_location="cpu")
@@ -5959,13 +6383,13 @@ def phase_serve_mesh(torch, card: str, world: dict) -> dict:
               f"(step: reading) {[f'{i}: {x:.3e}' for i, x in tf.items()]}; prefill logits "
               f"{case['prefill_logits_rel']:.3e}; "
               f"greedy tokens equal to the 1x1 run's {greedy_agree:.3f} (all rows equal for the "
-              f"first {same_prefix} of {LM_GEN})")
+              f"first {same_prefix} of {gen})")
         if not all(gates.values()):
             raise AssertionError(f"SERVE_MESH {tag}: {[k for k, v in gates.items() if not v]}")
         if not all(p["rejected"] for p in planted.values()):
             raise AssertionError(f"SERVE_MESH {tag}: a planted fault passes: {planted}")
         rec[tag] = case
-        launches[f"{SERVE_MESH_CASES[tag][0]} {pay['mesh']} serve"] = sum(pay["k2_launches"])
+        launches[f"{arch} {pay['mesh']} serve"] = sum(pay["k2_launches"])
 
     # gemma cut in depth, on a 1x1 mesh over nccl, against the serve without one.
     argv = serve_mesh_argv("gemma", "1x1", "nccl", SERVE_MESH_NCCL_LAYERS)
@@ -6446,6 +6870,8 @@ def main() -> int:
                                    torch)
     fa_rec["serve_mesh_shapes"] = timed("flash_attention per-rank serve shapes",
                                         phase_flash_attention_serve_mesh, torch)
+    fa_rec["fsdp_shapes"] = timed("flash_attention granite-8b, qwen3-32b and FSDP shapes",
+                                  phase_flash_attention_fsdp, torch)
     moe_layer = timed("MoE layer", phase_moe_layer, torch)
     sl_rec = timed("slstm_seq", phase_slstm, torch, slstm_build)
     sl_rec["backward"] = timed("slstm_seq gradient", phase_slstm_grad, torch)
@@ -6462,6 +6888,9 @@ def main() -> int:
     moe_train = timed("granite-moe train", phase_moe_train, torch, card)
     kimi = timed("kimi-k2 cut serve", phase_kimi, torch, card)
     moe_cpu = timed("MoE card vs cpu", phase_moe_card_vs_cpu, torch)
+    granite8b = timed("granite-8b serve", phase_granite8b, torch, card)
+    qwen = timed("qwen3-32b cut serve", phase_qwen32b, torch, card)
+    fsdp_ref = timed("granite-8b cut serve (SERVE_MESH's 1x1)", phase_fsdp_reference, torch)
     dm_job = dict_mesh_job(dm_streams)
     sharded = timed("sharded training", phase_sharded, torch, card, dm_job)
     serve_mesh = timed("serving on a mesh", phase_serve_mesh, torch, card,
@@ -6495,6 +6924,9 @@ def main() -> int:
                                   "granite-moe serve": moe_serve,
                                   "granite-moe train": moe_train["launches"],
                                   "kimi-k2 cut serve": kimi,
+                                  "granite-8b serve": granite8b,
+                                  "qwen3-32b cut serve": qwen,
+                                  "granite-8b cut serve": fsdp_ref,
                                   "phi-3-vision serve": vlm_serve,
                                   "phi-3-vision train": vlm_train["launches"],
                                   "hubert-xlarge encode": audio,
@@ -6512,9 +6944,12 @@ def main() -> int:
         "olmo-1b 2x2 train": sharded["olmo_2x2"]["k2_launches"],
         "olmo-1b 1x1 nccl train": sharded["olmo_1x1_nccl"]["k2_launches"],
         "granite-moe 1x2 train": sharded["granite_1x2"]["k2_launches"],
-        "granite-moe 2x1 reload step": sharded["granite_1x2"]["k2_rescale"]["k2_launches"]},
+        "granite-moe 2x1 reload step": sharded["granite_1x2"]["k2_rescale"]["k2_launches"],
+        "granite-8b 2x2 FSDP train": sharded["granite8b_2x2_fsdp"]["k2_launches"]},
         "shapes_per_rank": {"olmo-1b 2x2 train": sharded["olmo_2x2"]["k2_shapes"],
-                            "granite-moe 1x2 train": sharded["granite_1x2"]["k2_shapes"]},
+                            "granite-moe 1x2 train": sharded["granite_1x2"]["k2_shapes"],
+                            "granite-8b 2x2 FSDP train":
+                                sharded["granite8b_2x2_fsdp"]["k2_shapes"]},
         "transport": SHARD_TRANSPORT}
     print("MOE_CHECKS " + json.dumps({"layer": moe_layer, "card_vs_cpu": moe_cpu}))
     print("VLM_AUDIO_CHECKS " + json.dumps({"card_vs_cpu": va_cpu}))

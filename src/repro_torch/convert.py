@@ -139,13 +139,13 @@ def train_state_from_numpy(cfg, tree: dict, device: DeviceLike = "cuda") -> dict
 def lm_params_shard_from_numpy(cfg, tree: dict, mesh, device: DeviceLike = "cuda") -> dict:
     """This rank's shard of the LM params on `mesh` (runtime/mesh.Mesh) from
     the JAX value tree mapped to numpy (as `lm_params_from_numpy`): each
-    leaf cut by the config's sharding rules over its logical axes
-    (`model.param_axes`)."""
-    from repro_torch.models.model import param_axes
-    from repro_torch.runtime.sharding import rules_for, shard_tree, tree_specs
+    leaf cut by its spec (`model.param_specs`: the config's sharding rules
+    over its logical axes)."""
+    from repro_torch.models.model import param_specs
+    from repro_torch.runtime.sharding import shard_tree
 
     params = lm_params_from_numpy(cfg, tree, device)
-    return shard_tree(params, tree_specs(mesh, param_axes(cfg), params, rules_for(cfg)), mesh)
+    return shard_tree(params, param_specs(cfg, mesh), mesh)
 
 
 def train_state_to_numpy(state: dict) -> dict:

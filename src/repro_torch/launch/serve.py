@@ -28,9 +28,14 @@ and is refused, as by JAX's CLI.  At full width, on one card:
       --full-config --batch 4 --prompt-len 2048 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --full-config --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \\
+      --full-config --batch 4 --prompt-len 2048 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_32b \\
+      --full-config --n-layers 16 --batch 4 --prompt-len 2048 --gen 4
 
 `--n-layers` cuts the depth of the chosen config (kimi-k2's 61 layers do
-not fit one card; 2 keep its dense first layer and one MoE layer; a hybrid
+not fit one card; 2 keep its dense first layer and one MoE layer;
+qwen3-32b's 64 layers are 128 GB of fp32 weights, 16 of them 34.3 GB; a hybrid
 config keeps at least one group of attn_every Mamba2 layers) and keeps
 every width.  Weights are random, made from --seed on the device.  `--device cpu` runs
 on the CPU (the default is the card, and no card is an error).
@@ -49,13 +54,18 @@ step through the expert-sharded capacity dispatch over the step's whole
 batch (gathered over `data`); the greedy argmax vocab-parallel.
 `--transport auto` runs gloo on the CPU, nccl with a card a rank and
 gloo_staged for several ranks on one card; any other value runs even a
-1x1 mesh through this path (its one rank this process).  A rank that
-raises fails the run.  The other families, an FSDP config and a `pod`
-axis are refused on a mesh, naming the ROADMAP item that lifts each:
+1x1 mesh through this path (its one rank this process).  An FSDP config
+(fsdp_embed: granite-8b, qwen3-32b, kimi-k2) holds D / dp of every
+weight's `embed` dim a rank and gathers it over `data` before use
+(models/fsdp.py): each layer's weights in every prefill and decode step.
+A rank that raises fails the run.  The other families and a `pod` axis
+are refused on a mesh, naming the ROADMAP item that lifts each:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mesh 2x2 --json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \
       --device cpu --mesh 1x2 --json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --full-config \
+      --n-layers 2 --batch 4 --prompt-len 2048 --gen 4 --mesh 2x2
 
 Prints the JAX CLI's lines (config, prefill ms and decode ms/token, the
 first row's token ids); `--json` adds one `BENCH` line (on a mesh also the
@@ -319,13 +329,12 @@ def _serve_on(mesh, cfg, args: argparse.Namespace) -> dict:
     axis); "tokens_agree_over_model"; and for checks "params", "batch"
     (the rank's rows), "max_len", "last_logits" and "step_logits" (the
     rank's vocabulary range), "prefill_cache", "cache"}."""
-    from repro_torch.runtime.sharding import rules_for, shard_tree, tree_specs
+    from repro_torch.runtime.sharding import shard_tree
     from repro_torch.runtime.steps import data_shard, greedy_tokens
 
     device = mesh.device
     full = M.init(cfg, seed=args.seed, device=device)
-    specs = tree_specs(mesh, M.param_axes(cfg), full, rules_for(cfg))
-    params = M.cast_params(cfg, shard_tree(full, specs, mesh))
+    params = M.cast_params(cfg, shard_tree(full, M.param_specs(cfg, mesh), mesh))
     del full
     if device.type == "cuda":
         torch.cuda.empty_cache()  # the whole fp32 tree's blocks, for the other ranks

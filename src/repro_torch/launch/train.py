@@ -40,7 +40,10 @@ build/checkpoints/.
 families sharded over D x M ranks, spawned by runtime/mesh.launch (max(D
 M, D2 M2) of them; each mesh takes the first ranks): the parameters cut
 by the JAX package's sharding rules, tensor-parallel over `model`,
-data-parallel over `data`, the MoE FFN expert-parallel (models/moe_a2a),
+data-parallel over `data` (an FSDP config, fsdp_embed: granite-8b,
+qwen3-32b, kimi-k2, also every weight's `embed` dim over `data`, gathered
+before use, models/fsdp.py; Adafactor's means then span the shards), the
+MoE FFN expert-parallel (models/moe_a2a),
 checkpoints of whole tensors written by rank 0, the injected fault raised
 on every rank at the same step, and after the run the reload of the
 latest checkpoint (or --rescale-step's) on the rescale mesh with one step
@@ -51,15 +54,16 @@ choice is printed and never switched on a failure.  `--transport` other
 than auto runs even a 1x1 mesh through the distributed path (its one rank
 is this process).  A rank that raises fails the run.  `--optimizer sgd` trains with plain SGD at the
 constant --lr (the default: AdamW on a cosine warmup, Adafactor for a
-bf16-param config).  The other families, an FSDP config (fsdp_embed) and
-a `pod` axis are refused on a mesh, naming the ROADMAP item that lifts
-each:
+bf16-param config).  The other families and a `pod` axis are refused on a
+mesh, naming the ROADMAP item that lifts each:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --mesh 2x2 --steps 8 \
       --batch 4 --seq 32 --ckpt-every 4 --inject-fault-at 5 --rescale-mesh 1x2 --json
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_moe_1b_a400m \
       --full-config --n-layers 4 --mesh 1x2 --batch 4 --seq 2048 --steps 4 --ckpt-every 2 \
       --inject-fault-at 3 --rescale-mesh 2x1 --rescale-step 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite_8b --full-config \
+      --n-layers 2 --mesh 2x2 --batch 4 --seq 2048 --steps 3 --ckpt-every 3
 
 Prints the JAX CLI's lines: the loss every 10 steps, the final loss with
 the faults recovered, the checkpoint list, and "elastic rescale ...:
@@ -67,7 +71,8 @@ resumed at step ..."; then, from the command line, the step time (the
 median after the first step) and, on the card, the process's peak device
 memory (rank 0's on a mesh, beside the transport).  `--json` adds one JSON
 line: rank 0's result (mesh, transport, world, losses, faults,
-rescaled_step, rescaled_loss, each rank's K2 launches).
+rescaled_step, rescaled_loss, each rank's K2 launches and, on the card,
+peak device memory).
 """
 
 from __future__ import annotations
@@ -320,12 +325,16 @@ def _train_ranks(mesh, a: dict) -> Optional[Dict]:
                       f"{step}, loss there {rescaled['rescaled_loss']:.6f}")
             del state, runner2
         rescaled["k2_rescale"] = _k2_counts(ops)
+    peaks = [None] * dist.get_world_size()  # each rank's peak device memory (GB)
+    cuda = mesh is not None and mesh.device.type == "cuda"
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated(mesh.device) / 1e9
+                           if cuda else None)
     if rank == 0:
         seconds["rescale_done"] = time.perf_counter() - t0
         out.update(rescaled, k2_launches=[n for n, _ in k2], k2_shapes=[s for _, s in k2],
                    rank0_seconds=seconds)
-        if mesh.device.type == "cuda":
-            out["peak_mem_gb"] = torch.cuda.max_memory_allocated(mesh.device) / 1e9
+        if cuda:
+            out.update(peak_mem_gb=peaks[0], peak_mem_gb_ranks=peaks)
     return out
 
 

@@ -47,7 +47,7 @@ def dense_init(
     shape = tuple(shape)
     if dtype == torch.float32:
         w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-        return w if w.is_meta else w * fan_in ** -0.5  # meta: a shape (steps._OnMeta)
+        return w if w.is_meta else w * fan_in ** -0.5  # meta: a shape (model._OnMeta)
     out = torch.empty(shape, dtype=dtype, device=gen.device)
     rows = out.view(-1, shape[-1]) if shape else out.view(1, 1)
     step = max(1, (1 << 26) // rows.shape[1])

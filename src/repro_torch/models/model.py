@@ -82,22 +82,30 @@ runtime/steps averages the losses and gradients over `data`.  `prefill`,
 the decode cache laid out by runtime/sharding.cache_spec (its sequence
 over `model` where max_len divides it, `seq_sharded`; else its kv heads;
 else replicated), the prefill's K/V laid into it by `merge_prefill_cache`.
-Every other family, an FSDP config (`fsdp_embed`) and a `pod` axis raise
-NotImplementedError on a mesh other than 1x1 (`check_mesh_supported`),
-in training and serving, naming the ROADMAP item that lifts each.
+An FSDP config (`fsdp_embed`) holds D / dp of every weight's `embed` dim
+on a rank (`param_specs`); the entry points gather each such weight over
+`data` before use (models/fsdp.py): the embedding table and the head
+where they are read, each layer's weights at the entry of its block
+(inside `_remat`'s checkpoint), an MoE layer's experts inside its FFN.
+Every other family and a `pod` axis raise NotImplementedError on a mesh
+other than 1x1 (`check_mesh_supported`), in training and serving, naming
+the ROADMAP item that lifts each.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import PORTED_FAMILIES
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import fsdp
 from repro_torch.models import sharding_hook as hook
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
@@ -106,11 +114,10 @@ from repro_torch.models.layers import (apply_norm, dense_init, embed, embedding_
                                        init_embedding, init_norm, norm_axes, stack_axes,
                                        unembed)
 from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, axis_sizes
-from repro_torch.runtime.sharding import cache_spec
+from repro_torch.runtime.sharding import cache_spec, rules_for, tree_specs
 
 # The ROADMAP items (section 1) that lift the refusals of a mesh.
 MESH_ITEMS = {
-    "fsdp": "ROADMAP section 1, item 2: FSDP of `embed`",
     "families": "ROADMAP section 1, item 4: the vlm, audio, hybrid and xlstm families on a mesh",
     "pod": "ROADMAP section 1, item 5: a `pod` axis",
 }
@@ -133,8 +140,8 @@ def require_ported(cfg: ArchConfig) -> None:
 def check_mesh_supported(cfg: ArchConfig, mesh) -> None:
     """Raise NotImplementedError for what the port does not run on a mesh
     other than 1x1 (a Mesh, a {axis: size} dict, or None), in training or
-    serving: a family other than dense and moe, an FSDP config, a `pod`
-    axis of more than one."""
+    serving: a family other than dense and moe, a `pod` axis of more than
+    one."""
     sizes = axis_sizes(mesh)
     if all(n == 1 for n in sizes.values()):
         return
@@ -144,11 +151,6 @@ def check_mesh_supported(cfg: ArchConfig, mesh) -> None:
             f"{cfg.name} on mesh {shape}: the port runs the {cfg.family} family on one "
             f"device (mesh 1x1); the sharded-training and sharded-serving paths run the "
             f"{' and '.join(MESH_FAMILIES)} families ({MESH_ITEMS['families']})")
-    if cfg.fsdp_embed:
-        raise NotImplementedError(
-            f"{cfg.name} on mesh {shape}: the config shards `embed` over `data` (fsdp_embed), "
-            f"which the sharded-training and sharded-serving paths do not "
-            f"({MESH_ITEMS['fsdp']})")
     if sizes.get(POD_AXIS, 1) > 1:
         raise NotImplementedError(
             f"{cfg.name} on mesh {shape}: the sharded-training and sharded-serving paths "
@@ -201,6 +203,61 @@ def param_axes(cfg: ArchConfig) -> Dict[str, dict]:
         axes["layers"] = stack_axes(tfm.block_axes(cfg))
     axes["final_norm"] = norm
     return axes
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every factory call that names a device makes its tensor on the meta
+    device instead (no storage, no random draws: a draw becomes
+    `torch.empty`, whose meta form does not load torch's compiler stack as
+    the meta `randn` does, once in each process of a sharded run)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+            if func is torch.randn:
+                kwargs.pop("generator", None)
+                func = torch.empty
+        return func(*args, **kwargs)
+
+
+def abstract_params(cfg: ArchConfig) -> Dict[str, dict]:
+    """init(cfg)'s tree on the meta device: its global shapes and dtypes."""
+    with _OnMeta():
+        return init(cfg, 0, "cpu")
+
+
+@functools.lru_cache(maxsize=16)
+def _param_specs(cfg: ArchConfig, sizes: Tuple[Tuple[str, int], ...]) -> Dict[str, dict]:
+    return tree_specs(dict(sizes), param_axes(cfg), abstract_params(cfg), rules_for(cfg))
+
+
+def param_specs(cfg: ArchConfig, mesh) -> Dict[str, dict]:
+    """The spec of every leaf of init(cfg) on `mesh` (a Mesh or a {axis:
+    size} dict) under the config's rules (runtime/sharding): the tree the
+    runtime cuts the params by.  Shared: not to be changed."""
+    return _param_specs(cfg, tuple(axis_sizes(mesh).items()))
+
+
+def _gather_specs(cfg: ArchConfig, key: str) -> Optional[dict]:
+    """The specs that models/fsdp gathers params[key] by on the installed
+    mesh (a layer of a stack: its layer dim dropped), or None where none of
+    its leaves is sharded over `data` (no mesh, a `data` axis of one rank,
+    a config without fsdp_embed)."""
+    mesh = hook.current_mesh()
+    if mesh is None or mesh.size(DATA_AXIS) == 1:
+        return None
+    specs = param_specs(cfg, mesh)[key]
+    if key in stack_sizes(cfg):
+        specs = tree_map(lambda s: s[1:], specs)
+    return specs if fsdp.any_sharded(specs) else None
+
+
+def _block_fn(cfg: ArchConfig, key: str, fn: Callable) -> Callable:
+    """A block function of `tfm` for the layers of stack `key`, which
+    gathers the layer's FSDP-sharded weights at its entry."""
+    specs = _gather_specs(cfg, key)
+    return fn if specs is None else functools.partial(fn, specs=specs)
 
 
 def cast_params(cfg: ArchConfig, params: dict) -> dict:
@@ -299,8 +356,8 @@ def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = "cuda") -> Dict[st
 def _embed_tokens(cfg: ArchConfig, params: dict, tokens) -> torch.Tensor:
     table = params["embed"]["table"]
     tokens = torch.as_tensor(tokens, device=table.device).long()
-    return embed(params["embed"], tokens, scale_by_dim=cfg.embed_scale,
-                 vocab=cfg.vocab).to(cfg.cdtype)
+    return embed(fsdp.gather_tree(params["embed"], _gather_specs(cfg, "embed")), tokens,
+                 scale_by_dim=cfg.embed_scale, vocab=cfg.vocab).to(cfg.cdtype)
 
 
 def _embed_inputs(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -325,16 +382,12 @@ def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     JAX's fp32 accumulation of the compute-dtype product."""
     h = apply_norm(cfg.norm, params["final_norm"], h)
     if cfg.family == "audio" or not cfg.tie_embeddings:
-        w = params["head"]["w"]
+        w = fsdp.gather_tree(params["head"], _gather_specs(cfg, "head"))["w"]
         if w.shape[-1] != cfg.vocab:  # vocab-parallel head: the rank's logits
             h = hook.enter_model(h)
         return torch.matmul(h.float(), w.float())
-    return unembed(params["embed"], h, vocab=cfg.vocab)
-
-
-def _blocks(cfg: ArchConfig, params: dict):
-    """The transformer blocks' params in order: the dense layers first."""
-    return params.get("dense_layers", []) + params["layers"]
+    return unembed(fsdp.gather_tree(params["embed"], _gather_specs(cfg, "embed")), h,
+                   vocab=cfg.vocab)
 
 
 def _xlstm_layers(cfg: ArchConfig, params: dict):
@@ -429,9 +482,11 @@ def _forward(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, torch.
             else:
                 h = _remat(cfg, _mamba_layer, lp, h, cfg)
         return _logits(cfg, params, h), aux_total
-    for lp in _blocks(cfg, params):
-        h, aux = _remat(cfg, tfm.apply_block, lp, h, positions, cfg)
-        aux_total = aux_total + aux
+    for key in stack_sizes(cfg):  # the dense layers first
+        block = _block_fn(cfg, key, tfm.apply_block)
+        for lp in params[key]:
+            h, aux = _remat(cfg, block, lp, h, positions, cfg)
+            aux_total = aux_total + aux
     return _logits(cfg, params, h), aux_total
 
 
@@ -679,8 +734,9 @@ def _prefill(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, dict]:
     cache = {}
     for key in stack_sizes(cfg):
         ks, vs = [], []
+        block = _block_fn(cfg, key, tfm.prefill_block)
         for lp in params[key]:
-            h, kv, _ = tfm.prefill_block(lp, h, positions, cfg)
+            h, kv, _ = block(lp, h, positions, cfg)
             ks.append(kv["k"])
             vs.append(kv["v"])
         cache[_CACHE_KEY[key]] = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -744,7 +800,8 @@ def _decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, pos: int,
         return _logits(cfg, params, h), cache
     for key in stack_sizes(cfg):
         layers = cache[_CACHE_KEY[key]]
+        block = _block_fn(cfg, key, tfm.decode_block)
         for i, lp in enumerate(params[key]):
             layer_cache = {"k": layers["k"][i], "v": layers["v"][i]}
-            h, _, _ = tfm.decode_block(lp, h, layer_cache, pos, cfg, seq)
+            h, _, _ = block(lp, h, layer_cache, pos, cfg, seq)
     return _logits(cfg, params, h), cache

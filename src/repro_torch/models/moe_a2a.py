@@ -11,7 +11,8 @@ rank of the mesh with the collectives of runtime/mesh.py.  Per rank (i on
      slices' gradients back to the replicated residual);
   1. route locally (the router replicated over `model`: its gradient is
      summed over `model` on the way back, Megatron's f; gathered over
-     `data` where it is FSDP-sharded);
+     `data` where its spec shards it there, FSDP, as JAX's body gathers
+     it);
   2. bucket the assignments by destination model rank under JAX's
      capacity c_send = max(1, round(T_loc k / tp * capacity_factor)), in
      JAX's order (token-major, slot-minor cumsum);
@@ -19,9 +20,11 @@ rank of the mesh with the collectives of runtime/mesh.py.  Per rank (i on
      local expert id of each row (-1 for an empty row);
   4. dispatch the received rows to the E_loc local experts under
      c_exp = max(1, round(tp c_send / E_loc * capacity_factor));
-  5. gather the expert weights over `data` (the FSDP gather, whose
-     transpose is the gradients' psum_scatter; the identity while `embed`
-     is not FSDP-sharded, as on every config this runs);
+  5. gather the expert weights over `data` where their specs shard
+     `embed` there (cfg.fsdp_embed: models/fsdp.gather, whose transpose is
+     the gradients' psum_scatter; JAX's body always gathers them, its
+     shard_map putting `embed` on `data`; without FSDP the port holds them
+     whole and there is nothing to gather);
   6. the SwiGLU expert FFN (three batched GEMMs), un-dispatch, all_to_all
      back, and the gated combine of each token's k rows;
   7. all_gather the slices over `model` back to the replicated layout.
@@ -38,16 +41,19 @@ in models/moe.py: no scatter-add, so a replayed step gives the same bits.
 (`q8_all_to_all`, `q8_all_gather`); their backward is straight-through,
 the cotangent moving unquantized.  A shared expert (kimi's) runs on the
 replicated residual beside the routed experts, column- then row-parallel
-when its ffn is sharded over `model`.
+when its ffn is sharded over `model`, gathered over `data` first where it
+is FSDP-sharded (native: JAX gathers it so).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import fsdp
 from repro_torch.models.moe import FromSlots, ToSlots, _experts, _route, _shared
 from repro_torch.runtime import mesh as mesh_mod
 from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, Mesh
@@ -151,16 +157,16 @@ def _data_axes(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in (DATA_AXIS,) if a in mesh.shape)
 
 
-def _gathered(w: torch.Tensor, mesh: Mesh, axis: int, wire_dtype: str, n_full: Optional[int],
-              scale_axis: int = -1) -> torch.Tensor:
-    """w gathered over `data` along `axis` where it is FSDP-sharded there
-    (its size short of n_full); as it is otherwise."""
-    if n_full is None or w.shape[axis] == n_full:
-        return w
-    for ax in _data_axes(mesh):
-        w = (q8_all_gather(w, mesh, ax, axis, scale_axis) if wire_dtype == "int8"
-             else mesh_mod.all_gather(w, mesh, ax, axis))
-    return w
+def _gathered(params: dict, name: str, specs: Optional[dict], mesh: Mesh,
+              wire_dtype: str = "native", scale_axis: int = -1) -> torch.Tensor:
+    """params[name] whole on the dims its spec shards over `data`
+    (models/fsdp.gather; with no specs, as it is), on the int8 wire with
+    fp16 scales along scale_axis when wire_dtype is "int8"."""
+    if specs is None:
+        return params[name]
+    wire = (functools.partial(q8_all_gather, scale_axis=scale_axis) if wire_dtype == "int8"
+            else mesh_mod.all_gather)
+    return fsdp.gather(params[name], specs[name], mesh, wire)
 
 
 def _global_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -174,12 +180,12 @@ def _global_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def moe_a2a_body(mesh: Mesh, params: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
-                 capacity_factor: float, d_model: Optional[int] = None,
+                 capacity_factor: float, specs: Optional[dict] = None,
                  wire_dtype: str = "native") -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-rank body on this rank's slice x (B_loc, S_loc, D): (output
     slice (B_loc, S_loc, D), aux fp32 0-d, the same on every rank).  params
-    hold the rank's E / tp experts; d_model (the global embed width) tells
-    an FSDP-sharded weight from a whole one."""
+    hold the rank's E / tp experts; `specs` (their specs, the shared
+    expert's too) say which are FSDP-sharded over `data`."""
     tp = mesh.size(MODEL_AXIS)
     b, s, d = x.shape
     t_loc = b * s
@@ -188,7 +194,7 @@ def moe_a2a_body(mesh: Mesh, params: dict, x: torch.Tensor, *, top_k: int, n_exp
     cdt = x.dtype
 
     # -- routing (the router is replicated over model: f sums its gradient) --
-    router = _gathered(params["router"], mesh, 0, "native", d_model)
+    router = _gathered(params, "router", specs, mesh)
     router = mesh_mod.f(router, mesh, MODEL_AXIS)
     probs, gate_vals, expert_ids = (t[0] for t in _route(router, xf[None], top_k))
 
@@ -233,9 +239,9 @@ def moe_a2a_body(mesh: Mesh, params: dict, x: torch.Tensor, *, top_k: int, n_exp
     xe = ToSlots.apply(recv, row_of_slot, exp_filled, back_slot)
 
     # -- the FSDP weight gather over data, then the experts -----------------------
-    wi = _gathered(params["wi"], mesh, 1, wire_dtype, d_model)
-    wg = _gathered(params["wg"], mesh, 1, wire_dtype, d_model)
-    wo = _gathered(params["wo"], mesh, 2, wire_dtype, d_model, scale_axis=1)
+    wi = _gathered(params, "wi", specs, mesh, wire_dtype)
+    wg = _gathered(params, "wg", specs, mesh, wire_dtype)
+    wo = _gathered(params, "wo", specs, mesh, wire_dtype, scale_axis=1)  # gathered on D
     ye = _experts({"wi": wi.to(cdt), "wg": wg.to(cdt), "wo": wo.to(cdt)},
                   xe.view(e_loc, c_exp, d)).reshape(n_exp, d)
 
@@ -258,14 +264,16 @@ def moe_a2a_body(mesh: Mesh, params: dict, x: torch.Tensor, *, top_k: int, n_exp
 def apply_moe_a2a(mesh: Mesh, params: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
                   capacity_factor: float = 1.25, wire_dtype: str = "native",
                   shared_ffn: Optional[int] = None,
-                  d_model: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  specs: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B_loc, S, D), this data rank's batch replicated over `model` ->
     (output, replicated over `model` as x; aux fp32 0-d).  params hold the
     rank's shards: router (D, E) whole, wi/wg (E / tp, D, F), wo (E / tp,
     F, D); with shared experts "shared" {"wi", "wg" (D, Fs / tp), "wo"
     (Fs / tp, D)}, column- and row-parallel when shared_ffn (the global Fs)
-    is larger than the local width, else whole.  Needs S % tp == 0 and
-    E % tp == 0."""
+    is larger than the local width, else whole.  `specs`: the specs of
+    params where any of them is FSDP-sharded over `data` (each such leaf
+    then holds D / dp of its `embed` dim and is gathered before use).
+    Needs S % tp == 0 and E % tp == 0."""
     tp = mesh.size(MODEL_AXIS)
     b, s, d = x.shape
     if s % tp or n_experts % tp:
@@ -273,11 +281,11 @@ def apply_moe_a2a(mesh: Mesh, params: dict, x: torch.Tensor, *, top_k: int, n_ex
                          f"model axis ({tp})")
     x_loc = mesh_mod.split(x, mesh, MODEL_AXIS, 1)
     out, aux = moe_a2a_body(mesh, params, x_loc, top_k=top_k, n_experts=n_experts,
-                            capacity_factor=capacity_factor, d_model=d_model,
+                            capacity_factor=capacity_factor, specs=specs,
                             wire_dtype=wire_dtype)
     out = mesh_mod.gather(out, mesh, MODEL_AXIS, 1)
     if "shared" in params:
-        sp = params["shared"]
+        sp = fsdp.gather_tree(params["shared"], None if specs is None else specs["shared"], mesh)
         if shared_ffn is not None and sp["wo"].shape[0] != shared_ffn:
             out = out + mesh_mod.g(_shared(sp, mesh_mod.f(x, mesh, MODEL_AXIS)), mesh,
                                    MODEL_AXIS)

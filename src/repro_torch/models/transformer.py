@@ -34,6 +34,12 @@ a full sequence and one group in a decode step.  On a mesh:
     dispatched as the whole batch's groups (a decode step: one group, the
     capacity of the step's B tokens, as JAX's), each rank keeping its
     rows.
+An FSDP config (cfg.fsdp_embed) holds D / dp of every weight's `embed`
+dim on a rank: given the layer's specs (`specs=`, from model.py),
+`apply_block`, `prefill_block` and `decode_block` gather its weights over
+`data` at their entry (models/fsdp), and the MoE FFN its experts, router
+and shared expert (the all-to-all path inside moe_a2a, after the
+dispatch; the capacity dispatch before the routing).
 The residual stream stays replicated over `model`.  JAX's
 sequence-parallel residual ("seq" -> model, `shard(h, "residual")`) is a
 memory layout of the same arithmetic and is ROADMAP section 1's later item.
@@ -47,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import fsdp
 from repro_torch.models import sharding_hook as hook
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init, init_mlp, init_norm,
                                        mlp_axes, norm_axes)
@@ -108,7 +115,12 @@ def init_dense_block(gen: torch.Generator, cfg, n: int = 1) -> dict:
     return p
 
 
-def _moe_ffn(moe_params: dict, f_in: torch.Tensor, cfg, n_groups: int):
+def _moe_ffn(moe_params: dict, f_in: torch.Tensor, cfg, n_groups: int,
+             specs: Optional[dict] = None):
+    """The MoE FFN (see the module's docstring); `specs`, where given, are
+    the specs of the layer's FSDP-sharded MoE weights (models/fsdp), which
+    the all-to-all path gathers after its dispatch and the capacity
+    dispatch before its routing."""
     mesh = hook.current_mesh()
     if mesh is None:
         return apply_moe(moe_params, f_in, top_k=cfg.top_k, n_groups=n_groups,
@@ -122,7 +134,8 @@ def _moe_ffn(moe_params: dict, f_in: torch.Tensor, cfg, n_groups: int):
                              capacity_factor=cfg.capacity_factor,
                              wire_dtype=cfg.moe_wire_dtype,
                              shared_ffn=cfg.n_shared_experts * d_ff or None,
-                             d_model=cfg.d_model)
+                             specs=specs)
+    moe_params = fsdp.gather_tree(moe_params, specs)
     # The capacity dispatch, with the experts the rules gave this rank (all
     # of them where E does not divide tp): the routing over the replicated
     # tokens, each rank its experts' slots, their parts psum'd over `model`.
@@ -157,10 +170,12 @@ def _mlp(mlp_params: dict, f_in: torch.Tensor, cfg, d_ff: int) -> torch.Tensor:
     return apply_mlp(mlp_params, f_in, cfg.act)
 
 
-def _ffn(params: dict, h: torch.Tensor, cfg, n_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(params: dict, h: torch.Tensor, cfg, n_groups: int,
+         specs: Optional[dict]) -> Tuple[torch.Tensor, torch.Tensor]:
     f_in = apply_norm(cfg.norm, params["norm2"], h)
     if "moe" in params:
-        f_out, aux = _moe_ffn(params["moe"], f_in, cfg, n_groups)
+        moe_specs = None if specs is None else specs["moe"]
+        f_out, aux = _moe_ffn(params["moe"], f_in, cfg, n_groups, specs=moe_specs)
     else:
         d_ff = (cfg.dense_d_ff or cfg.d_ff) if cfg.n_experts else cfg.d_ff
         f_out = _mlp(params["mlp"], f_in, cfg, d_ff)
@@ -169,45 +184,51 @@ def _ffn(params: dict, h: torch.Tensor, cfg, n_groups: int) -> Tuple[torch.Tenso
 
 
 def apply_block(params: dict, h: torch.Tensor, positions: torch.Tensor, cfg, *,
-                causal=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One block over the full sequence, h (B, S, D): (h, moe_aux)."""
+                causal=None, specs: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block over the full sequence, h (B, S, D): (h, moe_aux).  With
+    `specs` (an FSDP config on a mesh), the block's weights are gathered
+    over `data` first (models/fsdp; an MoE layer's inside its FFN)."""
     causal = cfg.causal if causal is None else causal
+    params = fsdp.gather_tree(params, specs, skip=("moe",))
     a_in = apply_norm(cfg.norm, params["norm1"], h)
     h = h + attn_mod.attention(
         params["attn"], a_in, positions,
         causal=causal, qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
         impl=cfg.attn_impl, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
     )
-    return _ffn(params, h, cfg, cfg.moe_groups)
+    return _ffn(params, h, cfg, cfg.moe_groups, specs)
 
 
-def prefill_block(params: dict, h: torch.Tensor, positions: torch.Tensor,
-                  cfg) -> Tuple[torch.Tensor, dict, torch.Tensor]:
+def prefill_block(params: dict, h: torch.Tensor, positions: torch.Tensor, cfg,
+                  specs: Optional[dict] = None) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     """apply_block that also emits this layer's KV cache: (h, kv, moe_aux)."""
+    params = fsdp.gather_tree(params, specs, skip=("moe",))
     a_in = apply_norm(cfg.norm, params["norm1"], h)
     a_out, kv = attn_mod.prefill_attention(
         params["attn"], a_in, positions,
         causal=cfg.causal, qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
         impl=cfg.attn_impl, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
     )
-    h, aux = _ffn(params, h + a_out, cfg, cfg.moe_groups)
+    h, aux = _ffn(params, h + a_out, cfg, cfg.moe_groups, specs)
     return h, kv, aux
 
 
-def decode_block(params: dict, h: torch.Tensor, cache: dict, pos: int,
-                 cfg, seq_sharded: bool = False) -> Tuple[torch.Tensor, dict, torch.Tensor]:
+def decode_block(params: dict, h: torch.Tensor, cache: dict, pos: int, cfg,
+                 seq_sharded: bool = False,
+                 specs: Optional[dict] = None) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     """One decode step through a block, h (B, 1, D); the cache is updated
     in place (seq_sharded: the cache is sharded on its sequence over
     `model`).  The MoE FFN dispatches the step's B tokens as one group (on
     a mesh the whole step's, gathered over `data`).  Returns (h, cache,
     moe_aux)."""
+    params = fsdp.gather_tree(params, specs, skip=("moe",))
     a_in = apply_norm(cfg.norm, params["norm1"], h)
     a_out, cache = attn_mod.decode_attention(
         params["attn"], a_in, cache, pos,
         qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, seq_sharded=seq_sharded,
     )
-    h, aux = _ffn(params, h + a_out, cfg, 1)
+    h, aux = _ffn(params, h + a_out, cfg, 1, specs)
     return h, cache, aux
 
 

@@ -23,8 +23,13 @@ On a mesh the params, gradients and state are the rank's shards, and
 of the whole gradient (each sharded leaf's sum of squares summed over the
 axes it is sharded on, a leaf replicated over them counted once).  AdamW
 and SGD are elementwise, so they run on the shard as they are.
-Adafactor's row and column means and its RMS update clip span a whole
-leaf: on a sharded leaf it raises (no config of the sharded path runs it).
+Adafactor's means span a whole leaf, as JAX's GSPMD takes them: on a
+shard each mean over a dim the mesh cuts is the local sum, psum'd over the
+axes that cut it and divided by the whole dim's count (vr's over the last
+dim, vc's over dim -2, the denominator's over vr's last dim, which is
+dim -2), and the RMS clip's mean of u^2 is psum'd over every axis the leaf
+is cut on; a dim no axis cuts keeps torch.mean, so the one-device update
+is unchanged.
 """
 
 from __future__ import annotations
@@ -47,11 +52,31 @@ class Optimizer:
 
 @dataclasses.dataclass(frozen=True)
 class Shards:
-    """How a sharded run's params are cut (runtime/steps builds it):
-    `norm(grads)` is the global norm of the whole gradient, `sharded` says
-    for each leaf (in the params' leaf order) whether it is a shard."""
+    """How a sharded run's params are cut (runtime/steps.shards_for builds
+    it): `norm(grads)` is the global norm of the whole gradient; `dims`
+    holds, for each leaf in the params' leaf order, the mesh axes that cut
+    each of its dims (() for a dim held whole); `psum(x, axis)` sums x over
+    a mesh axis and `size(axis)` is that axis's rank count."""
     norm: Callable[[Any], torch.Tensor]
-    sharded: Tuple[bool, ...]
+    dims: Tuple[Tuple[Tuple[str, ...], ...], ...]
+    psum: Callable[[torch.Tensor, str], torch.Tensor]
+    size: Callable[[str], int]
+
+
+def _mean(x: torch.Tensor, shards: Optional[Shards], axes: Tuple[str, ...], dim=None,
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean of the whole tensor that x is this rank's shard of, over
+    `dim` (every dim when None), which the mesh axes `axes` cut: the local
+    sum psum'd over them, over the whole count (torch.mean where nothing
+    cuts it)."""
+    if not axes:
+        return torch.mean(x) if dim is None else torch.mean(x, dim=dim, keepdim=keepdim)
+    total = torch.sum(x) if dim is None else torch.sum(x, dim=dim, keepdim=keepdim)
+    count = x.numel() if dim is None else x.shape[dim]
+    for a in axes:
+        total = shards.psum(total, a)
+        count *= shards.size(a)
+    return total / count
 
 
 def _is_axes(x) -> bool:
@@ -197,29 +222,27 @@ def adafactor(
 
     @torch.no_grad()
     def update(grads, state, params, step, shards=None):
-        if shards is not None and any(shards.sharded):
-            raise NotImplementedError(
-                "adafactor on sharded params: its row and column means and its RMS update "
-                "clip span the whole leaf; shard it whole, or use adamw or sgd on a mesh")
         grads = _clipped(grads, clip_norm, shards)
         t = float(int(step) + 1)
         beta2t = 1.0 - t ** (-decay_pow)
         lr_t = lr_fn(int(step))
         # the per-param states, in the params' leaf order (each a dict)
         states = _param_states(state["f"], params)
-        for p, g, s in zip(leaves(params), leaves(grads), states):
+        for i, (p, g, s) in enumerate(zip(leaves(params), leaves(grads), states)):
+            dims = ((),) * p.dim() if shards is None else shards.dims[i]
             g = g.float()
             g2 = g * g + eps
             if "vr" in s:
-                s["vr"].copy_(beta2t * s["vr"] + (1 - beta2t) * torch.mean(g2, dim=-1))
-                s["vc"].copy_(beta2t * s["vc"] + (1 - beta2t) * torch.mean(g2, dim=-2))
-                denom = torch.mean(s["vr"], dim=-1, keepdim=True)
+                s["vr"].copy_(beta2t * s["vr"] + (1 - beta2t) * _mean(g2, shards, dims[-1], -1))
+                s["vc"].copy_(beta2t * s["vc"] + (1 - beta2t) * _mean(g2, shards, dims[-2], -2))
+                denom = _mean(s["vr"], shards, dims[-2], -1, keepdim=True)
                 u = (g / torch.sqrt(s["vr"] / torch.clamp(denom, min=eps))[..., None]
                      / torch.sqrt(s["vc"])[..., None, :])
             else:
                 s["v"].copy_(beta2t * s["v"] + (1 - beta2t) * g2)
                 u = g / torch.sqrt(s["v"])
-            rms = torch.sqrt(torch.mean(u * u))  # RMS update clipping
+            every = tuple(a for d in dims for a in d)
+            rms = torch.sqrt(_mean(u * u, shards, every))  # RMS update clipping
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             pf = p.float()
             if weight_decay:

@@ -33,9 +33,13 @@ code (models/sharding_hook), takes this data rank's rows of the batch
 (B % dp == 0), and computes its loss and the gradient of its shards; the
 gradients are then averaged over `data` (each data rank's loss is a mean
 over the same number of tokens, as JAX's global mean), the clipping norm
-is the whole gradient's (optim.Shards), and `opt.update` runs on the
-shard.  The metrics are the means over `data` (n_tokens the sum); the
-step's collectives and wire bytes per axis go to `mesh.step_traffic`.  JAX's
+is the whole gradient's (optim.Shards, `shards_for`: also what
+Adafactor's means psum over), and `opt.update` runs on the shard.  An
+FSDP config's weights (their `embed` dim over `data`) are gathered over
+`data` before use (models/fsdp); their gradients come back summed over
+`data` by the gather's psum_scatter, and the mean divides them.  The
+metrics are the means over `data` (n_tokens the sum); the step's
+collectives and wire bytes per axis go to `mesh.step_traffic`.  JAX's
 GSPMD places the same collectives; `jit_train_step` and the `lower_*`
 functions are XLA's (ROADMAP section 1, the XLA-only tooling).
 """
@@ -45,7 +49,6 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -65,11 +68,10 @@ def state_shardings(cfg: ArchConfig, opt: Optimizer, mesh) -> Dict[str, Any]:
     """The spec of every leaf of the train state on `mesh` (a Mesh or a
     {axis: size} dict) under the config's rules: {"params", "opt" (trees
     of specs), "step": ()}."""
-    axes = M.param_axes(cfg)
     like = abstract_train_state(cfg, opt)
-    rules = rules_for(cfg)
-    return {"params": tree_specs(mesh, axes, like["params"], rules),
-            "opt": tree_specs(mesh, opt.state_axes(axes), like["opt"], rules),
+    return {"params": M.param_specs(cfg, mesh),
+            "opt": tree_specs(mesh, opt.state_axes(M.param_axes(cfg)), like["opt"],
+                              rules_for(cfg)),
             "step": ()}
 
 
@@ -88,29 +90,11 @@ def init_train_state(cfg: ArchConfig, opt: Optimizer, seed: int = 0,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-class _OnMeta(TorchFunctionMode):
-    """Every factory call that names a device makes its tensor on the meta
-    device instead (no storage, no random draws: a draw becomes
-    `torch.empty`, whose meta form does not load torch's compiler stack as
-    the meta `randn` does, once in each process of a sharded run)."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = dict(kwargs or {})
-        if "device" in kwargs:
-            kwargs["device"] = "meta"
-            if func is torch.randn:
-                kwargs.pop("generator", None)
-                func = torch.empty
-        return func(*args, **kwargs)
-
-
 def abstract_train_state(cfg: ArchConfig, opt: Optimizer) -> Dict[str, Any]:
     """init_train_state's tree on the meta device."""
-    M.require_ported(cfg)
-    with _OnMeta():
-        params = M.init(cfg, 0, "cpu")
-        return {"params": params, "opt": opt.init(params),
-                "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    params = M.abstract_params(cfg)
+    return {"params": params, "opt": opt.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
@@ -213,11 +197,20 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Optional[Mesh] = None
     return train_step
 
 
+def shards_for(mesh: Mesh, flat_specs) -> Shards:
+    """How params cut by `flat_specs` (their specs in leaf order) lie on
+    `mesh`, for `opt.update`: the global clip norm, each dim's cutting axes
+    (those of more than one rank), the psum."""
+    return Shards(norm=_mesh_norm(mesh, flat_specs),
+                  dims=tuple(tuple(_mesh_axes((part,), mesh) for part in spec)
+                             for spec in flat_specs),
+                  psum=mesh.psum, size=mesh.size)
+
+
 def _make_sharded_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Mesh) -> Callable:
     M.check_mesh_supported(cfg, mesh)
     flat_specs = leaves(state_shardings(cfg, opt, mesh)["params"], is_leaf=_is_spec)
-    shards = Shards(norm=_mesh_norm(mesh, flat_specs),
-                    sharded=tuple(bool(_mesh_axes(s, mesh)) for s in flat_specs))
+    shards = shards_for(mesh, flat_specs)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         before = {a: list(c) for a, c in mesh.traffic.items()}

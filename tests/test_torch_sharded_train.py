@@ -245,8 +245,8 @@ def test_jax_reads_a_checkpoint_written_at_2x2(world):
     (["--arch", "hubert_xlarge", "--mesh", "1x2"], "item 4"),
     (["--arch", "phi3_vision_4p2b", "--mesh", "2x1"], "item 4"),
     (["--arch", "zamba2_1p2b", "--rescale-mesh", "2x1"], "item 4"),
-    (["--arch", "granite_8b", "--full-config", "--mesh", "2x2"], "item 2"),
-    (["--arch", "kimi_k2_1t_a32b", "--full-config", "--mesh", "1x2"], "item 2"),
+    (["--arch", "granite_8b", "--mesh", "2x2x2"], "item 5"),
+    (["--arch", "kimi_k2_1t_a32b", "--mesh", "2x1x2"], "item 5"),
     (["--mesh", "2x2x2"], "item 5"),
 ])
 def test_cli_refuses_what_the_mesh_does_not_run(argv, match):
@@ -261,7 +261,7 @@ def test_cli_refuses_what_the_mesh_does_not_run(argv, match):
     (["--arch", "hubert_xlarge", "--mesh", "1x2"], "item 4"),
     (["--arch", "phi3_vision_4p2b", "--mesh", "2x1"], "item 4"),
     (["--arch", "zamba2_1p2b", "--mesh", "1x2"], "item 4"),
-    (["--arch", "granite_8b", "--full-config", "--mesh", "2x2"], "item 2"),
+    (["--arch", "granite_8b", "--mesh", "2x2x2"], "item 5"),
     (["--mesh", "2x2x2"], "item 5"),
 ])
 def test_serve_refuses_what_the_mesh_does_not_run(argv, match):

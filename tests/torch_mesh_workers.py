@@ -1,6 +1,7 @@
 """Rank functions of the port's multi-rank tests (tests/test_torch_mesh.py,
 tests/test_torch_sharded_train.py, tests/test_torch_moe_a2a.py,
-tests/test_torch_mesh_coder.py, tests/test_torch_mesh_serve_dict.py).
+tests/test_torch_mesh_coder.py, tests/test_torch_mesh_serve_dict.py,
+tests/test_torch_fsdp.py).
 
 Each runs on every rank of a world that runtime/mesh.launch spawns (gloo,
 CPU tensors), builds the meshes it needs over the world's first ranks,
@@ -323,7 +324,14 @@ def pid(mesh0) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _moe_case(mesh, params_np, x_np, *, top_k, cf, wire, grads: bool) -> dict:
+# The a2a layer's specs with `embed` over `data` (FSDP), as JAX's
+# apply_moe_a2a shards them on a mesh with a data axis.
+FSDP_MOE_SPECS = {"router": ("data", None), "wi": ("model", "data", None),
+                  "wg": ("model", "data", None), "wo": ("model", None, "data"),
+                  "shared": {"wi": ("data", None), "wg": ("data", None), "wo": (None, "data")}}
+
+
+def _moe_case(mesh, params_np, x_np, *, top_k, cf, wire, grads: bool, fsdp: bool = False) -> dict:
     from repro_torch.models.moe_a2a import apply_moe_a2a
     from repro_torch.pytree import leaves, unflatten
     from repro_torch.runtime import sharding, steps
@@ -333,6 +341,8 @@ def _moe_case(mesh, params_np, x_np, *, top_k, cf, wire, grads: bool) -> dict:
              "wo": ("model", None, None)}
     if "shared" in params_np:
         specs["shared"] = {"wi": (None, None), "wg": (None, None), "wo": (None, None)}
+    if fsdp:
+        specs = {k: v for k, v in FSDP_MOE_SPECS.items() if k in params_np}
     full = {k: ({kk: _t(vv).float() for kk, vv in v.items()} if isinstance(v, dict)
                 else _t(v).float()) for k, v in params_np.items()}
     params = sharding.shard_tree(full, specs, mesh)
@@ -342,7 +352,8 @@ def _moe_case(mesh, params_np, x_np, *, top_k, cf, wire, grads: bool) -> dict:
     x = steps.data_shard({"x": _t(x_np).float()}, mesh)["x"]
     with torch.enable_grad():
         out, aux = apply_moe_a2a(mesh, params, x, top_k=top_k, n_experts=e,
-                                 capacity_factor=cf, wire_dtype=wire)
+                                 capacity_factor=cf, wire_dtype=wire,
+                                 specs=specs if fsdp else None)
     res = {"out": _np(mesh.all_gather_tiled(out.detach(), "data", 0)), "aux": float(aux.detach())}
     if grads:
         dp = mesh.size("data")
@@ -634,4 +645,74 @@ def sharded_serve(mesh0, job: dict) -> dict:
             got = _loss_and_grads(case["cfg"], case["params"], case["batch"], mesh)
             if mesh.rank == 0:
                 out[("train", name)] = got
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FSDP of `embed` over `data` (tests/test_torch_fsdp.py)
+# ---------------------------------------------------------------------------
+
+
+def _adafactor_on_shards(mesh, job: dict) -> list:
+    """Adafactor's updates of job["leaves"] cut by job["specs"] on `mesh`,
+    from the gradients of each step of job["grads"]: the params gathered
+    whole after each step (on every rank)."""
+    from repro_torch.optim import adafactor
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import sharding, steps
+
+    specs = job["specs"]
+    opt = adafactor(job["lr"])
+    params = sharding.shard_tree({k: _t(v).float() for k, v in job["leaves"].items()}, specs,
+                                 mesh)
+    state = opt.init(params)
+    shards = steps.shards_for(mesh, leaves(specs, is_leaf=lambda s: isinstance(s, tuple)))
+    out = []
+    for i, g in enumerate(job["grads"]):
+        grads = sharding.shard_tree({k: _t(v).float() for k, v in g.items()}, specs, mesh)
+        opt.update(grads, state, params, i, shards)
+        out.append(_full(params, specs, mesh))
+    return out
+
+
+def fsdp_world(mesh0, job: dict) -> dict:
+    """Per arch and mesh of job["cases"] (FSDP configs): the loss and
+    gradient of one batch, three SGD and three AdamW steps, and with the
+    case's "adafactor" three Adafactor steps; Adafactor's update on sharded
+    leaves (job["adafactor_leaves"], at 2x2); the runner's fault, replay and
+    checkpoints across meshes (job["ckpt"]); launch/serve's rank body per
+    job["serve"] case; the a2a layer with FSDP-sharded experts
+    (job["a2a"]).  Rank 0's results."""
+    from repro_torch.optim import adafactor, adamw, sgd
+
+    out = {}
+    for name, case in job["cases"].items():
+        cfg, tree, batches = case["cfg"], case["params"], case["batches"]
+        for shape in case["meshes"]:
+            mesh = mesh_mod.make_mesh(shape)
+            if mesh is None:
+                continue
+            res = {"grad": _loss_and_grads(cfg, tree, batches[0], mesh),
+                   "sgd": _steps(cfg, tree, batches, mesh, sgd(job["sgd_lr"])),
+                   "adamw": _steps(cfg, tree, batches, mesh, adamw(job["adamw_lr"]))}
+            if case.get("adafactor"):
+                res["adafactor"] = _steps(cfg, tree, batches, mesh, adafactor(job["adafactor_lr"]))
+            if mesh.rank == 0:
+                out[(name, shape)] = res
+    mesh = mesh_mod.make_mesh((2, 2))
+    got = _adafactor_on_shards(mesh, job["adafactor_leaves"])
+    if mesh.rank == 0:
+        out["adafactor_leaves"] = got
+    out["ckpt"] = _checkpoints(job["ckpt"])
+    for name, case in job["serve"].items():
+        got = _serve_case(mesh_mod.make_mesh(case["mesh"]), case)
+        if got is not None:
+            out[("serve", name)] = got
+    a2a = job["a2a"]
+    mesh = mesh_mod.make_mesh((2, 2))
+    for name, c in a2a["cases"].items():
+        res = _moe_case(mesh, a2a["params"], a2a["x"], top_k=a2a["top_k"], cf=c["cf"],
+                        wire=c["wire"], grads=c["grads"], fsdp=True)
+        if mesh.rank == 0:
+            out[("a2a", name)] = res
     return out

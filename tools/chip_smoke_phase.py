@@ -5,12 +5,13 @@
 
 calls chip_smoke.phase_<name>(torch, card), or (torch) for a phase that
 takes only torch (kernels, small_coder, ...), for each name in turn
-(sharded, lm, xlstm, moe_serve, moe_train, ...; `sharded` runs the
-SHARDED world with its SERVE_MESH and DICT_MESH parts, then
-phase_serve_mesh and phase_dict_mesh; SERVE_MESH holds the mesh's serves
-against lm's and moe_serve's runs, so those two go first:
+(sharded, lm, xlstm, moe_serve, moe_train, granite8b, qwen32b, ...;
+`sharded` runs the SHARDED world with its SERVE_MESH and DICT_MESH parts,
+then phase_serve_mesh and phase_dict_mesh; SERVE_MESH holds the mesh's
+serves against lm's, moe_serve's and fsdp_reference's runs, so those go
+first:
 
-    python3 tools/chip_smoke_phase.py lm moe_serve sharded
+    python3 tools/chip_smoke_phase.py lm moe_serve fsdp_reference sharded
 
 ) and prints its lines and its seconds.  A quicker look at a phase than
 the whole script; the gates are the script's own.
