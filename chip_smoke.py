@@ -152,7 +152,7 @@ and fails (non-zero exit, no result line) if any of them fails:
    - MoE training: launch/train at granite-moe's full width, depth cut to
      MOE_TRAIN_LAYERS, MOE_STEPS steps of 4 x 2048 tokens (AdamW, cosine
      warmup), checkpoints every MOE_CKPT_EVERY, a fault at MOE_FAULT_AT,
-     the rescale reload: 2 K2 launches a layer a step (8 at 4 layers),
+     the rescale reload: 2 K2 launches a layer a step (4 at 2 layers),
      the first replayed loss exactly the first pass's,
      the first step's loss against its plain-attention twin
      (MOE_LOSS_RTOL; its gradients and routes printed), one step
@@ -177,13 +177,13 @@ and fails (non-zero exit, no result line) if any of them fails:
    - sharded training over a (data, model) mesh, the ranks sharing the
      card over gloo_staged (runtime/mesh.py: NCCL takes one rank a card):
      one spawned world of 4 ranks runs launch/train's rank body (what
-     --mesh runs) for olmo-1b at full width cut to SHARD_LAYERS, 2x2, three
-     SGD steps, held against the same run on one device without a mesh
-     (first loss 2^-7, step-3 params within bf16 rounding, their updates
+     --mesh runs) for olmo-1b at full width cut to SHARD_LAYERS, 2x2,
+     SHARD_STEPS SGD steps, held against the same run on one device without a mesh
+     (first loss 2^-7, the last step's params within bf16 rounding, their updates
      within GRAD_BF16_TOL), K2 on every rank on its 8 local heads
      (wgmma_tma); the same run through the CLI on a 1x1 mesh over nccl
      (its one rank this process) bit for bit the run without a mesh;
-     granite-moe at full width cut to SHARD_LAYERS, 1x2 (16
+     granite-moe at full width cut to SHARD_MOE_LAYERS, 1x2 (16
      experts a rank through moe_a2a), AdamW, a fault, an exact replay and
      the reload at 2x1 (its loss against the same checkpoint's on one
      device, 2^-7; and against the saved run's); the a2a layer at
@@ -191,7 +191,14 @@ and fails (non-zero exit, no result line) if any of them fails:
      SMOKE config 2x2 against 1x1 on the card, with the attention's
      row-parallel output without its psum and the data-parallel
      gradients unaveraged each rejected (SHARDED line; step times beside
-     the transport, which they measure); granite-8b at full width cut to
+     the transport, which they measure); every run here and every
+     SERVE_MESH prefill with the sequence-parallel residual (S % tp ==
+     0), one olmo-1b 2x2 step held against the same step under {"seq":
+     None} (SP line: the loss and every update, remat's kept bytes 1/tp,
+     the device memory its forward holds less by nearly that difference,
+     K2 launches equal; a residual kept gathered and, at
+     granite-8b's SMOKE config, the norms' gradients unsummed, both
+     planted and rejected); granite-8b at full width cut to
      FSDP_LAYERS on 2x2 with `embed` over `data` (FSDP: every weight
      gathered before use), launch/train's rank body, AdamW, FSDP_STEPS
      steps, against the same run on one device (the losses within
@@ -612,14 +619,15 @@ ADAMW_SHARE, ADAMW_FLIP = 1e-3, 0.5
 # MOE_FAULT_AT, the rescale reload, with the depth cut to MOE_TRAIN_LAYERS
 # (full depth until xLSTM training needed the room: 100.2 s of the script,
 # its 16.0 GB state written twice and read twice; 12 layers until the
-# sharded phase needed it, 6 until DICT_MESH did: its gates do not scale
-# with depth).  Its attention: one K2
+# sharded phase needed it, 6 until DICT_MESH did, 4 until the
+# sequence-parallel checks did: its gates do not scale with depth).  Its
+# attention: one K2
 # launch a layer a prefill, two a layer a step; FA_MOE, bf16, causal, on
 # wgmma_tma.  It
 # dispatches 16 groups of 512 tokens, 160 places an expert a group; a
 # decode step one group of 4 tokens, 1 place.
 MOE_ARCH = "granite_moe_1b_a400m"
-MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT, MOE_TRAIN_LAYERS = 8, 4, 6, 4
+MOE_STEPS, MOE_CKPT_EVERY, MOE_FAULT_AT, MOE_TRAIN_LAYERS = 8, 4, 6, 2
 FA_MOE = (LM_BATCH, 16, 8, LM_PROMPT, LM_PROMPT, 64)
 # kimi-k2-1t-a32b at full width (d 7168, 64 query heads over 8 KV heads of
 # 112, 384 experts top-8 of d_ff 2048 and one shared expert, a dense first
@@ -5457,9 +5465,9 @@ def phase_experiments(torch, card: str):
 #     spawned world with the granite, a2a and planted runs below (starting
 #     a world costs each rank seconds), against the same config, seed and
 #     batches at 1x1 here:
-#     the first loss within SHARD_LOSS_RTOL, the step-3 params within bf16
+#     the first loss within SHARD_LOSS_RTOL, the last step's params within bf16
 #     rounding of the 1x1 run's (each leaf's largest |difference| at most
-#     2^-8 of its largest |value|) and their updates (p3 - p0) within
+#     2^-8 of its largest |value|) and their updates (pN - p0) within
 #     GRAD_BF16_TOL of the 1x1 updates, leaf by leaf; K2 launched on every
 #     rank, two a layer a step, only at (2, 8 / 8, 2048, 128) bf16 on
 #     wgmma_tma.  SGD, never AdamW: AdamW maps rounding to updates of order
@@ -5468,7 +5476,8 @@ def phase_experiments(torch, card: str):
 #     size 1, the one check of the NCCL path one card allows; its one rank
 #     is this process): every loss and every param bit for bit the 1x1
 #     run's without a mesh;
-#   * granite-moe-1b-a400m at full width cut to SHARD_LAYERS, mesh 1x2 (16
+#   * granite-moe-1b-a400m at full width cut to SHARD_MOE_LAYERS (4 until
+#     the sequence-parallel checks needed the room), mesh 1x2 (16
 #     experts a rank through moe_a2a), AdamW, SHARD_MOE_STEPS steps with a
 #     checkpoint every SHARD_MOE_CKPT and a fault at SHARD_MOE_FAULT: the
 #     replayed loss bit for bit the first pass's; then the reload of step
@@ -5482,10 +5491,31 @@ def phase_experiments(torch, card: str):
 #   * planted faults at the olmo SMOKE config (fp32) on a 2x2 mesh: the
 #     clean run's three SGD steps within SHARD_SMOKE_RTOL of the 1x1 run on
 #     the card (losses and every param), and each of the attention's
-#     row-parallel output without its psum and the data-parallel
-#     gradients left unaveraged outside it.
-SHARD_ARCH, SHARD_MOE_ARCH, SHARD_LAYERS = "olmo_1b", "granite_moe_1b_a400m", 4
-SHARD_STEPS, SHARD_LR = 3, 0.1
+#     row-parallel output without its psum (its psum-scatter under SP)
+#     and the data-parallel gradients left unaveraged outside it;
+#   * the sequence-parallel residual (SP line): every sharded run above
+#     and SERVE_MESH's prefills run it (rules "seq" -> model, S % tp == 0);
+#     olmo-1b cut to SHARD_LAYERS at 2x2, one SGD step from seed 0 on one
+#     batch under the config's rules and under {"seq": None} (replicated):
+#     the loss and every leaf's update (lr x the gradient) within
+#     SHARD_SMOKE_RTOL; the bytes remat keeps a layer on rank 0
+#     (model.remat_saved) exactly 1/tp of the replicated run's; the
+#     device memory the loss's forward leaves allocated on rank 0
+#     (torch.cuda.memory_allocated) below the replicated run's by at
+#     least SP_HELD_SHARE of the kept bytes' difference over the stack; K2's launches per
+#     rank those of the replicated run; a planted block that keeps its
+#     residual gathered across the remat (its saved bytes tp times, its
+#     forward holding as much more) rejected; granite-8b's SMOKE config (rms norms) 2x2 against
+#     1x1 as the olmo SMOKE runs above, clean and with the norms'
+#     gradients left without their sum over `model` (planted, rejected);
+#     granite-8b's FSDP gradient check keeps 1/tp of the residual a layer.
+SHARD_ARCH, SHARD_MOE_ARCH, SHARD_LAYERS, SHARD_MOE_LAYERS = (
+    "olmo_1b", "granite_moe_1b_a400m", 4, 2)
+# The planted SP norm fault runs at a SMOKE config with rms norms (olmo's
+# are nonparametric).
+NORM_ARCH = "granite_8b"
+NORM_CLEAN, NORM_PLANTED = "clean, rms norms", "norms' gradients unsummed over model"
+SHARD_STEPS, SHARD_LR = 2, 0.1
 SHARD_MOE_STEPS, SHARD_MOE_CKPT, SHARD_MOE_FAULT, SHARD_MOE_RESCALE = 4, 2, 3, 2
 SHARD_LOSS_RTOL = 2.0 ** -7
 SHARD_A2A_WIDTHS = (1024, 512, 32, 8)  # granite-moe: d, expert d_ff, experts, top-k
@@ -5593,7 +5623,9 @@ def _k2_ranks(tag, out, per_rank, shape, key="k2_launches", shapes_key="k2_shape
 
 class NoModelPsum:
     """The sharding hook (models/sharding_hook) with g, the psum over
-    `model`, the identity: a planted fault's view of it."""
+    `model`, the identity, and under the sequence-parallel residual its
+    psum-scatter the rank's chunk of its own partial sums: a planted
+    fault's view of it."""
 
     def __getattr__(self, name):
         from repro_torch.models import sharding_hook
@@ -5603,6 +5635,12 @@ class NoModelPsum:
     @staticmethod
     def leave_model(x):
         return x
+
+    @staticmethod
+    def row_out(x):
+        from repro_torch.models import sharding_hook
+
+        return sharding_hook.seq_part(x)  # the identity on a replicated residual
 
 
 def sharded_world(mesh, job: dict) -> dict:
@@ -5621,7 +5659,7 @@ def sharded_world(mesh, job: dict) -> dict:
     import torch
 
     from repro_torch.launch import train
-    from repro_torch.models import attention, moe, moe_a2a
+    from repro_torch.models import attention, moe, moe_a2a, sharding_hook
     from repro_torch.optim import sgd
     from repro_torch.pytree import leaves, unflatten
     from repro_torch.runtime import mesh as mesh_mod, sharding, steps
@@ -5676,14 +5714,16 @@ def sharded_world(mesh, job: dict) -> dict:
     got = fsdp_sgd_step(mesh, job["granite8b_cfg"])
     if mesh.rank == 0:
         out["fsdp_gradient"] = {**got, "wall_s": time.perf_counter() - t0}
-    cfg = job["smoke_cfg"]
     faults = {"clean": contextlib.nullcontext(),
               "row-parallel output without its psum": mock.patch.object(
                   attention, "hook", NoModelPsum()),
               "data-parallel gradients unaveraged": mock.patch.object(
-                  steps, "_average_over_data", lambda m, grads, specs: list(grads))}
+                  steps, "_average_over_data", lambda m, grads, specs: list(grads)),
+              NORM_CLEAN: contextlib.nullcontext(),
+              NORM_PLANTED: mock.patch.object(sharding_hook, "seq_shared", lambda p: p)}
     opt = sgd(job["smoke_lr"])
     for name, patch in faults.items():
+        cfg = job["norm_cfg"] if name in (NORM_CLEAN, NORM_PLANTED) else job["smoke_cfg"]
         state = steps.init_train_state(cfg, opt, 0, mesh.device, mesh)
         specs = steps.state_shardings(cfg, opt, mesh)["params"]
         step = steps.make_train_step(cfg, opt, mesh)
@@ -5697,9 +5737,119 @@ def sharded_world(mesh, job: dict) -> dict:
         if mesh.rank == 0:
             out[name] = {"losses": losses, "params": whole}
     del state
+    t0 = time.perf_counter()
+    got = sp_check(mesh, job["sp"])
+    if mesh.rank == 0:
+        out["sp"] = {**got, "wall_s": time.perf_counter() - t0}
     out["serve_mesh"] = serve_mesh_world(mesh, sub, job["serve_mesh"])
     out["dict_mesh"] = dict_mesh_world(mesh, job["dict_mesh"])
     return out
+
+
+SP_PLANTED = "residual kept gathered across the remat"
+# The share of remat's kept bytes' difference over the stack (replicated
+# less SP) that the device memory held by the forward must show, for the
+# replicated run and the planted one against SP (the allocator's blocks
+# and a norm's saved input may move it; the kept bytes are exact).
+SP_HELD_SHARE = 0.9
+
+
+def sp_saved_ok(saved, replicated, tp) -> bool:
+    """The SP gate on remat's kept bytes a layer: one entry a layer, each
+    exactly 1/tp of the replicated run's."""
+    return bool(saved) and len(saved) == len(replicated) and all(
+        a * tp == b for a, b in zip(saved, replicated))
+
+
+def sp_check(mesh, job: dict):
+    """The sequence-parallel residual at olmo-1b's width (job["cfg"], cut
+    to SHARD_LAYERS) on this 2x2 mesh: one SGD step from seed 0 on
+    job["batch"] under the config's rules ("seq" -> model: the residual
+    sharded on its sequence) and under {"seq": None} (replicated), each
+    from the same params: its loss, the bytes remat keeps a layer
+    (model.remat_saved), K2's launches on every rank, the step's wire per
+    axis and rank 0's step ms; per leaf, max |SP update - replicated
+    update| / max |replicated update| over the world; the device memory
+    that the loss's forward alone leaves allocated for its backward
+    (torch.cuda.memory_allocated after it less before it, rank 0: the
+    allocator's own count of what the graph and the checkpoints hold),
+    under each layout; and, as a planted fault, that forward under the
+    config's rules with each layer's residual gathered before its
+    checkpoint (and cut inside it: the same arithmetic, tp times the kept
+    bytes).  Rank 0 returns them."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import model, sharding_hook
+    from repro_torch.optim import sgd
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import sharding, steps
+
+    cfg, batch = job["cfg"], job["batch"]
+    opt = sgd(SHARD_LR)
+    state = steps.init_train_state(cfg, opt, 0, mesh.device, mesh)
+    start = [t.detach().clone() for t in leaves(state["params"])]
+    names = [path for path, _ in named_leaves(state["params"])]
+    remat = model._remat
+
+    def gathered(c, fn, lp, h, *rest):  # planted: the whole residual kept by the checkpoint
+        def inner(lp, h_whole, *r):
+            return fn(lp, sharding_hook.seq_part(h_whole), *r)
+        return remat(c, inner, lp, sharding_hook.seq_whole(h), *rest)
+
+    local = steps.batch_to_device(steps.data_shard(batch, mesh), mesh.device)
+
+    def forward_held(rules, patch=contextlib.nullcontext()):
+        """The loss's forward alone under `rules`: (bytes it leaves
+        allocated, remat's kept bytes a layer)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with torch.enable_grad(), patch, sharding_hook.installed(mesh, rules), \
+                model.remat_saved() as saved:
+            for p in leaves(state["params"]):
+                p.requires_grad_(True)
+            loss, _ = model.loss_fn(cfg, state["params"], local)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - before
+        del loss
+        return held, list(saved)
+
+    runs, updates = {}, {}
+    for name, rules in (("sp", sharding.rules_for(cfg)),
+                        ("replicated", sharding.rules_for(cfg, {"seq": None}))):
+        with torch.no_grad():
+            for p, s0 in zip(leaves(state["params"]), start):
+                p.copy_(s0)
+        step = steps.make_train_step(cfg, opt, mesh, rules=rules)
+        k2 = ops.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with model.remat_saved() as saved:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[name] = {"layout": "seq" if sharding.residual_seq_axis(
+                          mesh, rules, batch["tokens"].shape[1]) else "replicated",
+                      "loss": float(m["loss"]), "saved_bytes_per_layer": list(saved),
+                      "k2_launches": mesh.all_gather_object(ops.flash_attention.launches - k2),
+                      "step_traffic": mesh.step_traffic, "step_ms": ms}
+        with torch.no_grad():
+            updates[name] = [s0 - p for s0, p in zip(start, leaves(state["params"]))]
+        runs[name]["forward_held_bytes"] = forward_held(rules)[0]
+    # the planted run: its forward alone (the checkpoints keep what they keep there)
+    held, saved = forward_held(sharding.rules_for(cfg), mock.patch.object(model, "_remat",
+                                                                           gathered))
+    runs[SP_PLANTED] = {"saved_bytes_per_layer": saved, "forward_held_bytes": held}
+    with torch.no_grad():
+        d = torch.stack([(a - b).abs().max().float()
+                         for a, b in zip(updates["sp"], updates["replicated"])])
+        w = torch.stack([b.abs().max().float() for b in updates["replicated"]])
+        for axis in ("data", "model"):
+            d, w = mesh.pmax(d, axis), mesh.pmax(w, axis)
+    readings = dict(zip(names, (d / w.clamp_min(1e-30)).tolist()))
+    del state, start, updates
+    torch.cuda.empty_cache()
+    return {"runs": runs, "update_readings": readings} if mesh.rank == 0 else None
 
 
 def fsdp_sgd_step(mesh, cfg):
@@ -5714,7 +5864,9 @@ def fsdp_sgd_step(mesh, cfg):
     world.  Then the same 2x2 step from the same params with the FSDP
     leaves' gradient left unaveraged over `data` (their psum_scatter's sum
     not divided by dp: a planted fault).  Rank 0 returns {"readings",
-    "planted"} (leaf path -> reading)."""
+    "planted"} (leaf path -> reading) and "saved_bytes_per_layer"
+    (model.remat_saved: the residual each layer's checkpoint keeps in the
+    clean step)."""
     import torch
 
     from repro_torch.launch import train
@@ -5750,14 +5902,18 @@ def fsdp_sgd_step(mesh, cfg):
         return [g * m.size("data") if "data" in sharding.spec_axes(s) else g
                 for g, s in zip(averaged(m, grads, sp), sp)]
 
+    from repro_torch.models import model
+
     out = {}
     for name, patch in (("readings", contextlib.nullcontext()),
                         ("planted", mock.patch.object(steps, "_average_over_data", unaveraged))):
         with torch.no_grad():
             for p, s in zip(leaves(state["params"]), start):
                 p.copy_(s)
-        with patch:
+        with patch, model.remat_saved() as saved:
             state, _ = step(state, batch)
+        if name == "readings":
+            out["saved_bytes_per_layer"] = list(saved)
         with torch.no_grad():
             d = torch.stack([(s - p - u).abs().max().float()
                              for p, s, u in zip(leaves(state["params"]), start, ref)])
@@ -6052,14 +6208,15 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     shutil.rmtree(dm_job["dir"], ignore_errors=True)
     pathlib.Path(dm_job["dir"]).mkdir(parents=True)
     cfg = cut_depth(get_config(SHARD_ARCH), SHARD_LAYERS)
-    moe_cfg = cut_depth(get_config(SHARD_MOE_ARCH), SHARD_LAYERS)
+    moe_cfg = cut_depth(get_config(SHARD_MOE_ARCH), SHARD_MOE_LAYERS)
     batches = train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
-    common = ["--full-config",
-              "--n-layers", str(SHARD_LAYERS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
-    sgd_argv = common + ["--arch", SHARD_ARCH, "--optimizer", "sgd", "--lr", str(SHARD_LR),
-                         "--steps", str(SHARD_STEPS), "--ckpt-every", str(SHARD_STEPS)]
+    common = ["--full-config", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    sgd_argv = common + ["--n-layers", str(SHARD_LAYERS), "--arch", SHARD_ARCH, "--optimizer",
+                         "sgd", "--lr", str(SHARD_LR), "--steps", str(SHARD_STEPS),
+                         "--ckpt-every", str(SHARD_STEPS)]
     moe_argv = common + [
-        "--arch", SHARD_MOE_ARCH, "--steps", str(SHARD_MOE_STEPS),
+        "--n-layers", str(SHARD_MOE_LAYERS), "--arch", SHARD_MOE_ARCH,
+        "--steps", str(SHARD_MOE_STEPS),
         "--ckpt-every", str(SHARD_MOE_CKPT), "--inject-fault-at", str(SHARD_MOE_FAULT),
         "--rescale-mesh", "2x1", "--rescale-step", str(SHARD_MOE_RESCALE)]
     fsdp_cfg = cut_depth(get_config(FSDP_ARCH), FSDP_LAYERS)
@@ -6077,6 +6234,8 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     smoke = get_smoke_config(SHARD_ARCH)
     smoke_batches = [train.make_batches(smoke, 4, 32, 0)(i) for i in range(3)]
     s_losses, _, s_params = _sgd_reference(torch, smoke, lambda i: smoke_batches[i], 0.5, 3)
+    norm_smoke = get_smoke_config(NORM_ARCH)
+    n_losses, _, n_params = _sgd_reference(torch, norm_smoke, lambda i: smoke_batches[i], 0.5, 3)
     # granite-8b cut to FSDP_LAYERS, launch/train's optimizer (for_arch's
     # AdamW on its cosine warmup) on one device.
     t0 = time.perf_counter()
@@ -6098,8 +6257,10 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                                   "--mesh", "2x2", "--transport", SHARD_TRANSPORT], root / "fsdp"),
                               "granite8b_cfg": fsdp_cfg,
                               "smoke_cfg": smoke, "smoke_batches": smoke_batches,
+                              "norm_cfg": norm_smoke,
                               "smoke_lr": 0.5, "a2a_widths": SHARD_A2A_WIDTHS,
                               "a2a_tokens": SHARD_A2A_SHAPE, "dict_mesh": dm_job,
+                              "sp": {"cfg": cfg, "batch": batches(0)},
                               "serve_mesh": serve_mesh_job()},))
     rec["world_s"] = time.perf_counter() - t0
     out22, outm = res["olmo"], res["granite"]
@@ -6154,11 +6315,11 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
         abs(first[SHARD_MOE_RESCALE])
     one_rel = abs(outm["rescaled_loss"] - one_loss) / abs(one_loss)
     n_run = SHARD_MOE_STEPS + replayed
-    _k2_ranks("granite-moe 1x2", outm, [2 * SHARD_LAYERS * n_run] * 2 + [0, 0],
+    _k2_ranks("granite-moe 1x2", outm, [2 * SHARD_MOE_LAYERS * n_run] * 2 + [0, 0],
               (TRAIN_BATCH, 8, 4, TRAIN_SEQ, TRAIN_SEQ, 64, "bfloat16", "wgmma_tma"))
     rescale_k2 = {"k2_launches": [n for n, _ in outm["k2_rescale"]],
                   "k2_shapes": [s for _, s in outm["k2_rescale"]]}
-    _k2_ranks("granite-moe 2x1 reload", rescale_k2, [2 * SHARD_LAYERS] * 2 + [0, 0],
+    _k2_ranks("granite-moe 2x1 reload", rescale_k2, [2 * SHARD_MOE_LAYERS] * 2 + [0, 0],
               (TRAIN_BATCH // 2, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 64, "bfloat16", "wgmma_tma"))
     print(f"[sharded granite-moe 1x2] replay from step {SHARD_MOE_CKPT}: first pass "
           f"{[first[s] for s, _ in replay]}, replayed {[x for _, x in replay]} (bit for bit); "
@@ -6226,6 +6387,18 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     if not (max(fgrad["readings"].values()) <= GRAD_BF16_TOL
             and max(fgrad["planted"].values()) > GRAD_BF16_TOL):
         raise AssertionError(f"granite-8b's FSDP gradient at 2x2 parts from one device's: {fgrad}")
+    # the replicated residual a layer: (B / dp, S, D) bf16; SP keeps 1/tp of it
+    f_whole = TRAIN_BATCH // 2 * TRAIN_SEQ * fsdp_cfg.d_model * 2
+    print(f"[sharded granite-8b 2x2 FSDP gradient] remat keeps "
+          f"{fgrad['saved_bytes_per_layer']} B a layer on rank 0 (SP; the replicated "
+          f"layout's (B/dp, S, D) bf16 is {f_whole} B)")
+    if not sp_saved_ok(fgrad["saved_bytes_per_layer"], [f_whole] * FSDP_LAYERS, 2):
+        raise AssertionError(f"granite-8b 2x2 FSDP: remat keeps {fgrad['saved_bytes_per_layer']} "
+                             f"B a layer, not 1/2 of {f_whole}")
+
+    # (3b) the sequence-parallel residual against the replicated layout.
+    sp = sp_report(card, res["sp"], cfg, {"olmo-1b": "2x2", "granite-moe": "1x2",
+                                          "granite-moe reload": "2x1", "granite-8b FSDP": "2x2"})
 
     # (4) the a2a layer against moe_ref, and the planted faults at SMOKE.
     a2a = res["a2a"]
@@ -6236,14 +6409,18 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
         raise AssertionError("the a2a layer parts from moe_ref")
     planted = {}
     for name in ("clean", "row-parallel output without its psum",
-                 "data-parallel gradients unaveraged"):
+                 "data-parallel gradients unaveraged", NORM_CLEAN, NORM_PLANTED):
         run = res[name]
-        planted[name] = max([abs(a - b) / abs(b) for a, b in zip(run["losses"], s_losses)]
-                            + _param_readings(run["params"], s_params))
-    print(f"[sharded planted] olmo SMOKE 2x2 vs 1x1 on the card, 3 SGD steps, max of loss "
-          f"and per-leaf param readings (gate {SHARD_SMOKE_RTOL}): {planted}")
-    if not planted["clean"] <= SHARD_SMOKE_RTOL or \
-            not all(v > SHARD_SMOKE_RTOL for k, v in planted.items() if k != "clean"):
+        ref_losses, ref_params = ((n_losses, n_params) if name in (NORM_CLEAN, NORM_PLANTED)
+                                  else (s_losses, s_params))
+        planted[name] = max([abs(a - b) / abs(b) for a, b in zip(run["losses"], ref_losses)]
+                            + _param_readings(run["params"], ref_params))
+    print(f"[sharded planted] olmo SMOKE (granite-8b SMOKE for its rms norms) 2x2 vs 1x1 on "
+          f"the card, 3 SGD steps, max of loss and per-leaf param readings (gate "
+          f"{SHARD_SMOKE_RTOL}): {planted}")
+    clean = ("clean", NORM_CLEAN)
+    if not all(planted[k] <= SHARD_SMOKE_RTOL for k in clean) or \
+            not all(v > SHARD_SMOKE_RTOL for k, v in planted.items() if k not in clean):
         raise AssertionError(f"the 2x2-against-1x1 check: {planted}")
 
     def run_record(out):
@@ -6265,7 +6442,7 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                                "update_rel": f_update_rel, "update_flip_share": f_flips,
                                "lr_sum": lr_sum,
                                "peak_mem_gb_ranks": outf.get("peak_mem_gb_ranks")},
-        "fsdp_adafactor": ada, "fsdp_gradient": fgrad,
+        "fsdp_adafactor": ada, "fsdp_gradient": fgrad, "sp": sp,
     })
     rec["launches"] = {"olmo-1b 2x2 train": sum(out22["k2_launches"]),
                        "granite-8b 2x2 FSDP train": sum(outf["k2_launches"]),
@@ -6276,6 +6453,69 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     rec["dict_mesh_world"] = res["dict_mesh"]
     rec["serve_mesh_world"] = res["serve_mesh"]
     return rec
+
+
+def sp_report(card: str, got: dict, cfg, cli_runs: dict) -> dict:
+    """The SP gates on sp_check's runs (olmo-1b 2x2) and the SP line: the
+    layouts, remat's kept bytes a layer, the memory the forward holds for
+    its backward (the replicated run's and the planted run's above SP's by
+    at least SP_HELD_SHARE of the kept bytes' difference over the stack),
+    the wire a step
+    per axis and rank 0's step ms, SP against replicated; the layouts of the CLI runs
+    (cli_runs: tag -> mesh) and of SERVE_MESH's prefills beside them."""
+    from repro_torch.runtime import sharding
+
+    runs, readings = got["runs"], got["update_readings"]
+    sp, rep, bad = runs["sp"], runs["replicated"], runs[SP_PLANTED]
+    tp = 2
+    loss_rel = abs(sp["loss"] - rep["loss"]) / abs(rep["loss"])
+    kept_less = sum(rep["saved_bytes_per_layer"]) - sum(sp["saved_bytes_per_layer"])
+    gates = {
+        "layouts seq / replicated": (sp["layout"], rep["layout"]) == ("seq", "replicated"),
+        f"loss within {SHARD_SMOKE_RTOL}": loss_rel <= SHARD_SMOKE_RTOL,
+        f"every leaf's update within {SHARD_SMOKE_RTOL}": max(readings.values())
+        <= SHARD_SMOKE_RTOL,
+        "kept bytes a layer 1/tp of the replicated run's": sp_saved_ok(
+            sp["saved_bytes_per_layer"], rep["saved_bytes_per_layer"], tp),
+        "K2 launches per rank the replicated run's": sp["k2_launches"] == rep["k2_launches"]
+        == [2 * SHARD_LAYERS] * 4,
+        f"forward holds {SP_HELD_SHARE} of the kept bytes' difference less than the "
+        "replicated run's": rep["forward_held_bytes"] - sp["forward_held_bytes"]
+        >= SP_HELD_SHARE * kept_less > 0,
+        "planted gathered residual rejected": not sp_saved_ok(
+            bad["saved_bytes_per_layer"], rep["saved_bytes_per_layer"], tp)
+        and bad["forward_held_bytes"] - sp["forward_held_bytes"] >= SP_HELD_SHARE * kept_less,
+    }
+    rules = sharding.rules_for(cfg)
+    line = {
+        "card": card, "arch": SHARD_ARCH, "n_layers": SHARD_LAYERS, "mesh": "2x2",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "transport": SHARD_TRANSPORT,
+        "runs": runs, "loss_rel": loss_rel, "max_update_reading": max(readings.values()),
+        "saved_stack_bytes": {k: sum(r["saved_bytes_per_layer"]) for k, r in runs.items()},
+        "forward_held_bytes": {k: r["forward_held_bytes"] for k, r in runs.items()},
+        "cli_layouts": {tag: "seq" if sharding.residual_seq_axis(
+            dict(zip(("data", "model"), map(int, mesh.split("x")))), rules, TRAIN_SEQ)
+            else "replicated" for tag, mesh in cli_runs.items()},
+        "serve_mesh_prefill_layouts": {tag: "seq" if sharding.residual_seq_axis(
+            dict(zip(("data", "model"), shape)), rules, LM_PROMPT) else "replicated"
+            for tag, (_, shape, _, _) in SERVE_MESH_CASES.items()},
+        "gates": gates, "wall_s": got["wall_s"],
+    }
+    for name, r in (("sp", sp), ("replicated", rep)):
+        print(f"[sp olmo-1b 2x2 {name}] {card}: layout {r['layout']}, loss {r['loss']:.6f}, "
+              f"remat keeps {r['saved_bytes_per_layer']} B a layer on rank 0, its forward "
+              f"holds {r['forward_held_bytes']} B, wire a step "
+              f"{r['step_traffic']}, step {r['step_ms']:.1f} ms (rank 0's clock), K2 per rank "
+              f"{r['k2_launches']}")
+    print(f"[sp olmo-1b 2x2 planted] {SP_PLANTED}: remat keeps "
+          f"{bad['saved_bytes_per_layer']} B a layer on rank 0, its forward holds "
+          f"{bad['forward_held_bytes']} B")
+    print(f"[sp olmo-1b 2x2] gates {gates}; loss rel {loss_rel:.3e}, updates per leaf max "
+          f"{max(readings.values()):.3e}")
+    print("SP " + json.dumps(line))
+    if not all(gates.values()):
+        raise AssertionError(f"the sequence-parallel residual: {gates}")
+    return line
 
 
 def serve_mesh_argv(tag: str, mesh: str, transport: str, n_layers=None) -> list:

@@ -27,8 +27,15 @@ narrowed view where the local heads share whole kv heads); wk, wv and the
 qk-norm scales then serve only part of the work on each rank, so they
 enter through f too, which sums their gradients over `model`.
 
+Where the residual is sharded on its sequence over `model` (Megatron's
+sequence parallelism, models/sharding_hook), the normed slice is
+all-gathered in place of f and the out-projection's partial sums are
+psum-scattered back to the rank's positions in place of g; K2 then runs
+on the rank's heads over the gathered sequence, as on the replicated
+layout.
+
 The prefill runs the same tensor-parallel path and keeps the K/V it
-attended over.  Decode attends one new token to the cache with
+attended over (the whole sequence's).  Decode attends one new token to the cache with
 `flash_decode` (plain PyTorch, as the JAX side's is plain jnp), and writes
 the new K/V into the cache in place; on a mesh over the cache's layout
 (`decode_attention`): heads-sharded, replicated, or sharded on its
@@ -168,24 +175,27 @@ def _attend(params: dict, x: torch.Tensor, positions: torch.Tensor, *, causal: b
             qk_norm: bool, rope: bool, rope_base: float, impl: str, n_heads: int, n_kv: int):
     """(out (B, S, D), k, v): self-attention over the full sequence, and the
     K/V it attended over (post-rope: the rank's kv heads, or every kv head
-    when kv is whole on a mesh)."""
+    when kv is whole on a mesh).  Where the residual is sharded on its
+    sequence (models/sharding_hook), x and out are the rank's slice of the
+    S positions, and q, k, v those of the whole sequence, gathered before
+    the projections; positions are the whole sequence's."""
     h_loc = params["wq"].shape[-2]
-    if not n_heads or h_loc == n_heads:
-        q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm, rope=rope,
-                               rope_base=rope_base)
-        return (_out_proj(_full_attention(q, k, v, positions, causal=causal, impl=impl),
-                          params["wo"]), k, v)
+    if not n_heads or h_loc == n_heads:  # every head on every rank
+        q, k, v = _project_qkv(params, hook.seq_whole(x), positions, qk_norm=qk_norm,
+                               rope=rope, rope_base=rope_base)
+        return (hook.seq_part(_out_proj(_full_attention(q, k, v, positions, causal=causal,
+                                                        impl=impl), params["wo"])), k, v)
     kv_whole = params["wk"].shape[-2] == n_kv
     p = dict(params)
     shared = (["wk", "wv"] if kv_whole else []) + (["q_norm", "k_norm"] if qk_norm else [])
     for name in shared:  # replicated, but each rank uses part: sum their gradients
         p[name] = (hook.enter_model(p[name]) if isinstance(p[name], torch.Tensor)
                    else {"scale": hook.enter_model(p[name]["scale"])})
-    q, k, v = _project_qkv(p, hook.enter_model(x), positions, qk_norm=qk_norm, rope=rope,
+    q, k, v = _project_qkv(p, hook.column_in(x), positions, qk_norm=qk_norm, rope=rope,
                            rope_base=rope_base)
     k_att, v_att = _local_kv(k, v, n_heads, h_loc) if kv_whole else (k, v)
     out = _full_attention(q, k_att, v_att, positions, causal=causal, impl=impl)
-    return hook.leave_model(_out_proj(out, params["wo"])), k, v
+    return hook.row_out(_out_proj(out, params["wo"])), k, v
 
 
 def attention(

@@ -190,16 +190,18 @@ def embed(params: dict, tokens: torch.Tensor, scale_by_dim: bool = False,
           vocab: int = 0) -> torch.Tensor:
     """table[tokens] (scaled by sqrt(d) for gemma).  With a table of fewer
     rows than `vocab` (vocab-parallel over `model`), the rank's rows only,
-    completed by the psum."""
+    completed by the psum, or where the residual is sharded on its
+    sequence (models/sharding_hook) by the psum-scatter onto the rank's
+    positions; a whole table's rows are cut to those positions."""
     table = params["table"]
     v_loc = table.shape[0]
     if vocab and v_loc != vocab:
         local = tokens - hook.model_index() * v_loc
         inside = (local >= 0) & (local < v_loc)
         out = table[torch.clamp(local, 0, v_loc - 1)].masked_fill(~inside[..., None], 0)
-        out = hook.leave_model(out)  # one nonzero term a row: exact in any dtype
+        out = hook.row_out(out)  # one nonzero term a row: exact in any dtype
     else:
-        out = table[tokens]
+        out = hook.seq_part(table[tokens])
     if scale_by_dim:  # gemma convention: the scale is rounded to the table's dtype
         out = out * torch.tensor(table.shape[1] ** 0.5, dtype=out.dtype, device=out.device)
     return out
@@ -207,11 +209,11 @@ def embed(params: dict, tokens: torch.Tensor, scale_by_dim: bool = False,
 
 def unembed(params: dict, x: torch.Tensor, vocab: int = 0) -> torch.Tensor:
     """Tied unembedding: logits = x @ table^T in fp32 (with a vocab-parallel
-    table, the logits of the rank's range).
+    table, the logits of the rank's range), over the whole sequence where
+    x is the rank's slice of it (models/sharding_hook).
 
     The JAX side asks for an fp32 result of the (compute-dtype) product; a
     bf16 GEMM would round its output to bf16, so both operands are widened
     to fp32 first (exact for bf16 values) and the product runs in IEEE fp32."""
-    if vocab and params["table"].shape[0] != vocab:
-        x = hook.enter_model(x)
+    x = hook.column_in(x) if vocab and params["table"].shape[0] != vocab else hook.seq_whole(x)
     return torch.matmul(x.float(), params["table"].float().t())

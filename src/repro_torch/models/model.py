@@ -76,7 +76,19 @@ tensor-parallel over `model`, the MoE FFN expert-parallel
 cross-entropy reduces the vocab-sharded fp32 logits over `model` without
 gathering them (`_ce_vocab_parallel`: the row max by a pmax, the sum of
 exponentials and the target's logit by psums); `forward` then returns the
-logits of the rank's vocabulary range.  The loss is this data rank's mean;
+logits of the rank's vocabulary range.  The residual stream's layout is
+JAX's: where the installed rules (runtime/steps' `rules=`; else
+rules_for(cfg), the one default) map "seq" to `model` and tp divides the
+full S, `forward` and `prefill` shard it on its sequence
+(models/sharding_hook, `hook.residual`): the embedding psum-scatters
+onto the rank's S/tp positions, every block takes and returns that
+slice (so the checkpoint of `_remat` keeps 1/tp of the replicated
+residual a layer: its argument; `remat_saved` counts those bytes),
+positions stay the whole sequence's, and `_logits` runs the final norm
+on the slice before it gathers the sequence; the norms' scales, which each rank applies to its
+positions only, have their gradients summed over `model`.  A decode step,
+an S the axis does not divide, tp 1 and rules mapping "seq" to None keep
+it replicated.  The loss is this data rank's mean;
 runtime/steps averages the losses and gradients over `data`.  `prefill`,
 `init_cache` and `decode_step` run on a mesh too (launch/serve --mesh):
 the decode cache laid out by runtime/sharding.cache_spec (its sequence
@@ -94,6 +106,7 @@ the ROADMAP item that lifts each.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
@@ -379,12 +392,15 @@ def _embed_inputs(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor])
 def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     """fp32 logits: the tied unembedding, or h @ head.w (audio, untied).
     Both operands widen to fp32 (exact from bf16), as `unembed` does, for
-    JAX's fp32 accumulation of the compute-dtype product."""
-    h = apply_norm(cfg.norm, params["final_norm"], h)
+    JAX's fp32 accumulation of the compute-dtype product.  Where h is the
+    rank's slice of the sequence (models/sharding_hook), the final norm
+    runs on it and the product on the gathered sequence: the logits are
+    always the whole sequence's."""
+    h = apply_norm(cfg.norm, hook.seq_shared(params["final_norm"]), h)
     if cfg.family == "audio" or not cfg.tie_embeddings:
         w = fsdp.gather_tree(params["head"], _gather_specs(cfg, "head"))["w"]
-        if w.shape[-1] != cfg.vocab:  # vocab-parallel head: the rank's logits
-            h = hook.enter_model(h)
+        # a vocab-parallel head gives the rank's logits
+        h = hook.column_in(h) if w.shape[-1] != cfg.vocab else hook.seq_whole(h)
         return torch.matmul(h.float(), w.float())
     return unembed(fsdp.gather_tree(params["embed"], _gather_specs(cfg, "embed")), h,
                    vocab=cfg.vocab)
@@ -438,11 +454,34 @@ def _mamba_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return h + ssm_mod.mamba2_block(lp["mixer"], h_in, chunk=cfg.ssm_chunk, **_mamba_kw(cfg))
 
 
+_SAVED = [None]  # remat_saved's list while one is open
+
+
+@contextlib.contextmanager
+def remat_saved():
+    """Yields a list that gets, for each layer `_remat` checkpoints in the
+    body, the bytes of its checkpoint's floating-point tensor arguments
+    (the residual h; the layer's weights come in a dict and live on with
+    the model), which non-reentrant checkpoint holds for the recompute
+    in place of the layer's activations.  It counts the arguments, not
+    the allocator: the memory held is read on the card (chip_smoke's SP
+    check)."""
+    got, saved = [], _SAVED[0]
+    _SAVED[0] = got
+    try:
+        yield got
+    finally:
+        _SAVED[0] = saved
+
+
 def _remat(cfg: ArchConfig, fn: Callable, *args):
     """fn(*args), under non-reentrant checkpoint when cfg.remat is set and
-    grad flows into any of the args (the recompute under the mesh
-    installed now)."""
+    grad flows into any of the args (the recompute under the mesh, rules
+    and residual layout installed now)."""
     if cfg.remat and _needs_grad(*args):
+        if _SAVED[0] is not None:
+            _SAVED[0].append(sum(a.numel() * a.element_size() for a in args
+                                 if isinstance(a, torch.Tensor) and a.is_floating_point()))
         return checkpoint(hook.bind(fn), *args, use_reentrant=False)
     return fn(*args)
 
@@ -455,16 +494,34 @@ def _remat(cfg: ArchConfig, fn: Callable, *args):
 def forward(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor],
             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) fp32, moe_aux scalar: 0 without experts).
-    On a mesh (given, or installed): the rank's batch and shards, and the
-    logits of the rank's vocabulary range."""
+    On a mesh (given, with rules_for(cfg); or installed with its rules):
+    the rank's batch and shards, and the logits of the rank's
+    vocabulary range."""
     require_ported(cfg)
     with hook.installed(mesh):
         return _forward(cfg, params, batch)
 
 
+def _seq_len(cfg: ArchConfig, batch) -> int:
+    """The stack's whole sequence length (a vlm's image positions first)."""
+    if cfg.family == "audio":
+        return batch["features"].shape[1]
+    s = batch["tokens"].shape[1]
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        s += batch["img_embeds"].shape[1]
+    return s
+
+
 def _forward(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     check_mesh_supported(cfg, hook.current_mesh())
     params = cast_params(cfg, params)
+    seq_len = _seq_len(cfg, batch)
+    with hook.residual(seq_len, rules_for(cfg)):  # the residual's layout (models/sharding_hook)
+        return _forward_stack(cfg, params, batch, seq_len)
+
+
+def _forward_stack(cfg: ArchConfig, params: dict, batch,
+                   seq_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
     h = _embed_inputs(cfg, params, batch)
     if cfg.family == "xlstm":
         for kind, _, _, lp in _xlstm_layers(cfg, params):
@@ -473,7 +530,7 @@ def _forward(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, torch.
             else:  # JAX does not remat the sLSTM block: K3 runs once a step
                 h = _xlstm_layer(lp, h, cfg, kind)
         return _logits(cfg, params, h), torch.zeros((), device=h.device)
-    positions = torch.arange(h.shape[1], device=h.device)
+    positions = torch.arange(seq_len, device=h.device)  # the whole sequence's
     aux_total = torch.zeros((), device=h.device)
     if cfg.family == "hybrid":
         for kind, _, lp in _hybrid_layers(cfg, params):
@@ -534,7 +591,7 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor],
     tokens[:, 1:], every position counting; dense, moe, xlstm and hybrid) over the
     text: for vlm the logits after the n_img_tokens image positions; audio:
     the targets at the frames of batch["mask"].  On a mesh (given, or
-    installed): this data rank's loss over its rows."""
+    installed, as `forward`'s): this data rank's loss over its rows."""
     require_ported(cfg)
     with hook.installed(mesh):
         return _loss(cfg, params, batch)
@@ -689,19 +746,23 @@ def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor],
     positions), each block's final state in its slot (a prompt shorter than
     the convolution leaves the older conv_buf rows zero, as the
     convolution's padding).  On a mesh (given, or installed; dense and
-    moe): the rank's rows and shards, tensor-parallel as `forward`; the
-    logits of the rank's vocabulary range, and the K/V of its kv heads
-    (every kv head where kv_heads stay whole)."""
+    moe; as `forward`'s): the rank's rows and shards,
+    tensor-parallel (and sequence-parallel) as `forward`; the logits of
+    the rank's vocabulary range over the whole sequence, and the K/V of
+    its kv heads (every kv head where kv_heads stay whole) over the whole
+    sequence."""
     if cfg.family == "audio":
         return forward(cfg, params, batch, mesh)[0], None
     require_ported(cfg)
     with hook.installed(mesh):
         check_mesh_supported(cfg, hook.current_mesh())
-        return _prefill(cfg, params, batch)
+        params = cast_params(cfg, params)
+        seq_len = _seq_len(cfg, batch)
+        with hook.residual(seq_len, rules_for(cfg)):
+            return _prefill(cfg, params, batch, seq_len)
 
 
-def _prefill(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, dict]:
-    params = cast_params(cfg, params)
+def _prefill(cfg: ArchConfig, params: dict, batch, seq_len: int) -> Tuple[torch.Tensor, dict]:
     h = _embed_inputs(cfg, params, batch)
     if cfg.family == "xlstm":
         cache = init_cache(cfg, h.shape[0], h.shape[1], device=h.device)
@@ -714,7 +775,7 @@ def _prefill(cfg: ArchConfig, params: dict, batch) -> Tuple[torch.Tensor, dict]:
                     slot = slot[:, -t.shape[1]:]
                 slot.copy_(t)
         return _logits(cfg, params, h), cache
-    positions = torch.arange(h.shape[1], device=h.device)
+    positions = torch.arange(seq_len, device=h.device)  # the whole sequence's
     if cfg.family == "hybrid":
         cache = init_cache(cfg, h.shape[0], h.shape[1], device=h.device)
         for kind, at, lp in _hybrid_layers(cfg, params):
@@ -767,7 +828,8 @@ def decode_step(
             raise ValueError("decode_step on a mesh with a model axis needs max_len, the "
                              "cache's global length (its layout)")
         seq = mesh is not None and seq_sharded(cfg, mesh, max_len)
-        return _decode_step(cfg, params, cache, tokens, pos, seq)
+        with hook.residual(1, rules_for(cfg)):  # a decode step's residual stays replicated
+            return _decode_step(cfg, params, cache, tokens, pos, seq)
 
 
 def _decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, pos: int,

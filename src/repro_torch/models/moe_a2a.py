@@ -3,12 +3,13 @@
 Port of src/repro/models/moe_a2a.py.  The JAX function runs its body
 under shard_map with explicit collectives; here the body runs on every
 rank of the mesh with the collectives of runtime/mesh.py.  Per rank (i on
-`data`, j on `model`), with the residual (B_loc, S, D) replicated over
-`model` and E_loc = E / tp experts a rank:
+`data`, j on `model`), with E_loc = E / tp experts a rank:
 
-  0. take this rank's slice of the sequence, S / tp positions: the shard
-     JAX's P(batch, model, None) gives it (the backward gathers the
-     slices' gradients back to the replicated residual);
+  0. this rank's slice of the sequence, S / tp positions, the shard JAX's
+     P(batch, model, None) gives it: as it comes where the residual is
+     sharded on its sequence (`seq_sharded`, models/sharding_hook), else
+     cut from the residual (B_loc, S, D) replicated over `model` (the
+     backward gathers the slices' gradients back);
   1. route locally (the router replicated over `model`: its gradient is
      summed over `model` on the way back, Megatron's f; gathered over
      `data` where its spec shards it there, FSDP, as JAX's body gathers
@@ -27,7 +28,7 @@ rank of the mesh with the collectives of runtime/mesh.py.  Per rank (i on
      whole and there is nothing to gather);
   6. the SwiGLU expert FFN (three batched GEMMs), un-dispatch, all_to_all
      back, and the gated combine of each token's k rows;
-  7. all_gather the slices over `model` back to the replicated layout.
+  7. on the replicated layout, all_gather the slices over `model` back.
 
 The load-balance aux is the global one: the router's mean probability and
 routed share per expert, averaged over `model` and `data` as JAX's body
@@ -39,10 +40,11 @@ Dispatch and combine are gathers both ways (moe.ToSlots / FromSlots), as
 in models/moe.py: no scatter-add, so a replayed step gives the same bits.
 `wire_dtype="int8"` moves int8 payloads with per-row fp16 scales
 (`q8_all_to_all`, `q8_all_gather`); their backward is straight-through,
-the cotangent moving unquantized.  A shared expert (kimi's) runs on the
-replicated residual beside the routed experts, column- then row-parallel
-when its ffn is sharded over `model`, gathered over `data` first where it
-is FSDP-sharded (native: JAX gathers it so).
+the cotangent moving unquantized.  A shared expert (kimi's) runs beside
+the routed experts, column- then row-parallel when its ffn is sharded
+over `model` (f and g on the replicated residual; the sequence's
+all-gather and psum-scatter on a sharded one), gathered over `data`
+first where it is FSDP-sharded (native: JAX gathers it so).
 """
 
 from __future__ import annotations
@@ -263,32 +265,43 @@ def moe_a2a_body(mesh: Mesh, params: dict, x: torch.Tensor, *, top_k: int, n_exp
 
 def apply_moe_a2a(mesh: Mesh, params: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
                   capacity_factor: float = 1.25, wire_dtype: str = "native",
-                  shared_ffn: Optional[int] = None,
-                  specs: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  shared_ffn: Optional[int] = None, specs: Optional[dict] = None,
+                  seq_sharded: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B_loc, S, D), this data rank's batch replicated over `model` ->
-    (output, replicated over `model` as x; aux fp32 0-d).  params hold the
+    (output, replicated over `model` as x; aux fp32 0-d); with seq_sharded,
+    x is the rank's slice (B_loc, S / tp, D) of a residual sharded on its
+    sequence (models/sharding_hook) and the output that slice's, as JAX's
+    shard_map specs P(batch, model, None) take and give them.  params hold the
     rank's shards: router (D, E) whole, wi/wg (E / tp, D, F), wo (E / tp,
     F, D); with shared experts "shared" {"wi", "wg" (D, Fs / tp), "wo"
     (Fs / tp, D)}, column- and row-parallel when shared_ffn (the global Fs)
     is larger than the local width, else whole.  `specs`: the specs of
     params where any of them is FSDP-sharded over `data` (each such leaf
     then holds D / dp of its `embed` dim and is gathered before use).
-    Needs S % tp == 0 and E % tp == 0."""
+    Needs S % tp == 0 (the full S) and E % tp == 0."""
     tp = mesh.size(MODEL_AXIS)
     b, s, d = x.shape
-    if s % tp or n_experts % tp:
-        raise ValueError(f"apply_moe_a2a needs S ({s}) and E ({n_experts}) divisible by the "
-                         f"model axis ({tp})")
-    x_loc = mesh_mod.split(x, mesh, MODEL_AXIS, 1)
+    s_full = s * tp if seq_sharded else s
+    if s_full % tp or n_experts % tp:
+        raise ValueError(f"apply_moe_a2a needs S ({s_full}) and E ({n_experts}) divisible by "
+                         f"the model axis ({tp})")
+    x_loc = x if seq_sharded else mesh_mod.split(x, mesh, MODEL_AXIS, 1)
     out, aux = moe_a2a_body(mesh, params, x_loc, top_k=top_k, n_experts=n_experts,
                             capacity_factor=capacity_factor, specs=specs,
                             wire_dtype=wire_dtype)
-    out = mesh_mod.gather(out, mesh, MODEL_AXIS, 1)
+    if not seq_sharded:
+        out = mesh_mod.gather(out, mesh, MODEL_AXIS, 1)
     if "shared" in params:
         sp = fsdp.gather_tree(params["shared"], None if specs is None else specs["shared"], mesh)
-        if shared_ffn is not None and sp["wo"].shape[0] != shared_ffn:
-            out = out + mesh_mod.g(_shared(sp, mesh_mod.f(x, mesh, MODEL_AXIS)), mesh,
-                                   MODEL_AXIS)
+        if shared_ffn is not None and sp["wo"].shape[0] != shared_ffn:  # column, row-parallel
+            if seq_sharded:
+                part = _shared(sp, mesh_mod.all_gather(x, mesh, MODEL_AXIS, 1))
+                out = out + mesh_mod.psum_scatter(part, mesh, MODEL_AXIS, 1)
+            else:
+                out = out + mesh_mod.g(_shared(sp, mesh_mod.f(x, mesh, MODEL_AXIS)), mesh,
+                                       MODEL_AXIS)
+        elif seq_sharded:  # whole weights on the slice: their gradients summed over `model`
+            out = out + _shared({k: mesh_mod.f(v, mesh, MODEL_AXIS) for k, v in sp.items()}, x)
         else:
             out = out + _shared(sp, x)
     return out, aux

@@ -40,9 +40,21 @@ dim on a rank: given the layer's specs (`specs=`, from model.py),
 `data` at their entry (models/fsdp), and the MoE FFN its experts, router
 and shared expert (the all-to-all path inside moe_a2a, after the
 dispatch; the capacity dispatch before the routing).
-The residual stream stays replicated over `model`.  JAX's
-sequence-parallel residual ("seq" -> model, `shard(h, "residual")`) is a
-memory layout of the same arithmetic and is ROADMAP section 1's later item.
+Where the rules map "seq" to `model` and tp divides the full S
+(training and prefill; runtime/sharding.residual_seq_axis), the residual
+is sharded on its sequence, as JAX's `shard(h, "residual")` lays it out:
+a block takes and returns the rank's S/tp positions (Megatron's sequence
+parallelism, models/sharding_hook).  The norms run on the slice (their
+scales through f, `seq_shared`: each rank's part of their gradient
+summed over `model`); attention and the sharded MLP gather the sequence
+before their column-parallel products and psum-scatter it after their
+row-parallel ones; the capacity dispatch gathers it before the routing,
+which then runs on the whole groups as JAX's `moe_tokens` constraint
+(batch only) implies, its expert parts psum-scattered in place of the
+psum; the all-to-all path takes the rank's slice as it is.  So remat
+keeps 1/tp of the replicated layout's residual a layer.  Decode (S = 1),
+an S the axis does not divide, tp 1 and rules mapping "seq" to None keep
+the residual replicated.
 """
 
 from __future__ import annotations
@@ -127,18 +139,23 @@ def _moe_ffn(moe_params: dict, f_in: torch.Tensor, cfg, n_groups: int,
                          capacity_factor=cfg.capacity_factor)
     tp = mesh.size(MODEL_AXIS)
     dp = mesh.size(POD_AXIS) * mesh.size(DATA_AXIS)
-    b, s, _ = f_in.shape  # this data rank's rows: the global batch is b * dp
+    seq = hook.seq_parallel()  # f_in is then the rank's slice of an S that tp divides
     d_ff = cfg.moe_d_ff or cfg.d_ff
-    if tp > 1 and cfg.moe_impl == "a2a" and cfg.n_experts % tp == 0 and s % tp == 0:
+    if tp > 1 and cfg.moe_impl == "a2a" and cfg.n_experts % tp == 0 and (
+            seq or f_in.shape[1] % tp == 0):
         return apply_moe_a2a(mesh, moe_params, f_in, top_k=cfg.top_k, n_experts=cfg.n_experts,
                              capacity_factor=cfg.capacity_factor,
                              wire_dtype=cfg.moe_wire_dtype,
                              shared_ffn=cfg.n_shared_experts * d_ff or None,
-                             specs=specs)
+                             specs=specs, seq_sharded=seq)
     moe_params = fsdp.gather_tree(moe_params, specs)
     # The capacity dispatch, with the experts the rules gave this rank (all
-    # of them where E does not divide tp): the routing over the replicated
-    # tokens, each rank its experts' slots, their parts psum'd over `model`.
+    # of them where E does not divide tp): the routing over the whole
+    # sequence, replicated over `model` (gathered first where the residual
+    # is sharded on it), each rank its experts' slots, their parts psum'd
+    # (or psum-scattered to the rank's positions) over `model`.
+    f_in = hook.seq_whole(f_in)
+    b, s, _ = f_in.shape  # this data rank's rows: the global batch is b * dp
     routed = {k: v for k, v in moe_params.items() if k != "shared"}
     e_loc = routed["wi"].shape[-3]
     kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
@@ -152,27 +169,26 @@ def _moe_ffn(moe_params: dict, f_in: torch.Tensor, cfg, n_groups: int,
         whole = mesh_mod.all_gather(f_in, mesh, DATA_AXIS, 0)
         out, aux = apply_moe(routed, whole, n_groups=groups, **kw)
         out = out.narrow(0, mesh.index(DATA_AXIS) * b, b)
-    if e_loc != cfg.n_experts:
-        out = hook.leave_model(out)
+    out = hook.row_out(out) if e_loc != cfg.n_experts else hook.seq_part(out)
     if "shared" in moe_params:
         sp = moe_params["shared"]
         if sp["wo"].shape[-2] != cfg.n_shared_experts * d_ff:  # column- and row-parallel
-            out = out + hook.leave_model(_shared(sp, hook.enter_model(f_in)))
+            out = out + hook.row_out(_shared(sp, hook.enter_model(f_in)))
         else:
-            out = out + _shared(sp, f_in)
+            out = out + hook.seq_part(_shared(sp, f_in))
     return out, aux
 
 
 def _mlp(mlp_params: dict, f_in: torch.Tensor, cfg, d_ff: int) -> torch.Tensor:
     """The dense MLP; column- then row-parallel when its ffn is sharded."""
     if mlp_params["wo"].shape[-2] != d_ff:
-        return hook.leave_model(apply_mlp(mlp_params, hook.enter_model(f_in), cfg.act))
-    return apply_mlp(mlp_params, f_in, cfg.act)
+        return hook.row_out(apply_mlp(mlp_params, hook.column_in(f_in), cfg.act))
+    return hook.seq_part(apply_mlp(mlp_params, hook.seq_whole(f_in), cfg.act))
 
 
 def _ffn(params: dict, h: torch.Tensor, cfg, n_groups: int,
          specs: Optional[dict]) -> Tuple[torch.Tensor, torch.Tensor]:
-    f_in = apply_norm(cfg.norm, params["norm2"], h)
+    f_in = apply_norm(cfg.norm, hook.seq_shared(params["norm2"]), h)
     if "moe" in params:
         moe_specs = None if specs is None else specs["moe"]
         f_out, aux = _moe_ffn(params["moe"], f_in, cfg, n_groups, specs=moe_specs)
@@ -185,12 +201,14 @@ def _ffn(params: dict, h: torch.Tensor, cfg, n_groups: int,
 
 def apply_block(params: dict, h: torch.Tensor, positions: torch.Tensor, cfg, *,
                 causal=None, specs: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One block over the full sequence, h (B, S, D): (h, moe_aux).  With
+    """One block over the full sequence, h (B, S, D) (the rank's S/tp
+    positions where the residual is sharded on its sequence; positions are
+    always the whole sequence's): (h, moe_aux).  With
     `specs` (an FSDP config on a mesh), the block's weights are gathered
     over `data` first (models/fsdp; an MoE layer's inside its FFN)."""
     causal = cfg.causal if causal is None else causal
     params = fsdp.gather_tree(params, specs, skip=("moe",))
-    a_in = apply_norm(cfg.norm, params["norm1"], h)
+    a_in = apply_norm(cfg.norm, hook.seq_shared(params["norm1"]), h)
     h = h + attn_mod.attention(
         params["attn"], a_in, positions,
         causal=causal, qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
@@ -203,7 +221,7 @@ def prefill_block(params: dict, h: torch.Tensor, positions: torch.Tensor, cfg,
                   specs: Optional[dict] = None) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     """apply_block that also emits this layer's KV cache: (h, kv, moe_aux)."""
     params = fsdp.gather_tree(params, specs, skip=("moe",))
-    a_in = apply_norm(cfg.norm, params["norm1"], h)
+    a_in = apply_norm(cfg.norm, hook.seq_shared(params["norm1"]), h)
     a_out, kv = attn_mod.prefill_attention(
         params["attn"], a_in, positions,
         causal=cfg.causal, qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,
@@ -222,7 +240,7 @@ def decode_block(params: dict, h: torch.Tensor, cache: dict, pos: int, cfg,
     a mesh the whole step's, gathered over `data`).  Returns (h, cache,
     moe_aux)."""
     params = fsdp.gather_tree(params, specs, skip=("moe",))
-    a_in = apply_norm(cfg.norm, params["norm1"], h)
+    a_in = apply_norm(cfg.norm, hook.seq_shared(params["norm1"]), h)
     a_out, cache = attn_mod.decode_attention(
         params["attn"], a_in, cache, pos,
         qk_norm=cfg.qk_norm, rope=True, rope_base=cfg.rope_base,

@@ -12,10 +12,14 @@ Default rules (as the JAX package's):
   TP over `model`: heads / kv_heads / ffn / vocab / experts / ssm dims;
   FSDP over `data`: the `embed` axis when cfg.fsdp_embed;
   DP over `pod` + `data`: the batch axis of activations and caches;
-  SP over `model`: the seq axis of the residual (training) and of KV
-  caches (decode).  The port keeps the residual replicated over `model`
-  (the sequence-parallel layout is ROADMAP section 1's later item), so
-  `seq` and `kv_seq` name no parameter here.
+  SP over `model`: the seq axis of the residual (training and prefill)
+  and of KV caches (decode); `seq` and `kv_seq` name no parameter.
+
+`residual_seq_axis` decides the residual stream's layout as JAX's
+`install_activation_sharding` does (src/repro/runtime/steps.py:37-89):
+its sequence over the rules' "seq" axis where that axis is in the mesh
+and divides the FULL sequence length (`_fit`), else replicated
+(models/sharding_hook acts on the decision).
 
 A decode cache (B, max_len, Hkv, Dh) carries JAX's CACHE_AXES (batch,
 kv_seq, kv_heads, None): `cache_spec` resolves them with the same guards,
@@ -74,6 +78,29 @@ def _prod(sizes: Dict[str, int], axes: Sequence[str]) -> int:
     for a in axes:
         out *= sizes[a]
     return out
+
+
+def residual_seq_axis(mesh, rules: Dict[str, AxisAssign], seq_len: int) -> Optional[str]:
+    """The mesh axis that the residual (B, S, D) of a forward over seq_len
+    positions shards its sequence over, or None (replicated): JAX's `_fit`
+    for the activation axis "seq" (src/repro/runtime/steps.py:55-64), on
+    the full S: the rules' "seq" axes (`model` where the rules do not name
+    it) present in the mesh, dropped from the front until their product
+    divides S; None where none is left or the product is 1.  `mesh` is a
+    Mesh or a {axis: size} dict.  The port shards the residual over
+    `model` only: any other axis left raises NotImplementedError."""
+    sizes = axis_sizes(mesh)
+    assign = rules.get("seq", MODEL_AXIS)
+    axes = () if assign is None else (assign,) if isinstance(assign, str) else tuple(assign)
+    axes = tuple(a for a in axes if a in sizes)
+    while axes and seq_len % _prod(sizes, axes):
+        axes = axes[1:]
+    if _prod(sizes, axes) == 1:
+        return None
+    if axes != (MODEL_AXIS,):
+        raise NotImplementedError(f"the residual's sequence over {axes}: the port shards it "
+                                  f"over {MODEL_AXIS!r} only")
+    return MODEL_AXIS
 
 
 def spec_for_axes(mesh, axes: Sequence[Optional[str]], shape: Optional[Sequence[int]],

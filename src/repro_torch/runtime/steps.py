@@ -15,7 +15,7 @@ Port of src/repro/runtime/steps.py:
                                    (params by model.param_axes, the
                                    optimizer's by its state_axes, the step
                                    replicated), under the config's rules
-  make_train_step(cfg, opt, mesh=None)
+  make_train_step(cfg, opt, mesh=None, rules=None)
                                    (state, batch) -> (state, metrics): the
                                    batch onto the params' device
                                    (`batch_to_device`), the loss and its
@@ -28,8 +28,10 @@ Port of src/repro/runtime/steps.py:
 
 The step counter is a 0-d int32 tensor, as JAX's.
 
-On a mesh (runtime/mesh.Mesh) the step installs the mesh for the model
-code (models/sharding_hook), takes this data rank's rows of the batch
+On a mesh (runtime/mesh.Mesh) the step installs the mesh and the
+sharding rules for the model code (models/sharding_hook: the residual
+sharded on its sequence over `model` where the rules say so and tp
+divides S, JAX's layout), takes this data rank's rows of the batch
 (B % dp == 0), and computes its loss and the gradient of its shards; the
 gradients are then averaged over `data` (each data rank's loss is a mean
 over the same number of tokens, as JAX's global mean), the clipping norm
@@ -169,14 +171,18 @@ def _average_over_data(mesh: Mesh, grads, flat_specs) -> list:
     return out
 
 
-def make_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Optional[Mesh] = None) -> Callable:
+def make_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Optional[Mesh] = None,
+                    rules=None) -> Callable:
     """One step: loss and gradient (model.loss_fn), `opt.update` in place,
     step + 1.  Returns (state, {"loss", "ce", "moe_aux", "n_tokens"}), the
     metrics 0-d tensors without grad.  On a mesh, the rank's step of a
-    sharded run (see the module's docstring)."""
+    sharded run (see the module's docstring) under `rules` (default
+    rules_for(cfg)), installed with the mesh as JAX's jit_train_step(rules=)
+    installs them: rules_for(cfg, {"seq": None}) keeps the residual
+    replicated over `model`."""
     M.require_ported(cfg)
     if mesh is not None:
-        return _make_sharded_train_step(cfg, opt, mesh)
+        return _make_sharded_train_step(cfg, opt, mesh, rules)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
@@ -207,7 +213,8 @@ def shards_for(mesh: Mesh, flat_specs) -> Shards:
                   psum=mesh.psum, size=mesh.size)
 
 
-def _make_sharded_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Mesh) -> Callable:
+def _make_sharded_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Mesh,
+                             rules) -> Callable:
     M.check_mesh_supported(cfg, mesh)
     flat_specs = leaves(state_shardings(cfg, opt, mesh)["params"], is_leaf=_is_spec)
     shards = shards_for(mesh, flat_specs)
@@ -217,7 +224,7 @@ def _make_sharded_train_step(cfg: ArchConfig, opt: Optimizer, mesh: Mesh) -> Cal
         params = state["params"]
         flat = leaves(params)
         batch = batch_to_device(data_shard(batch, mesh), flat[0].device)
-        with torch.enable_grad(), hook.installed(mesh):
+        with torch.enable_grad(), hook.installed(mesh, rules):
             for p in flat:
                 p.requires_grad_(True)
             loss, metrics = M.loss_fn(cfg, params, batch)

@@ -1,7 +1,7 @@
 """Rank functions of the port's multi-rank tests (tests/test_torch_mesh.py,
 tests/test_torch_sharded_train.py, tests/test_torch_moe_a2a.py,
 tests/test_torch_mesh_coder.py, tests/test_torch_mesh_serve_dict.py,
-tests/test_torch_fsdp.py).
+tests/test_torch_fsdp.py, tests/test_torch_sequence_parallel.py).
 
 Each runs on every rank of a world that runtime/mesh.launch spawns (gloo,
 CPU tensors), builds the meshes it needs over the world's first ranks,
@@ -152,8 +152,9 @@ def _full(tree, specs, mesh):
     return [_np(t) for t in leaves(sharding.unshard_tree(tree, specs, mesh))]
 
 
-def _loss_and_grads(cfg, tree, batch, mesh) -> dict:
+def _loss_and_grads(cfg, tree, batch, mesh, rules=None) -> dict:
     from repro_torch.models import model as M
+    from repro_torch.models import sharding_hook as hook
     from repro_torch.optim import sgd
     from repro_torch.pytree import leaves, unflatten
     from repro_torch.runtime import steps
@@ -163,7 +164,8 @@ def _loss_and_grads(cfg, tree, batch, mesh) -> dict:
     for p in flat:
         p.requires_grad_(True)
     local = steps.batch_to_device(steps.data_shard(batch, mesh), "cpu")
-    loss, metrics = M.loss_fn(cfg, params, local, mesh=mesh)
+    with hook.installed(mesh, rules):
+        loss, metrics = M.loss_fn(cfg, params, local)
     grads = torch.autograd.grad(loss, flat)
     flat_specs = leaves(specs, is_leaf=lambda s: isinstance(s, tuple))
     grads = steps._average_over_data(mesh, grads, flat_specs)
@@ -175,13 +177,13 @@ def _loss_and_grads(cfg, tree, batch, mesh) -> dict:
             "grads": full}
 
 
-def _steps(cfg, tree, batches, mesh, opt) -> dict:
+def _steps(cfg, tree, batches, mesh, opt, rules=None) -> dict:
     from repro_torch.runtime import steps
 
     params, specs = _sharded_params(cfg, tree, mesh, opt)
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32)}
-    step = steps.make_train_step(cfg, opt, mesh)
+    step = steps.make_train_step(cfg, opt, mesh, rules=rules)
     losses = []
     for b in batches:
         state, m = step(state, b)
@@ -715,4 +717,103 @@ def fsdp_world(mesh0, job: dict) -> dict:
                         wire=c["wire"], grads=c["grads"], fsdp=True)
         if mesh.rank == 0:
             out[("a2a", name)] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sequence-parallel residual (tests/test_torch_sequence_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def _layouts(cfg, tree, batch, mesh) -> dict:
+    """The loss and gradients of one batch under the config's rules and
+    under {"seq": None}, each with the bytes remat keeps a layer on this
+    rank (model.remat_saved) and the layout the rules give the residual."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime.sharding import residual_seq_axis, rules_for
+
+    out = {}
+    for name, rules in (("sp", rules_for(cfg)), ("replicated", rules_for(cfg, {"seq": None}))):
+        with M.remat_saved() as saved:
+            got = _loss_and_grads(cfg, tree, batch, mesh, rules)
+        out[name] = {**got, "saved": list(saved),
+                     "axis": residual_seq_axis(mesh, rules, batch["tokens"].shape[1])}
+    return out
+
+
+def _prefills(cfg, tree, batch, mesh) -> dict:
+    """model.prefill under the config's rules and under {"seq": None}: the
+    last position's logits and layer 0's K/V, gathered whole."""
+    from repro_torch.convert import lm_params_shard_from_numpy
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding_hook as hook
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.sharding import rules_for
+
+    params = M.cast_params(cfg, lm_params_shard_from_numpy(cfg, tree, mesh, "cpu"))
+    local = steps.data_shard(batch, mesh)
+    out = {}
+    for name, rules in (("sp", rules_for(cfg)), ("replicated", rules_for(cfg, {"seq": None}))):
+        with torch.no_grad(), hook.installed(mesh, rules):
+            logits, cache = M.prefill(cfg, params, local)
+        vocab = {"model": 2} if logits.shape[-1] != cfg.vocab else {}
+        kv = next(iter(cache.values()))
+        heads = {"model": 2} if kv["k"].shape[3] != cfg.n_kv_heads else {}
+        out[name] = {"logits": _np(_whole_over(mesh, logits[:, -1:], {"data": 0, **vocab})),
+                     **{n: _np(_whole_over(mesh, t[0], {"data": 0, **heads}))
+                        for n, t in kv.items()}}
+    return out
+
+
+def _planted_norms(cfg, tree, batch, mesh) -> dict:
+    """The loss and gradients under the config's rules with the norms'
+    scales applied to the rank's slice without the sum of their gradients
+    over `model` (a planted fault)."""
+    from repro_torch.models import sharding_hook as hook
+
+    with mock.patch.object(hook, "seq_shared", lambda params: params):
+        return _loss_and_grads(cfg, tree, batch, mesh)
+
+
+def _rules_steps(cfg, tree, batches, mesh) -> dict:
+    """Two SGD steps through steps.make_train_step(rules=): the config's
+    rules, {"seq": None}, and the config's rules with the layout decision
+    forced to replicated (the code path a replicated residual runs)."""
+    from repro_torch.models import sharding_hook as hook
+    from repro_torch.optim import sgd
+    from repro_torch.runtime.sharding import rules_for
+
+    out = {"sp": _steps(cfg, tree, batches, mesh, sgd(0.5)),
+           "seq_none": _steps(cfg, tree, batches, mesh, sgd(0.5),
+                              rules=rules_for(cfg, {"seq": None}))}
+    with mock.patch.object(hook, "residual_seq_axis", lambda *args: None):
+        out["forced"] = _steps(cfg, tree, batches, mesh, sgd(0.5))
+    return out
+
+
+def sequence_parallel(mesh0, job: dict) -> dict:
+    """Per case of job["cases"]: `_layouts` on its mesh; job["planted"]'s
+    planted norm fault, job["steps"]'s make_train_step(rules=) runs and
+    job["prefill"]'s prefills; job["serve"] through launch/serve's rank
+    body.  Rank 0's results."""
+    out = {}
+    for name, case in job["cases"].items():
+        mesh = mesh_mod.make_mesh(case["mesh"])
+        if mesh is None:
+            continue
+        got = _layouts(case["cfg"], case["params"], case["batch"], mesh)
+        if mesh.rank == 0:
+            out[name] = got
+    for key, fn in (("planted", _planted_norms), ("steps", _rules_steps),
+                    ("prefill", _prefills)):
+        case = job[key]
+        mesh = mesh_mod.make_mesh(case["mesh"])
+        if mesh is None:
+            continue
+        got = fn(case["cfg"], case["params"], case["batch"], mesh)
+        if mesh.rank == 0:
+            out[key] = got
+    got = _serve_case(mesh_mod.make_mesh(job["serve"]["mesh"]), job["serve"])
+    if got is not None:
+        out["serve"] = got
     return out
