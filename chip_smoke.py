@@ -76,7 +76,10 @@ and fails (non-zero exit, no result line) if any of them fails:
    gemma-2b's (2, 4 / 1, 2048, 256) at 2x2, granite-moe's (4, 8 / 4,
    2048, 64) at 1x2) on wgmma_tma against plain, timed beside SDPA with
    their bounds (K2's `serve_mesh_shapes`), a planted causal limit one key
-   late rejected.
+   late rejected.  K2 at zamba2's per-rank shape of its 2x2 runs
+   (FA_HYBRID_RANK, (2, 16 / 16, 2048, 64); `hybrid_shape`'s
+   "per_rank_2x2") and K3 at a rank's two rows (SL_RANK; K3's
+   "per_rank_shape") the same way, timed beside plain (K2 also SDPA).
    K2 at head dim 128 at granite-8b's FA_GRANITE8B, qwen3-32b's FA_QWEN32B
    and the 2x2 FSDP runs' per-rank FA_FSDP_RANK on wgmma_tma against
    plain, timed beside SDPA with their bounds (K2's `fsdp_shapes`), a
@@ -114,13 +117,13 @@ and fails (non-zero exit, no result line) if any of them fails:
    shape's gate.
    Then every mode of the engine once at the production dictionary (M
    8192, K 262144, N 16, one micro-batch of 16, GOSSIP_CASES): exactly
-   iters + 1 K1 launches per solve, nu and y finite, the solve timed (one
-   after a warm one) and re-solved with K1's plain version within
+   iters + 1 K1 launches per solve, nu and y finite, the solve timed (the
+   first mode's after a warm one) and re-solved with K1's plain version within
    SOLVE_RTOL (Q8_RTOL on the int8 wire); one GOSSIP line each.
 3. Main paths, each driven with every kernel's launch count set to 0 just
    before and read just after:
    - dense-LM serving: the port's serve at gemma-2b's full width (random
-     weights), a batch of 4 prompts of 2048 tokens, 32 greedy tokens; one
+     weights), a batch of 4 prompts of 2048 tokens, 16 greedy tokens; one
      flash_attention launch per layer of the prefill.  Tokens must lie in
      the vocabulary, logits and cache be finite, and the prefill re-run
      with the kernel swapped for its plain version must agree (last-position
@@ -211,6 +214,17 @@ and fails (non-zero exit, no result line) if any of them fails:
      cut from seed 0 at 2x2, its update (lr x the gradient averaged over
      `data`) against one device's leaf by leaf (GRAD_BF16_TOL), with the
      FSDP leaves' gradient left unaveraged over `data` rejected;
+   - the hybrid and xlstm families on a mesh, in the same world
+     (RECURRENT, recurrent_world / recurrent_report): zamba2-1.2b and
+     xlstm-1.3b at full width cut to one group each (REC_CASES) on 2x2,
+     launch/train's rank body, REC_STEPS SGD steps: the first loss against
+     one device's (SHARD_LOSS_RTOL), K2 per rank at FA_HYBRID_RANK and K3
+     per rank counted, remat's kept bytes exactly 1/tp, the step's wire
+     printed beside S; every block fed the 1x1 block's input
+     (recurrent_blocks): output within BF16_ROW_ULPS, the input's and
+     parameters' gradients within GRAD_BF16_TOL; each rank's K3 against
+     plain (SL_TOL); the Mamba2 gated norm's sum with the identity
+     backward planted and rejected (RECURRENT line);
    - the paper's engine one agent a rank, in the same world (DICT_MESH,
      dict_mesh_world / phase_dict_mesh): `graph` at 1x4 with each rank's
      block (1, 8192, 16384), B 16, 150 iterations, `exact_fista` at 2x2
@@ -253,7 +267,18 @@ and fails (non-zero exit, no result line) if any of them fails:
      `data`, FSDP_GEN greedy tokens, with the same gates against its 1x1
      serve (each layer's weights gathered before the per-layer checks),
      and a fifth planted fault, a layer's weights used without their
-     gather (each shard zero-padded to the whole width), rejected;
+     gather (each shard zero-padded to the whole width), rejected; and
+     zamba2 (2x2) and xlstm (1x2) at RECURRENT's cuts, REC_GEN greedy
+     tokens, against their 1x1 serves (recurrent_serve_reference): K2
+     and K3 per rank counted, every block's prefill on the 1x1 block's
+     input (the residual after it and every leaf of its cache, the rank's
+     part) and every mixer's decode step on the 1x1 inputs and state
+     within BF16_ROW_ULPS, the first block's state in the serve's own
+     prefill cache within BF16_ROW_ULPS of the 1x1's and laid into the
+     decode cache bit for bit, the picks identical over `model`, zamba2's
+     attention cache sharded on its sequence, a planted norm without its
+     sum over `model` rejected; the teacher-forced and prefill logits and
+     the first tokens printed;
    - VLM serving: the port's serve at phi-3-vision-4.2b's full width and
      depth (3.73e9 params, bf16), 4 prompts of 2048 tokens after 576
      image positions, VLM_GEN greedy tokens, a cache of 576 + 2048 +
@@ -289,7 +314,7 @@ and fails (non-zero exit, no result line) if any of them fails:
      (HYBRID_SERVE line);
    - hybrid training: launch/train at zamba2-1.2b's full width cut to
      HYBRID_TRAIN_LAYERS (2 groups, so the tied block's gradient sums two
-     applications, and the 2-block tail), the olmo path's gates: 2 K2
+     applications), the olmo path's gates: 2 K2
      launches an application a step, the first step against its
      plain-attention twin (the loss gated, each application's attention
      gradient gated on its own inputs, the gradient leaves printed: the
@@ -417,9 +442,10 @@ BF16_FLOPS_PER_S = 989e12
 # The LM main path: the port's serve at gemma-2b's full width (18 layers,
 # d 2048, 8 query heads over 1 KV head of 256, d_ff 16384, vocab 256000,
 # bf16 compute), random weights from seed 0, a batch of 4 prompts of 2048
-# tokens, then 32 greedy tokens.  Its attention, one K2 launch per layer:
-# (B, Hq, Hkv, S, T, D), bf16, causal.
-LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma_2b", 4, 2048, 32
+# tokens, then 16 greedy tokens (the mesh serves' decode loops over
+# host-staged gloo take 0.34-0.46 s a step).  Its attention, one K2 launch
+# per layer: (B, Hq, Hkv, S, T, D), bf16, causal.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma_2b", 4, 2048, 16
 FA_MAIN = (LM_BATCH, 8, 1, LM_PROMPT, LM_PROMPT, 256)
 # K2's bf16 head dims on its tensor-core kernel, wgmma_tma: one instance
 # each in the build (D 80, 96 and 112 with a zero-filled tail chunk).
@@ -520,7 +546,11 @@ GOSSIP_CASES = [
     ("chain", dict(mode="chain", levels="torus,ring_metropolis:2:q8,ring:4:q8:stale"),
      (4, 2, 2)),
 ]
-GOSSIP_TIMED = 1  # timed solves per mode, after a warm one
+# Timed solves per mode; only the first mode runs a warm solve before them:
+# a later mode's first solve, on kernels and allocator blocks the earlier
+# modes warmed, ran within 0.5 % of its second (on the H100 80GB HBM3 at
+# 700 W: e.g. ring 1023.5 / 1023.9 ms, push 1091.5 / 1087.3).
+GOSSIP_TIMED = 1
 
 # The elastic drills at the production dictionary: serve_dict with a grow at
 # sample DRILL_GROW_AT and a drain at DRILL_DRAIN_AT (mode, flags, agents a
@@ -735,12 +765,13 @@ EXPERIMENT_CUTS = {"table3_auc": {"n_steps": 1}, "fig5_denoise": {"n_patches": 1
 # application a prefill (6) at FA_HYBRID, bf16, causal, on wgmma_tma (D
 # 64), none in decode (plain flash_decode).  Trained through launch/train
 # with the depth cut to HYBRID_TRAIN_LAYERS: 2 groups (the tied block's
-# gradient sums two applications) and the 2-block tail, TRAIN_BATCH x
+# gradient sums two applications; the 2-block tail runs in serving, at
+# full depth), TRAIN_BATCH x
 # TRAIN_SEQ tokens a step, HYBRID_STEPS steps, a checkpoint every
 # HYBRID_CKPT_EVERY, a fault at HYBRID_FAULT_AT; two K2 launches an
 # application a step (forward and remat recompute).  The SSD is plain
 # PyTorch, as it is plain jnp in the JAX package (no kernel is owed).
-HYBRID_ARCH, HYBRID_TRAIN_LAYERS = "zamba2_1p2b", 14
+HYBRID_ARCH, HYBRID_TRAIN_LAYERS = "zamba2_1p2b", 12
 HYBRID_STEPS, HYBRID_CKPT_EVERY, HYBRID_FAULT_AT = 4, 2, 3
 FA_HYBRID = (LM_BATCH, 32, 32, LM_PROMPT, LM_PROMPT, 64)
 
@@ -1666,6 +1697,39 @@ def phase_slstm(torch, build_report):
           f"{nbytes:.3e} bytes)  max|dh| {readings['h']:.3e}")
     del xp, R, bias, hk, sk, hp, sp
     torch.cuda.empty_cache()
+
+    # A rank's sLSTM on a data axis of 2 (SL_RANK: RECURRENT's 2x2 runs and
+    # SERVE_MESH's xlstm 1x2 prefill): against plain, timed beside it.
+    rb, rs, rd, rh = SL_RANK
+    xp, R, bias = inputs(rb, rs, rd, rh, torch.bfloat16, p ** -0.5, model_bias)
+    hk, sk = ops.slstm_seq(xp, R, bias)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    hp, sp = ref.slstm_seq_ref(xp, R, bias)  # timed here, warm from the main shape's
+    end.record()
+    torch.cuda.synchronize()
+    p1 = start.elapsed_time(end)
+    rank_readings = slstm_readings(hk, sk, hp, sp)
+    if not max(rank_readings.values()) <= SL_TOL:
+        raise AssertionError(f"slstm_seq disagrees with plain at {SL_RANK}: {rank_readings}")
+    k1, k2 = time_ms(torch, kernel, 5), time_ms(torch, kernel, 5)
+    flops = 2 * 4 * rb * rd * p * rs
+    nbytes = (xp.numel() * xp.element_size() + R.numel() * R.element_size()
+              + 4 * bias.numel() + 4 * (rs * rb * rd + 3 * rb * rd))
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    rkind, rplan = ops.variant(torch.bfloat16, rb, p, rh)
+    rec["per_rank_shape"] = {
+        "shape": list(SL_RANK), "variant": rkind, "ctas": rplan["ctas"],
+        "clusters": rplan["clusters"], "readings": rank_readings,
+        "max_abs_err": rank_readings["h"], "ms": (k1 + k2) / 2, "plain_ms": p1,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations", "library_ms": None}
+    print(f"[kernels] slstm_seq ({rkind}, {rplan['clusters']} clusters) at a rank's (B, S, D, H) "
+          f"{SL_RANK} bf16: readings {rank_readings} (gate {SL_TOL}); kernel_ms {k1:.3f} {k2:.3f}"
+          f"  plain_ms {p1:.3f}  bound_ms {rec['per_rank_shape']['bound_ms']:.4f} "
+          f"({rec['per_rank_shape']['bound_by']}: {flops:.3e} flops, {nbytes:.3e} bytes)")
+    del xp, R, bias, hk, sk, hp, sp
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1988,13 +2052,13 @@ def phase_gossip_modes(torch, card: str):
     x = torch.as_tensor(sparse_stream(MICRO_BATCH, m=M, k_true=LEARN_K_TRUE, seed=1),
                         device="cuda")
     launches = {}
-    for label, cfg, agents in GOSSIP_CASES:
+    for i, (label, cfg, agents) in enumerate(GOSSIP_CASES):
         coder = DistributedSparseCoder(agents, res, reg, DistConfig(iters=ITERS, **cfg))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        secs = []
-        for _ in range(1 + GOSSIP_TIMED):
+        secs, warm = [], int(i == 0)
+        for _ in range(warm + GOSSIP_TIMED):
             t = time.perf_counter()
             nu, y = coder.solve_per_agent(W, x)
             torch.cuda.synchronize()
@@ -2017,7 +2081,7 @@ def phase_gossip_modes(torch, card: str):
         row = {
             "label": label, "mode": cfg["mode"], "card": card, "config": cfg,
             "agents": list(agents) if isinstance(agents, tuple) else [agents],
-            "ms_per_solve": 1e3 * sum(secs[1:]) / GOSSIP_TIMED,
+            "ms_per_solve": 1e3 * sum(secs[warm:]) / GOSSIP_TIMED,
             "solve_ms": [1e3 * v for v in secs], "k1_calls": launches[f"gossip {label}"],
             "solves": len(secs), "wire_bytes_per_iter": wire,
             "wire_bytes_per_iter_total": sum(wire.values()),
@@ -2684,10 +2748,11 @@ def phase_kill_drill(torch, card: str, stream):
 
 def profile_rows(torch, fn):
     """One call of fn under torch.profiler: (host wall ms, [(kernel, device
-    ms)] largest first).  Only device activity is traced: the CPU
-    operators' rows would repeat their kernels' device time, and tracing
-    them cost an xlstm-1.3b step (some 45k launches) 56 s of processing
-    against 19 without."""
+    ms)] largest first).  Only device activity is traced (the CPU
+    operators' rows would repeat their kernels' device time), and the
+    kernels are summed by name straight from the trace's events: the
+    per-event objects of key_averages() took 19 s for the some 45k
+    launches of an xlstm-1.3b step (56 s with CPU activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2697,10 +2762,11 @@ def profile_rows(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    return wall_ms, rows
+    totals: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            totals[e.name()] = totals.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return wall_ms, sorted(totals.items(), key=lambda r: -r[1])
 
 
 def device_profile(torch, fn, top: int = 6):
@@ -2790,13 +2856,46 @@ FSDP_ADAMW_SHARE = 1e-2
 # (fp32 means summed in another order), max |d| / max |whole| per leaf.
 FSDP_ADAFACTOR_RTOL = 1e-5
 
+# The hybrid and xlstm families on a mesh (RECURRENT, in the SHARDED
+# world): zamba2-1.2b cut to one group (6 Mamba2 blocks and one
+# application of the shared attention block) and xlstm-1.3b cut to one
+# group (7 mLSTM blocks and one sLSTM block), at full width on the world's
+# 2x2 mesh: launch/train's rank body for REC_STEPS SGD steps at SHARD_LR
+# (the first loss against the same state and batch on one device within
+# SHARD_LOSS_RTOL; K2 and K3 launches per rank; remat's kept bytes a block
+# exactly 1/tp of the replicated layout's (B/dp, S, D) bf16; the step's
+# wire per axis printed beside S); then every block on the mesh fed the
+# 1x1 block's input (`recurrent_blocks`): its output within BF16_ROW_ULPS
+# of the 1x1 block's, its parameters' and input's gradients under a drawn
+# cotangent within GRAD_BF16_TOL; each rank's K3 on its rows' sLSTM input
+# against the plain recurrence (SL_TOL); planted, the Mamba2 gated norm's
+# sum of squares with the identity backward (g alone) rejected.  A
+# random-weight recurrent stack turns one bf16 ulp into a quarter of a
+# logit row (ROADMAP section 3), so end-to-end outputs are printed and the
+# gates are per block on their own inputs.  SERVE_MESH serves the same
+# cuts, zamba2 at 2x2 and xlstm at 1x2, REC_GEN greedy tokens each,
+# against their 1x1 serves (recurrent_serve_reference).
+REC_CASES = {"zamba2": ("zamba2_1p2b", 6), "xlstm": ("xlstm_1p3b", 8)}
+REC_STEPS, REC_GEN = 2, 8
+REC_PLANTED = "Mamba2 gated norm's sum of squares with the identity backward (g alone)"
+# SERVE_MESH's planted recurrent fault: the first mixer block's prefill
+# with its norm's sum of squares left the rank's own (no sum over `model`).
+REC_SERVE_PLANTED = "the first mixer's norm without its sum of squares over model"
+# K2 a rank at zamba2's 2x2 (2 rows, 16 of 32 query and kv heads) and K3
+# a rank at a data axis of 2 (2 rows of xlstm-1.3b's sLSTM input)
+FA_HYBRID_RANK = (LM_BATCH // 2, 16, 16, LM_PROMPT, LM_PROMPT, 64)
+SL_RANK = (LM_BATCH // 2, LM_PROMPT, 2048, 4)
+
 # SERVE_MESH's cases: tag -> (arch, mesh, depth (None: the config's), greedy tokens).
 SERVE_MESH_CASES = {"gemma": (LM_ARCH, (2, 2), None, LM_GEN),
                     "granite": ("granite_moe_1b_a400m", (1, 2), None, LM_GEN),
-                    "granite8b": (FSDP_ARCH, (2, 2), FSDP_LAYERS, FSDP_GEN)}
+                    "granite8b": (FSDP_ARCH, (2, 2), FSDP_LAYERS, FSDP_GEN),
+                    "zamba2": (REC_CASES["zamba2"][0], (2, 2), REC_CASES["zamba2"][1], REC_GEN),
+                    "xlstm": (REC_CASES["xlstm"][0], (1, 2), REC_CASES["xlstm"][1], REC_GEN)}
+REC_SERVE = ("zamba2", "xlstm")  # the SERVE_MESH cases of the recurrent families
 FA_SERVE_MESH = {"gemma": (LM_BATCH // 2, 4, 1, LM_PROMPT, LM_PROMPT, 256),
                  "granite": (LM_BATCH, 8, 4, LM_PROMPT, LM_PROMPT, 64),
-                 "granite8b": FA_FSDP_RANK}
+                 "granite8b": FA_FSDP_RANK, "zamba2": FA_HYBRID_RANK}
 
 
 def serve_mesh_reference(torch, tag: str, out: dict) -> None:
@@ -4699,8 +4798,10 @@ def phase_flash_attention_hybrid(torch):
     """K2 at zamba2-1.2b's shared-block shape FA_HYBRID (D 64, 32 query over
     32 KV heads, causal) on wgmma_tma against the plain version, a planted
     wrong causal mask (the limit one key late) rejected, timed beside SDPA
-    with its bound; K2's gradient there (GRAD_BF16_TOL).  Returns the
-    record for K2's `hybrid_shape`."""
+    with its bound; K2's gradient there (GRAD_BF16_TOL); then at the
+    per-rank shape of zamba2's 2x2 runs, FA_HYBRID_RANK (RECURRENT and
+    SERVE_MESH), the same way.  Returns the record for K2's
+    `hybrid_shape` (the per-rank shape's under "per_rank_2x2")."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     gen = torch.Generator(device="cpu").manual_seed(6)
@@ -4722,6 +4823,8 @@ def phase_flash_attention_hybrid(torch):
     rec["grad_readings"] = readings
     del q, k, v, do
     torch.cuda.empty_cache()
+    rec["per_rank_2x2"] = k2_at_shape(torch, gen, "zamba2-1.2b shared block per rank, 2x2",
+                                      FA_HYBRID_RANK, True, faults)
     return rec
 
 
@@ -5653,9 +5756,10 @@ def sharded_world(mesh, job: dict) -> dict:
     granite-8b cut to FSDP_LAYERS on this 2x2 mesh with `embed` over
     `data` (launch/train's rank body, AdamW) and Adafactor on its shards
     (fsdp_adafactor); then the olmo SMOKE config's three SGD steps at 2x2,
-    clean and with each planted fault; then SERVE_MESH (serve_mesh_world)
-    and the paper's engine one agent a rank (dict_mesh_world).  Rank 0
-    returns the runs and the readings."""
+    clean and with each planted fault; then the hybrid and xlstm families
+    (recurrent_world), SERVE_MESH (serve_mesh_world) and the paper's engine
+    one agent a rank (dict_mesh_world).  Rank 0 returns the runs and the
+    readings."""
     import torch
 
     from repro_torch.launch import train
@@ -5741,6 +5845,7 @@ def sharded_world(mesh, job: dict) -> dict:
     got = sp_check(mesh, job["sp"])
     if mesh.rank == 0:
         out["sp"] = {**got, "wall_s": time.perf_counter() - t0}
+    out["recurrent"] = recurrent_world(mesh, job["recurrent"])
     out["serve_mesh"] = serve_mesh_world(mesh, sub, job["serve_mesh"])
     out["dict_mesh"] = dict_mesh_world(mesh, job["dict_mesh"])
     return out
@@ -5977,16 +6082,19 @@ def serve_mesh_world(mesh, sub, job: dict) -> dict:
     """SERVE_MESH's rank part (in sharded_world): gemma on the world's 2x2
     mesh, then granite-moe on its 1x2 sub-mesh (`sub`, None on ranks 2-3,
     which only join the world's collectives), then granite-8b cut to
-    FSDP_LAYERS with `embed` over `data` on the 2x2 mesh.  Rank 0 returns
-    each case's run and every rank's readings."""
+    FSDP_LAYERS with `embed` over `data` on the 2x2 mesh, then zamba2 on
+    the 2x2 mesh and xlstm on the 1x2 one (serve_mesh_recurrent_case).
+    Rank 0 returns each case's run and every rank's readings."""
     import torch
 
     out = {}
-    for tag, m in (("gemma", mesh), ("granite", sub), ("granite8b", mesh)):
+    for tag, (_, shape, _, _) in SERVE_MESH_CASES.items():
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        got = serve_mesh_case(torch, m, job[tag])
+        m = mesh if shape == (2, 2) else sub
+        case = serve_mesh_recurrent_case if tag in REC_SERVE else serve_mesh_case
+        got = case(torch, m, job[tag])
         if mesh.rank == 0:
             out[tag] = {**got, "wall_s": time.perf_counter() - t0}
     return out
@@ -6179,6 +6287,454 @@ def serve_mesh_case(torch, mesh, case: dict):
     return {"payload": payload, "tokens": tokens, "ranks": every}
 
 
+# -- RECURRENT: the hybrid and xlstm families on a mesh -----------------------
+
+
+def _rec_layers(cfg, params, seq_len: int):
+    """(stack, block function of (layer params, h), layer params) for every
+    block of a hybrid or xlstm config in order (model._hybrid_layers,
+    model._xlstm_layers): one pre-norm block on the residual of a forward
+    over seq_len positions."""
+    import torch
+
+    from repro_torch.models import model
+    from repro_torch.models import transformer as tfm
+
+    if cfg.family == "hybrid":
+        for kind, _, lp in model._hybrid_layers(cfg, params):
+            if kind == "attn":
+                yield kind, lambda p, h: tfm.apply_block(
+                    p, h, torch.arange(seq_len, device=h.device), cfg)[0], lp
+            else:
+                yield kind, lambda p, h: model._mamba_layer(p, h, cfg), lp
+        return
+    for kind, _, _, lp in model._xlstm_layers(cfg, params):
+        yield kind, functools.partial(
+            lambda k, p, h: model._xlstm_layer(p, h, cfg, k), kind), lp
+
+
+def recurrent_blocks(mesh, cfg, batch, plant: bool) -> dict:
+    """Every block of `cfg` (hybrid or xlstm, seed 0's params) on this rank
+    of `mesh`, fed the 1x1 block's input: the whole stack walked on one
+    device (each rank computes it: no weight crosses the wire for the
+    check), each block's output and its input's and parameters' gradients
+    under a cotangent drawn from a seed, against the block on the mesh (the
+    rank's rows and, under the sequence-parallel residual, its positions;
+    its shard of the parameters) on the same input and cotangent.  Per
+    block: bf16_reading of the output, and max |d| / max |1x1| over the
+    world for the input's gradient and each parameter's (summed over
+    `data`).  An sLSTM block's K3 on the rank's rows against the plain
+    recurrence (slstm_readings).  With plant, the first Mamba2 block again
+    with its gated norm's sum of squares through g alone.  Rank 0 returns
+    {"blocks": [(stack, readings)], "k3": per rank, "planted"}."""
+    import torch
+
+    from repro_torch.kernels.slstm_step import ops as k3_ops
+    from repro_torch.kernels.slstm_step import ref as k3_ref
+    from repro_torch.models import model
+    from repro_torch.models import sharding_hook as hook
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.pytree import leaves, unflatten
+    from repro_torch.runtime import sharding, steps
+
+    dev = mesh.device
+    whole = model.init(cfg, 0, dev)
+    specs = model.param_specs(cfg, mesh)
+    mine = model.cast_params(cfg, sharding.shard_tree(whole, specs, mesh))
+    whole = model.cast_params(cfg, whole)
+    rules = sharding.rules_for(cfg)
+    s = batch["tokens"].shape[1]
+    dp, tp = mesh.size("data"), mesh.size("model")
+    b = batch["tokens"].shape[0] // dp
+    rows = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
+    seq = sharding.residual_seq_axis(mesh, rules, s) is not None
+    r = mesh.index("model")
+    cols = slice(r * s // tp, (r + 1) * s // tp) if seq else slice(None)
+    with torch.no_grad():
+        h = model._embed_inputs(cfg, whole, steps.batch_to_device(batch, dev))
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def layer_specs(stack):
+        key = {"attn": "shared_attn"}.get(stack, stack)
+        sp = specs[key]
+        return leaves(sp if key == "shared_attn" else model.tree_map(lambda t: t[1:], sp),
+                      is_leaf=lambda x: isinstance(x, tuple))
+
+    def grads(fn, lp, x, cot, on_mesh):
+        flat = [t.detach().requires_grad_(True) for t in leaves(lp)]
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad(), (hook.installed(mesh) if on_mesh else
+                                   contextlib.nullcontext()):
+            with hook.residual(s, rules) if on_mesh else contextlib.nullcontext():
+                out = fn(unflatten(lp, flat), x)
+            got = torch.autograd.grad(out, [x] + flat, cot)
+        return out.detach(), got
+
+    def readings(stack, fn, lp1, lpm, x, planted=contextlib.nullcontext()):
+        cot = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+        out1, g1 = grads(fn, lp1, x, cot, False)
+        with planted:
+            outm, gm = grads(fn, lpm, x[rows][:, cols], cot[rows][:, cols].contiguous(), True)
+        d = [float((gm[0] - g1[0][rows][:, cols]).abs().max())]
+        w = [float(g1[0][rows][:, cols].abs().max())]
+        for g, want, sp in zip(gm[1:], g1[1:], layer_specs(stack)):
+            want = sharding.shard_tensor(want, sp, mesh)
+            d.append(float((mesh.psum(g.float(), "data") - want.float()).abs().max()))
+            w.append(float(want.float().abs().max()))
+        d, w = torch.tensor(d, device=dev), torch.tensor(w, device=dev)
+        for axis in ("data", "model"):
+            d, w = mesh.pmax(d, axis), mesh.pmax(w, axis)
+        # the sLSTM input-gate bias (an exact gradient of zero) at r_i's scale
+        names = ["x"] + [f"{stack}/{path}" for path, _ in named_leaves(lp1)]
+        w = torch.stack([w[names.index(zero_grad_sibling(n))] for n in names])
+        rel = (d / w.clamp_min(1e-30)).tolist()
+        return out1, {"out": bf16_reading(outm, out1[rows][:, cols]), "dx": rel[0],
+                      "dparams": max(rel[1:])}
+
+    blocks, k3, planted = [], None, None
+    for (stack, fn, lp1), (_, _, lpm) in zip(_rec_layers(cfg, whole, s),
+                                             _rec_layers(cfg, mine, s)):
+        out1, got = readings(stack, fn, lp1, lpm, h)
+        if stack == "slstm":  # K3 on this rank's rows (the whole sequence) against plain
+            with torch.no_grad():
+                args = k3_ops.stack_gates(lpm["mixer"], apply_norm(cfg.norm, lpm["norm"], h[rows]),
+                                          cfg.n_heads)
+                hk, sk = k3_ops.slstm_seq(*args)
+                hp, sp_ = k3_ref.slstm_seq_ref(*args)
+            k3 = slstm_readings(hk, sk, hp, sp_)
+            del args, hk, sk, hp, sp_
+        if plant and planted is None and stack == "mamba":
+            planted = readings(stack, fn, lp1, lpm, h,
+                               mock.patch.object(hook, "model_sum", hook.leave_model))[1]
+        blocks.append((stack, got))
+        h = out1
+    every = mesh.all_gather_object({"k3": k3, "blocks": blocks, "planted": planted})
+    del whole, mine, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank:
+        return None
+    return {"blocks": [(stack, {k: max(e["blocks"][i][1][k] for e in every) for k in got})
+                       for i, (stack, got) in enumerate(blocks)],
+            "k3": [e["k3"] for e in every], "planted": planted and {
+                k: max(e["planted"][k] for e in every) for k in planted}}
+
+
+def recurrent_world(mesh, job: dict) -> dict:
+    """RECURRENT's rank part (in sharded_world, before SERVE_MESH): for each
+    case of job, launch/train's rank body on this 2x2 mesh (the bytes
+    remat keeps, rank 0's), then recurrent_blocks.  Rank 0 returns them."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models import model
+
+    out = {}
+    for tag, case in job.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with model.remat_saved() as saved:
+            run = train._train_ranks(mesh, case["cli"])
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blocks = recurrent_blocks(mesh, case["cfg"], case["batch"], tag == "zamba2")
+        if mesh.rank == 0:
+            out[tag] = {"run": {**run, "wall_s": wall}, "saved": list(saved), **blocks,
+                        "blocks_s": time.perf_counter() - t0}
+    return out
+
+
+def recurrent_reference(torch) -> dict:
+    """RECURRENT's references on one device, in this process: each case's
+    first loss (seed 0's params on batch 0, what the mesh run's first step
+    reports).  Returns {"first_loss": {tag: loss}}."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model
+
+    first = {}
+    for tag, (arch, n_layers) in REC_CASES.items():
+        cfg = cut_depth(get_config(arch), n_layers)
+        params = model.init(cfg, 0, "cuda")
+        with torch.no_grad():
+            loss, _ = model.loss_fn(cfg, params, train.make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                                                    0)(0))
+        first[tag] = float(loss)
+        del params
+        torch.cuda.empty_cache()
+    return {"first_loss": first}
+
+
+def recurrent_serve_reference(torch, tag: str) -> None:
+    """Save what SERVE_MESH holds a recurrent case's serve against: the 1x1
+    serve's tokens, prefill and step logits, and one more decode step (the
+    last token, at position LM_PROMPT + gen - 1) with every mixer's input,
+    its state cache before the step and its output (Mamba2, mLSTM and
+    sLSTM decode; the hybrid's shared block: its decode block, with the
+    attention cache before the step)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model, ssm, xlstm
+    from repro_torch.models import transformer as tfm
+
+    arch, _, depth, gen = SERVE_MESH_CASES[tag]
+    argv = [a for a in serve_mesh_argv(tag, "1x1", "auto") if a not in ("--mesh", "1x1",
+                                                                        "--transport", "auto")]
+    out = serve.run(serve.parse_args(argv))
+    cfg, cache = out["cfg"], out["cache"]
+    pos = LM_PROMPT + gen - 1
+    recs = []
+
+    def wrap(stack, real):
+        def fn(params, x, layer_cache, *args, **kw):
+            before = {n: t.detach().cpu().clone() for n, t in layer_cache.items()}
+            y = real(params, x, layer_cache, *args, **kw)
+            recs.append({"stack": stack, "in": x.cpu(), "state": before, "out": y[0].cpu()})
+            return y
+        return fn
+
+    tok = out["tokens"][:, -1:].to(out["prompts"].device)
+    with torch.no_grad(), mock.patch.object(ssm, "mamba2_decode",
+                                            wrap("mamba", ssm.mamba2_decode)), \
+            mock.patch.object(xlstm, "mlstm_decode", wrap("mlstm", xlstm.mlstm_decode)), \
+            mock.patch.object(xlstm, "slstm_decode", wrap("slstm", xlstm.slstm_decode)), \
+            mock.patch.object(tfm, "decode_block", wrap("attn", tfm.decode_block)):
+        model.decode_step(cfg, out["params"], cache, tok, pos)
+    stacks = [s for s in model.stack_sizes(cfg)]
+    if "mamba_tail" in stacks:  # the tail's records come last, after the groups'
+        raise AssertionError("a recurrent SERVE_MESH case keeps whole groups (no tail)")
+    ref = {"pos": pos, "tokens": out["tokens"], "last_logits": out["last_logits"].cpu(),
+           "step_logits": torch.stack(out["step_logits"]).cpu(), "layers": recs,
+           "prefill_ms": out["prefill_ms"], "decode_ms_per_token": out["decode_ms_per_token"]}
+    SERVE_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(ref, SERVE_MESH_DIR / f"{tag}.pt")
+    del out, cache, ref, recs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def recurrent_prefill_blocks(mesh, cfg, args, mine, specs, pre_cache) -> dict:
+    """Every block of a recurrent SERVE_MESH case's prefill on this rank of
+    `mesh`, fed the 1x1 block's input: the 1x1 stack walked on one device
+    in this rank (the serve's weights from --seed and its whole prompt
+    batch: no weight crosses the wire for the check), each block's prefill
+    against the block on the mesh (the rank's rows and, under the
+    sequence-parallel residual, its positions; its shard `mine` of the
+    weights) on the same input: bf16_reading of the residual after the
+    block and of every leaf of the cache it returns against the 1x1 leaf
+    cut by `specs` (model.cache_specs: a Mamba2 S by heads and conv_buf by
+    segment, an mLSTM state by heads, an sLSTM state by rows; the
+    attention K/V on the rank's kv heads).  The first block's state as the
+    serve's own prefill cache `pre_cache` holds it, against the 1x1's (the
+    slot the serve lays into its decode cache).  Planted: the first block
+    again with its norm's sum of squares the rank's own
+    (REC_SERVE_PLANTED).  Returns {"blocks": [(stack, reading)],
+    "handoff": reading, "planted": reading}."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.models import sharding_hook as hook
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import sharding
+
+    dev = mesh.device
+    whole = model.cast_params(cfg, model.init(cfg, seed=args.seed, device=dev))
+    batch, _ = serve._inputs(cfg, args, dev)
+    s = batch["tokens"].shape[1]
+    rules = sharding.rules_for(cfg)
+    b = batch["tokens"].shape[0] // mesh.size("data")
+    rows = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
+    tp, r = mesh.size("model"), mesh.index("model")
+    seq = sharding.residual_seq_axis(mesh, rules, s) is not None
+    cols = slice(r * s // tp, (r + 1) * s // tp) if seq else slice(None)
+    positions = torch.arange(s, device=dev)
+    lead = {"mamba": 2, "mamba_tail": 1, "mlstm": 2, "slstm": 1}
+
+    def walk(params):  # (stack, where in its cache, h -> (h after the block, its cache))
+        if cfg.family == "hybrid":
+            for kind, at, lp in model._hybrid_layers(cfg, params):
+                if kind == "attn":
+                    yield kind, at, lambda h, lp=lp: tfm.prefill_block(lp, h, positions, cfg)[:2]
+                else:
+                    yield kind, at, lambda h, lp=lp: _add(h, model._mamba_mixer(cfg, lp, h, True))
+            return
+        for kind, gi, li, lp in model._xlstm_layers(cfg, params):
+            yield kind, (gi, li) if kind == "mlstm" else (gi,), lambda h, lp=lp, k=kind: _add(
+                h, model._xlstm_mixer(cfg, k, lp, h, True))
+
+    def _add(h, got):
+        return h + got[0], got[1]
+
+    def want_cache(stack, st1):
+        if stack == "attn":  # the rank's kv heads of the whole sequence
+            return {n: t[rows] for n, t in st1.items()}
+        return {n: sharding.shard_tensor(t, specs[stack][n][lead[stack]:], mesh)
+                for n, t in st1.items()}
+
+    def reading(stack, hm, stm, h1, st1):
+        want = want_cache(stack, st1)
+        got = [bf16_reading(hm, h1[rows][:, cols])]
+        for n, t in stm.items():
+            w = want[n]
+            if stack == "attn" and t.shape[2] != w.shape[2]:
+                w = w[:, :, r * t.shape[2]:(r + 1) * t.shape[2]]
+            got.append(bf16_reading(t, w) if t.shape == w.shape else math.inf)
+        return max(got)
+
+    out, handoff, planted = [], None, None
+    with torch.no_grad():
+        h = model._embed_inputs(cfg, whole, batch)
+        for (stack, at, fn1), (_, _, fnm) in zip(walk(whole), walk(mine)):
+            h1, st1 = fn1(h)
+            x = h[rows][:, cols].contiguous()
+            with hook.installed(mesh), hook.residual(s, rules):
+                hm, stm = fnm(x)
+                if planted is None:
+                    with mock.patch.object(hook, "model_sum", lambda t: t):
+                        planted = reading(stack, *fnm(x), h1, st1)
+            out.append((stack, reading(stack, hm, stm, h1, st1)))
+            if handoff is None:  # the serve's own prefill: the first block's slot
+                handoff = max(bf16_reading(pre_cache[stack][n][at], t)
+                              for n, t in want_cache(stack, st1).items())
+            h = h1
+            del hm, stm, st1
+    del whole, h
+    return {"blocks": out, "handoff": handoff, "planted": planted}
+
+
+def serve_mesh_recurrent_case(torch, mesh, case: dict):
+    """One recurrent SERVE_MESH case on this rank of `mesh` (None: idle):
+    launch/serve's rank body (greedy, the CLI's payload), then every block's
+    prefill on the 1x1 block's input (recurrent_prefill_blocks), the serve's
+    prefill cache laid into a decode cache (init_cache(mesh=),
+    merge_prefill_cache) and compared with it bit for bit, and against the
+    1x1 run saved at case["ref"]: every mixer's decode step on the 1x1
+    run's input and state (the rank's rows and its part of the state: a
+    Mamba2 S by heads and conv_buf by segment, an mLSTM state by heads, the
+    attention cache as the rank's cache holds it) within BF16_ROW_ULPS of
+    the 1x1 output; each greedy step's pick agreeing over `model`; from the
+    first step whose greedy input differs from the 1x1 run's, up to
+    SERVE_MESH_FORCED more steps fed the 1x1 tokens (from the laid cache: a
+    recurrent state cannot take back a token) with their logits against the
+    1x1 step's (printed).  Rank 0 returns the payload, the tokens and every
+    rank's readings."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model, ssm, xlstm
+    from repro_torch.models import sharding_hook as hook
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import sharding, steps
+
+    args = serve.parse_args(case["argv"])
+    run = serve._serve_ranks(mesh, vars(args), keep=True)
+    if mesh is None:
+        return None
+    t0 = time.perf_counter()
+    cfg = serve._config(args)
+    payload, tokens = run.get("payload"), run["tokens"]
+    ref = torch.load(case["ref"], map_location="cpu")
+    dev = mesh.device
+    b = run["batch"]["tokens"].shape[0]  # this data rank's rows
+    rows = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
+    params, max_len, pos = run["params"], run["max_len"], ref["pos"]
+    gen = tokens.shape[1]
+    prompt = max_len - gen
+    seq = model.seq_sharded(cfg, mesh, max_len)
+    specs = model.cache_specs(cfg, mesh, args.batch, max_len)
+    lead = {"mamba": 2, "attn": 1, "mlstm": 2, "slstm": 1}
+    rules = sharding.rules_for(cfg)
+    if cfg.family == "hybrid":
+        walk = [(k, lp) for k, _, lp in model._hybrid_layers(cfg, params)]
+    else:
+        walk = [(k, lp) for k, _, _, lp in model._xlstm_layers(cfg, params)]
+    kw = dict(n_heads=cfg.n_heads)
+    mixers = {
+        "mamba": lambda lp, x, st: ssm.mamba2_decode(lp["mixer"], x, st, **model._mamba_kw(cfg)),
+        "attn": lambda lp, x, st: tfm.decode_block(lp, x, st, pos, cfg, seq),
+        "mlstm": lambda lp, x, st: xlstm.mlstm_decode(lp["mixer"], x, st,
+                                                      proj_factor=cfg.mlstm_proj_factor, **kw),
+        "slstm": lambda lp, x, st: xlstm.slstm_decode(lp["mixer"], x, st, **kw),
+    }
+    decode = []
+    if len(walk) != len(ref["layers"]):
+        raise AssertionError(f"{len(walk)} blocks, {len(ref['layers'])} records")
+    for (stack, lp), r in zip(walk, ref["layers"]):
+        if stack != r["stack"]:
+            raise AssertionError(f"block {stack} against a record of {r['stack']}")
+        st = {n: sharding.shard_tensor(t.to(dev), specs[stack][n][lead[stack]:], mesh)
+              for n, t in r["state"].items()}
+        with torch.no_grad(), hook.installed(mesh), hook.residual(1, rules):
+            y = mixers[stack](lp, r["in"][rows].to(dev), st)[0]
+        decode.append((stack, bf16_reading(y, r["out"][rows].to(dev))))
+    pre = recurrent_prefill_blocks(mesh, cfg, args, params, specs, run["prefill_cache"])
+    with torch.no_grad():  # the serve's prefill cache, laid as the serve lays it
+        laid = model.merge_prefill_cache(cfg, model.init_cache(cfg, args.batch, max_len, dev, mesh),
+                                         run["prefill_cache"], mesh, max_len)
+    laid_same = all(torch.equal(laid[st][n], t) for st, c in run["prefill_cache"].items()
+                    if st != "attn" for n, t in c.items())
+
+    def picks_agree(logits):
+        tok = steps.greedy_tokens(cfg, logits, mesh)
+        every = mesh.all_gather_tiled(tok[None], "model", 0)
+        return bool((every == tok[None]).all())
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / float(want.abs().max())
+
+    v_loc = run["last_logits"].shape[-1]
+    m_i = mesh.index("model")
+    cols = slice(None) if v_loc == cfg.vocab else slice(m_i * v_loc, (m_i + 1) * v_loc)
+    same = (torch.as_tensor(tokens) == ref["tokens"][:, :gen]).all(0).long().cumprod(0)
+    first_diff = int(same.sum())
+    stepped = list(enumerate(run["step_logits"]))
+    if first_diff < gen - 1:  # the 1x1 tokens from the laid cache
+        with torch.no_grad():
+            forced = ref["tokens"][rows].to(dev)
+            stepped = []
+            for i in range(min(gen - 1, first_diff + SERVE_MESH_FORCED)):
+                lg, laid = model.decode_step(cfg, params, laid, forced[:, i:i + 1],
+                                             prompt + i, mesh, max_len)
+                stepped.append((i, lg[:, -1, :]))
+    tf, agree = {}, True
+    for i, lg in stepped:
+        tf[i] = rel(lg, ref["step_logits"][i][rows][:, cols].to(dev))
+        agree = agree and picks_agree(lg)
+    # Printed, not gated: the rows whose 1x1 top-2 margin exceeds twice the
+    # row's largest logit difference (no such difference can move their
+    # argmax) and whether their first token equals the 1x1 run's.  A
+    # random-weight recurrent stack carries one bf16 ulp to a tenth of a
+    # logit row, so the end-to-end output gates nothing; the blocks do.
+    want = ref["last_logits"][rows].to(dev)
+    diff = (run["last_logits"].float() - want[:, cols]).abs().amax(-1)
+    diff = mesh.pmax(diff, "model")
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    same0 = torch.as_tensor(tokens)[rows, 0].to(dev) == ref["tokens"][rows, 0].to(dev)
+    mine = {"rank": mesh.rank, "decode": decode, "prefill": pre["blocks"],
+            "handoff": pre["handoff"], "laid_same": laid_same, "planted": pre["planted"],
+            "teacher_forced": tf,
+            "first_tokens_decided": int(decided.sum()),
+            "first_tokens_ok": bool((same0 | ~decided).all()),
+            "first_tokens_equal": bool(same0.all()),
+            "greedy_agree": float((torch.as_tensor(tokens) == ref["tokens"][:, :gen])
+                                  .float().mean()),
+            "same_prefix": first_diff, "one_device_prefill_ms": ref["prefill_ms"],
+            "one_device_decode_ms_per_token": ref["decode_ms_per_token"],
+            "prefill_logits_rel": rel(run["last_logits"],
+                                      ref["last_logits"][rows][:, cols].to(dev)),
+            "picks_agree": agree, "tokens_agree_over_model": run["tokens_agree_over_model"],
+            "checks_s": time.perf_counter() - t0, "seq_sharded": seq,
+            "local_cache": {st: {n: list(t.shape) for n, t in c.items()}
+                            for st, c in run["cache"].items()}}
+    every = mesh.all_gather_object(mine)
+    del run, params, ref, laid
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank:
+        return None
+    return {"payload": payload, "tokens": tokens, "ranks": every}
+
+
 def _param_readings(got, want) -> list:
     """Per leaf max |got - want| / max |want|."""
     return [rel_err(g, w) for g, w in zip(got, want)]
@@ -6186,14 +6742,17 @@ def _param_readings(got, want) -> list:
 
 def phase_sharded(torch, card: str, dm_job: dict) -> dict:
     """The SHARDED gates (see SHARD_ARCH's comment): one gloo_staged world
-    of 4 ranks (sharded_world, then serve_mesh_world and dict_mesh_world on
-    `dm_job`) and launch/train on a 1x1 mesh over nccl, held against runs
-    on one device without a mesh.  Prints "[sharded ...]" lines and one
+    of 4 ranks (sharded_world, then recurrent_world, serve_mesh_world and
+    dict_mesh_world on `dm_job`; started on a thread while this process
+    computes the references on one device) and launch/train on a 1x1 mesh
+    over nccl, held against runs on one device without a mesh.  Prints
+    "[sharded ...]" lines and one
     SHARDED JSON line; returns the record (K2 launches per rank and path)
     with the world's SERVE_MESH and DICT_MESH results under
     "serve_mesh_world" and "dict_mesh_world" (for phase_serve_mesh and
     phase_dict_mesh)."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import cut_depth, get_config, get_smoke_config
     from repro_torch.launch import train
@@ -6225,43 +6784,65 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                  "--ckpt-every", str(FSDP_STEPS)]
     fsdp_args = train.parse_args(fsdp_argv + ["--device", "cuda"])
 
-    # The references on one device, in this process: olmo-1b's SGD run and
-    # the SMOKE config's.
-    reset_launch_counts()
+    # SERVE_MESH's recurrent 1x1 serves first (serve_mesh_job reads them),
+    # then the world starts on a thread: its ranks spend some 40 s
+    # spawning and importing, while this process computes the references
+    # on one device.
     t0 = time.perf_counter()
-    losses1, p0, p1 = _sgd_reference(torch, cfg, batches, SHARD_LR, SHARD_STEPS)
-    rec["reference_1x1_s"] = time.perf_counter() - t0
+    for tag in REC_SERVE:
+        recurrent_serve_reference(torch, tag)
+    rec["recurrent_serve_reference_s"] = time.perf_counter() - t0
     smoke = get_smoke_config(SHARD_ARCH)
     smoke_batches = [train.make_batches(smoke, 4, 32, 0)(i) for i in range(3)]
-    s_losses, _, s_params = _sgd_reference(torch, smoke, lambda i: smoke_batches[i], 0.5, 3)
     norm_smoke = get_smoke_config(NORM_ARCH)
-    n_losses, _, n_params = _sgd_reference(torch, norm_smoke, lambda i: smoke_batches[i], 0.5, 3)
-    # granite-8b cut to FSDP_LAYERS, launch/train's optimizer (for_arch's
-    # AdamW on its cosine warmup) on one device.
-    t0 = time.perf_counter()
-    f_losses1, f_p0, f_p1 = _reference_run(
-        torch, fsdp_cfg, train._optimizer(fsdp_cfg, fsdp_args),
-        train.make_batches(fsdp_cfg, TRAIN_BATCH, TRAIN_SEQ, 0), FSDP_STEPS)
-    rec["fsdp_reference_1x1_s"] = time.perf_counter() - t0
+    rec_cfgs = {tag: cut_depth(get_config(arch), n) for tag, (arch, n) in REC_CASES.items()}
+    rec_job = {tag: {"cli": cli_rank_args(common + [
+        "--n-layers", str(REC_CASES[tag][1]), "--arch", REC_CASES[tag][0], "--optimizer", "sgd",
+        "--lr", str(SHARD_LR), "--steps", str(REC_STEPS), "--ckpt-every", str(REC_STEPS),
+        "--mesh", "2x2", "--transport", SHARD_TRANSPORT], root / tag),
+        "cfg": c, "batch": train.make_batches(c, TRAIN_BATCH, TRAIN_SEQ, 0)(0)}
+        for tag, c in rec_cfgs.items()}
 
     # The world: olmo-1b 2x2 and granite-moe 1x2 (launch/train's rank body
     # with its --mesh 2x2 / 1x2 arguments), the a2a layer, the planted runs.
     t0 = time.perf_counter()
-    res = mesh_mod.launch(sharded_world, (2, 2), transport=SHARD_TRANSPORT, device="cuda",
-                          timeout=900, kernels=("flash_attention", "dict_dual_step"), args=({
-                              "olmo": cli_rank_args(sgd_argv + ["--mesh", "2x2", "--transport",
-                                                                SHARD_TRANSPORT], root / "2x2"),
-                              "granite": cli_rank_args(moe_argv + ["--mesh", "1x2", "--transport",
-                                                                   SHARD_TRANSPORT], root / "moe"),
-                              "granite8b": cli_rank_args(fsdp_argv + [
-                                  "--mesh", "2x2", "--transport", SHARD_TRANSPORT], root / "fsdp"),
-                              "granite8b_cfg": fsdp_cfg,
-                              "smoke_cfg": smoke, "smoke_batches": smoke_batches,
-                              "norm_cfg": norm_smoke,
-                              "smoke_lr": 0.5, "a2a_widths": SHARD_A2A_WIDTHS,
-                              "a2a_tokens": SHARD_A2A_SHAPE, "dict_mesh": dm_job,
-                              "sp": {"cfg": cfg, "batch": batches(0)},
-                              "serve_mesh": serve_mesh_job()},))
+    launcher = ThreadPoolExecutor(1)
+    world = launcher.submit(
+        mesh_mod.launch, sharded_world, (2, 2), transport=SHARD_TRANSPORT, device="cuda",
+        timeout=900, kernels=("flash_attention", "dict_dual_step", "slstm_step"), args=({
+            "olmo": cli_rank_args(sgd_argv + ["--mesh", "2x2", "--transport", SHARD_TRANSPORT],
+                                  root / "2x2"),
+            "granite": cli_rank_args(moe_argv + ["--mesh", "1x2", "--transport",
+                                                 SHARD_TRANSPORT], root / "moe"),
+            "granite8b": cli_rank_args(fsdp_argv + ["--mesh", "2x2", "--transport",
+                                                    SHARD_TRANSPORT], root / "fsdp"),
+            "granite8b_cfg": fsdp_cfg,
+            "smoke_cfg": smoke, "smoke_batches": smoke_batches, "norm_cfg": norm_smoke,
+            "smoke_lr": 0.5, "a2a_widths": SHARD_A2A_WIDTHS,
+            "a2a_tokens": SHARD_A2A_SHAPE, "dict_mesh": dm_job,
+            "sp": {"cfg": cfg, "batch": batches(0)},
+            "recurrent": rec_job, "serve_mesh": serve_mesh_job()},))
+    launcher.shutdown(wait=False)
+
+    # The references on one device, in this process: olmo-1b's SGD run and
+    # the SMOKE config's.
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    losses1, p0, p1 = _sgd_reference(torch, cfg, batches, SHARD_LR, SHARD_STEPS)
+    rec["reference_1x1_s"] = time.perf_counter() - t1
+    s_losses, _, s_params = _sgd_reference(torch, smoke, lambda i: smoke_batches[i], 0.5, 3)
+    n_losses, _, n_params = _sgd_reference(torch, norm_smoke, lambda i: smoke_batches[i], 0.5, 3)
+    # granite-8b cut to FSDP_LAYERS, launch/train's optimizer (for_arch's
+    # AdamW on its cosine warmup) on one device.
+    t1 = time.perf_counter()
+    f_losses1, f_p0, f_p1 = _reference_run(
+        torch, fsdp_cfg, train._optimizer(fsdp_cfg, fsdp_args),
+        train.make_batches(fsdp_cfg, TRAIN_BATCH, TRAIN_SEQ, 0), FSDP_STEPS)
+    rec["fsdp_reference_1x1_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec_ref = recurrent_reference(torch)  # RECURRENT's first losses on one device
+    rec["recurrent_reference_s"] = time.perf_counter() - t1
+    res = world.result()
     rec["world_s"] = time.perf_counter() - t0
     out22, outm = res["olmo"], res["granite"]
     print_sharded_run("olmo-1b 2x2", out22)
@@ -6444,15 +7025,87 @@ def phase_sharded(torch, card: str, dm_job: dict) -> dict:
                                "peak_mem_gb_ranks": outf.get("peak_mem_gb_ranks")},
         "fsdp_adafactor": ada, "fsdp_gradient": fgrad, "sp": sp,
     })
+    rec["recurrent"] = recurrent_report(card, res["recurrent"], rec_ref, rec_cfgs)
+    for tag in rec_cfgs:
+        shutil.rmtree(root / tag, ignore_errors=True)
     rec["launches"] = {"olmo-1b 2x2 train": sum(out22["k2_launches"]),
                        "granite-8b 2x2 FSDP train": sum(outf["k2_launches"]),
                        "olmo-1b 1x1 nccl train": sum(out11["k2_launches"]),
                        "granite-moe 1x2 train": sum(outm["k2_launches"]),
-                       "granite-moe 2x1 reload step": sum(rescale_k2["k2_launches"])}
+                       "granite-moe 2x1 reload step": sum(rescale_k2["k2_launches"]),
+                       "zamba2-1.2b 2x2 train": sum(rec["recurrent"]["zamba2"]["k2_launches"])}
+    rec["k3_launches"] = {"xlstm-1.3b 2x2 train":
+                          sum(rec["recurrent"]["xlstm"]["k3_launches"])}
     print("SHARDED " + json.dumps(rec))
     rec["dict_mesh_world"] = res["dict_mesh"]
     rec["serve_mesh_world"] = res["serve_mesh"]
     return rec
+
+
+def recurrent_report(card: str, got: dict, ref: dict, cfgs: dict) -> dict:
+    """RECURRENT's gates on recurrent_world's runs and the RECURRENT line:
+    per case the first loss against one device's (SHARD_LOSS_RTOL), K2
+    per rank at FA_HYBRID_RANK (zamba2: 2 an application a step, forward
+    and remat) and K3 per rank (xlstm: 1 an sLSTM block a step), remat's
+    kept bytes, every block's readings, each rank's K3 against plain, the
+    planted fault; the step's wire per axis printed beside S.  Returns the
+    line."""
+    line = {"card": card, "transport": SHARD_TRANSPORT, "mesh": "2x2", "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": REC_STEPS}
+    failed = []
+    for tag, cfg in cfgs.items():
+        g = got[tag]
+        run = g["run"]
+        print_sharded_run(f"{tag} 2x2", run)
+        first, want = run["losses"][0][1], ref["first_loss"][tag]
+        loss_rel = abs(first - want) / abs(want)
+        hybrid = cfg.family == "hybrid"
+        n_attn = cfg.n_layers // cfg.attn_every if hybrid else 0
+        n_slstm = 0 if hybrid else cfg.n_layers // cfg.slstm_every
+        n_remat = cfg.n_layers + n_attn if hybrid else cfg.n_layers - n_slstm
+        _k2_ranks(f"RECURRENT {tag} 2x2", run, [2 * n_attn * REC_STEPS] * 4,
+                  (*FA_HYBRID_RANK, "bfloat16", "wgmma_tma"))
+        # (B/dp, S, D) in the compute dtype (bf16)
+        whole = TRAIN_BATCH // 2 * TRAIN_SEQ * cfg.d_model * cfg.cdtype.itemsize
+        blocks = g["blocks"]
+        worst = {k: max(r[k] for _, r in blocks) for k in ("out", "dx", "dparams")}
+        k3 = [max(r.values()) for r in g["k3"] if r is not None]
+        gates = {
+            f"first loss within {SHARD_LOSS_RTOL} of one device's": loss_rel <= SHARD_LOSS_RTOL,
+            "K3 launches per rank": run["k3_launches"] == [n_slstm * REC_STEPS] * 4,
+            "remat keeps 1/tp of the replicated residual a block": sp_saved_ok(
+                g["saved"], [whole] * (n_remat * REC_STEPS), 2),
+            f"every block's output within {BF16_ROW_ULPS}": worst["out"] <= BF16_ROW_ULPS,
+            f"every block's gradients within {GRAD_BF16_TOL}": max(worst["dx"], worst["dparams"])
+            <= GRAD_BF16_TOL,
+        }
+        if n_slstm:
+            gates[f"K3 on every rank within {SL_TOL} of plain"] = len(k3) == 4 and max(k3) <= SL_TOL
+        if g["planted"] is not None:
+            gates["planted rejected: " + REC_PLANTED] = g["planted"]["dparams"] > GRAD_BF16_TOL
+        print(f"[recurrent {tag} 2x2] {card}: first loss {first:.6f} vs one device {want:.6f} "
+              f"(rel {loss_rel:.3e}); losses {[x for _, x in run['losses']]}; K2 per rank "
+              f"{run['k2_launches']}, K3 per rank {run['k3_launches']}; remat keeps "
+              f"{sorted(set(g['saved']))} B a block on rank 0 ((B/dp, S, D) is {whole} B); "
+              f"a step's wire at S {TRAIN_SEQ}, rank 0, per axis [collectives, bytes] "
+              f"{run['step_traffic']}; step ms {[round(t * 1e3, 1) for t in run['step_times']]}")
+        print(f"[recurrent {tag} 2x2] blocks on their own inputs (out: bf16 reading; dx, "
+              f"dparams: max|d|/max|1x1|) {blocks}; K3 per rank vs plain {g['k3']}; planted "
+              f"{g['planted']}; gates {gates}")
+        if not all(gates.values()):
+            failed.append((tag, [k for k, v in gates.items() if not v]))
+        line[tag] = {"losses": run["losses"], "first_loss_1x1": want, "loss_rel": loss_rel,
+                     "k2_launches": run["k2_launches"], "k2_shapes": run["k2_shapes"],
+                     "k3_launches": run["k3_launches"], "step_traffic_rank0": run["step_traffic"],
+                     "step_ms": [t * 1e3 for t in run["step_times"]],
+                     "peak_mem_gb_ranks": run.get("peak_mem_gb_ranks"),
+                     "saved_bytes_per_block": sorted(set(g["saved"])), "blocks": blocks,
+                     "worst": worst, "k3_readings": g["k3"], "planted": g["planted"],
+                     "gates": gates, "wall_s": run["wall_s"], "blocks_s": g["blocks_s"]}
+    print("RECURRENT " + json.dumps(line))
+    if failed:
+        raise AssertionError(f"RECURRENT: {failed}")
+    return line
 
 
 def sp_report(card: str, got: dict, cfg, cli_runs: dict) -> dict:
@@ -6558,13 +7211,18 @@ def phase_serve_mesh(torch, card: str, world: dict) -> dict:
     bit.  Printed, not gated: the teacher-forced logits against the 1x1
     step's, the greedy tokens' agreement with the 1x1 run's, prefill ms,
     decode ms/token, a decode step's wire per axis and each rank's peak
-    memory (SERVE_MESH line).  Returns K2's launches by path."""
+    memory (SERVE_MESH line).  The recurrent cases through
+    serve_mesh_recurrent_report.  Returns K2's and K3's launches by path
+    ({"k2", "k3"})."""
     from repro_torch.launch import serve
     from repro_torch.runtime import mesh as mesh_mod
 
-    rec, launches = {"card": card, "transport": SHARD_TRANSPORT}, {}
+    rec, launches, k3 = {"card": card, "transport": SHARD_TRANSPORT}, {}, {}
     for tag, (arch, shape, _, gen) in SERVE_MESH_CASES.items():
         got = world[tag]
+        if tag in REC_SERVE:
+            rec[tag] = serve_mesh_recurrent_report(card, tag, got, launches, k3)
+            continue
         pay, ranks = got["payload"], got["ranks"]
         ref = torch.load(SERVE_MESH_DIR / f"{tag}.pt", map_location="cpu")
         world_n = pay["world"]
@@ -6663,7 +7321,99 @@ def phase_serve_mesh(torch, card: str, world: dict) -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(SERVE_MESH_DIR, ignore_errors=True)
     print("SERVE_MESH " + json.dumps(rec))
-    return launches
+    return {"k2": launches, "k3": k3}
+
+
+def serve_mesh_recurrent_report(card: str, tag: str, got: dict, launches: dict,
+                                k3: dict) -> dict:
+    """The gates of a recurrent SERVE_MESH case (serve_mesh_recurrent_case):
+    K2 per rank only at FA_HYBRID_RANK, one a prefill per application of
+    zamba2's shared block; K3 per rank one a prefill per sLSTM block; every
+    block's prefill on the 1x1 input (the residual after it and every leaf
+    of its cache) within BF16_ROW_ULPS; the first block's state in the
+    serve's prefill cache within BF16_ROW_ULPS of the 1x1's, and that cache
+    laid into the decode cache bit for bit; every mixer's decode step on
+    the 1x1 inputs within BF16_ROW_ULPS; the tokens and every step's pick
+    identical on every model rank; zamba2's attention cache sharded on its
+    sequence; the planted REC_SERVE_PLANTED past BF16_ROW_ULPS.  Printed:
+    the teacher-forced and prefill logits, the first tokens (and those of
+    the rows a top-2 margin decides), the greedy tokens' agreement, prefill
+    ms, decode ms/token, a decode step's wire and the cache a rank.  Adds
+    the case's launches to `launches` (K2) and `k3`."""
+    from repro_torch.configs import cut_depth, get_config
+
+    arch, shape, depth, gen = SERVE_MESH_CASES[tag]
+    cfg = cut_depth(get_config(arch), depth)
+    pay, ranks = got["payload"], got["ranks"]
+    world_n, n_mesh = pay["world"], shape[0] * shape[1]
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    n_slstm = cfg.n_layers // cfg.slstm_every if cfg.family == "xlstm" else 0
+    _k2_ranks(f"SERVE_MESH {tag}", pay, [n_attn] * n_mesh + [0] * (world_n - n_mesh),
+              (*FA_HYBRID_RANK, "bfloat16", "wgmma_tma"))
+    worst = max(r for rank in ranks for _, r in rank["decode"])
+    prefill = [max(r["prefill"][i][1] for r in ranks) for i in range(len(ranks[0]["prefill"]))]
+    handoff = max(r["handoff"] for r in ranks)
+    planted = min(r["planted"] for r in ranks)
+    gates = {
+        "K3 launches per rank": pay["k3_launches"] == [n_slstm] * n_mesh
+        + [0] * (world_n - n_mesh),
+        f"every block's prefill on the 1x1 input, output and cache <= {BF16_ROW_ULPS}":
+            max(prefill) <= BF16_ROW_ULPS,
+        f"the first block's state in the serve's prefill cache <= {BF16_ROW_ULPS}, laid bit "
+        "for bit": handoff <= BF16_ROW_ULPS and all(r["laid_same"] for r in ranks),
+        f"every mixer's decode step on the 1x1 inputs <= {BF16_ROW_ULPS}": worst <= BF16_ROW_ULPS,
+        "tokens identical on every model rank": pay["tokens_agree_over_model"] and all(
+            r["tokens_agree_over_model"] and r["picks_agree"] for r in ranks),
+        "planted rejected: " + REC_SERVE_PLANTED: planted > BF16_ROW_ULPS,
+    }
+    if n_attn:
+        gates["attention cache sharded on its sequence"] = all(r["seq_sharded"] for r in ranks)
+    tf = {i: max(r["teacher_forced"][i] for r in ranks) for i in ranks[0]["teacher_forced"]}
+    case = {"mesh": pay["mesh"], "transport": pay["transport"], "world": world_n,
+            "n_layers": depth, "prefill_ms": pay["prefill_ms"],
+            "decode_ms_per_token": pay["decode_ms_per_token"],
+            "decode_step_traffic_rank0": pay["decode_step_traffic"],
+            "peak_mem_gb": pay["peak_mem_gb"], "k2_launches": pay["k2_launches"],
+            "k2_shapes": pay["k2_shapes"], "k3_launches": pay["k3_launches"],
+            "cache_layout": pay["cache_layout"], "local_cache": ranks[0]["local_cache"],
+            "decode_readings": [max(r["decode"][i][1] for r in ranks)
+                                for i in range(len(ranks[0]["decode"]))],
+            "prefill_readings": prefill, "prefill_handoff_reading": handoff,
+            "planted": {REC_SERVE_PLANTED: planted},
+            "gates": gates, "teacher_forced_logits_rel": tf,
+            "prefill_logits_rel": max(r["prefill_logits_rel"] for r in ranks),
+            "greedy_tokens_agree_with_1x1": ranks[0]["greedy_agree"],
+            "first_tokens_equal": all(r["first_tokens_equal"] for r in ranks),
+            "first_tokens_decided_rows": [r["first_tokens_decided"] for r in ranks],
+            "first_tokens_decided_equal": all(r["first_tokens_ok"] for r in ranks),
+            "greedy_steps_equal_1x1": ranks[0]["same_prefix"],
+            "one_device_prefill_ms": ranks[0]["one_device_prefill_ms"],
+            "one_device_decode_ms_per_token": ranks[0]["one_device_decode_ms_per_token"],
+            "wall_s": got["wall_s"], "checks_s": max(r["checks_s"] for r in ranks)}
+    print(f"[serve_mesh {tag} {pay['mesh']}, {depth} layers] {card}, transport "
+          f"{pay['transport']}, world {world_n}: prefill {pay['prefill_ms']:.1f} ms, decode "
+          f"{pay['decode_ms_per_token']:.2f} ms/token (rank 0's clock: the transport's time; "
+          f"1x1 {case['one_device_prefill_ms']:.1f}, {case['one_device_decode_ms_per_token']:.2f});"
+          f" cache {pay['cache_layout']} {ranks[0]['local_cache']} a rank; K2 "
+          f"{pay['k2_launches']} at {pay['k2_shapes']}, K3 {pay['k3_launches']}; a decode step's "
+          f"wire, rank 0 {pay['decode_step_traffic']}; peak GB per rank {pay['peak_mem_gb']}")
+    print(f"[serve_mesh {tag}] gates {gates}; each block's prefill reading {prefill}, the "
+          f"first block's state in the serve's cache {handoff}, planted ({REC_SERVE_PLANTED}) "
+          f"{planted}; each mixer's decode reading "
+          f"{case['decode_readings']}; printed, not gated: teacher-forced step logits "
+          f"max|d|/max|1x1| {[f'{i}: {x:.3e}' for i, x in tf.items()]}; prefill logits "
+          f"{case['prefill_logits_rel']:.3e}; first tokens all equal "
+          f"{case['first_tokens_equal']} (rows decided by the margin, per rank "
+          f"{case['first_tokens_decided_rows']}, theirs equal "
+          f"{case['first_tokens_decided_equal']}); greedy tokens equal to the 1x1 run's "
+          f"{case['greedy_tokens_agree_with_1x1']:.3f} (all rows for the first "
+          f"{case['greedy_steps_equal_1x1']} of {gen})")
+    if not all(gates.values()):
+        raise AssertionError(f"SERVE_MESH {tag}: {[k for k, v in gates.items() if not v]}")
+    for counts, by_path in ((pay["k2_launches"], launches), (pay["k3_launches"], k3)):
+        if sum(counts):
+            by_path[f"{arch} {pay['mesh']} serve"] = sum(counts)
+    return case
 
 
 # DICT_MESH: the paper's engine one agent a rank (runtime/mesh.py,
@@ -7135,6 +7885,8 @@ def main() -> int:
     sharded = timed("sharded training", phase_sharded, torch, card, dm_job)
     serve_mesh = timed("serving on a mesh", phase_serve_mesh, torch, card,
                        sharded.pop("serve_mesh_world"))
+    sl_rec["per_rank_shape"]["launches_by_path"] = {**sharded["k3_launches"],
+                                                   **serve_mesh["k3"]}
     dict_mesh = timed("dictionary engine on a mesh", phase_dict_mesh, torch, card,
                       sharded.pop("dict_mesh_world"), dm_job)
     shutil.rmtree(DM_DIR, ignore_errors=True)
@@ -7155,7 +7907,8 @@ def main() -> int:
     xlstm_train = timed("xlstm-1.3b train", phase_xlstm_train, torch, card)
     xlstm_cpu = timed("xlstm card vs cpu", phase_xlstm_card_vs_cpu, torch)
     sl_rec["launches_by_path"] = {"xlstm-1.3b serve": sl_rec["launches"],
-                                  "xlstm-1.3b train": xlstm_train["launches"]}
+                                  "xlstm-1.3b train": xlstm_train["launches"],
+                                  **sl_rec["per_rank_shape"]["launches_by_path"]}
     sl_rec["launches"] = sum(sl_rec["launches_by_path"].values())
     sl_rec["train_launches_per_step"] = xlstm_train["launches_per_step"]
     sl_rec["backward"]["launches_per_step"] = xlstm_train["launches_per_step"]
@@ -7173,7 +7926,7 @@ def main() -> int:
                                   "hubert-xlarge train": audio_train["launches"],
                                   "zamba2 serve": hybrid_serve,
                                   "zamba2 train": hybrid_train["launches"],
-                                  **sharded["launches"], **serve_mesh}
+                                  **sharded["launches"], **serve_mesh["k2"]}
     fa_rec["launches"] = sum(fa_rec["launches_by_path"].values())
     fa_rec["train_launches_per_step"] = train["launches_per_step"]
     fa_rec["moe_train_launches_per_step"] = moe_train["launches_per_step"]
@@ -7185,8 +7938,10 @@ def main() -> int:
         "olmo-1b 1x1 nccl train": sharded["olmo_1x1_nccl"]["k2_launches"],
         "granite-moe 1x2 train": sharded["granite_1x2"]["k2_launches"],
         "granite-moe 2x1 reload step": sharded["granite_1x2"]["k2_rescale"]["k2_launches"],
-        "granite-8b 2x2 FSDP train": sharded["granite8b_2x2_fsdp"]["k2_launches"]},
+        "granite-8b 2x2 FSDP train": sharded["granite8b_2x2_fsdp"]["k2_launches"],
+        "zamba2-1.2b 2x2 train": sharded["recurrent"]["zamba2"]["k2_launches"]},
         "shapes_per_rank": {"olmo-1b 2x2 train": sharded["olmo_2x2"]["k2_shapes"],
+                            "zamba2-1.2b 2x2 train": sharded["recurrent"]["zamba2"]["k2_shapes"],
                             "granite-moe 1x2 train": sharded["granite_1x2"]["k2_shapes"],
                             "granite-8b 2x2 FSDP train":
                                 sharded["granite8b_2x2_fsdp"]["k2_shapes"]},

@@ -40,7 +40,8 @@ config keeps at least one group of attn_every Mamba2 layers) and keeps
 every width.  Weights are random, made from --seed on the device.  `--device cpu` runs
 on the CPU (the default is the card, and no card is an error).
 
-`--mesh DxM` serves the dense and MoE families over D x M ranks, spawned
+`--mesh DxM` serves the dense, MoE, hybrid and xlstm families over D x M
+ranks, spawned
 by runtime/mesh.launch as `launch/train --mesh` spawns them, and computes
 what JAX's sharded serve computes (src/repro/launch/serve.py:36-78): the
 prompts, drawn from --seed as at 1x1, split over `data`; the weights made
@@ -51,26 +52,34 @@ sharded on its sequence over `model` where max_len divides M (each rank
 attends over its positions and the parts combine by their log-sum-exp),
 else on its kv heads where they divide M, else replicated; an MoE decode
 step through the expert-sharded capacity dispatch over the step's whole
-batch (gathered over `data`); the greedy argmax vocab-parallel.
+batch (gathered over `data`); the greedy argmax vocab-parallel.  The
+hybrid (zamba2) and xlstm families run their Mamba2 and mLSTM mixers
+tensor-parallel by heads and their sLSTM on every model rank
+(models/ssm.py, models/xlstm.py): the shared block's cache as the dense
+one, the Mamba2 and mLSTM states by heads, the sLSTM's the rank's rows.
 `--transport auto` runs gloo on the CPU, nccl with a card a rank and
 gloo_staged for several ranks on one card; any other value runs even a
 1x1 mesh through this path (its one rank this process).  An FSDP config
 (fsdp_embed: granite-8b, qwen3-32b, kimi-k2) holds D / dp of every
 weight's `embed` dim a rank and gathers it over `data` before use
 (models/fsdp.py): each layer's weights in every prefill and decode step.
-A rank that raises fails the run.  The other families and a `pod` axis
-are refused on a mesh, naming the ROADMAP item that lifts each:
+A rank that raises fails the run.  The vlm and audio families and a
+`pod` axis are refused on a mesh, naming the ROADMAP item that lifts each:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mesh 2x2 --json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \
       --device cpu --mesh 1x2 --json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1p2b --device cpu \
+      --mesh 2x2 --json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1p3b --device cpu \
+      --mesh 1x2 --json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b --full-config \
       --n-layers 2 --batch 4 --prompt-len 2048 --gen 4 --mesh 2x2
 
 Prints the JAX CLI's lines (config, prefill ms and decode ms/token, the
 first row's token ids); `--json` adds one `BENCH` line (on a mesh also the
 mesh, transport and world, the tokens gathered over `data`, each rank's
-K2 launches and shapes, a decode step's collectives and bytes per axis,
+K2 launches and shapes and K3 launches, a decode step's collectives and bytes per axis,
 each rank's peak device memory; times on rank 0's clock).
 """
 
@@ -102,7 +111,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--mesh", type=str, default="1x1",
-                    help="DATAxMODEL ranks (dense and moe families); 1x1 serves in process")
+                    help="DATAxMODEL ranks (dense, moe, hybrid and xlstm families); 1x1 "
+                         "serves in process")
     ap.add_argument("--transport", type=str, default="auto",
                     choices=("auto",) + mesh_mod.TRANSPORTS,
                     help="the mesh's collectives: auto = gloo on the CPU, nccl with a card "
@@ -286,17 +296,21 @@ def _serve_ranks(mesh, a: dict, keep: bool = False) -> Optional[Dict]:
     import torch.distributed as dist
 
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.slstm_step import ops as k3_ops
     from repro_torch.launch.train import _k2_counts
 
     args = argparse.Namespace(**a)
     cfg = _config(args)
     ops.flash_attention.launches = 0
     ops.launch_shapes.clear()
+    k3_ops.slstm_seq.launches = 0
     cuda = mesh is not None and mesh.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(mesh.device)
     run = _serve_on(mesh, cfg, args) if mesh is not None else None
     k2 = _k2_counts(ops)
+    k3 = [None] * dist.get_world_size()  # every rank's K3 launches in the serve
+    dist.all_gather_object(k3, k3_ops.slstm_seq.launches)
     peaks = [None] * dist.get_world_size()
     dist.all_gather_object(
         peaks, torch.cuda.max_memory_allocated(mesh.device) / 1e9 if cuda else None)
@@ -307,6 +321,7 @@ def _serve_ranks(mesh, a: dict, keep: bool = False) -> Optional[Dict]:
                    "tokens": run["tokens"].tolist(),
                    "tokens_agree_over_model": run["tokens_agree_over_model"],
                    "k2_launches": [n for n, _ in k2], "k2_shapes": [s for _, s in k2],
+                   "k3_launches": k3,
                    "decode_step_traffic": run["decode_step_traffic"], "peak_mem_gb": peaks}
         _print(cfg, args, payload, run["tokens"][0].tolist())
         run["payload"] = payload
@@ -370,14 +385,24 @@ def _serve_on(mesh, cfg, args: argparse.Namespace) -> dict:
     mine = torch.cat(out_tokens, dim=1)
     every = mesh.all_gather_tiled(mine[None], MODEL_AXIS, 0)
     agree = bool((every == mine[None]).all())
-    layers = next(iter(cache.values()))["k"]
-    layout = "seq" if seq else "heads" if layers.shape[3] != cfg.n_kv_heads else "replicated"
+    layout = _cache_layout(cfg, mesh, cache, seq)
     return {"tokens": mesh.all_gather_tiled(mine, DATA_AXIS, 0).cpu(),
             "prefill_s": prefill_s, "decode_s": decode_s, "cache_layout": layout,
             "decode_step_traffic": traffic, "tokens_agree_over_model": agree,
             "params": params, "batch": batch, "max_len": max_len,
             "last_logits": last_logits, "step_logits": step_logits,
             "prefill_cache": pre_cache, "cache": cache}
+
+
+def _cache_layout(cfg, mesh, cache: dict, seq: bool) -> str:
+    """How the rank's decode cache is cut over `model`: the attention K/V's
+    "seq", "heads" or "replicated" (the hybrid's shared block's), and for
+    xlstm, whose mLSTM state goes by heads, "heads" (or "replicated" at
+    tp 1)."""
+    if cfg.family == "xlstm":
+        return "heads" if mesh.size(MODEL_AXIS) > 1 else "replicated"
+    layers = (cache["attn"] if cfg.family == "hybrid" else next(iter(cache.values())))["k"]
+    return "seq" if seq else "heads" if layers.shape[3] != cfg.n_kv_heads else "replicated"
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:

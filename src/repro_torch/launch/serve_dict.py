@@ -416,8 +416,12 @@ def _serve(args, coder, W0, X, svc_cfg, drain_ranks, record_fits: bool = False) 
             print(f"growth applied: {grow_fut.result(timeout=3600)}")
         if drain_fut is not None:
             print(f"drain applied: {drain_fut.result(timeout=3600)}")
-        stats = svc.stats()
     wall_s = time.perf_counter() - t0
+    # Read once the service has stopped: the learner has then fitted every
+    # batch the stream gave it.  Read before the stop, fit_steps and
+    # published count only the fits that had finished when the last code
+    # came back, which depends on how busy the host is.
+    stats = svc.stats()
 
     # For the l2-residual tasks nu* IS the fit residual (paper Eq. 53).
     pre = np.mean([np.linalg.norm(nu) for nu, _ in results[: args.micro_batch]])

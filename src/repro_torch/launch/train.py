@@ -36,14 +36,16 @@ the CPU (the default is the card, and no card is an error).
 Checkpoints go to --ckpt-dir, by default a fresh directory under
 build/checkpoints/.
 
-`--mesh DxM` (and `--rescale-mesh D2xM2`) trains the dense and MoE
-families sharded over D x M ranks, spawned by runtime/mesh.launch (max(D
+`--mesh DxM` (and `--rescale-mesh D2xM2`) trains the dense, MoE, hybrid
+and xlstm families sharded over D x M ranks, spawned by runtime/mesh.launch (max(D
 M, D2 M2) of them; each mesh takes the first ranks): the parameters cut
 by the JAX package's sharding rules, tensor-parallel over `model`,
 data-parallel over `data` (an FSDP config, fsdp_embed: granite-8b,
 qwen3-32b, kimi-k2, also every weight's `embed` dim over `data`, gathered
 before use, models/fsdp.py; Adafactor's means then span the shards), the
-MoE FFN expert-parallel (models/moe_a2a),
+MoE FFN expert-parallel (models/moe_a2a), the Mamba2 and mLSTM mixers
+tensor-parallel by heads and the sLSTM on every model rank (its K3 on
+each),
 checkpoints of whole tensors written by rank 0, the injected fault raised
 on every rank at the same step, and after the run the reload of the
 latest checkpoint (or --rescale-step's) on the rescale mesh with one step
@@ -54,8 +56,8 @@ choice is printed and never switched on a failure.  `--transport` other
 than auto runs even a 1x1 mesh through the distributed path (its one rank
 is this process).  A rank that raises fails the run.  `--optimizer sgd` trains with plain SGD at the
 constant --lr (the default: AdamW on a cosine warmup, Adafactor for a
-bf16-param config).  The other families and a `pod` axis are refused on a
-mesh, naming the ROADMAP item that lifts each:
+bf16-param config).  The vlm and audio families and a `pod` axis are
+refused on a mesh, naming the ROADMAP item that lifts each:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --mesh 2x2 --steps 8 \
       --batch 4 --seq 32 --ckpt-every 4 --inject-fault-at 5 --rescale-mesh 1x2 --json
@@ -64,6 +66,9 @@ mesh, naming the ROADMAP item that lifts each:
       --inject-fault-at 3 --rescale-mesh 2x1 --rescale-step 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_8b --full-config \
       --n-layers 2 --mesh 2x2 --batch 4 --seq 2048 --steps 3 --ckpt-every 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_1p2b --device cpu \
+      --mesh 2x2 --steps 8 --batch 4 --seq 32 --ckpt-every 4 --inject-fault-at 5 \
+      --rescale-mesh 1x2 --json
 
 Prints the JAX CLI's lines: the loss every 10 steps, the final loss with
 the faults recovered, the checkpoint list, and "elastic rescale ...:
@@ -133,7 +138,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", type=str, default="1x1",
-                    help="DATAxMODEL ranks (dense and moe families); 1x1 trains in process")
+                    help="DATAxMODEL ranks (dense, moe, hybrid and xlstm families); 1x1 "
+                         "trains in process")
     ap.add_argument("--transport", type=str, default="auto",
                     choices=("auto",) + mesh_mod.TRANSPORTS,
                     help="the mesh's collectives: auto = gloo on the CPU, nccl with a card "
@@ -279,6 +285,7 @@ def _train_ranks(mesh, a: dict) -> Optional[Dict]:
     import torch.distributed as dist
 
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.slstm_step import ops as k3_ops
 
     t0 = time.perf_counter()
     seconds = {"startup": mesh_mod.startup_seconds()}  # then from this rank's start
@@ -290,6 +297,7 @@ def _train_ranks(mesh, a: dict) -> Optional[Dict]:
     rank = dist.get_rank()
     ops.flash_attention.launches = 0
     ops.launch_shapes.clear()
+    k3_ops.slstm_seq.launches = 0
     if mesh is not None and mesh.device.type == "cuda":
         # this run's peak (a world of one rank runs in its caller's process)
         torch.cuda.reset_peak_memory_stats(mesh.device)
@@ -311,6 +319,8 @@ def _train_ranks(mesh, a: dict) -> Optional[Dict]:
                    "step_times": runner.step_times, "events": runner.events}
         del runner
     k2 = _k2_counts(ops)
+    k3 = [None] * dist.get_world_size()  # every rank's K3 launches in the run
+    dist.all_gather_object(k3, k3_ops.slstm_seq.launches)
     rescaled = {"rescaled_step": None, "rescaled_loss": None}
     if args.rescale_mesh:
         new = mesh_mod.make_mesh(mesh_mod.parse_mesh(args.rescale_mesh))
@@ -332,7 +342,7 @@ def _train_ranks(mesh, a: dict) -> Optional[Dict]:
     if rank == 0:
         seconds["rescale_done"] = time.perf_counter() - t0
         out.update(rescaled, k2_launches=[n for n, _ in k2], k2_shapes=[s for _, s in k2],
-                   rank0_seconds=seconds)
+                   k3_launches=k3, rank0_seconds=seconds)
         if cuda:
             out.update(peak_mem_gb=peaks[0], peak_mem_gb_ranks=peaks)
     return out
@@ -370,7 +380,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     print(line)
     keys = ("losses", "faults", "ckpt_dir", "ckpt_steps", "rescaled_step")
     if sharded:
-        keys += ("mesh", "transport", "world", "rescaled_loss", "k2_launches", "k2_shapes")
+        keys += ("mesh", "transport", "world", "rescaled_loss", "k2_launches", "k2_shapes",
+                 "k3_launches")
     result = {k: out[k] for k in keys}
     if args.json:
         print(json.dumps(result))

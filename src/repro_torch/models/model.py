@@ -68,8 +68,8 @@ leaf (what `split_tree(M.init(cfg, key))[1]` gives there), in the port's
 layouts; runtime/sharding.py maps it to mesh axes.
 
 On a mesh (`forward` / `loss_fn` with `mesh=`, or the mesh a train step
-installs through models/sharding_hook), the dense and MoE families run on
-the rank's shards: the batch is this data rank's rows, every leaf the
+installs through models/sharding_hook), the dense, MoE, hybrid and xlstm
+families run on the rank's shards: the batch is this data rank's rows, every leaf the
 rank's shard under the sharding rules; attention and the MLP are
 tensor-parallel over `model`, the MoE FFN expert-parallel
 (models/transformer.py), the embedding vocab-parallel, and the loss's
@@ -99,9 +99,21 @@ on a rank (`param_specs`); the entry points gather each such weight over
 `data` before use (models/fsdp.py): the embedding table and the head
 where they are read, each layer's weights at the entry of its block
 (inside `_remat`'s checkpoint), an MoE layer's experts inside its FFN.
-Every other family and a `pod` axis raise NotImplementedError on a mesh
-other than 1x1 (`check_mesh_supported`), in training and serving, naming
-the ROADMAP item that lifts each.
+The hybrid and xlstm families run on a mesh too, with the same residual
+layouts: the Mamba2 and mLSTM mixers tensor-parallel by heads over
+`model` (models/ssm.py, models/xlstm.py; Mamba2's fused leaves cut segment
+by segment, runtime/sharding's `Segmented`), the hybrid's shared block
+as the dense blocks, and the sLSTM, whose weights are replicated, run on
+every model rank over the rank's batch and the whole sequence (under SP:
+its norm on the slice, `seq_whole` before it and `seq_part` after).  Their
+decode caches on a rank: the hybrid's attention K/V as the dense cache,
+its Mamba2 state by heads (conv_buf by segment); the mLSTM's state by
+heads (ROADMAP section 1 records that departure from JAX's replicated
+MLSTM_CACHE_AXES); the sLSTM's state the rank's rows.
+The vlm and audio families and a `pod` axis raise NotImplementedError on
+a mesh other than 1x1 (`check_mesh_supported`), in training and serving,
+naming the ROADMAP item that lifts each; so do an xlstm whose heads the
+model axis does not divide and a Mamba2 segment it does not divide.
 """
 
 from __future__ import annotations
@@ -127,14 +139,15 @@ from repro_torch.models.layers import (apply_norm, dense_init, embed, embedding_
                                        init_embedding, init_norm, norm_axes, stack_axes,
                                        unembed)
 from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, axis_sizes
-from repro_torch.runtime.sharding import cache_spec, rules_for, tree_specs
+from repro_torch.runtime.sharding import (Segmented, batch_spec, cache_spec, check_segments,
+                                         rules_for, tree_specs)
 
 # The ROADMAP items (section 1) that lift the refusals of a mesh.
 MESH_ITEMS = {
-    "families": "ROADMAP section 1, item 4: the vlm, audio, hybrid and xlstm families on a mesh",
+    "families": "ROADMAP section 1, item 4: the vlm and audio families on a mesh",
     "pod": "ROADMAP section 1, item 5: a `pod` axis",
 }
-MESH_FAMILIES = ("dense", "moe")
+MESH_FAMILIES = ("dense", "moe", "hybrid", "xlstm")
 
 
 def require_ported(cfg: ArchConfig) -> None:
@@ -153,8 +166,9 @@ def require_ported(cfg: ArchConfig) -> None:
 def check_mesh_supported(cfg: ArchConfig, mesh) -> None:
     """Raise NotImplementedError for what the port does not run on a mesh
     other than 1x1 (a Mesh, a {axis: size} dict, or None), in training or
-    serving: a family other than dense and moe, a `pod` axis of more than
-    one."""
+    serving: a family outside MESH_FAMILIES, a `pod` axis of more than one,
+    an xlstm whose n_heads the model axis does not divide (JAX would keep
+    wq whole and still cut `ffn`), a Mamba2 segment it does not divide."""
     sizes = axis_sizes(mesh)
     if all(n == 1 for n in sizes.values()):
         return
@@ -168,6 +182,15 @@ def check_mesh_supported(cfg: ArchConfig, mesh) -> None:
         raise NotImplementedError(
             f"{cfg.name} on mesh {shape}: the sharded-training and sharded-serving paths "
             f"have no `pod` axis of more than one rank ({MESH_ITEMS['pod']})")
+    tp = sizes.get(MODEL_AXIS, 1)
+    if cfg.family == "xlstm" and cfg.n_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {shape}: the sharded-training and sharded-serving paths cut "
+            f"the mLSTM by heads, and n_heads {cfg.n_heads} does not split over tp {tp} "
+            f"model ranks (ROADMAP section 1)")
+    if cfg.family == "hybrid":  # in_proj's segments hold conv's [x, B, C]
+        check_segments(Segmented(MODEL_AXIS, ssm_mod.segments(**_mamba_dims(cfg))["in_proj"]),
+                       tp, f"{cfg.name} on mesh {shape}: Mamba2's in_proj: ")
 
 
 def stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
@@ -208,7 +231,7 @@ def param_axes(cfg: ArchConfig) -> Dict[str, dict]:
         axes["slstm"] = stack_axes({"norm": norm, "mixer": xlstm_mod.slstm_axes()})
     elif cfg.family == "hybrid":
         for key in stack_sizes(cfg):
-            axes[key] = stack_axes({"norm": norm, "mixer": ssm_mod.mamba2_axes()})
+            axes[key] = stack_axes({"norm": norm, "mixer": ssm_mod.mamba2_axes(**_mamba_dims(cfg))})
         axes["shared_attn"] = tfm.block_axes(cfg)
     else:
         if "dense_layers" in stack_sizes(cfg):
@@ -422,13 +445,22 @@ def _xlstm_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str) -> torch
 
 
 def _xlstm_mixer(cfg: ArchConfig, kind: str, lp: dict, h: torch.Tensor, return_cache: bool):
-    h_in = apply_norm(cfg.norm, lp["norm"], h)
+    """One xlstm block's mixer output on the residual's layout (its norm on
+    the rank's slice where the residual is sharded on its sequence).  The
+    sLSTM, replicated over `model`, runs on every model rank over the whole
+    sequence of the rank's rows: `seq_whole` in, `seq_part` out (the
+    identities on a replicated residual), so its gradient comes out whole
+    on every rank with no sum over `model`."""
+    h_in = apply_norm(cfg.norm, hook.seq_shared(lp["norm"]), h)
     if kind == "mlstm":
         return xlstm_mod.mlstm_block(lp["mixer"], h_in, n_heads=cfg.n_heads,
                                      proj_factor=cfg.mlstm_proj_factor, chunk=cfg.ssm_chunk,
                                      return_cache=return_cache)
-    return xlstm_mod.slstm_block(lp["mixer"], h_in, n_heads=cfg.n_heads,
-                                 return_cache=return_cache)
+    got = xlstm_mod.slstm_block(lp["mixer"], hook.seq_whole(h_in), n_heads=cfg.n_heads,
+                                return_cache=return_cache)
+    if return_cache:
+        return hook.seq_part(got[0]), got[1]
+    return hook.seq_part(got)
 
 
 def _hybrid_layers(cfg: ArchConfig, params: dict):
@@ -448,10 +480,22 @@ def _mamba_kw(cfg: ArchConfig) -> dict:
     return dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand)
 
 
+def _mamba_dims(cfg: ArchConfig) -> dict:
+    """The widths of Mamba2's segments (models/ssm.segments)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return dict(d_inner=d_inner, d_state=cfg.ssm_state, n_heads=d_inner // cfg.ssm_head_dim)
+
+
+def _mamba_mixer(cfg: ArchConfig, lp: dict, h: torch.Tensor, return_cache: bool = False):
+    """One Mamba2 block's mixer output (its norm on the residual's layout)."""
+    h_in = apply_norm(cfg.norm, hook.seq_shared(lp["norm"]), h)
+    return ssm_mod.mamba2_block(lp["mixer"], h_in, chunk=cfg.ssm_chunk,
+                                return_cache=return_cache, **_mamba_kw(cfg))
+
+
 def _mamba_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """One pre-norm Mamba2 block over the full sequence."""
-    h_in = apply_norm(cfg.norm, lp["norm"], h)
-    return h + ssm_mod.mamba2_block(lp["mixer"], h_in, chunk=cfg.ssm_chunk, **_mamba_kw(cfg))
+    return h + _mamba_mixer(cfg, lp, h)
 
 
 _SAVED = [None]  # remat_saved's list while one is open
@@ -664,37 +708,78 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = "
     hybrid: {"mamba": {"conv_buf" (n_groups, attn_every, B, 3, conv_dim) in
     the compute dtype, "S" (n_groups, attn_every, B, H, N, P) fp32}, "attn":
     {"k", "v": (n_groups, B, max_len, Hkv, Dh)} (one per application of the
-    shared block), and "mamba_tail" as "mamba" with (n_tail,) in front}."""
+    shared block), and "mamba_tail" as "mamba" with (n_tail,) in front}.
+    On a mesh: hybrid's "attn" as the dense cache, its Mamba2 states the
+    rank's rows, segments (conv_buf) and heads (S); xlstm's mLSTM states
+    the rank's rows and heads (conv_buf's channels, C, n, m), its sLSTM
+    states the rank's rows."""
     require_ported(cfg)
     if cfg.family == "audio":
         raise ValueError(f"{cfg.name}: encoder-only arch has no decode cache")
     dev = resolve_device(device)
-    if cfg.family == "hybrid":
+    if mesh is not None:
+        check_mesh_supported(cfg, mesh)
+    b, t, hkv, dh = _local_cache_shape(cfg, mesh, batch, max_len)
+    if cfg.family in ("hybrid", "xlstm"):
+        states = _state_cache(cfg, b, dev, 1 if mesh is None else mesh.size(MODEL_AXIS))
+        if cfg.family == "xlstm":
+            return states
         n_groups = cfg.n_layers // cfg.attn_every
-        cache = {"attn": attn_mod.init_cache(batch, max_len, cfg.n_kv_heads,
-                                             cfg.resolved_head_dim, cfg.cdtype, dev,
-                                             lead=(n_groups,))}
-        sizes, leads = stack_sizes(cfg), {"mamba": (n_groups, cfg.attn_every)}
-        if "mamba_tail" in sizes:
-            leads["mamba_tail"] = (sizes["mamba_tail"],)
-        for key, lead in leads.items():
-            cache[key] = ssm_mod.init_mamba2_cache(batch, cfg.d_model, dtype=cfg.cdtype,
-                                                   device=dev, lead=lead, **_mamba_kw(cfg))
-        return cache
+        return {"attn": attn_mod.init_cache(b, t, hkv, dh, cfg.cdtype, dev, lead=(n_groups,)),
+                **states}
+    return {_CACHE_KEY[key]: attn_mod.init_cache(b, t, hkv, dh, cfg.cdtype, dev, lead=(n,))
+            for key, n in stack_sizes(cfg).items()}
+
+
+def cache_specs(cfg: ArchConfig, mesh, batch: int, max_len: int) -> dict:
+    """The spec of every leaf of init_cache(cfg, batch, max_len, mesh=mesh)
+    on `mesh` (a Mesh or a {axis: size} dict): the tree by which
+    runtime/sharding.unshard_tree gathers a rank's cache whole.  K/V as
+    `cache_spec` (a layer dim in front); a Mamba2 conv_buf's channels by
+    segment, its S by heads; an mLSTM state by heads; every state's batch
+    over the data axes."""
+    sizes = axis_sizes(mesh)
+    rules = rules_for(cfg)
+    rows = batch_spec(sizes, rules)[0]
+    model = MODEL_AXIS if sizes.get(MODEL_AXIS, 1) > 1 else None
+    kv = (None,) + cache_spec(cfg, sizes, batch, max_len, rules)
+    if cfg.family == "xlstm":
+        return {"mlstm": {"conv_buf": (None, None, rows, None, model),
+                          "C": (None, None, rows, model, None, None),
+                          "n": (None, None, rows, model, None),
+                          "m": (None, None, rows, model)},
+                "slstm": {name: (None, rows, None) for name in ("h", "c", "n", "m")}}
+    if cfg.family != "hybrid":
+        return {_CACHE_KEY[key]: {"k": kv, "v": kv} for key in stack_sizes(cfg)}
+    xbc = None if model is None else Segmented(model, ssm_mod.segments(**_mamba_dims(cfg))["xbc"])
+    specs = {"attn": {"k": kv, "v": kv}}
+    for key in stack_sizes(cfg):  # "mamba" (group, block) and "mamba_tail" (block)
+        lead = (None,) * (2 if key == "mamba" else 1)
+        specs[key] = {"conv_buf": lead + (rows, None, xbc), "S": lead + (rows, model, None, None)}
+    return specs
+
+
+def _state_cache(cfg: ArchConfig, batch: int, dev, model_ranks: int) -> dict:
+    """The recurrent state caches (zero, m -1e30) of the hybrid ("mamba",
+    "mamba_tail") or xlstm ("mlstm", "slstm") family for `batch` rows, each
+    Mamba2 and mLSTM state one rank's part of `model_ranks`."""
     if cfg.family == "xlstm":
         n_groups = cfg.n_layers // cfg.slstm_every
         return {
             "mlstm": xlstm_mod.init_mlstm_cache(
                 batch, cfg.d_model, cfg.n_heads, proj_factor=cfg.mlstm_proj_factor,
-                dtype=cfg.cdtype, device=dev, lead=(n_groups, cfg.slstm_every - 1)),
+                dtype=cfg.cdtype, device=dev, lead=(n_groups, cfg.slstm_every - 1),
+                model_ranks=model_ranks),
             "slstm": xlstm_mod.init_slstm_cache(batch, cfg.d_model, device=dev,
                                                 lead=(n_groups,)),
         }
-    if mesh is not None:
-        check_mesh_supported(cfg, mesh)
-    b, t, hkv, dh = _local_cache_shape(cfg, mesh, batch, max_len)
-    return {_CACHE_KEY[key]: attn_mod.init_cache(b, t, hkv, dh, cfg.cdtype, dev, lead=(n,))
-            for key, n in stack_sizes(cfg).items()}
+    sizes = stack_sizes(cfg)
+    leads = {"mamba": (cfg.n_layers // cfg.attn_every, cfg.attn_every)}
+    if "mamba_tail" in sizes:
+        leads["mamba_tail"] = (sizes["mamba_tail"],)
+    return {key: ssm_mod.init_mamba2_cache(batch, cfg.d_model, dtype=cfg.cdtype, device=dev,
+                                           lead=lead, model_ranks=model_ranks, **_mamba_kw(cfg))
+            for key, lead in leads.items()}
 
 
 def merge_prefill_cache(cfg: ArchConfig, cache: dict, pre_cache: dict, mesh=None,
@@ -710,6 +795,10 @@ def merge_prefill_cache(cfg: ArchConfig, cache: dict, pre_cache: dict, mesh=None
     seq = mesh is not None and seq_sharded(cfg, mesh, max_len)
     for stack, layers in cache.items():
         part = pre_cache[stack]
+        if "k" not in layers:
+            for name, full in layers.items():
+                full.copy_(part[name])
+            continue
         s_len = part["k"].shape[2]
         if not seq:
             for name, full in layers.items():
@@ -745,12 +834,12 @@ def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor],
     xlstm and hybrid: the cache of `init_cache` (hybrid's K/V of S
     positions), each block's final state in its slot (a prompt shorter than
     the convolution leaves the older conv_buf rows zero, as the
-    convolution's padding).  On a mesh (given, or installed; dense and
-    moe; as `forward`'s): the rank's rows and shards,
+    convolution's padding).  On a mesh (given, or installed; as
+    `forward`'s): the rank's rows and shards,
     tensor-parallel (and sequence-parallel) as `forward`; the logits of
     the rank's vocabulary range over the whole sequence, and the K/V of
     its kv heads (every kv head where kv_heads stay whole) over the whole
-    sequence."""
+    sequence, the recurrent states in `init_cache(mesh=)`'s layout."""
     if cfg.family == "audio":
         return forward(cfg, params, batch, mesh)[0], None
     require_ported(cfg)
@@ -764,8 +853,9 @@ def prefill(cfg: ArchConfig, params: dict, batch: Dict[str, torch.Tensor],
 
 def _prefill(cfg: ArchConfig, params: dict, batch, seq_len: int) -> Tuple[torch.Tensor, dict]:
     h = _embed_inputs(cfg, params, batch)
+    if cfg.family in ("xlstm", "hybrid"):
+        cache = _state_cache(cfg, h.shape[0], h.device, hook.model_size())
     if cfg.family == "xlstm":
-        cache = init_cache(cfg, h.shape[0], h.shape[1], device=h.device)
         for kind, gi, li, lp in _xlstm_layers(cfg, params):
             out, state = _xlstm_mixer(cfg, kind, lp, h, return_cache=True)
             h = h + out
@@ -777,21 +867,21 @@ def _prefill(cfg: ArchConfig, params: dict, batch, seq_len: int) -> Tuple[torch.
         return _logits(cfg, params, h), cache
     positions = torch.arange(seq_len, device=h.device)  # the whole sequence's
     if cfg.family == "hybrid":
-        cache = init_cache(cfg, h.shape[0], h.shape[1], device=h.device)
+        kvs = []
         for kind, at, lp in _hybrid_layers(cfg, params):
             if kind == "attn":
-                h, state, _ = tfm.prefill_block(lp, h, positions, cfg)
-            else:
-                h_in = apply_norm(cfg.norm, lp["norm"], h)
-                out, state = ssm_mod.mamba2_block(lp["mixer"], h_in, chunk=cfg.ssm_chunk,
-                                                  return_cache=True, **_mamba_kw(cfg))
-                h = h + out
+                h, kv, _ = tfm.prefill_block(lp, h, positions, cfg)
+                kvs.append(kv)
+                continue
+            out, state = _mamba_mixer(cfg, lp, h, return_cache=True)
+            h = h + out
             for name, t in state.items():
                 slot = cache[kind][name][at]
                 if name == "conv_buf":  # (B, rows, conv_dim), rows = min(S, width - 1)
                     slot = slot[:, -t.shape[1]:]
                 slot.copy_(t)
-        return _logits(cfg, params, h), cache
+        attn = {name: torch.stack([kv[name] for kv in kvs]) for name in ("k", "v")}
+        return _logits(cfg, params, h), {"attn": attn, **cache}
     cache = {}
     for key in stack_sizes(cfg):
         ks, vs = [], []
@@ -815,7 +905,7 @@ def decode_step(
 ) -> Tuple[torch.Tensor, dict]:
     """Returns (logits (B, 1, V) fp32, the cache, updated in place).  A vlm
     step is a text token: pos counts the image positions of the prompt.  On
-    a mesh (given, or installed; dense and moe): the rank's rows, its
+    a mesh (given, or installed): the rank's rows, its
     cache shard of a cache of `max_len` positions (`init_cache`'s layout,
     which max_len fixes), the logits of its vocabulary range."""
     require_ported(cfg)
@@ -854,7 +944,7 @@ def _decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, pos: int,
         for kind, at, lp in _hybrid_layers(cfg, params):
             layer_cache = {name: t[at] for name, t in cache[kind].items()}
             if kind == "attn":
-                h, _, _ = tfm.decode_block(lp, h, layer_cache, pos, cfg)
+                h, _, _ = tfm.decode_block(lp, h, layer_cache, pos, cfg, seq)
             else:
                 h_in = apply_norm(cfg.norm, lp["norm"], h)
                 out, _ = ssm_mod.mamba2_decode(lp["mixer"], h_in, layer_cache, **_mamba_kw(cfg))

@@ -33,7 +33,12 @@ ranks' parts).  With the residual replicated (decode's S = 1, an S the
 axis does not divide, rules mapping "seq" to None), `seq_whole`,
 `seq_part` and `seq_shared` are the identity and `column_in` /
 `row_out` are f / g: Megatron's tensor parallelism on a replicated
-residual.
+residual.  The head-parallel Mamba2 and mLSTM mixers (models/ssm.py,
+models/xlstm.py) reach their own collectives here too: `model_sum` (a
+norm's sum of squares over the ranks' channels, psum both ways),
+`model_all_gather` (Mamba2's convolved B and C), `head_scatter` (the mLSTM
+gates' partial sums onto the rank's heads) and `model_part` (a replicated
+bias on the rank's heads).
 
 A layer rematerialised under torch.utils.checkpoint runs its forward again
 in the backward, after the installing call has returned: `bind` wraps a
@@ -177,6 +182,47 @@ def seq_part(x):
     (backward: all-gather); the identity where the residual is
     replicated."""
     return mesh_mod.split(x, current_mesh(), MODEL_AXIS, 1) if seq_parallel() else x
+
+
+def model_sum(x):
+    """The sum over `model` of each rank's part of a quantity that every
+    rank then uses on its own channels (a norm's sum of squares over a
+    channel dim the ranks split): psum forward AND backward (f of g), since
+    each rank's loss reaches the total through its own channels, so the
+    total's cotangent is the sum of every rank's.  g alone (identity
+    backward) would keep the rank's own part of it.  The identity without a
+    mesh."""
+    return enter_model(leave_model(x))
+
+
+def model_all_gather(x, dim: int):
+    """Every model rank's x concatenated on `dim` (backward: the rank's
+    chunk of the summed gradient, a psum-scatter); the identity without a
+    mesh."""
+    mesh = current_mesh()
+    return x if mesh is None else mesh_mod.all_gather(x, mesh, MODEL_AXIS, dim)
+
+
+def head_scatter(x, dim: int):
+    """Partial sums that every model rank holds for every head (a product
+    that contracts over channels the ranks split) -> the rank's heads of
+    their sum, cut on `dim` (a psum-scatter; backward: the all-gather of
+    the heads' gradients, since each rank's partial reaches every head).
+    The identity without a mesh."""
+    mesh = current_mesh()
+    return x if mesh is None else mesh_mod.psum_scatter(x, mesh, MODEL_AXIS, dim)
+
+
+def model_part(t):
+    """The rank's chunk of a vector replicated over `model` that the rank
+    applies to its part only (an mLSTM's forget bias on the rank's heads):
+    through f first, so its gradient is summed over the ranks' chunks.  As
+    it is without a mesh."""
+    n = model_size()
+    if n == 1:
+        return t
+    c = t.shape[0] // n
+    return enter_model(t).narrow(0, model_index() * c, c)
 
 
 def seq_shared(params: dict) -> dict:

@@ -21,10 +21,32 @@ plain version on the CPU; under grad through its autograd Function, whose
 backward is BPTT in plain PyTorch (`kernels/slstm_step/backward.py`).  The
 mLSTM's chunk loop writes each chunk's q C and q n into preallocated
 tensors, which autograd records as slice copies, so the block trains as
-it serves.  The JAX side's manual-over-DP wrapper
-(`slstm_block_auto`) has no meaning on one card.  Decode steps stay plain
+it serves.  Decode steps stay plain
 (one cell step; K3 is a sequence kernel) and update the cache in place
 (JAX returns a new one); the cache layouts are the JAX ones.
+
+On a mesh (models/sharding_hook installed, a `model` axis of tp ranks)
+the mLSTM is tensor-parallel by heads, as JAX's GSPMD cuts its leaves:
+up, gate, the convolution, norm_scale and down's rows over `ffn` (d_inner
+is head-major, so a contiguous cut is the rank's heads), wq, wk and wv
+over `ssm_heads`; tp must divide n_heads (models/model refuses the rest).
+The input comes through `column_in`; the gates ig = conv @ wi and fg =
+conv @ wf contract over EVERY channel for each head, so the rank's rows
+give a partial sum for every head, taken in fp32 and psum-scattered over
+`model` on the head dim (`hook.head_scatter`: the rank's heads, summed;
+backward: all-gathered), and rounded once after the sum; the replicated
+f_bias goes through f before the rank's heads are indexed
+(`hook.model_part`), so its gradient is summed over `model`; the output
+norm's sum of squares over the whole d_inner is psum'd both ways
+(`hook.model_sum`); down's rows end in `row_out`.  The decode cache on a
+rank: conv_buf's channels and C, n, m by heads (a departure from JAX's
+MLSTM_CACHE_AXES, which keep them replicated over `model`: C whole on
+every rank would be all-gathered each token, 16 MB a sample a layer at
+xlstm-1.3b; the cache is never checkpointed, so no file changes).  The
+sLSTM's weights are replicated (JAX's), and the model runs it on every
+model rank over the rank's batch and the whole sequence
+(models/model.py): the layout JAX's manual-over-DP `slstm_block_auto`
+gives it, each data rank's gradient summed once at the step's boundary.
 """
 
 from __future__ import annotations
@@ -37,6 +59,7 @@ import torch.nn.functional as F
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.slstm_step import ops
 from repro_torch.kernels.slstm_step.ref import GATES, log_sigmoid
+from repro_torch.models import sharding_hook as hook
 from repro_torch.models.layers import dense_init
 
 NEG = -1e30
@@ -177,21 +200,48 @@ def _conv_heads(params: dict, conv: torch.Tensor, u: torch.Tensor, n_heads: int)
     return q, k, v
 
 
-def _out(params: dict, h: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """RMS-normalize the fp32 cell output, gate it, project down."""
-    var = torch.mean(h * h, dim=-1, keepdim=True)
+def _gates(params: dict, conv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raw input- and forget-gate logits (..., H), each a product over
+    every d_inner channel accumulated in fp32 and rounded once to the
+    compute dtype, as XLA's bf16 dot accumulates (a bf16 GEMM of N = H
+    columns may reduce its split-K parts in bf16, several ulps off, which
+    the gates' exp turns into percents of the cell's output).  On a mesh
+    the rank's channels give a part of every head's sum: psum-scattered
+    onto the rank's heads (see the module's docstring)."""
+    dt = conv.dtype
+    # (..., 2H): the rank's channels' part of every head's gates, one fp32 product
+    part = conv.float() @ torch.cat([params["wi"], params["wf"]], -1).float()
+    n_heads = params["wi"].shape[-1]
+    ig, fg = (t.to(dt) for t in hook.head_scatter(part.unflatten(-1, (2, n_heads)), -1)
+              .unbind(-2))
+    return ig, fg + hook.model_part(params["f_bias"].to(dt))
+
+
+def _out(params: dict, h: torch.Tensor, gate: torch.Tensor, d_inner: int) -> torch.Tensor:
+    """RMS-normalize the fp32 cell output over the whole d_inner (the
+    rank's channels' sum of squares psum'd both ways on a mesh), gate it,
+    project down (down's rows and `row_out` on a mesh)."""
+    if hook.model_size() == 1:
+        var = torch.mean(h * h, dim=-1, keepdim=True)
+    else:
+        var = hook.model_sum(torch.sum(h * h, dim=-1, keepdim=True)) / d_inner
     h = h * torch.rsqrt(var + 1e-6) * params["norm_scale"].float()
     h = h.to(gate.dtype) * F.silu(gate)
-    return h @ params["down"].to(gate.dtype)
+    return hook.row_out(h @ params["down"].to(gate.dtype))
 
 
 def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int, proj_factor: int = 2,
                 chunk: int = 128, return_cache: bool = False):
-    """The mLSTM mixer over x (B, S, D) (pre-norm is the caller's); with
-    return_cache also {"conv_buf" (B, w-1, d_inner), "C", "n", "m"}."""
-    b, s, d_model = x.shape
-    d_inner = proj_factor * d_model
+    """The mLSTM mixer over x (B, S, D) (pre-norm is the caller's; on a
+    mesh the rank's positions where the residual is sharded on its
+    sequence, and the rank's heads: see the module's docstring); with
+    return_cache also {"conv_buf" (B, w-1, d_inner), "C", "n", "m"} (the
+    rank's heads)."""
+    d_inner = proj_factor * x.shape[-1]
     dt = x.dtype
+    x = hook.column_in(x)
+    b, s, _ = x.shape
+    n_loc = n_heads // hook.model_size()
 
     u = x @ params["up"].to(dt)
     gate = x @ params["gate"].to(dt)
@@ -204,12 +254,11 @@ def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int, proj_factor: int
         conv = conv + pad[:, i: i + s, :] * conv_w[i]
     conv = F.silu(conv + params["conv_b"].to(dt))
 
-    q, k, v = _conv_heads(params, conv, u, n_heads)
-    ig = conv @ params["wi"].to(dt)  # (B, S, H)
-    fg = conv @ params["wf"].to(dt) + params["f_bias"].to(dt)
+    q, k, v = _conv_heads(params, conv, u, n_loc)
+    ig, fg = _gates(params, conv)  # (B, S, H)
 
     h, (C, n, m) = _mlstm_chunked(q, k, v, ig, fg, chunk)  # fp32
-    out = _out(params, h.reshape(b, s, d_inner), gate)
+    out = _out(params, h.reshape(b, s, -1), gate, d_inner)
     if not return_cache:
         return out
     return out, {"conv_buf": u[:, -(w - 1):, :], "C": C, "n": n, "m": m}
@@ -217,30 +266,35 @@ def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int, proj_factor: int
 
 def init_mlstm_cache(batch: int, d_model: int, n_heads: int, *, proj_factor: int = 2,
                      conv_width: int = 4, dtype: torch.dtype = torch.float32,
-                     device: DeviceLike = "cuda", lead: Tuple[int, ...] = ()) -> dict:
+                     device: DeviceLike = "cuda", lead: Tuple[int, ...] = (),
+                     model_ranks: int = 1) -> dict:
     """The mLSTM decode state, with optional leading (layer) dims: conv_buf
-    in `dtype`, C, n and m in fp32; m = -1e30, the rest zero.  On the card
-    unless the CPU is asked for."""
+    in `dtype`, C, n and m in fp32; m = -1e30, the rest zero; with
+    model_ranks, one rank's heads (n_heads / model_ranks, their channels).
+    On the card unless the CPU is asked for."""
     dev = resolve_device(device)
     d_inner = proj_factor * d_model
     p = d_inner // n_heads
+    h = n_heads // model_ranks
     return {
-        "conv_buf": torch.zeros(*lead, batch, conv_width - 1, d_inner, dtype=dtype, device=dev),
-        "C": torch.zeros(*lead, batch, n_heads, p, p, device=dev),
-        "n": torch.zeros(*lead, batch, n_heads, p, device=dev),
-        "m": torch.full((*lead, batch, n_heads), NEG, device=dev),
+        "conv_buf": torch.zeros(*lead, batch, conv_width - 1, h * p, dtype=dtype, device=dev),
+        "C": torch.zeros(*lead, batch, h, p, p, device=dev),
+        "n": torch.zeros(*lead, batch, h, p, device=dev),
+        "m": torch.full((*lead, batch, h), NEG, device=dev),
     }
 
 
 def mlstm_decode(params: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
                  proj_factor: int = 2) -> Tuple[torch.Tensor, dict]:
     """One recurrent mLSTM step on x (B, 1, D); the cache is updated in
-    place and returned."""
+    place and returned.  On a mesh: the rank's heads."""
     d_model = x.shape[-1]
     d_inner = proj_factor * d_model
     p = d_inner // n_heads
+    n_heads = n_heads // hook.model_size()
     dt = x.dtype
 
+    x = hook.enter_model(x)
     u = x[:, 0] @ params["up"].to(dt)
     gate = x[:, 0] @ params["gate"].to(dt)
     buf = torch.cat([cache["conv_buf"], u[:, None, :]], dim=1)
@@ -249,8 +303,8 @@ def mlstm_decode(params: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
 
     q, k, v = (t.float() for t in _conv_heads(params, conv, u, n_heads))  # (B, H, P)
     q = q * (p ** -0.5)
-    ig = (conv @ params["wi"].to(dt)).float()
-    fg = log_sigmoid((conv @ params["wf"].to(dt) + params["f_bias"].to(dt)).float())
+    ig, fg = _gates(params, conv)
+    ig, fg = ig.float(), log_sigmoid(fg.float())
 
     m_new = torch.maximum(fg + cache["m"], ig)
     sf = torch.exp(fg + cache["m"] - m_new)
@@ -265,7 +319,7 @@ def mlstm_decode(params: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
     cache["m"].copy_(m_new)
     cache["conv_buf"].copy_(buf[:, 1:, :])
 
-    out = _out(params, (num / den[..., None]).reshape(-1, d_inner), gate)
+    out = _out(params, (num / den[..., None]).reshape(-1, n_heads * p), gate, d_inner)
     return out[:, None, :], cache
 
 

@@ -23,9 +23,10 @@ the sharded one of runtime/steps, the checkpoints hold the whole tensors
 another mesh), the fault hook runs on every rank before the step (an
 injected fault raises on all ranks at the same step), restore and replay
 are collective, and the straggler events are rank 0's.  A mesh takes the
-dense and MoE families (FSDP configs too: their shards' cut by the rules,
-restored onto any mesh as any other) without a `pod` axis; the others
-raise, naming the ROADMAP item that lifts each (`check_mesh`).  A
+dense, MoE, hybrid and xlstm families (FSDP configs too: their shards'
+cut by the rules, restored onto any mesh as any other; Mamba2's fused
+leaves cut segment by segment, runtime/sharding) without a `pod` axis;
+the others raise, naming the ROADMAP item that lifts each (`check_mesh`).  A
 recoverable fault is an exception raised in Python, like the injected one.  A CUDA error that
 poisons the context (an illegal address, a device-side assert) is not
 recoverable in the same process: every later call on the card fails too,
@@ -60,8 +61,8 @@ class RunnerConfig:
 
 
 def check_mesh(mesh, cfg: Optional[ArchConfig] = None) -> None:
-    """Accept one device (None, "1x1" or (1, 1)), and for the dense and MoE
-    families (without a `pod` axis) a "DxM" shape or a Mesh;
+    """Accept one device (None, "1x1" or (1, 1)), and for the families
+    model.check_mesh_supported takes (without a `pod` axis) a "DxM" shape or a Mesh;
     raise NotImplementedError for any other, naming the ROADMAP item that
     lifts it (model.MESH_ITEMS)."""
     if mesh is None:

@@ -30,6 +30,20 @@ heads when n_kv does, else to neither (the cache replicated over `model`).
 shard (a copy of the slice); `unshard_tensor` / `unshard_tree` gather the
 shards back to the whole (a collective over the spec's axes: every rank of
 the mesh calls it).
+
+A fused leaf whose dim concatenates parts that a tensor-parallel layer
+needs cut one by one (Mamba2's in_proj columns [z | x | B | C | dt], its
+convolution's channels [x | B | C]: models/ssm.segments, the one segment
+table) names that dim's logical axis as a `Segmented` name, which carries
+the parts' lengths.  `spec_for_axes` gives such a dim a `Segmented` mesh
+axis (a str equal to the plain axis name, so the spec still equals
+JAX's), and every cut and gather by spec (`shard_tensor`,
+`unshard_tensor`: the runtime's params and optimizer state, the
+checkpoint manager, the serve path) holds 1/n of EACH segment on a rank,
+in segment order, where a contiguous cut would give the first ranks
+whole segments.  Which elements a shard holds changes; the whole tensor
+(and so a checkpoint, written whole) does not.  A segment that the axis
+does not divide raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -43,6 +57,63 @@ from repro_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, Mesh, axis
 
 AxisAssign = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisAssign, ...]
+
+
+class Segmented(str):
+    """An axis name (logical, or the mesh axis a spec gives it) whose dim is
+    the concatenation of `segments` (their lengths, in order; given as a
+    {name: length} table, their `names` too, else their indices); equal
+    to, and hashed as, the plain name."""
+
+    segments: Tuple[int, ...]
+    names: Tuple[str, ...]
+
+    def __new__(cls, name: str, segments, names: Optional[Sequence[str]] = None):
+        obj = super().__new__(cls, name)
+        if isinstance(segments, dict):
+            names, segments = tuple(segments), tuple(segments.values())
+        obj.segments = tuple(int(n) for n in segments)
+        obj.names = tuple(names) if names is not None else tuple(
+            str(i) for i in range(len(obj.segments)))
+        return obj
+
+    def __reduce__(self):
+        return Segmented, (str(self), self.segments, self.names)
+
+    def __repr__(self) -> str:
+        return f"Segmented({str(self)!r}, {dict(zip(self.names, self.segments))})"
+
+
+def segment_chunk(t: torch.Tensor, dim: int, part: Segmented, idx: int,
+                  n: int) -> torch.Tensor:
+    """Part idx of n of every segment of t's `dim` (`part`'s), concatenated
+    in segment order; check_segments first, so no cut is ever uneven."""
+    check_segments(part, n)
+    parts, at = [], 0
+    for seg in part.segments:
+        c = seg // n
+        parts.append(t.narrow(dim, at + idx * c, c))
+        at += seg
+    return torch.cat(parts, dim)
+
+
+def segment_join(chunks: Sequence[torch.Tensor], dim: int,
+                 segments: Sequence[int]) -> torch.Tensor:
+    """The inverse of segment_chunk: the whole dim from every part's chunk
+    (in part order)."""
+    n = len(chunks)
+    pieces = [list(c.split([seg // n for seg in segments], dim)) for c in chunks]
+    return torch.cat([pieces[j][i] for i in range(len(segments)) for j in range(n)], dim)
+
+
+def check_segments(part: Segmented, n: int, what: str = "") -> None:
+    """NotImplementedError naming the first of `part`'s segments that n
+    does not divide (the one divisibility check of a segmented cut)."""
+    for name, seg in zip(part.names, part.segments):
+        if seg % n:
+            raise NotImplementedError(
+                f"{what}segment {name} of {part.segments} ({seg}) does not split over {n} "
+                f"ranks: the port cuts a fused leaf segment by segment, never otherwise")
 
 
 def default_rules(fsdp_embed: bool = False) -> Dict[str, AxisAssign]:
@@ -133,6 +204,14 @@ def spec_for_axes(mesh, axes: Sequence[Optional[str]], shape: Optional[Sequence[
                 continue
             cand = ok
         used.update(cand)
+        if isinstance(name, Segmented):  # one mesh axis, cut segment by segment
+            if len(cand) > 1:
+                raise NotImplementedError(
+                    f"axis {str(name)!r} is cut segment by segment over one mesh axis; the "
+                    f"rules give it {cand}, and a cut over several would be contiguous")
+            check_segments(name, sizes[cand[0]], f"axis {str(name)!r}: ")
+            parts.append(Segmented(cand[0], name.segments, name.names))
+            continue
         parts.append(cand if len(cand) > 1 else cand[0])
     return tuple(parts)
 
@@ -197,7 +276,7 @@ def _chunk(mesh: Mesh, part: AxisAssign) -> Tuple[int, int]:
 
 def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Optional[Mesh]) -> torch.Tensor:
     """This rank's shard of the global tensor t (a copy, so the whole may be
-    freed)."""
+    freed); a `Segmented` part's dim is cut segment by segment."""
     if mesh is None or not spec_axes(spec):
         return t
     out = t
@@ -205,14 +284,18 @@ def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Optional[Mesh]) -> torch.Ten
         if part is None:
             continue
         idx, n = _chunk(mesh, part)
-        c = t.shape[dim] // n
-        out = out.narrow(dim, idx * c, c)
+        if isinstance(part, Segmented):
+            out = segment_chunk(out, dim, part, idx, n)
+        else:
+            c = t.shape[dim] // n
+            out = out.narrow(dim, idx * c, c)
     return out.clone()
 
 
 def unshard_tensor(t: torch.Tensor, spec: Spec, mesh: Optional[Mesh]) -> torch.Tensor:
     """The global tensor from this rank's shard: gathers over the spec's
-    axes (the innermost axis of a tuple first)."""
+    axes (the innermost axis of a tuple first); a `Segmented` part's
+    segments are put back in order."""
     if mesh is None or not spec_axes(spec):
         return t
     for dim, part in enumerate(spec):
@@ -220,6 +303,8 @@ def unshard_tensor(t: torch.Tensor, spec: Spec, mesh: Optional[Mesh]) -> torch.T
             continue
         for a in reversed((part,) if isinstance(part, str) else tuple(part)):
             t = mesh.all_gather_tiled(t, a, dim)
+            if isinstance(part, Segmented):
+                t = segment_join(t.chunk(mesh.size(a), dim), dim, part.segments)
     return t
 
 

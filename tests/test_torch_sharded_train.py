@@ -241,10 +241,10 @@ def test_jax_reads_a_checkpoint_written_at_2x2(world):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--arch", "xlstm_1p3b", "--mesh", "2x2"], "item 4"),
+    (["--arch", "xlstm_1p3b", "--mesh", "1x4"], "n_heads 2"),  # SMOKE's 2 heads over 4
     (["--arch", "hubert_xlarge", "--mesh", "1x2"], "item 4"),
     (["--arch", "phi3_vision_4p2b", "--mesh", "2x1"], "item 4"),
-    (["--arch", "zamba2_1p2b", "--rescale-mesh", "2x1"], "item 4"),
+    (["--arch", "zamba2_1p2b", "--rescale-mesh", "2x1x2"], "item 5"),
     (["--arch", "granite_8b", "--mesh", "2x2x2"], "item 5"),
     (["--arch", "kimi_k2_1t_a32b", "--mesh", "2x1x2"], "item 5"),
     (["--mesh", "2x2x2"], "item 5"),
@@ -257,10 +257,10 @@ def test_cli_refuses_what_the_mesh_does_not_run(argv, match):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--arch", "xlstm_1p3b", "--mesh", "2x2"], "item 4"),
+    (["--arch", "xlstm_1p3b", "--mesh", "1x4"], "n_heads 2"),  # SMOKE's 2 heads over 4
     (["--arch", "hubert_xlarge", "--mesh", "1x2"], "item 4"),
     (["--arch", "phi3_vision_4p2b", "--mesh", "2x1"], "item 4"),
-    (["--arch", "zamba2_1p2b", "--mesh", "1x2"], "item 4"),
+    (["--arch", "zamba2_1p2b", "--mesh", "2x1x2"], "item 5"),
     (["--arch", "granite_8b", "--mesh", "2x2x2"], "item 5"),
     (["--mesh", "2x2x2"], "item 5"),
 ])

@@ -516,7 +516,7 @@ def test_cli_trains_xlstm_with_a_fault_and_replay_on_cpu(tmp_path, capsys):
     (["--arch", "xlstm_1p3b", "--n-layers", "3"], "--n-layers"),  # slstm_every is 2
     (["--arch", "zamba2_1p2b", "--n-layers", "1"], "--n-layers"),  # below attn_every
     (["--arch", "hubert_xlarge", "--n-layers", "3"], "--n-layers"),  # its smoke config has 2
-    (["--arch", "xlstm_1p3b", "--mesh", "2x4"], "sharded-training"),
+    (["--arch", "xlstm_1p3b", "--mesh", "2x4"], "sharded-training"),  # 2 heads over 4
     (["--arch", "hubert_xlarge", "--rescale-mesh", "4x2"], "sharded-training"),
     (["--n-layers", "3"], "--n-layers"),  # the olmo smoke config has 2
 ])

@@ -1,7 +1,8 @@
 """Rank functions of the port's multi-rank tests (tests/test_torch_mesh.py,
 tests/test_torch_sharded_train.py, tests/test_torch_moe_a2a.py,
 tests/test_torch_mesh_coder.py, tests/test_torch_mesh_serve_dict.py,
-tests/test_torch_fsdp.py, tests/test_torch_sequence_parallel.py).
+tests/test_torch_fsdp.py, tests/test_torch_sequence_parallel.py,
+tests/test_torch_hybrid_mesh.py, tests/test_torch_xlstm_mesh.py).
 
 Each runs on every rank of a world that runtime/mesh.launch spawns (gloo,
 CPU tensors), builds the meshes it needs over the world's first ranks,
@@ -571,15 +572,16 @@ def _serve_case(mesh, case: dict):
     rows = {"data": 0}
     logits = [_whole_over(mesh, lg, {**rows, **vocab})
               for lg in [run["last_logits"]] + run["step_logits"]]
-    spec = (None,) + sharding.cache_spec(cfg, mesh, case["args"]["batch"], run["max_len"])
-    cache = {stack: {name: sharding.unshard_tensor(t, spec, mesh) for name, t in kv.items()}
-             for stack, kv in run["cache"].items()}
+    specs = M.cache_specs(cfg, mesh, case["args"]["batch"], run["max_len"])
+    cache = sharding.unshard_tree(run["cache"], specs, mesh)
     layer0 = {name: t[0].clone() for name, t in next(iter(run["cache"].values())).items()}
     got = {"tokens": run["tokens"].numpy(), "logits": [_np(t) for t in logits],
            "cache": {s: {n: _np(t) for n, t in kv.items()} for s, kv in cache.items()},
            "layout": run["cache_layout"], "agree": run["tokens_agree_over_model"],
            "seq": M.seq_sharded(cfg, mesh, run["max_len"]),
-           "local_cache_shape": tuple(layer0["k"].shape)}
+           "local_cache_shape": tuple(next(iter(layer0.values())).shape),
+           "local_cache": {s: {n: tuple(t.shape) for n, t in kv.items()}
+                           for s, kv in run["cache"].items()}}
     return got if mesh.rank == 0 else None
 
 
@@ -816,4 +818,127 @@ def sequence_parallel(mesh0, job: dict) -> dict:
     got = _serve_case(mesh_mod.make_mesh(job["serve"]["mesh"]), job["serve"])
     if got is not None:
         out["serve"] = got
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The hybrid and xlstm families on a mesh (tests/test_torch_hybrid_mesh.py,
+# tests/test_torch_xlstm_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _contiguous_in_proj(specs):
+    """A param spec tree with Mamba2's in_proj cut in contiguous chunks
+    (its `Segmented` parts made plain axis names)."""
+    if isinstance(specs, dict):
+        return {k: tuple(None if p is None else str(p) for p in v) if k == "in_proj"
+                else _contiguous_in_proj(v) for k, v in specs.items()}
+    return specs
+
+
+def _planted(fault: str):
+    """The patch that plants `fault` in the mixers on a mesh."""
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding_hook as hook
+
+    def rank_part(t, dim):
+        c = t.shape[dim] // hook.model_size()
+        return t.narrow(dim, hook.model_index() * c, c)
+
+    if fault == "norm sum through g":
+        return mock.patch.object(hook, "model_sum", hook.leave_model)
+    if fault == "gates through g":
+        return mock.patch.object(hook, "head_scatter",
+                                 lambda x, dim: rank_part(hook.leave_model(x), dim))
+    if fault == "f_bias without f":
+        return mock.patch.object(hook, "model_part", lambda t: rank_part(t, 0))
+    if fault == "in_proj cut contiguously":
+        specs_of = M.param_specs
+        return mock.patch.object(M, "param_specs",
+                                 lambda cfg, mesh: _contiguous_in_proj(specs_of(cfg, mesh)))
+    raise KeyError(fault)
+
+
+def _segmented_cut(cfg, tree, mesh) -> dict:
+    """Every rank's shard of layer 0's in_proj, conv_w and conv_b (cut by
+    param_specs), and whether every leaf's shard gathers back to the
+    whole bit for bit."""
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import model as M
+    from repro_torch.pytree import leaves
+    from repro_torch.runtime import sharding
+
+    whole = lm_params_from_numpy(cfg, tree, "cpu")
+    specs = M.param_specs(cfg, mesh)
+    mine = sharding.shard_tree(whole, specs, mesh)
+    back = sharding.unshard_tree(mine, specs, mesh)
+    ok = all(torch.equal(a, b) for a, b in zip(leaves(back), leaves(whole)))
+    parts = {k: _np(mine["mamba"]["mixer"][k][0]) for k in ("in_proj", "conv_w", "conv_b")}
+    got = mesh.all_gather_object({"coords": mesh.coords, "parts": parts, "ok": ok})
+    return got if mesh.rank == 0 else None
+
+
+def _data_traffic(cfg, tree, batches: dict, mesh) -> dict:
+    """One SGD step a sequence length of `batches` ({S: batch}): the step's
+    [collectives, bytes] over each axis (mesh.step_traffic)."""
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import steps
+
+    out = {}
+    for s, batch in batches.items():
+        params, _ = _sharded_params(cfg, tree, mesh, sgd(0.1))
+        state = {"params": params, "opt": {}, "step": torch.zeros((), dtype=torch.int32)}
+        steps.make_train_step(cfg, sgd(0.1), mesh)(state, batch)
+        out[s] = {a: list(c) for a, c in mesh.step_traffic.items()}
+    return out
+
+
+def recurrent_mesh(mesh0, job: dict) -> dict:
+    """The hybrid or xlstm family on meshes over the world's first ranks:
+    job["layouts"]' loss and gradients under both residual layouts
+    (`_layouts`), job["steps"]' optimizer runs, job["planted"]'s faults,
+    job["serve"]'s serves through launch/serve's rank body, and where
+    given the segmented cut (job["cut"]), the runner's checkpoints
+    (job["ckpt"]) and a step's traffic at two sequence lengths
+    (job["traffic"]).  Rank 0's results."""
+    from repro_torch.optim import adafactor, adamw, sgd
+
+    out = {}
+
+    def each(cases, fn):
+        for name, case in cases.items():
+            mesh = mesh_mod.make_mesh(case["mesh"])
+            if mesh is None:
+                continue
+            got = fn(case, mesh)
+            if mesh.rank == 0:
+                out[name] = got
+
+    each({("layouts", n): c for n, c in job.get("layouts", {}).items()},
+         lambda c, mesh: _layouts(c["cfg"], c["params"], c["batch"], mesh))
+    opts = {"sgd": lambda: sgd(job["sgd_lr"]), "adamw": lambda: adamw(job["adamw_lr"]),
+            "adafactor": lambda: adafactor(job["adafactor_lr"])}
+    each({("steps", n): c for n, c in job.get("steps", {}).items()},
+         lambda c, mesh: {o: _steps(c["cfg"], c["params"], c["batches"], mesh, opts[o]())
+                          for o in c["opts"]})
+
+    def planted(c, mesh):
+        with _planted(c["fault"]):
+            return _loss_and_grads(c["cfg"], c["params"], c["batch"], mesh)
+
+    each({("planted", n): c for n, c in job.get("planted", {}).items()}, planted)
+    for name, case in job.get("serve", {}).items():
+        got = _serve_case(mesh_mod.make_mesh(case["mesh"]), case)
+        if got is not None:
+            out[("serve", name)] = got
+    if "cut" in job:
+        c = job["cut"]
+        got = _segmented_cut(c["cfg"], c["params"], mesh_mod.make_mesh(c["mesh"]))
+        if got is not None:
+            out["cut"] = got
+    if "traffic" in job:
+        each({"traffic": job["traffic"]},
+             lambda c, mesh: _data_traffic(c["cfg"], c["params"], c["batches"], mesh))
+    if "ckpt" in job:
+        out["ckpt"] = _checkpoints(job["ckpt"])
     return out
